@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port runs on one NVIDIA GPU.
+
+Run from the root of the repository on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels of ``cornell_moe_tpu_torch`` from ``csrc/``,
+drives one q-KG iteration of ``BayesianOptimizer`` at the main path's size
+(Branin, 500 observations, 16-member ensemble, q = 4, 200 multistarts,
+128 MC draws, float32 on ``cuda:0``), checks that each kernel of that path
+launched during the run, holds each kernel against its plain PyTorch
+version at the main path's shapes, and checks the port against its own
+float64 CPU path on a small input.  Every phase prints one JSON line; the
+kernels' summary is one JSON line; the last line is
+
+    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
+
+Without a CUDA device, or outside a checkout of the repository, it exits
+non-zero and prints no result.  Any failed check raises.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# TPU kernels replaced, by their pl.pallas_call line
+PALLAS = "cornell_moe_tpu/ops/pallas_kernels.py"
+KERNELS = {
+    "descent_run": ("cornell_moe_tpu_torch/csrc/descent_run.cu",
+                    f"{PALLAS}:495"),
+    "lml_fused": ("cornell_moe_tpu_torch/csrc/lml_fused.cu", f"{PALLAS}:271"),
+    "covariance_with_noise": (
+        "cornell_moe_tpu_torch/csrc/covariance_with_noise.cu",
+        f"{PALLAS}:88"),
+}
+
+# Main-path size, and the card it runs on
+NUM_OBS, Q, N_HYPERS, NUM_MC, MULTISTARTS = 500, 4, 16, 128, 200
+DEVICE = "cuda:0"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def provenance(torch) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    from cornell_moe_tpu_torch.ops import _build
+    nvcc = subprocess.run([_build.find_nvcc(), "--version"],
+                          capture_output=True, text=True, check=True)
+    emit({"phase": "versions", "python": sys.version.split()[0],
+          "torch": torch.__version__, "torch_cuda": torch.version.cuda,
+          "nvcc": nvcc.stdout.strip().splitlines()[-1],
+          "device": torch.cuda.get_device_name(0)})
+
+
+def phase_build() -> None:
+    from cornell_moe_tpu_torch.ops import _build
+    t0 = time.time()
+    _build.library()
+    emit({"phase": "build", "seconds": time.time() - t0,
+          "compile_seconds": _build.build_seconds,
+          "library": os.path.relpath(str(_build.build()), HERE)})
+
+
+def phase_main(torch):
+    """One BO iteration through the driver; returns the optimizer."""
+    from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
+    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
+
+    bo = BayesianOptimizer(objective_func=Branin(), method="KG",
+                           num_to_sample=Q, n_hypers=N_HYPERS, noisy=True,
+                           standardize=True, device=DEVICE,
+                           dtype=torch.float32, verbose=False)
+    check(bo.sgd_params.num_multistarts == MULTISTARTS and
+          bo.num_mc == NUM_MC, "main-path size changed")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    history = bo.run(num_iterations=1, num_init_pts=NUM_OBS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    rec = history[-1]
+    states = bo.model.models
+    emit({"phase": "main_path", "seconds": wall,
+          "stages": {r["phase"]: r["seconds"] for r in bo.timer.records},
+          "num_sampled": int(bo.model._data.num_sampled),
+          "ensemble": int(states.chol_K.shape[0]),
+          "padded_n": int(states.chol_K.shape[-1]),
+          "burnin_steps": bo.burnin_steps,
+          "last_chain_steps": bo.model.last_chain_steps,
+          "voi": rec["voi"], "suggested": rec["suggested"].tolist(),
+          "recommended": rec["recommended"].tolist(),
+          "true_value": rec["true_value"], "launches": counts})
+    check(math.isfinite(rec["voi"]), f"VOI not finite: {rec['voi']}")
+    bounds = bo.objective_func._search_domain
+    r = rec["recommended"]
+    check(bool(((r >= bounds[:, 0]) & (r <= bounds[:, 1])).all()),
+          f"recommended point {r} outside the domain")
+    check(bool(torch.isfinite(states.chol_K).all()),
+          "an ensemble member's chol_K is non-finite")
+    for name, c in counts.items():
+        check(c > 0, f"kernel {name} was not launched on the main path")
+    return bo, counts
+
+
+def _time_ms(torch, fn, reps: int) -> float:
+    """Median device time of fn over reps runs, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_equivalence(torch, model, counts) -> list:
+    """Each kernel against its plain version on the card, in float32, at
+    the main path's shapes.  Returns the kernels' summary rows."""
+    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(1234)
+    states = model.models
+    x, y, pn = model._padded_data()
+    rows = []
+
+    def row(name, err, ms, plain_ms):
+        source, replaces = KERNELS[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": counts[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+
+    # --- C: covariance + noise, S = 16, n = 512 ------------------------------
+    h = states.covariance.hyperparameters.contiguous()
+    nv = (states.noise_variance + states.point_noise[..., 0]).contiguous()
+    args = (x.contiguous(), h, nv, model.kernel_name)
+    got = kernels.covariance_with_noise(*args)
+    ref = kernels.covariance_with_noise_plain(*args)
+    err = (got - ref).abs()
+    tol_ok = bool((err <= 2e-5 + 2e-4 * ref.abs()).all())
+    emit({"phase": "equivalence", "kernel": "covariance_with_noise",
+          "shape": list(got.shape), "max_abs_err": err.max().item(),
+          "max_rel_err": (err / ref.abs().clamp_min(1e-30)).max().item(),
+          "tolerance": "rtol 2e-4, atol 2e-5", "ok": tol_ok})
+    check(tol_ok, "covariance_with_noise disagrees with its plain version")
+    row("covariance_with_noise", err.max().item(),
+        _time_ms(torch, lambda: kernels.covariance_with_noise(*args), 20),
+        _time_ms(torch, lambda: kernels.covariance_with_noise_plain(*args),
+                 20))
+
+    # --- B: fused LML, W = 16 walkers, Np = 512 and 384 ----------------------
+    # Walker hyperparameters drawn as tests/test_pallas_descent.py:131-150
+    # draws them (well-conditioned K), in the domain's units; the chain's
+    # own walkers are held to the log-posterior check below.
+    w, d = model.n_hypers, model.dim
+    f32 = dict(device=dev, dtype=torch.float32)
+    dom = kg_domain(dev, torch.float32)
+    width = dom.upper - dom.lower
+    lengths = (0.3 + 0.4 * torch.rand((w, d), generator=g, **f32)) * width
+    alphas = 0.8 + torch.rand((w,), generator=g, **f32)
+    noises = 1e-2 + 1e-2 * torch.rand((w, 1), generator=g, **f32)
+    lml_errs = []
+    for np_ in (x.shape[0], min(384, x.shape[0])):
+        xs, ys = x[:np_].float(), y[:np_, 0].float()
+        us = (xs.T[None] / lengths[:, :, None]).contiguous()
+        noise = (noises + pn[None, :np_, 0]).contiguous()
+        yb = ys[None].expand(w, np_).contiguous()
+        largs = (us, alphas, noise, yb, np_, model.kernel_name)
+        quad, logdet = kernels.lml_fused(*largs)
+        quad_p, logdet_p = kernels.lml_fused_plain(*largs)
+        quad_64, logdet_64 = kernels.lml_fused_plain(
+            *[a.double() for a in largs[:4]], np_, model.kernel_name)
+
+        def rel(a, b):
+            return ((a.double() - b.double()).abs() /
+                    b.double().abs().clamp_min(1.0)).max().item()
+
+        abs_err = max((quad - quad_p).abs().max().item(),
+                      (logdet - logdet_p).abs().max().item())
+        errs = {"quad": rel(quad, quad_p), "logdet": rel(logdet, logdet_p),
+                "kernel_vs_f64": max(rel(quad, quad_64),
+                                     rel(logdet, logdet_64)),
+                "plain_vs_f64": max(rel(quad_p, quad_64),
+                                    rel(logdet_p, logdet_64))}
+        ok = errs["quad"] < 5e-4 and errs["logdet"] < 5e-4
+        emit({"phase": "equivalence", "kernel": "lml_fused", "W": w,
+              "Np": np_, "max_abs_err": abs_err, "max_rel_err": errs,
+              "tolerance": "rtol 5e-4", "ok": ok})
+        check(ok, f"lml_fused disagrees with its plain version at Np={np_}")
+        lml_errs.append(abs_err)
+        if np_ == x.shape[0]:
+            times = (_time_ms(torch, lambda: kernels.lml_fused(*largs), 20),
+                     _time_ms(torch, lambda: kernels.lml_fused_plain(*largs),
+                              20))
+    # the model's log-posterior at the chain's walkers, on the bench's
+    # retrain problem (bench.py:297-315) and at the main path's walkers.
+    # Against the float64 plain path, the kernel must be finite wherever
+    # float64 is, and its largest relative deviation must be within 5e-3 or
+    # no larger than the float32 plain path's own (at walkers whose K is too
+    # ill-conditioned for float32 either way).
+    for label, m in (("bench_retrain_problem", bench_retrain_model(torch)),
+                     ("main_path_walkers", model)):
+        mx, my, mpn = m._padded_data()
+        lp_k = m.log_posterior(m.p0, mx, my, mpn).double()
+        lp_p = m.log_posterior(m.p0, mx, my, mpn, force_plain=True).double()
+        lp_64 = m.log_posterior(m.p0.double(), mx.double(), my.double(),
+                                mpn.double(), force_plain=True)
+        scale = lp_64.abs().clamp_min(1.0)
+        inf = torch.full_like(lp_64, float("inf"))
+        dev_k = torch.where(torch.isfinite(lp_k),
+                            (lp_k - lp_64).abs() / scale, inf)
+        dev_p = torch.where(torch.isfinite(lp_p),
+                            (lp_p - lp_64).abs() / scale, inf)
+        fin = torch.isfinite(lp_64)
+        ok = bool(fin.any()) and bool(torch.isfinite(dev_k[fin]).all()) \
+            and dev_k[fin].max().item() <= max(5e-3,
+                                               dev_p[fin].max().item())
+        both = torch.isfinite(lp_k) & torch.isfinite(lp_p)
+        emit({"phase": "equivalence", "check": "log_posterior",
+              "walkers_from": label, "walkers": int(m.p0.shape[0]),
+              "finite": {"kernel": int(torch.isfinite(lp_k).sum()),
+                         "plain_f32": int(torch.isfinite(lp_p).sum()),
+                         "plain_f64": int(fin.sum())},
+              "max_rel_dev_kernel_vs_f64": _finite_or_none(dev_k[fin]),
+              "max_rel_dev_plain_f32_vs_f64": _finite_or_none(dev_p[fin]),
+              "max_rel_dev_kernel_vs_plain_f32":
+                  ((lp_k - lp_p).abs() / lp_p.abs().clamp_min(1.0))[
+                      both].max().item() if bool(both.any()) else None,
+              "walker_median_theta": m.p0.median(dim=0).values.tolist(),
+              "tolerance": "vs f64: max rel 5e-3 or the plain f32 "
+                           "path's own max deviation", "ok": ok})
+        check(ok, f"kernel log-posterior check failed ({label})")
+    row("lml_fused", max(lml_errs), *times)
+
+    # --- A: KG inner descent, S=16, B=200, q=4, d=2, M=128, Np=512 -----------
+    # On the bench's suggest problem (bench.py:50-80) and on the main
+    # path's own ensemble.  A few descents in a thousand sit where float32
+    # rounding flips a clamped step (the steps are capped at 0.1 x the
+    # distance to the wall, so the sign of a near-zero gradient decides
+    # them), and there any two float32 evaluation orders part ways.  So the
+    # kernel is held to the float64 descent: at every quantile of the
+    # 409,600 endpoints' deviation (in domain-width units) it must be within
+    # 5e-5 (tests/test_pallas_descent.py:64-65) or within 1.5x the float32
+    # plain version's own deviation.
+    desc_errs, times = [], None
+    for label, st, box in (("bench_suggest_problem",
+                            bench_suggest_states(torch), "unit"),
+                           ("main_path_ensemble", states, "branin")):
+        bdom = kg_domain(dev, torch.float32) if box == "branin" else \
+            TensorProductDomain.from_bounds([[0.0, 1.0]] * 2, device=dev,
+                                            dtype=torch.float32)
+        for params_label, err, k64, p64, k32, t in _descent_case(
+                torch, st, bdom, g, model.kernel_name,
+                time_it=times is None):
+            ok = all(k64[q] <= max(5e-5, 1.5 * p64[q]) for q in k64)
+            emit({"phase": "equivalence", "kernel": "descent_run",
+                  "state": label, "params": params_label,
+                  "shape": [st.chol_K.shape[0], MULTISTARTS, 2, NUM_MC],
+                  "max_abs_err": err, "kernel_vs_plain_f32": k32,
+                  "kernel_vs_plain_f64": k64, "plain_f32_vs_f64": p64,
+                  "tolerance": "per quantile, kernel vs f64 <= max(5e-5, "
+                               "1.5 x plain f32 vs f64), domain-width units",
+                  "ok": ok})
+            check(ok, f"descent_run ({label}, {params_label}) is less "
+                      "accurate than its plain version")
+            desc_errs.append(err)
+            times = t or times
+    row("descent_run", max(desc_errs), *times)
+    return rows
+
+
+def _finite_or_none(t):
+    """Max of t as a float, None when it is not finite (JSON has no inf)."""
+    v = t.max().item()
+    return v if math.isfinite(v) else None
+
+
+def _quantiles(torch, d):
+    d = d.flatten().double()
+    qs = torch.quantile(d, torch.tensor([0.5, 0.9, 0.99, 0.999],
+                                        dtype=torch.float64,
+                                        device=d.device)).tolist()
+    return {"q50": qs[0], "q90": qs[1], "q99": qs[2], "q999": qs[3],
+            "max": d.max().item()}
+
+
+def _descent_case(torch, states, dom, g, kernel_name, time_it):
+    """Kernel, plain float32 and plain float64 descents at the main path's
+    shapes, cold and warm parameters.  Yields (params, max abs err kernel
+    vs plain f32, quantiles kernel vs f64, plain f32 vs f64, kernel vs
+    plain f32, (kernel ms, plain ms) or None)."""
+    from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
+    from cornell_moe_tpu_torch.acquisition.expected_improvement import (
+        draw_antithetic_normals)
+    from cornell_moe_tpu_torch.bayes_opt import DEFAULT_SGD_PARAMS_PS
+    from cornell_moe_tpu_torch.ops import kernels, linalg
+
+    f32 = dict(device=dom.bounds.device, dtype=torch.float32)
+    s = states.chol_K.shape[0]
+    unions = dom.generate_uniform_random_points_in_domain(
+        g, MULTISTARTS * Q).reshape(MULTISTARTS, Q, 2)
+    normals = draw_antithetic_normals(g, NUM_MC, Q, **f32)
+    _, chol_u, v, _ = kg._build_fantasy_model_batch(states, unions)
+    betas = linalg.solve_triangular_small(
+        chol_u, normals.T.expand(s, MULTISTARTS, Q, NUM_MC),
+        trans=True).transpose(-1, -2)
+    x0 = dom.generate_uniform_random_points_in_domain(
+        g, s * MULTISTARTS * NUM_MC).reshape(s, MULTISTARTS, NUM_MC, 2)
+    ops = kg._pack_descent_inputs(states, unions, v.detach(),
+                                  betas.detach(), normals)
+    lengths = states.covariance.lengths.double()
+    geom = torch.stack([dom.lower / lengths, dom.upper / lengths,
+                        1.0 / lengths**2], dim=1).float().contiguous()
+    xs0 = (x0 / lengths[:, None, None, :]).transpose(-1, -2).float(
+    ).contiguous()
+    width = (dom.upper - dom.lower).double()
+
+    def to_unit(xs):
+        return xs.double().transpose(-1, -2) * lengths[:, None, None, :] / \
+            width
+
+    warm = kg.dataclasses.replace(DEFAULT_SGD_PARAMS_PS, max_num_steps=1,
+                                  max_num_restarts=1, num_steps_averaged=0)
+    for label, params in (("cold", DEFAULT_SGD_PARAMS_PS), ("warm", warm)):
+        steps = params.max_num_steps
+        avg_n = params.num_steps_averaged if \
+            0 < params.num_steps_averaged <= steps else 0
+        tail = (kernel_name, steps, params.max_num_restarts, avg_n,
+                params.gamma, params.pre_mult, params.max_relative_change)
+        dargs = (xs0, *ops, geom, *tail)
+        k = to_unit(kernels.descent_run(*dargs))
+        p32 = to_unit(kernels.descent_run_plain(*dargs))
+        p64 = to_unit(kernels.descent_run_plain(
+            *[a.double() for a in (xs0, *ops, geom)], *tail))
+        t = None
+        if time_it and label == "cold":
+            t = (_time_ms(torch, lambda: kernels.descent_run(*dargs), 5),
+                 _time_ms(torch, lambda: kernels.descent_run_plain(*dargs),
+                          5))
+        err = ((k - p32) * width).abs().max().item()
+        yield (label, err, _quantiles(torch, (k - p64).abs()),
+               _quantiles(torch, (p32 - p64).abs()),
+               _quantiles(torch, (k - p32).abs()), t)
+
+
+def bench_problem_data():
+    """The bench's data (bench.py:54-69): 500 points in the unit box,
+    standardized Branin values plus 0.01 noise."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    x = rng.random((NUM_OBS, 2))
+    p0, p1 = x[:, 0] * 15.0, x[:, 1] * 20.0 - 5.0
+    y = ((p1 - 5.1 / (4 * np.pi**2) * p0**2 + 5.0 / np.pi * p0 - 6.0) ** 2
+         + 10.0 * (1 - 1.0 / (8 * np.pi)) * np.cos(p0) + 10.0)
+    y = (y - y.mean()) / y.std() + 0.01 * rng.standard_normal(NUM_OBS)
+    return rng, x, y
+
+
+def bench_suggest_states(torch):
+    """The bench's suggest ensemble (bench.py:70-79), bucketed to 512."""
+    import numpy as np
+    from cornell_moe_tpu_torch.models import mcmc
+    rng, x, y = bench_problem_data()
+    hypers = np.stack([0.5 + 1.5 * rng.random(N_HYPERS),
+                       0.2 + 0.4 * rng.random(N_HYPERS),
+                       0.2 + 0.4 * rng.random(N_HYPERS)], axis=1)
+    f32 = dict(device=DEVICE, dtype=torch.float32)
+    return mcmc.fit_gp_ensemble(
+        "matern_2.5", torch.as_tensor(hypers, **f32),
+        torch.full((N_HYPERS, 1), 1e-2, **f32), x, y[:, None], jitter=1e-5,
+        bucket=16)
+
+
+def bench_retrain_model(torch):
+    """The retrain problem of bench.py:247-263 on the bench's data: 16
+    walkers after burn-in and the gated chain, float32 on the card."""
+    from cornell_moe_tpu_torch.models.mcmc import \
+        GaussianProcessLogLikelihoodMCMC
+    from cornell_moe_tpu_torch.utils.data_containers import HistoricalData
+
+    _, x, y = bench_problem_data()
+    hist = HistoricalData(2)
+    hist.append_historical_data(x, y[:, None])
+    model = GaussianProcessLogLikelihoodMCMC(
+        hist, chain_length=1000, burnin_steps=2000, n_hypers=N_HYPERS,
+        noisy=True, chain_gate_tol=1.0, bucket=16, device=DEVICE,
+        dtype=torch.float32,
+        generator=torch.Generator(device=DEVICE).manual_seed(0))
+    model.train()
+    return model
+
+
+def kg_domain(dev, dtype):
+    import numpy as np
+    from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+    from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
+    return TensorProductDomain.from_bounds(
+        np.asarray(Branin()._search_domain), device=dev, dtype=dtype)
+
+
+def phase_small_reference(torch) -> None:
+    """The card's float32 path (all three kernels) against the port's own
+    float64 CPU path on a small input: ensemble fit, log-posterior and
+    batched q-KG values."""
+    import numpy as np
+    from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
+    from cornell_moe_tpu_torch.bayes_opt import DEFAULT_SGD_PARAMS_PS
+    from cornell_moe_tpu_torch.models import mcmc
+    from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+
+    rng = np.random.default_rng(7)
+    n, s, b, m = 40, 4, 3, 16
+    x = rng.random((n, 2))
+    y = np.sin(3 * x[:, 0]) + x[:, 1]
+    y = (y - y.mean()) / y.std()
+    hypers = np.stack([0.5 + rng.random(s), 0.2 + 0.4 * rng.random(s),
+                       0.2 + 0.4 * rng.random(s)], axis=1)
+    noises = np.full((s, 1), 1e-2)
+    unions = rng.random((b, Q, 2))
+    normals = rng.standard_normal((m, Q))
+    discrete = rng.random((s, 11, 2))
+    thetas = np.log(np.concatenate([hypers, noises], axis=1))
+    out = {}
+    for dev, dt in ((DEVICE, torch.float32), ("cpu", torch.float64)):
+        def t(a):
+            return torch.as_tensor(a, device=dev, dtype=dt)
+        states = mcmc.fit_gp_ensemble("matern_2.5", t(hypers), t(noises),
+                                      x, y[:, None], bucket=16)
+        dom = TensorProductDomain.from_bounds([[0.0, 1.0]] * 2, device=dev,
+                                              dtype=dt)
+        kg_best = torch.full((s,), float(y.min()), device=dev,
+                                    dtype=dt)
+        vals, _ = kg.knowledge_gradient_batch(
+            states, t(unions), t(discrete), t(normals), dom,
+            DEFAULT_SGD_PARAMS_PS, kg_best)
+        from cornell_moe_tpu_torch.utils.data_containers import \
+            HistoricalData
+        data = HistoricalData(2)
+        data.append_historical_data(x, y)
+        model = mcmc.GaussianProcessLogLikelihoodMCMC(
+            data, bucket=16, device=dev, dtype=dt,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        xp, yp, pn = model._padded_data()
+        lp = model.log_posterior(t(thetas), xp, yp, pn)
+        mu = kg.gp_mod.posterior_mean(states, t(discrete[0]))[..., 0]
+        out[dev] = [a.double().cpu() for a in (vals, lp, mu)]
+    (kg_g, lp_g, mu_g), (kg_c, lp_c, mu_c) = out[DEVICE], out["cpu"]
+    errs = {"kg_abs": (kg_g - kg_c).abs().max().item(),
+            "log_posterior_rel": ((lp_g - lp_c).abs() /
+                                  lp_c.abs().clamp_min(1.0)).max().item(),
+            "posterior_mean_abs": (mu_g - mu_c).abs().max().item()}
+    ok = errs["kg_abs"] < 1e-3 and errs["log_posterior_rel"] < 1e-3 and \
+        errs["posterior_mean_abs"] < 1e-3
+    emit({"phase": "small_reference", "n": n, "S": s, "B": b, "M": m,
+          "kg_gpu": kg_g.tolist(), "kg_cpu_f64": kg_c.tolist(), **errs,
+          "tolerance": "abs 1e-3 (KG, posterior mean), rel 1e-3 (LML)",
+          "ok": ok})
+    check(ok, "card float32 path disagrees with the float64 CPU path")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import cornell_moe_tpu_torch
+    except ImportError:
+        print("chip_smoke: run it from a checkout of the repository "
+              "(cornell_moe_tpu_torch not found)", file=sys.stderr)
+        return 2
+    pkg_dir = os.path.dirname(os.path.abspath(cornell_moe_tpu_torch.__file__))
+    if os.path.dirname(pkg_dir) != HERE:
+        print(f"chip_smoke: cornell_moe_tpu_torch imported from {pkg_dir}, "
+              "not from this checkout", file=sys.stderr)
+        return 2
+
+    provenance(torch)
+    phase_build()
+    bo, counts = phase_main(torch)
+    summary = phase_equivalence(torch, bo.model, counts)
+    phase_small_reference(torch)
+    check("jax" not in sys.modules and "cornell_moe_tpu" not in sys.modules,
+          "the port imported JAX or the JAX package")
+    emit({"kernels": summary})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,469 @@
+"""MCMC-averaged q-Knowledge-Gradient over value channels, and
+posterior-mean optimization.
+
+Counterpart of ``cornell_moe_tpu/acquisition/knowledge_gradient.py`` for
+the main path (no derivative channels, no fidelity dims, no
+points-being-sampled).  Every function takes an ensemble state with a
+leading axis S and works on all members at once, where the JAX package
+vmaps over them.
+
+Semantics (minimization):
+  * KG(U) = E_z[ best_posterior - min_x mu'_z(x) ],
+    best_posterior = min(best_so_far, min_j mu(U_j))
+  * fantasy observations y_U = mu_U + C z, C = chol(PostCov(U) + noise)
+  * the fantasized mean collapses to
+        mu'_z(x) = mean + k(x, X) (K^-1 y - V z) + k(x, U) C^-T z,
+        V = K^-1 K(X, U) C^-T
+  * the inner minimization starts from the best point of the
+    discretization (discrete_pts ++ union) and is GD-polished under the
+    frozen (detached) fantasy model: gradients wrt U follow the envelope
+    theorem.
+
+Dispatch rule of the inner descent: CUDA + float32 runs the whole descent in
+the hand-written kernel ``ops.kernels.descent_run``; float64 or CPU tensors
+take the analytic moment gradient (:func:`_make_descent_grad_fn`) driven by
+``optimizers.gradient_ascent_batch``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from cornell_moe_tpu_torch.acquisition.expected_improvement import (
+    _with_member_axes, draw_antithetic_normals)
+from cornell_moe_tpu_torch.models import covariance as cov_mod
+from cornell_moe_tpu_torch.models import gp as gp_mod
+from cornell_moe_tpu_torch.models.gp import GaussianProcessState
+from cornell_moe_tpu_torch.ops import kernels, linalg, optimizers
+from cornell_moe_tpu_torch.ops.domains import RepeatedDomain
+
+
+# ---------------------------------------------------------------------------
+# Posterior mean as an optimizable objective
+# ---------------------------------------------------------------------------
+
+def posterior_mean_objective(state: GaussianProcessState,
+                             x_opt: torch.Tensor) -> torch.Tensor:
+    """-posterior_mean at x (..., d) for a state with the same batch axes
+    (maximized)."""
+    return -gp_mod.posterior_mean(state, x_opt[..., None, :])[..., 0, 0]
+
+
+def compute_optimal_posterior_mean(
+        state: GaussianProcessState, domain, initial_guesses: torch.Tensor,
+        params: optimizers.GradientDescentParameters):
+    """Per member, maximize -mu from the best of its guesses (..., G, d).
+
+    Returns (best_point (..., d), best_value = -mu there (...)).  Each
+    member's value depends only on its own point, so one batched GD over
+    the members equals one GD per member.
+    """
+    vals = -gp_mod.posterior_mean(state, initial_guesses)[..., 0]
+    idx = torch.argmax(vals, dim=-1)
+    starts = torch.gather(
+        initial_guesses, -2,
+        idx[..., None, None].expand(idx.shape + (1, initial_guesses.shape[-1]))
+    )[..., 0, :]
+
+    def bvg(x):
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            v = posterior_mean_objective(state, xx)
+            (g,) = torch.autograd.grad(v.sum(), xx)
+        return v.detach(), g
+
+    x = optimizers.gradient_ascent_batch(bvg, domain, starts, params)
+    return x, bvg(x)[0]
+
+
+# ---------------------------------------------------------------------------
+# Fantasy model
+# ---------------------------------------------------------------------------
+
+def _noise_diag(state: GaussianProcessState, q: int) -> torch.Tensor:
+    """Fantasy observation noise per union point: (S, q)."""
+    return state.noise_variance[..., :1].expand(
+        state.noise_variance.shape[:-1] + (q,))
+
+
+def _build_fantasy_model(state: GaussianProcessState, union: torch.Tensor):
+    """(mu_u (S, q), chol_u (S, q, q), v (S, N, q)) for one union (q, d)."""
+    q = union.shape[0]
+    mu_u = gp_mod.posterior_mean(state, union)[..., 0]
+    var_u = linalg.symmetrize(gp_mod.posterior_variance(state, union))
+    min_diag = torch.min(torch.diagonal(var_u, dim1=-2, dim2=-1), dim=-1)
+    repair = torch.clamp(-1.5 * min_diag.values, min=0.0).detach()
+    chol_u = linalg.cholesky(var_u + torch.diag_embed(
+        _noise_diag(state, q) + repair[..., None]))
+    k_xu = gp_mod._mix_cov(state, union)
+    if state.inv_chol_K is not None:
+        w = linalg.cho_solve_with_refinement(state.chol_K, state.inv_chol_K,
+                                             k_xu)
+    else:
+        w = linalg.cho_solve(state.chol_K, k_xu)
+    v = linalg.solve_triangular(chol_u, w.transpose(-1, -2),
+                                lower=True).transpose(-1, -2)
+    return mu_u, chol_u, v
+
+
+def _build_fantasy_model_batch(state: GaussianProcessState,
+                               unions: torch.Tensor):
+    """Batched fantasy precompute for unions (B, q, d).
+
+    Returns (mu_u (S, B, q), chol_u (S, B, q, q), v (S, B, N, q),
+    noise_eff (S, B, q)), noise_eff being the diagonal shift (channel
+    noise + the float32 repair) inside chol_u.
+    """
+    b, q, dim = unions.shape
+    k_xu = gp_mod._mix_cov(state, unions.reshape(b * q, dim))  # (S,N,B*q)
+    s, n = k_xu.shape[0], k_xu.shape[1]
+    mu_u = (k_xu.transpose(-1, -2) @ state.K_inv_y[..., None])[..., 0]
+    mu_u = mu_u.reshape(s, b, q) + state.mean[:, None, None]
+    va, w = linalg.fantasy_solves_rhs_grad_only(state.chol_K,
+                                                state.inv_chol_K, k_xu)
+    va = va.reshape(s, n, b, q)
+    prior_u = cov_mod.build_block_covariance(
+        _with_member_axes(state.covariance, 1), unions, (), unions, ())
+    var_u = linalg.symmetrize(
+        prior_u - torch.einsum("snbi,snbj->sbij", va, va))
+    min_diag = torch.min(torch.diagonal(var_u, dim1=-2, dim2=-1), dim=-1)
+    repair = torch.clamp(-1.5 * min_diag.values, min=0.0).detach()
+    noise_eff = _noise_diag(state, q)[:, None, :] + repair[..., None]
+    chol_u = linalg.cholesky_small(var_u + torch.diag_embed(noise_eff))
+    w = w.reshape(s, n, b, q).permute(0, 2, 3, 1)           # (S, B, q, N)
+    v = linalg.solve_triangular_small(chol_u, w).transpose(-1, -2)
+    return mu_u, chol_u, v, noise_eff
+
+
+def _kernel_rows_flat(state: GaussianProcessState, x: torch.Tensor
+                      ) -> torch.Tensor:
+    """k(x, X_train) for x (S, P, d): (S, P, N)."""
+    return cov_mod.build_block_covariance(state.covariance, x, (),
+                                          state.points_sampled, ())
+
+
+def _union_rows(cov, x_full: torch.Tensor, unions: torch.Tensor
+                ) -> torch.Tensor:
+    """k(x, U_b) for x (S, B, M, d), unions (B, q, d): (S, B, M, q)."""
+    diff = x_full[..., :, None, :] - unions[:, None, :, :]   # (S,B,M,q,d)
+    inv_l2 = 1.0 / cov.lengths[:, None, None, None, :] ** 2
+    return cov.f0(torch.sum(diff * diff * inv_l2, dim=-1))
+
+
+def _fantasy_mean_batch(state: GaussianProcessState, x: torch.Tensor,
+                        unions: torch.Tensor, v: torch.Tensor,
+                        betas: torch.Tensor, normals: torch.Tensor
+                        ) -> torch.Tensor:
+    """mu'_z at x (S, B, M, d) for every (member, union, draw): (S, B, M).
+
+    mu' = mean + k_x K^-1 y - (k_x V_b) z_m + k_xu beta_bm, one pass over
+    the kernel rows against W = [K^-1 y | V].
+    """
+    s, b, m, d = x.shape
+    k_rows = _kernel_rows_flat(state, x.reshape(s, b * m, d)).reshape(
+        s, b, m, -1)
+    kiy = state.K_inv_y[:, None, :, None].expand(s, b, -1, 1)
+    out = k_rows @ torch.cat([kiy, v], dim=-1)              # (S,B,M,1+q)
+    t2 = torch.sum(out[..., 1:] * normals, dim=-1)
+    t3 = torch.sum(_union_rows(state.covariance, x, unions) * betas, dim=-1)
+    return state.mean[:, None, None] + out[..., 0] - t2 + t3
+
+
+# ---------------------------------------------------------------------------
+# Inner descent: kernel path and plain path
+# ---------------------------------------------------------------------------
+
+def _descent_kernel_name(state: GaussianProcessState) -> Optional[str]:
+    """The kernel's name when the descent goes through the CUDA kernel
+    (CUDA, float32, known covariance), else None."""
+    pts = state.points_sampled
+    name = state.covariance.name
+    if pts.is_cuda and pts.dtype == torch.float32 and \
+            name in cov_mod.COVARIANCE_TYPES:
+        return name
+    return None
+
+
+def _pack_descent_inputs(state: GaussianProcessState, unions_f, v_f,
+                         betas_f, normals):
+    """Kernel operands in scaled coordinates with the amplitude folded in:
+    (ws (S,d,N), wt (S,B,Wr,N), beta (S,B,q,M), z (q,M), us (S,B,q,d)),
+    W = c [K^-1 y | V | (those) * ws_dd], c = p_scale * alpha."""
+    cov = state.covariance
+    lengths = cov.lengths                                   # (S, d)
+    s, n, d = state.points_sampled.shape
+    b, q = unions_f.shape[:2]
+    c = (cov.p_scale * cov.alpha)[:, None, None, None]
+    ws = (state.points_sampled / lengths[:, None, :]).transpose(-1, -2)
+    u_rows = torch.cat([state.K_inv_y[:, None, None, :].expand(s, b, 1, n),
+                        v_f.transpose(-1, -2)], dim=2)      # (S,B,1+q,N)
+    moments = (u_rows[:, :, :, None, :] * ws[:, None, None]).reshape(
+        s, b, (1 + q) * d, n)
+    f32 = dict(dtype=torch.float32)
+    wt = (c * torch.cat([u_rows, moments], dim=2)).to(**f32).contiguous()
+    beta = (c * betas_f).transpose(-1, -2).to(**f32).contiguous()
+    us = (unions_f[None] / lengths[:, None, None, :]).to(**f32).contiguous()
+    return (ws.to(**f32).contiguous(), wt, beta,
+            normals.T.to(**f32).contiguous(), us)
+
+
+def _descent_full(state: GaussianProcessState, unions_f, v_f, betas_f,
+                  normals, x0: torch.Tensor, domain, params,
+                  kernel_name: str) -> torch.Tensor:
+    """The whole inner descent through ``kernels.descent_run``; returns
+    x_star (S, B, M, d)."""
+    lengths = state.covariance.lengths
+    ws, wt, beta, z, us = _pack_descent_inputs(state, unions_f, v_f,
+                                               betas_f, normals)
+    geom = torch.stack([domain.lower / lengths, domain.upper / lengths,
+                        1.0 / lengths**2], dim=1).to(torch.float32)
+    xs0 = (x0 / lengths[:, None, None, :]).transpose(-1, -2).to(
+        torch.float32).contiguous()
+    steps = int(params.max_num_steps)
+    avg_n = max(int(params.num_steps_averaged), 0)
+    if not 0 < avg_n <= steps:
+        avg_n = 0
+    xs = kernels.descent_run(
+        xs0, ws, wt, beta, z, us, geom.contiguous(), kernel_name,
+        steps=steps, restarts=max(int(params.max_num_restarts), 1),
+        avg_n=avg_n, gamma=float(params.gamma),
+        pre_mult=float(params.pre_mult),
+        mrc=float(params.max_relative_change))
+    return (xs.transpose(-1, -2) * lengths[:, None, None, :]).to(x0.dtype)
+
+
+def _make_descent_grad_fn(state: GaussianProcessState, unions_f, v_f,
+                          betas_f, normals):
+    """Analytic ascent direction of -mu' for x (S, B, M, d).
+
+    With w_eff = K^-1 y - V z_m:
+        d mu'/dx_i = -sum_n p_n (x_i - X_ni)/l_i^2 w_eff_n
+                     - sum_j p^u_j (x_i - U_ji)/l_i^2 beta_j,
+    and the training sum contracts into moments of X against
+    W = [K^-1 y | V | K^-1 y * X | V * X].
+    """
+    cov = state.covariance
+    pts = state.points_sampled                              # (S, N, d)
+    s, n, d = pts.shape
+    b, q = unions_f.shape[:2]
+    inv_l2 = (1.0 / cov.lengths**2)[:, None, None, :]       # (S,1,1,d)
+    kiy = state.K_inv_y
+    w = torch.cat([
+        kiy[:, None, :, None].expand(s, b, n, 1), v_f,
+        (kiy[:, :, None] * pts)[:, None].expand(s, b, n, d),
+        (v_f[..., None] * pts[:, None, :, None, :]).reshape(s, b, n, q * d)],
+        dim=-1)                                             # (S,B,N,Wr)
+    ws = pts / cov.lengths[:, None, :]
+
+    def bvg(x):
+        m = x.shape[2]
+        xs = x / cov.lengths[:, None, None, :]
+        diff = xs[:, :, :, None, :] - ws[:, None, None, :, :]
+        p = cov.p(torch.sum(diff * diff, dim=-1))           # (S,B,M,N)
+        a = p @ w                                           # (S,B,M,Wr)
+        a0 = a[..., :1 + q]
+        ax = a[..., 1 + q:].reshape(s, b, m, 1 + q, d)
+        s0 = a0[..., 0] - torch.sum(a0[..., 1:] * normals, dim=-1)
+        sx = ax[..., 0, :] - torch.sum(ax[..., 1:, :] * normals[..., None],
+                                       dim=-2)
+        grad_train = -(x * s0[..., None] - sx) * inv_l2
+        diff_u = x[..., None, :] - unions_f[None, :, None]  # (S,B,M,q,d)
+        t_u = diff_u * inv_l2[..., None, :]
+        p_u = cov.p(torch.sum(diff_u * t_u, dim=-1))        # (S,B,M,q)
+        grad_union = -torch.sum((p_u * betas_f)[..., None] * t_u, dim=-2)
+        return torch.zeros(x.shape[:3], dtype=x.dtype, device=x.device), \
+            -(grad_train + grad_union)
+
+    return bvg
+
+
+# ---------------------------------------------------------------------------
+# KG estimators
+# ---------------------------------------------------------------------------
+
+def knowledge_gradient(state: GaussianProcessState, union: torch.Tensor,
+                       discrete_pts: torch.Tensor, normals: torch.Tensor,
+                       domain, inner_params, best_so_far) -> torch.Tensor:
+    """Per-union MC q-KG for every member: (S,).
+
+    ``union`` (q, d); ``discrete_pts`` (S, n_d, d) inner seeds;
+    ``normals`` (M, q); ``best_so_far`` (S,).
+    """
+    s = state.points_sampled.shape[0]
+    q, d = union.shape
+    mu_u, chol_u, v = _build_fantasy_model(state, union)
+    best_posterior = torch.minimum(best_so_far, torch.min(mu_u, dim=-1).values)
+    union_f = union.detach()
+    starts = torch.cat([discrete_pts, union_f.expand(s, q, d)], dim=1)
+
+    betas = linalg.solve_triangular(
+        chol_u, normals.T.expand(s, q, -1), lower=True,
+        trans=True).transpose(-1, -2)                       # (S, M, q)
+    alphas = state.K_inv_y[:, None, :] - normals @ v.transpose(-1, -2)
+
+    k_sx = _kernel_rows_flat(state, starts)                 # (S, n_s, N)
+    k_su = cov_mod.build_block_covariance(state.covariance, starts, (),
+                                          union_f, ())      # (S, n_s, q)
+    mu_starts = state.mean[:, None, None] + \
+        k_sx @ alphas.detach().transpose(-1, -2) + \
+        k_su @ betas.detach().transpose(-1, -2)             # (S, n_s, M)
+    idx = torch.argmin(mu_starts, dim=1)                    # (S, M)
+    x0 = torch.gather(starts, 1, idx[..., None].expand(-1, -1, d))
+
+    def mu_fn(x, alpha, beta, u):
+        k_x = cov_mod.build_block_covariance(
+            state.covariance, x, (), state.points_sampled, ())
+        k_u = cov_mod.build_block_covariance(state.covariance, x, (), u, ())
+        return state.mean[:, None] + torch.sum(k_x * alpha, dim=-1) + \
+            torch.sum(k_u * beta, dim=-1)                   # (S, M)
+
+    alphas_f, betas_f = alphas.detach(), betas.detach()
+
+    def bvg(x):
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            val = -mu_fn(xx, alphas_f, betas_f, union_f)
+            (g,) = torch.autograd.grad(val.sum(), xx)
+        return val.detach(), g
+
+    x_star = optimizers.gradient_ascent_batch(bvg, domain, x0,
+                                              inner_params).detach()
+    best_min = torch.minimum(mu_fn(x_star, alphas, betas, union),
+                             mu_fn(x0, alphas, betas, union))
+    return torch.mean(best_posterior[:, None] - best_min, dim=1)
+
+
+def knowledge_gradient_mcmc(states: GaussianProcessState, union, discrete_pts,
+                            normals, domain, inner_params, best_so_far
+                            ) -> torch.Tensor:
+    """Ensemble mean of :func:`knowledge_gradient` (no fidelity cost)."""
+    return torch.mean(knowledge_gradient(states, union, discrete_pts,
+                                         normals, domain, inner_params,
+                                         best_so_far))
+
+
+def knowledge_gradient_batch(state: GaussianProcessState,
+                             unions: torch.Tensor,
+                             discrete_pts: torch.Tensor,
+                             normals: torch.Tensor, domain, inner_params,
+                             best_so_far, inner_x0=None):
+    """KG at B unions (B, q, d) for every member: returns (kg (S, B),
+    carried descent endpoints (S, B, M, d)).
+
+    Cold (``inner_x0`` None): the descents start from the seeded argmins.
+    "reseed" warm start: they start from ``inner_x0``; the seeding (and so
+    the estimator) is unchanged.  The returned endpoints re-seed any draw
+    whose seed guard beat the descended endpoint.
+    """
+    s = state.points_sampled.shape[0]
+    b, q, d = unions.shape
+    mu_u, chol_u, v, _ = _build_fantasy_model_batch(state, unions)
+    best_posterior = torch.minimum(best_so_far[:, None],
+                                   torch.min(mu_u, dim=-1).values)
+    m = normals.shape[0]
+    betas = linalg.solve_triangular_small(
+        chol_u, normals.T.expand(s, b, q, m), trans=True).transpose(-1, -2)
+
+    # seeding over the discretized set, factored through the q-dim fantasy
+    # subspace, computed live (its minimum is the x0 guard value)
+    unions_f = unions.detach()
+    starts = torch.cat([discrete_pts[:, None].expand(s, b, -1, d),
+                        unions_f[None].expand(s, b, q, d)], dim=2)
+    n_s = starts.shape[2]
+    k_sx = _kernel_rows_flat(state, starts.reshape(s, b * n_s, d)).reshape(
+        s, b, n_s, -1)
+    k_su = _union_rows(state.covariance, starts, unions)    # (S,B,n_s,q)
+    base = torch.einsum("sbpn,sn->sbp", k_sx, state.K_inv_y)
+    ksv = k_sx @ v                                          # (S,B,n_s,q)
+    mu_starts = state.mean[:, None, None, None] + base[..., None] - \
+        torch.sum(ksv[:, :, :, None, :] * normals, dim=-1) + \
+        torch.sum(k_su[:, :, :, None, :] * betas[:, :, None], dim=-1)
+    idx = torch.argmin(mu_starts.detach(), dim=2)           # (S, B, M)
+    x0_seed = torch.gather(starts, 2, idx[..., None].expand(-1, -1, -1, d))
+    mu_x0 = torch.min(mu_starts, dim=2).values              # (S, B, M)
+    x0 = x0_seed if inner_x0 is None else inner_x0.detach()
+
+    v_f, betas_f = v.detach(), betas.detach()
+    kernel_name = _descent_kernel_name(state)
+    if kernel_name is not None:
+        x_star = _descent_full(state, unions_f, v_f, betas_f, normals, x0,
+                               domain, inner_params, kernel_name)
+    else:
+        bvg = _make_descent_grad_fn(state, unions_f, v_f, betas_f, normals)
+        x_star = optimizers.gradient_ascent_batch(bvg, domain, x0,
+                                                  inner_params)
+    x_star = x_star.detach()
+
+    mu_star = _fantasy_mean_batch(state, x_star, unions, v, betas, normals)
+    kg = torch.mean(best_posterior[..., None] -
+                    torch.minimum(mu_star, mu_x0), dim=-1)
+    won = (mu_star <= mu_x0).detach()[..., None]
+    return kg, torch.where(won, x_star, x0_seed)
+
+
+def knowledge_gradient_mcmc_batch(states, unions, discrete_pts, normals,
+                                  domain, inner_params, best_so_far,
+                                  inner_x0=None):
+    """Ensemble-averaged batched KG: ((B,), endpoints (S, B, M, d))."""
+    kg, x_star = knowledge_gradient_batch(states, unions, discrete_pts,
+                                          normals, domain, inner_params,
+                                          best_so_far, inner_x0)
+    return torch.mean(kg, dim=0), x_star
+
+
+def knowledge_gradient_mcmc_batch_vg_carry(states, unions, discrete_pts,
+                                           normals, domain, inner_params,
+                                           best_so_far, inner_x0=None):
+    """((B,) values, (B, q, d) gradients, endpoints (S, B, M, d)).
+
+    Each union's value depends only on its own block, so the gradient of
+    the sum is the per-union gradient.
+    """
+    with torch.enable_grad():
+        u = unions.detach().requires_grad_(True)
+        vals, x_star = knowledge_gradient_mcmc_batch(
+            states, u, discrete_pts, normals, domain, inner_params,
+            best_so_far, inner_x0)
+        (grads,) = torch.autograd.grad(vals.sum(), u)
+    return vals.detach(), grads, x_star
+
+
+def multistart_knowledge_gradient_mcmc_optimization(
+        generator: torch.Generator, states: GaussianProcessState, domain,
+        num_to_sample: int, params: optimizers.GradientDescentParameters,
+        inner_params: optimizers.GradientDescentParameters,
+        discrete_pts: torch.Tensor, best_so_far=None,
+        num_mc_iterations: int = 128, chunk_size: Optional[int] = None,
+        conv_tol: Optional[float] = None) -> torch.Tensor:
+    """MCMC-averaged q-KG suggestion by the warm ("reseed") multistart:
+    the inner descents start from the previous outer step's argmins with
+    one step instead of ``inner_params.max_num_steps``.  Returns
+    (num_to_sample, d)."""
+    if best_so_far is None:
+        best_so_far = states.best_observed_value
+    rep = RepeatedDomain(domain=domain, num_repeats=num_to_sample)
+    starts = rep.generate_latin_hypercube_points(generator,
+                                                 params.num_multistarts)
+    normals = draw_antithetic_normals(generator, num_mc_iterations,
+                                      num_to_sample, device=starts.device,
+                                      dtype=starts.dtype)
+    inner_warm = dataclasses.replace(inner_params, max_num_steps=1,
+                                     max_num_restarts=1,
+                                     num_steps_averaged=0)
+
+    def bvg_cold(pts_batch):
+        return knowledge_gradient_mcmc_batch_vg_carry(
+            states, pts_batch, discrete_pts, normals, domain, inner_params,
+            best_so_far)
+
+    def bvg_warm(pts_batch, carry):
+        return knowledge_gradient_mcmc_batch_vg_carry(
+            states, pts_batch, discrete_pts, normals, domain, inner_warm,
+            best_so_far, inner_x0=carry)
+
+    return optimizers.multistart_optimize_batched_warm(
+        bvg_cold, bvg_warm, rep, starts, params, chunk_size=chunk_size,
+        conv_tol=conv_tol).best_point

@@ -1,0 +1,228 @@
+// The KG inner posterior-mean descent for every (ensemble member s, union b,
+// MC draw m) at once, run to the end inside the kernel.
+//
+// Replaces: cornell_moe_tpu/ops/pallas_kernels.py, pallas_descent_run
+//   (_descent_run_kernel + _field_grad), one program per member looping
+//   over unions, vmapped over the ensemble.
+// Each step of one descent evaluates, at the draw's scaled point x,
+//   a = W phi,  phi_n = P(|ws_n - x|^2) over the Np training points,
+// with the moment weights W = c [K^-1 y | V | (those) * ws_dd] (Wr rows),
+// contracts a with the draw's normals z into the ascent direction of -mu',
+// adds the union term beta_j P(|x - u_j|^2) (x - u_j), and takes one
+// LimitUpdate-clamped step at rate pre_mult (i+1)^-gamma; the last avg_n
+// points of each restart round are Polyak-averaged and clipped.
+// Bound on the H100: FMA and transcendental throughput (a sqrt and an exp
+//   per training point, Wr + 3d FMAs per point per step; about 2.5 GFLOP
+//   for a cold evaluation of the main path's ensemble); the operands are a
+//   few tens of KB per block, so bytes do not matter and latency does.
+// Design: one block per (s, b), one thread per draw (looping when M exceeds
+//   the block).  ws and this union's W rows are staged in shared memory
+//   once ((d + Wr) Np floats, 35 KB at Np = 512, q = 4, d = 2) and every
+//   thread reads them as broadcasts.  Each thread keeps its point, its Wr
+//   running sums and its Polyak sum in registers and runs every step and
+//   restart without synchronizing.  The contraction is full f32 FMA.  The
+//   (d, q) = (2, 4) instance has compile-time loop bounds; other shapes use
+//   the generic instance (d <= 8, q <= 16, Wr <= 64).  Any M and Np.
+
+#include "common.cuh"
+
+#define DESC_MAXD 8
+#define DESC_MAXQ 16
+#define DESC_MAXW 64
+
+template <int DT, int QT>
+__global__ void cmoe_descent_run_kernel(
+    const float* __restrict__ xs0, const float* __restrict__ ws,
+    const float* __restrict__ wt, const float* __restrict__ beta,
+    const float* __restrict__ z, const float* __restrict__ us,
+    const float* __restrict__ geom, float* __restrict__ out, int B, int d_rt,
+    int M, int Np, int q_rt, int steps, int restarts, int avg_n, float gamma,
+    float pre_mult, float mrc, int kernel) {
+  constexpr int DA = DT > 0 ? DT : DESC_MAXD;
+  constexpr int QA = QT > 0 ? QT : DESC_MAXQ;
+  constexpr int WA = (QA + 1) * (DA + 1) < DESC_MAXW ? (QA + 1) * (DA + 1)
+                                                      : DESC_MAXW;
+  const int d = DT > 0 ? DT : d_rt;
+  const int q = QT > 0 ? QT : q_rt;
+  const int wr = (1 + q) * (1 + d);
+
+  extern __shared__ float smem[];
+  float* sws = smem;             // (d, Np)
+  float* swt = smem + d * Np;    // (Wr, Np)
+
+  const int sb = blockIdx.x;     // s * B + b
+  const int s = sb / B;
+  const float* wsg = ws + (size_t)s * d * Np;
+  const float* wtg = wt + (size_t)sb * wr * Np;
+  for (int i = threadIdx.x; i < d * Np; i += blockDim.x) sws[i] = wsg[i];
+  for (int i = threadIdx.x; i < wr * Np; i += blockDim.x) swt[i] = wtg[i];
+  __syncthreads();
+
+  float lo[DA], hi[DA], il2[DA], uq[QA * DA];
+  const float* gs = geom + (size_t)s * 3 * d;
+#pragma unroll
+  for (int dd = 0; dd < DA; ++dd) {
+    if (dd < d) {
+      lo[dd] = gs[dd];
+      hi[dd] = gs[d + dd];
+      il2[dd] = gs[2 * d + dd];
+    }
+  }
+  const float* ub = us + (size_t)sb * q * d;
+#pragma unroll
+  for (int e = 0; e < QA * DA; ++e)
+    if (e < q * d) uq[e] = ub[e];
+
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    float x[DA], bz[QA], zz[QA];
+#pragma unroll
+    for (int dd = 0; dd < DA; ++dd)
+      if (dd < d) x[dd] = xs0[((size_t)sb * d + dd) * M + m];
+#pragma unroll
+    for (int j = 0; j < QA; ++j) {
+      if (j < q) {
+        bz[j] = beta[((size_t)sb * q + j) * M + m];
+        zz[j] = z[(size_t)j * M + m];
+      }
+    }
+
+    for (int rnd = 0; rnd < restarts; ++rnd) {
+      float xsum[DA];
+#pragma unroll
+      for (int dd = 0; dd < DA; ++dd) xsum[dd] = 0.0f;
+      int nsum = 0;
+      for (int i = 0; i < steps; ++i) {
+        // moment contraction a = W phi over the training points
+        float a[WA];
+#pragma unroll
+        for (int w = 0; w < WA; ++w) a[w] = 0.0f;
+        for (int n = 0; n < Np; ++n) {
+          float s2 = 0.0f;
+#pragma unroll
+          for (int dd = 0; dd < DA; ++dd) {
+            if (dd < d) {
+              const float diff = sws[dd * Np + n] - x[dd];
+              s2 = fmaf(diff, diff, s2);
+            }
+          }
+          const float phi = cmoe_unit_p(s2, kernel);
+#pragma unroll
+          for (int w = 0; w < WA; ++w)
+            if (w < wr) a[w] = fmaf(swt[w * Np + n], phi, a[w]);
+        }
+        // contract the draw's normals: w_eff = K^-1 y - V z
+        float s0 = a[0];
+#pragma unroll
+        for (int j = 0; j < QA; ++j)
+          if (j < q) s0 -= a[1 + j] * zz[j];
+        float g[DA];
+#pragma unroll
+        for (int dd = 0; dd < DA; ++dd) {
+          if (dd < d) {
+            float sx = a[1 + q + dd];
+#pragma unroll
+            for (int j = 0; j < QA; ++j)
+              if (j < q) sx -= a[1 + q + (j + 1) * d + dd] * zz[j];
+            g[dd] = x[dd] * s0 - sx;
+          }
+        }
+        // union term
+#pragma unroll
+        for (int j = 0; j < QA; ++j) {
+          if (j < q) {
+            float su = 0.0f;
+#pragma unroll
+            for (int dd = 0; dd < DA; ++dd) {
+              if (dd < d) {
+                const float du = x[dd] - uq[j * d + dd];
+                su += du * du;
+              }
+            }
+            const float pb = cmoe_unit_p(su, kernel) * bz[j];
+#pragma unroll
+            for (int dd = 0; dd < DA; ++dd)
+              if (dd < d) g[dd] += pb * (x[dd] - uq[j * d + dd]);
+          }
+        }
+        // LimitUpdate-clamped step
+        const float rate = pre_mult * powf((float)(i + 1), -gamma);
+#pragma unroll
+        for (int dd = 0; dd < DA; ++dd) {
+          if (dd < d) {
+            const float xr = x[dd];
+            float dx = rate * g[dd] * il2[dd];
+            if (!isfinite(dx)) dx = 0.0f;
+            const float cap = mrc * fminf(xr - lo[dd], hi[dd] - xr);
+            float step = dx;
+            if (fabsf(dx) > cap) step = dx > 0.0f ? cap : (dx < 0.0f ? -cap : 0.0f);
+            const float nxt = xr + step;
+            const float half = step * 0.5f;
+            const float fix_lo = (xr + half < lo[dd]) ? (lo[dd] - xr) * 0.5f : half;
+            const float fix_hi = (xr + half > hi[dd]) ? (hi[dd] - xr) * 0.5f : half;
+            if (nxt < lo[dd]) step = fix_lo;
+            else if (nxt > hi[dd]) step = fix_hi;
+            x[dd] = xr + step;
+          }
+        }
+        if (avg_n > 0 && i >= steps - avg_n) {
+#pragma unroll
+          for (int dd = 0; dd < DA; ++dd)
+            if (dd < d) xsum[dd] += x[dd];
+          ++nsum;
+        }
+      }
+      if (nsum > 0) {
+#pragma unroll
+        for (int dd = 0; dd < DA; ++dd)
+          if (dd < d) x[dd] = fminf(fmaxf(xsum[dd] / (float)nsum, lo[dd]), hi[dd]);
+      }
+    }
+#pragma unroll
+    for (int dd = 0; dd < DA; ++dd)
+      if (dd < d) out[((size_t)sb * d + dd) * M + m] = x[dd];
+  }
+}
+
+template <int DT, int QT>
+static int launch_descent(const float* xs0, const float* ws, const float* wt,
+                          const float* beta, const float* z, const float* us,
+                          const float* geom, float* out, int S, int B, int d,
+                          int M, int Np, int q, int wr, int steps,
+                          int restarts, int avg_n, float gamma,
+                          float pre_mult, float mrc, int kernel,
+                          cudaStream_t stream) {
+  const size_t smem = (size_t)(d + wr) * Np * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cmoe_descent_run_kernel<DT, QT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int threads = ((M + 31) / 32) * 32;
+  if (threads > 256) threads = 256;
+  cmoe_descent_run_kernel<DT, QT><<<S * B, threads, smem, stream>>>(
+      xs0, ws, wt, beta, z, us, geom, out, B, d, M, Np, q, steps, restarts,
+      avg_n, gamma, pre_mult, mrc, kernel);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cmoe_descent_run(const float* xs0, const float* ws,
+                                const float* wt, const float* beta,
+                                const float* z, const float* us,
+                                const float* geom, float* out, int S, int B,
+                                int d, int M, int Np, int q, int wr,
+                                int steps, int restarts, int avg_n,
+                                float gamma, float pre_mult, float mrc,
+                                int kernel, void* stream) {
+  if (wr != (1 + q) * (1 + d) || d > DESC_MAXD || q > DESC_MAXQ ||
+      wr > DESC_MAXW)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d == 2 && q == 4)
+    return launch_descent<2, 4>(xs0, ws, wt, beta, z, us, geom, out, S, B, d,
+                                M, Np, q, wr, steps, restarts, avg_n, gamma,
+                                pre_mult, mrc, kernel, st);
+  return launch_descent<0, 0>(xs0, ws, wt, beta, z, us, geom, out, S, B, d, M,
+                              Np, q, wr, steps, restarts, avg_n, gamma,
+                              pre_mult, mrc, kernel, st);
+}

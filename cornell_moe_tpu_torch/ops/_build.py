@@ -1,0 +1,104 @@
+"""Build and load the CUDA kernel library (``csrc/*.cu``) at first use.
+
+The sources are compiled by ``nvcc`` into one shared library with a plain C
+interface, loaded through ``ctypes``.  The library lands in ``csrc/build/``
+under a name carrying a hash of the sources, so an edit to any source
+rebuilds it and an unchanged tree reuses it.  A missing ``nvcc`` or a failed
+build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points and their argument types (pointers and the stream as
+# c_void_p, so ctypes never truncates them to 32 bits).
+SIGNATURES = {
+    "cmoe_covariance_with_noise": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cmoe_lml_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _P],
+    "cmoe_descent_run": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
+}
+
+_lib = None
+build_seconds = None     # wall time of the last compile (None: reused)
+
+
+def sources():
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        candidate = Path(cuda_home) / "bin" / "nvcc"
+        if candidate.exists():
+            nvcc = str(candidate)
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+            "cornell_moe_tpu_torch cannot be built")
+    return nvcc
+
+
+def build(force: bool = False) -> Path:
+    """Compile the library if the sources changed; returns its path."""
+    global build_seconds
+    target = BUILD_DIR / f"libcornell_moe_kernels_{source_hash()}.so"
+    if target.exists() and not force:
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu_files = [str(p) for p in sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu_files]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, target)
+    build_seconds = time.time() - t0
+    return target
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib

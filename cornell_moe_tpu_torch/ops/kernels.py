@@ -1,0 +1,290 @@
+"""The hand-written CUDA kernels of the main path, their plain PyTorch
+versions, and their launch counters.
+
+Three kernels, each the Hopper counterpart of one Pallas kernel of
+``cornell_moe_tpu/ops/pallas_kernels.py`` (sources in ``csrc/``):
+
+* :func:`descent_run` (``csrc/descent_run.cu``) — the KG inner
+  posterior-mean descent, every (ensemble member, union, MC draw) at once.
+* :func:`lml_fused` (``csrc/lml_fused.cu``) — K build + Cholesky + forward
+  substitution + (quad, logdet) per MCMC walker.
+* :func:`covariance_with_noise` (``csrc/covariance_with_noise.cu``) —
+  K + diag(noise) for every member of the GP ensemble.
+
+Wrapper rule: a CPU tensor goes to the plain version, a CUDA tensor launches
+the kernel or raises (wrong dtype, layout or shape, an input that requires
+grad, a failed launch).  There is no fallback.  None of the three sits under
+a gradient on the main path, so none has a backward kernel.
+
+Each wrapper adds one to its module-level launch counter where it launches
+its kernel and nowhere else (``chip_smoke.py`` reads them to prove the main
+path went through the kernels).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cornell_moe_tpu_torch.ops.domains import box_limit_update
+
+KERNEL_CODES = {"matern_2.5": 0, "square_exponential": 1}
+
+covariance_with_noise_launches = 0
+lml_fused_launches = 0
+descent_run_launches = 0
+
+
+def reset_launch_counts() -> None:
+    global covariance_with_noise_launches, lml_fused_launches, \
+        descent_run_launches
+    covariance_with_noise_launches = 0
+    lml_fused_launches = 0
+    descent_run_launches = 0
+
+
+def launch_counts() -> dict:
+    return {"covariance_with_noise": covariance_with_noise_launches,
+            "lml_fused": lml_fused_launches,
+            "descent_run": descent_run_launches}
+
+
+def _unit_fields(kernel_name: str):
+    from cornell_moe_tpu_torch.models.covariance import COVARIANCE_TYPES
+    return COVARIANCE_TYPES[kernel_name]
+
+
+def _on_card(name: str, kernel_name: str, **tensors) -> bool:
+    """Validate a wrapper's inputs; True to launch, False for the plain
+    version (CPU tensors)."""
+    if kernel_name not in KERNEL_CODES:
+        raise ValueError(f"{name}: unknown kernel {kernel_name!r}")
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on several devices {devices}")
+    for arg, t in tensors.items():
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{name}: input {arg!r} requires grad, but the kernel has "
+                "no backward")
+    device = devices.pop()
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    for arg, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg!r} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg!r} must be contiguous")
+    return True
+
+
+def _expect(name: str, arg: str, t: torch.Tensor, shape) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {arg!r} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+
+
+def _launch(name: str, fn, *args, device) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
+
+
+def _lib():
+    from cornell_moe_tpu_torch.ops import _build
+    return _build.library()
+
+
+# ---------------------------------------------------------------------------
+# C: covariance + noise
+# ---------------------------------------------------------------------------
+
+def covariance_with_noise(points: torch.Tensor, hypers: torch.Tensor,
+                          noise: torch.Tensor,
+                          kernel_name: str = "matern_2.5") -> torch.Tensor:
+    """alpha_s k(x / l_s, x / l_s) + diag(noise_s) for S kernels.
+
+    points (n, d), hypers (S, 1 + d) = [alpha, lengths], noise (S, n) total
+    per-point diagonal noise.  Returns (S, n, n).
+    """
+    global covariance_with_noise_launches
+    name = "covariance_with_noise"
+    if not _on_card(name, kernel_name, points=points, hypers=hypers,
+                    noise=noise):
+        return covariance_with_noise_plain(points, hypers, noise,
+                                           kernel_name)
+    n, d = points.shape
+    s = hypers.shape[0]
+    _expect(name, "hypers", hypers, (s, 1 + d))
+    _expect(name, "noise", noise, (s, n))
+    out = torch.empty((s, n, n), device=points.device, dtype=torch.float32)
+    _launch(name, _lib().cmoe_covariance_with_noise, points.data_ptr(),
+            hypers.data_ptr(), noise.data_ptr(), out.data_ptr(), s, n, d,
+            KERNEL_CODES[kernel_name], device=points.device)
+    covariance_with_noise_launches += 1
+    return out
+
+
+def covariance_with_noise_plain(points, hypers, noise,
+                                kernel_name="matern_2.5"):
+    """Plain version of :func:`covariance_with_noise`: the value-channel
+    ``build_block_covariance`` plus the noise diagonal."""
+    from cornell_moe_tpu_torch.models import covariance as cov_mod
+    cov = cov_mod.COVARIANCE_TYPES[kernel_name](hyperparameters=hypers)
+    k = cov_mod.build_block_covariance(cov, points, (), points, ())
+    return k + torch.diag_embed(noise)
+
+
+# ---------------------------------------------------------------------------
+# B: fused LML (K build + Cholesky + forward substitution + logdet)
+# ---------------------------------------------------------------------------
+
+def lml_fused(us: torch.Tensor, alpha: torch.Tensor, noise: torch.Tensor,
+              y: torch.Tensor, n_real: int,
+              kernel_name: str = "matern_2.5"):
+    """(y^T K^-1 y, sum log diag chol K) per walker, summed over the first
+    ``n_real`` rows only.
+
+    us (W, d, Np) scaled points, alpha (W,), noise (W, Np) total diagonal
+    noise, y (W, Np).  K_w = alpha_w k(us_w) + diag(noise_w).  Any Np.
+    Returns (quad (W,), logdet (W,)); NaN where the factorization fails.
+    """
+    global lml_fused_launches
+    name = "lml_fused"
+    if not _on_card(name, kernel_name, us=us, alpha=alpha, noise=noise,
+                    y=y):
+        return lml_fused_plain(us, alpha, noise, y, n_real, kernel_name)
+    w, d, np_ = us.shape
+    _expect(name, "alpha", alpha, (w,))
+    _expect(name, "noise", noise, (w, np_))
+    _expect(name, "y", y, (w, np_))
+    if not 0 < n_real <= np_:
+        raise ValueError(f"{name}: n_real {n_real} outside (0, {np_}]")
+    dev = us.device
+    k_scratch = torch.empty((w, np_, np_), device=dev, dtype=torch.float32)
+    y_scratch = torch.empty((w, np_), device=dev, dtype=torch.float32)
+    quad = torch.empty((w,), device=dev, dtype=torch.float32)
+    logdet = torch.empty((w,), device=dev, dtype=torch.float32)
+    _launch(name, _lib().cmoe_lml_fused, us.data_ptr(), alpha.data_ptr(),
+            noise.data_ptr(), y.data_ptr(), k_scratch.data_ptr(),
+            y_scratch.data_ptr(), quad.data_ptr(), logdet.data_ptr(), w, d,
+            np_, int(n_real), KERNEL_CODES[kernel_name], device=dev)
+    lml_fused_launches += 1
+    return quad, logdet
+
+
+def lml_fused_plain(us, alpha, noise, y, n_real, kernel_name="matern_2.5"):
+    """Plain version of :func:`lml_fused`: K build, ``cholesky_ex`` and a
+    triangular solve, masked to ``n_real``."""
+    diff = us[:, :, :, None] - us[:, :, None, :]
+    s = torch.sum(diff * diff, dim=1)
+    k = alpha[:, None, None] * _unit_fields(kernel_name).unit_f0(s) + \
+        torch.diag_embed(noise)
+    chol, info = torch.linalg.cholesky_ex(k)
+    z = torch.linalg.solve_triangular(chol, y[..., None], upper=False)[..., 0]
+    mask = (torch.arange(us.shape[-1], device=us.device) < n_real).to(
+        us.dtype)
+    quad = torch.sum(z * z * mask, dim=-1)
+    logdet = torch.sum(
+        torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)) * mask, dim=-1)
+    bad = info != 0
+    nan = torch.full_like(quad, float("nan"))
+    return torch.where(bad, nan, quad), torch.where(bad, nan, logdet)
+
+
+# ---------------------------------------------------------------------------
+# A: KG inner posterior-mean descent
+# ---------------------------------------------------------------------------
+
+def descent_run(xs0: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
+                beta: torch.Tensor, z: torch.Tensor, us: torch.Tensor,
+                geom: torch.Tensor, kernel_name: str, steps: int,
+                restarts: int, avg_n: int, gamma: float, pre_mult: float,
+                mrc: float) -> torch.Tensor:
+    """Whole inner descent for S members x B unions x M draws; returns the
+    final scaled points (S, B, d, M).
+
+    xs0 (S, B, d, M) scaled starts; ws (S, d, Np) scaled training points;
+    wt (S, B, Wr, Np) moment weights c*[K^-1 y | V | (those) * ws_dd] with
+    Wr = (1 + q)(1 + d); beta (S, B, q, M) c-scaled fantasy betas;
+    z (q, M) normals^T; us (S, B, q, d) scaled union points;
+    geom (S, 3, d) rows [lower / l, upper / l, 1 / l^2].  ``restarts``
+    rounds of ``steps`` GD steps at rate ``pre_mult (i+1)^-gamma`` with
+    LimitUpdate clamping (``mrc``) and Polyak averaging of the last
+    ``avg_n`` steps (0 = off) followed by a clip.
+    """
+    global descent_run_launches
+    name = "descent_run"
+    if not _on_card(name, kernel_name, xs0=xs0, ws=ws, wt=wt, beta=beta,
+                    z=z, us=us, geom=geom):
+        return descent_run_plain(xs0, ws, wt, beta, z, us, geom,
+                                 kernel_name, steps, restarts, avg_n, gamma,
+                                 pre_mult, mrc)
+    s, b, d, m = xs0.shape
+    q = z.shape[0]
+    np_ = ws.shape[-1]
+    wr = (1 + q) * (1 + d)
+    _expect(name, "ws", ws, (s, d, np_))
+    _expect(name, "wt", wt, (s, b, wr, np_))
+    _expect(name, "beta", beta, (s, b, q, m))
+    _expect(name, "z", z, (q, m))
+    _expect(name, "us", us, (s, b, q, d))
+    _expect(name, "geom", geom, (s, 3, d))
+    if not (0 <= avg_n <= steps and restarts >= 1):
+        raise ValueError(f"{name}: need 0 <= avg_n <= steps, restarts >= 1")
+    if d > 8 or q > 16 or wr > 64:
+        raise ValueError(f"{name}: d <= 8, q <= 16 and (1+q)(1+d) <= 64 "
+                         f"supported, got d={d}, q={q}")
+    out = torch.empty_like(xs0)
+    _launch(name, _lib().cmoe_descent_run, xs0.data_ptr(), ws.data_ptr(),
+            wt.data_ptr(), beta.data_ptr(), z.data_ptr(), us.data_ptr(),
+            geom.data_ptr(), out.data_ptr(), s, b, d, m, np_, q, wr,
+            int(steps), int(restarts), int(avg_n), float(gamma),
+            float(pre_mult), float(mrc), KERNEL_CODES[kernel_name],
+            device=xs0.device)
+    descent_run_launches += 1
+    return out
+
+
+def _descent_direction_plain(xs, ws, wt, beta, z, us, unit_p):
+    """Ascent direction of -mu' in scaled coordinates, (S, B, d, M)."""
+    sh = xs.shape
+    q, d = z.shape[0], sh[2]
+    diff = ws[:, None, :, :, None] - xs[:, :, :, None, :]   # (S,B,d,Np,M)
+    phi = unit_p(torch.sum(diff * diff, dim=2))             # (S,B,Np,M)
+    a = wt @ phi                                            # (S,B,Wr,M)
+    s0 = a[:, :, 0] - torch.sum(a[:, :, 1:1 + q] * z, dim=2)
+    ax = a[:, :, 1 + q:].reshape(sh[0], sh[1], 1 + q, d, sh[3])
+    sx = ax[:, :, 0] - torch.sum(ax[:, :, 1:] * z[:, None, :], dim=2)
+    g = xs * s0[:, :, None] - sx
+    du = xs[:, :, None] - us[..., None]                     # (S,B,q,d,M)
+    pb = unit_p(torch.sum(du * du, dim=3)) * beta           # (S,B,q,M)
+    return g + torch.sum(pb[:, :, :, None] * du, dim=2)
+
+
+def descent_run_plain(xs0, ws, wt, beta, z, us, geom, kernel_name, steps,
+                      restarts, avg_n, gamma, pre_mult, mrc):
+    """Plain version of :func:`descent_run`: the analytic moment gradient
+    driven by the gradient_ascent_batch schedule, in scaled coordinates."""
+    unit_p = _unit_fields(kernel_name).unit_p
+    lo = geom[:, None, 0, :, None]
+    hi = geom[:, None, 1, :, None]
+    il2 = geom[:, None, 2, :, None]
+    xs = xs0
+    for _ in range(max(int(restarts), 1)):
+        traj = []
+        for i in range(int(steps)):
+            g = _descent_direction_plain(xs, ws, wt, beta, z, us, unit_p)
+            g = torch.where(torch.isfinite(g), g, 0.0)
+            rate = float(pre_mult) * (i + 1.0) ** (-float(gamma))
+            xs = xs + box_limit_update(lo, hi, mrc, xs, rate * g * il2)
+            if avg_n:
+                traj = (traj + [xs])[-int(avg_n):]
+        if avg_n and traj:
+            xs = torch.minimum(torch.maximum(
+                torch.mean(torch.stack(traj), dim=0), lo), hi)
+    return xs

@@ -1,0 +1,170 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+``chip_smoke.py`` checks each kernel at the main path's shapes; these tests
+cover what it does not reach: ragged sizes, the squared-exponential field,
+the descent kernel's generic (d, q) instance, a failed LML factorization,
+and the wrappers' refusals on CUDA tensors.  They need a CUDA card (marker
+``cuda``) and skip without one.  On the card, without JAX installed:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
+
+Tolerances: covariance at rtol 2e-4 / atol 2e-5 against the float32 plain
+version (tests/test_pallas_kernels.py:26); the fused LML at rtol 5e-4
+against the plain version on the same inputs in float32 and in float64
+(tests/test_pallas_descent.py:168-171); descent endpoints against the
+float64 plain version, at most 1% of them more than 5e-5 of the domain
+width apart (tests/test_pallas_descent.py:64-65; the rest part where
+float32 rounding flips a clamped step).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cornell_moe_tpu_torch.models.mcmc import PAD_NOISE
+from cornell_moe_tpu_torch.ops import kernels
+
+pytestmark = pytest.mark.cuda
+KERNELS = ["matern_2.5", "square_exponential"]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda:0")
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+def _c(a, dev, dtype=torch.float32):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_covariance_kernel_matches_plain(dev, rng, kernel):
+    s, n, d = 3, 100, 3
+    points = _c(rng.random((n, d)), dev)
+    hypers = _c(np.concatenate([0.5 + rng.random((s, 1)),
+                                0.2 + rng.random((s, d))], axis=1), dev)
+    noise = np.full((s, n), 1e-2)
+    noise[:, 90:] = PAD_NOISE
+    noise = _c(noise, dev)
+    before = kernels.covariance_with_noise_launches
+    got = kernels.covariance_with_noise(points, hypers, noise, kernel)
+    ref = kernels.covariance_with_noise_plain(points, hypers, noise, kernel)
+    torch.cuda.synchronize()
+    assert kernels.covariance_with_noise_launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
+
+
+def _lml_inputs(rng, w, d, np_, n_real, lengths, noise_level):
+    x = rng.random((n_real, d))
+    us = np.empty((w, d, np_))
+    us[:, :, :n_real] = x.T[None] / lengths[:, :, None]
+    # padding columns at huge distinct offsets, as the log-posterior pads
+    us[:, :, n_real:] = 1e6 * (np.arange(np_ - n_real) + 1.0)
+    alpha = 0.5 + rng.random(w)
+    noise = np.full((w, np_), noise_level)
+    noise[:, n_real:] = PAD_NOISE
+    y = np.zeros((w, np_))
+    y[:, :n_real] = np.sin(3 * x[:, 0]) + x[:, -1]
+    return us, alpha, noise, y
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("np_", [100, 128, 384])
+def test_lml_kernel_matches_plain(dev, rng, kernel, np_):
+    w, d, n_real = 5, 3, np_ - 7
+    lengths = 0.3 + 0.4 * rng.random((w, d))
+    args = [_c(a, dev) for a in _lml_inputs(rng, w, d, np_, n_real,
+                                            lengths, 1e-2)]
+    before = kernels.lml_fused_launches
+    got = kernels.lml_fused(*args, n_real, kernel)
+    ref = kernels.lml_fused_plain(*args, n_real, kernel)
+    ref_64 = kernels.lml_fused_plain(*[a.double() for a in args], n_real,
+                                     kernel)
+    torch.cuda.synchronize()
+    assert kernels.lml_fused_launches == before + 1
+    for g, r, r64 in zip(got, ref, ref_64):
+        torch.testing.assert_close(g, r, rtol=5e-4, atol=0.0)
+        torch.testing.assert_close(g.double(), r64, rtol=5e-4, atol=0.0)
+
+
+def test_lml_kernel_failure_is_nan(dev, rng):
+    """A walker whose K is not positive definite gets NaN, as the plain
+    version's failed factorization does; the others are unaffected."""
+    w, d, np_ = 4, 2, 512
+    lengths = 0.3 + 0.4 * rng.random((w, d))
+    us, alpha, noise, y = _lml_inputs(rng, w, d, np_, 500, lengths, 1e-2)
+    noise[3, 0] = -10.0
+    args = [_c(a, dev) for a in (us, alpha, noise, y)]
+    got = kernels.lml_fused(*args, 500)
+    ref = kernels.lml_fused_plain(*args, 500)
+    for g, r in zip(got, ref):
+        assert torch.isnan(g[3]) and torch.isnan(r[3])
+        torch.testing.assert_close(g[:3], r[:3], rtol=5e-4, atol=0.0)
+
+
+def _descent_inputs(rng, s, b, d, q, m, np_):
+    lengths = 0.3 + 0.4 * rng.random((s, d))
+    ws = rng.random((s, np_, d)) / lengths[:, None, :]
+    wr = (1 + q) * (1 + d)
+    wt = 0.3 * rng.standard_normal((s, b, wr, np_))
+    beta = rng.standard_normal((s, b, q, m))
+    z = rng.standard_normal((q, m))
+    us = rng.random((s, b, q, d)) / lengths[:, None, None, :]
+    geom = np.stack([np.zeros((s, d)), 1.0 / lengths, 1.0 / lengths**2],
+                    axis=1)
+    xs0 = rng.random((s, b, d, m)) / lengths[:, None, :, None]
+    return (xs0, ws.transpose(0, 2, 1), wt, beta, z, us, geom), lengths
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("d,q,m,np_", [(3, 2, 50, 70), (2, 4, 40, 130)])
+@pytest.mark.parametrize("schedule", [(6, 2, 3), (1, 1, 0)],
+                         ids=["cold", "warm"])
+def test_descent_kernel_matches_float64_plain(dev, rng, kernel, d, q, m,
+                                              np_, schedule):
+    """(3, 2) runs the generic instance, (2, 4) the main path's."""
+    s, b = 2, 3
+    steps, restarts, avg_n = schedule
+    arrays, lengths = _descent_inputs(rng, s, b, d, q, m, np_)
+    tail = (kernel, steps, restarts, avg_n, 0.3, 1.0, 0.1)
+    before = kernels.descent_run_launches
+    got = kernels.descent_run(*[_c(a, dev) for a in arrays], *tail)
+    ref = kernels.descent_run_plain(
+        *[_c(a, dev, torch.float64) for a in arrays], *tail)
+    torch.cuda.synchronize()
+    assert kernels.descent_run_launches == before + 1
+    scale = torch.as_tensor(lengths, device=dev)[:, None, :, None]
+    err = ((got.double() - ref) * scale).abs()       # domain-width units
+    assert torch.isfinite(got).all()
+    assert float((err > 5e-5).double().mean()) <= 0.01, float(err.max())
+    hi = (1.0 / scale) * (1 + 1e-6)
+    assert bool(((got.double() >= 0) & (got.double() <= hi)).all())
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev, rng):
+    s, n, d = 2, 16, 2
+    points = _c(rng.random((n, d)), dev)
+    hypers = _c(np.ones((s, 1 + d)), dev)
+    noise = _c(np.full((s, n), 1e-2), dev)
+    counts = kernels.launch_counts()
+    with pytest.raises(TypeError):
+        kernels.covariance_with_noise(points.double(), hypers.double(),
+                                      noise.double())
+    with pytest.raises(ValueError):
+        kernels.covariance_with_noise(points.T.contiguous().T, hypers, noise)
+    with pytest.raises(RuntimeError):
+        kernels.covariance_with_noise(points.clone().requires_grad_(), hypers,
+                                      noise)
+    with pytest.raises(ValueError):
+        kernels.covariance_with_noise(points, hypers, noise[:, :-1])
+    with pytest.raises(ValueError):
+        kernels.lml_fused(points.T[None].contiguous(), hypers[:1, 0],
+                          noise[:1], noise[:1], n + 1)
+    assert kernels.launch_counts() == counts

@@ -1,0 +1,175 @@
+"""Parity of the port's MC q-EI (single, batched, ensemble, value+grad and
+the batched multistart) with the JAX package, in float64, with the same
+normals and starts passed to both.
+
+Tolerances: rtol 1e-10 / atol 1e-13 for estimator values and rtol 1e-9 /
+atol 1e-12 for gradients (tests/test_expected_improvement.py:297,317); the
+multistart endpoints at 1e-7 (same arithmetic, 10 GD steps).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cornell_moe_tpu.acquisition import expected_improvement as jei
+from cornell_moe_tpu.models import mcmc as jmcmc
+from cornell_moe_tpu.ops import optimizers as jopt
+from cornell_moe_tpu.ops.domains import RepeatedDomain as JRep
+from cornell_moe_tpu.ops.domains import TensorProductDomain as JDom
+from cornell_moe_tpu_torch.acquisition import expected_improvement as tei
+from cornell_moe_tpu_torch.models import mcmc as tmcmc
+from cornell_moe_tpu_torch.ops import optimizers as topt
+from cornell_moe_tpu_torch.ops.domains import RepeatedDomain as TRep
+from cornell_moe_tpu_torch.ops.domains import TensorProductDomain as TDom
+
+torch.set_num_threads(1)
+VAL = dict(rtol=1e-10, atol=1e-13)
+GRAD = dict(rtol=1e-9, atol=1e-12)
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a), dtype=torch.float64)
+
+
+@pytest.fixture
+def ensembles(rng):
+    x = rng.random((20, 2))
+    y = (np.sin(3 * x[:, 0]) + x[:, 1])[:, None]
+    hypers = np.concatenate([0.8 + rng.random((3, 1)),
+                             0.3 + 0.4 * rng.random((3, 2))], axis=1)
+    noises = np.full((3, 1), 1e-2)
+    j = jmcmc.fit_gp_ensemble("matern_2.5", jnp.asarray(hypers),
+                              jnp.asarray(noises), x, y)
+    t = tmcmc.fit_gp_ensemble("matern_2.5", _t(hypers), _t(noises), x, y)
+    return j, t
+
+
+def test_antithetic_normals_pairs():
+    z = tei.draw_antithetic_normals(torch.Generator().manual_seed(0), 7, 3)
+    assert z.shape == (7, 3)
+    torch.testing.assert_close(z[1::2], -z[0:6:2])
+
+
+def test_single_and_batch_estimators_match_jax(ensembles, rng):
+    j, t = ensembles
+    normals = rng.standard_normal((64, 3))
+    union = rng.random((3, 2))
+    member = jmcmc.ensemble_member(j, 1)
+    ref = jei.monte_carlo_expected_improvement(
+        member, jnp.asarray(union), None, 0.1, jnp.asarray(normals))
+    got = tei.monte_carlo_expected_improvement(
+        t.member(1), _t(union), None, 0.1, _t(normals))
+    np.testing.assert_allclose(float(got), float(ref), **VAL)
+
+    unions = rng.random((4, 3, 2))
+    ref_b = jei.monte_carlo_expected_improvement_batch(
+        member, jnp.asarray(unions), 0.1, jnp.asarray(normals))
+    got_b = tei.monte_carlo_expected_improvement_batch(
+        t.member(1), _t(unions), 0.1, _t(normals))
+    np.testing.assert_allclose(got_b.numpy(), np.asarray(ref_b), **VAL)
+
+
+def test_ensemble_value_and_grad_match_jax(ensembles, rng):
+    j, t = ensembles
+    normals = rng.standard_normal((64, 2))
+    pts = rng.random((5, 2, 2))
+    best = np.array([0.1, -0.2, 0.0])
+    v_j, g_j = jax.jit(
+        lambda p: jei.expected_improvement_mcmc_batch_value_and_grad(
+            j, p, None, jnp.asarray(best), jnp.asarray(normals)))(
+                jnp.asarray(pts))
+    v_t, g_t = tei.expected_improvement_mcmc_batch_value_and_grad(
+        t, _t(pts), None, _t(best), _t(normals))
+    np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j), **VAL)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), **GRAD)
+    single = tei.monte_carlo_expected_improvement_mcmc(
+        t, _t(pts[0]), None, _t(best), _t(normals))
+    np.testing.assert_allclose(float(single), float(v_t[0]), **VAL)
+
+
+def test_batched_multistart_matches_jax(ensembles, rng):
+    """The seeding q-EI multistart, gated, from the same starts."""
+    j, t = ensembles
+    normals = rng.standard_normal((32, 2))
+    starts = rng.random((6, 2, 2))
+    best = np.array([0.1, -0.2, 0.0])
+    params = dict(num_multistarts=6, max_num_steps=5, max_num_restarts=2,
+                  num_steps_averaged=2, gamma=0.7, pre_mult=1.0,
+                  max_relative_change=0.5)
+    jd = JRep(domain=JDom.from_bounds([[0.0, 1.0]] * 2), num_repeats=2)
+    td = TRep(domain=TDom.from_bounds([[0.0, 1.0]] * 2), num_repeats=2)
+
+    def bvg_j(p):
+        return jei.expected_improvement_mcmc_batch_value_and_grad(
+            j, p, None, jnp.asarray(best), jnp.asarray(normals))
+
+    def bvg_t(p):
+        return tei.expected_improvement_mcmc_batch_value_and_grad(
+            t, p, None, _t(best), _t(normals))
+
+    res_j = jopt.multistart_optimize_batched(
+        bvg_j, jd, jnp.asarray(starts), jopt.GradientDescentParameters(
+            **params), chunk_size=3, conv_tol=1e-3)
+    res_t = topt.multistart_optimize_batched(
+        bvg_t, td, _t(starts), topt.GradientDescentParameters(**params),
+        chunk_size=3, conv_tol=1e-3)
+    np.testing.assert_allclose(res_t.all_points.numpy(),
+                               np.asarray(res_j.all_points), rtol=1e-7,
+                               atol=1e-9)
+    np.testing.assert_allclose(res_t.best_point.numpy(),
+                               np.asarray(res_j.best_point), rtol=1e-7)
+
+
+@pytest.mark.parametrize("conv_tol", [None, 1e-3])
+def test_per_start_multistart_matches_jax(ensembles, rng, conv_tol):
+    """Per-start multistart (each start its own trajectory and gate) on the
+    ensemble-mean q-EI of one point, from the same starts."""
+    j, t = ensembles
+    normals = rng.standard_normal((16, 1))
+    starts = rng.random((4, 1, 2))
+    best = np.array([0.1, -0.2, 0.0])
+    params = dict(num_multistarts=4, max_num_steps=6, max_num_restarts=2,
+                  num_steps_averaged=3, gamma=0.7, pre_mult=1.0,
+                  max_relative_change=0.5)
+    jd = JRep(domain=JDom.from_bounds([[0.0, 1.0]] * 2), num_repeats=1)
+    td = TRep(domain=TDom.from_bounds([[0.0, 1.0]] * 2), num_repeats=1)
+
+    def vg_j(p):
+        return jax.value_and_grad(
+            lambda pp: jei.monte_carlo_expected_improvement_mcmc(
+                j, pp, None, jnp.asarray(best), jnp.asarray(normals)))(p)
+
+    def vg_t(p):
+        with torch.enable_grad():
+            pp = p.detach().requires_grad_(True)
+            v = tei.monte_carlo_expected_improvement_mcmc(
+                t, pp, None, _t(best), _t(normals))
+            (g,) = torch.autograd.grad(v, pp)
+        return v.detach(), g
+
+    res_j = jopt.multistart_optimize(
+        vg_j, jd, jnp.asarray(starts), jopt.GradientDescentParameters(
+            **params), conv_tol=conv_tol)
+    res_t = topt.multistart_optimize(
+        vg_t, td, _t(starts), topt.GradientDescentParameters(**params),
+        conv_tol=conv_tol)
+    np.testing.assert_allclose(res_t.all_points.numpy(),
+                               np.asarray(res_j.all_points), rtol=1e-7,
+                               atol=1e-9)
+    np.testing.assert_allclose(res_t.all_values.numpy(),
+                               np.asarray(res_j.all_values), rtol=1e-7,
+                               atol=1e-12)
+
+
+def test_multistart_entry_point_runs(ensembles):
+    _, t = ensembles
+    dom = TDom.from_bounds([[0.0, 1.0]] * 2)
+    pts = tei.multistart_expected_improvement_mcmc_optimization(
+        torch.Generator().manual_seed(0), t, dom, 3,
+        topt.GradientDescentParameters(num_multistarts=4, max_num_steps=3,
+                                       num_steps_averaged=2),
+        num_mc_iterations=16, conv_tol=1e-3)
+    assert pts.shape == (3, 2)
+    assert bool(dom.check_point_inside(pts).all())
