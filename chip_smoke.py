@@ -9,10 +9,14 @@ It builds the CUDA kernels of ``cornell_moe_tpu_torch`` from ``csrc/``,
 drives one q-KG iteration of ``BayesianOptimizer`` at the main path's size
 (Branin, 500 observations, 16-member ensemble, q = 4, 200 multistarts,
 128 MC draws, float32 on ``cuda:0``), checks that each kernel of that path
-launched during the run, holds each kernel against its plain PyTorch
-version at the main path's shapes, and checks the port against its own
-float64 CPU path on a small input.  Every phase prints one JSON line; the
-kernels' summary is one JSON line; the last line is
+launched during the run, and holds each kernel against its plain PyTorch
+version at the main path's shapes.  Then it drives the per-step route of
+the KG inner descent (one ``descent_grad`` launch per GD step, the steps
+taken by ``gradient_ascent_batch``), which the main path does not take,
+at the main path's shapes, checks that it went through its kernel, and
+holds it against the float64 descent.  Last, it checks the port against
+its own float64 CPU path on a small input.  Every phase prints one JSON
+line; the kernels' summary is one JSON line; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -37,11 +41,16 @@ PALLAS = "cornell_moe_tpu/ops/pallas_kernels.py"
 KERNELS = {
     "descent_run": ("cornell_moe_tpu_torch/csrc/descent_run.cu",
                     f"{PALLAS}:495"),
+    "descent_grad": ("cornell_moe_tpu_torch/csrc/descent_grad.cu",
+                     f"{PALLAS}:538"),
     "lml_fused": ("cornell_moe_tpu_torch/csrc/lml_fused.cu", f"{PALLAS}:271"),
     "covariance_with_noise": (
         "cornell_moe_tpu_torch/csrc/covariance_with_noise.cu",
         f"{PALLAS}:88"),
 }
+# the kernels the main path launches (descent_grad serves the per-step
+# route, driven by its own phase)
+MAIN_PATH_KERNELS = ("descent_run", "lml_fused", "covariance_with_noise")
 
 # Main-path size, and the card it runs on
 NUM_OBS, Q, N_HYPERS, NUM_MC, MULTISTARTS = 500, 4, 16, 128, 200
@@ -118,9 +127,18 @@ def phase_main(torch):
           f"recommended point {r} outside the domain")
     check(bool(torch.isfinite(states.chol_K).all()),
           "an ensemble member's chol_K is non-finite")
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} was not launched on the main path")
+    for name in MAIN_PATH_KERNELS:
+        check(counts[name] > 0,
+              f"kernel {name} was not launched on the main path")
     return bo, counts
+
+
+def kernel_row(name, launches, err, ms, plain_ms) -> dict:
+    """One row of the kernels' summary line."""
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
 def _time_ms(torch, fn, reps: int) -> float:
@@ -138,9 +156,10 @@ def _time_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def phase_equivalence(torch, model, counts) -> list:
-    """Each kernel against its plain version on the card, in float32, at
-    the main path's shapes.  Returns the kernels' summary rows."""
+def phase_equivalence(torch, model, counts):
+    """Each kernel of the main path against its plain version on the card,
+    in float32, at the main path's shapes.  Returns the kernels' summary
+    rows and the descent problems, [(label, problem)]."""
     from cornell_moe_tpu_torch.ops import kernels
     from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
 
@@ -151,10 +170,7 @@ def phase_equivalence(torch, model, counts) -> list:
     rows = []
 
     def row(name, err, ms, plain_ms):
-        source, replaces = KERNELS[name]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": counts[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        rows.append(kernel_row(name, counts[name], err, ms, plain_ms))
 
     # --- C: covariance + noise, S = 16, n = 512 ------------------------------
     h = states.covariance.hyperparameters.contiguous()
@@ -268,16 +284,17 @@ def phase_equivalence(torch, model, counts) -> list:
     # 409,600 endpoints' deviation (in domain-width units) it must be within
     # 5e-5 (tests/test_pallas_descent.py:64-65) or within 1.5x the float32
     # plain version's own deviation.
-    desc_errs, times = [], None
+    desc_errs, times, problems = [], None, []
     for label, st, box in (("bench_suggest_problem",
                             bench_suggest_states(torch), "unit"),
                            ("main_path_ensemble", states, "branin")):
         bdom = kg_domain(dev, torch.float32) if box == "branin" else \
             TensorProductDomain.from_bounds([[0.0, 1.0]] * 2, device=dev,
                                             dtype=torch.float32)
+        pb = _descent_problem(torch, st, bdom, g)
+        problems.append((label, pb))
         for params_label, err, k64, p64, k32, t in _descent_case(
-                torch, st, bdom, g, model.kernel_name,
-                time_it=times is None):
+                torch, pb, model.kernel_name, time_it=times is None):
             ok = all(k64[q] <= max(5e-5, 1.5 * p64[q]) for q in k64)
             emit({"phase": "equivalence", "kernel": "descent_run",
                   "state": label, "params": params_label,
@@ -292,7 +309,7 @@ def phase_equivalence(torch, model, counts) -> list:
             desc_errs.append(err)
             times = t or times
     row("descent_run", max(desc_errs), *times)
-    return rows
+    return rows, problems
 
 
 def _finite_or_none(t):
@@ -310,16 +327,17 @@ def _quantiles(torch, d):
             "max": d.max().item()}
 
 
-def _descent_case(torch, states, dom, g, kernel_name, time_it):
-    """Kernel, plain float32 and plain float64 descents at the main path's
-    shapes, cold and warm parameters.  Yields (params, max abs err kernel
-    vs plain f32, quantiles kernel vs f64, plain f32 vs f64, kernel vs
-    plain f32, (kernel ms, plain ms) or None)."""
+def _descent_problem(torch, states, dom, g) -> dict:
+    """The KG inner descent's operands at the main path's shapes (S
+    members, B = 200 unions, q = 4, M = 128 draws, d = 2) for one ensemble:
+    random unions, antithetic normals, the fantasy model's v and betas,
+    random starts x0 (S, B, M, d) in the domain and the kernels' packed
+    operands in scaled coordinates."""
     from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
     from cornell_moe_tpu_torch.acquisition.expected_improvement import (
         draw_antithetic_normals)
     from cornell_moe_tpu_torch.bayes_opt import DEFAULT_SGD_PARAMS_PS
-    from cornell_moe_tpu_torch.ops import kernels, linalg
+    from cornell_moe_tpu_torch.ops import linalg
 
     f32 = dict(device=dom.bounds.device, dtype=torch.float32)
     s = states.chol_K.shape[0]
@@ -332,34 +350,55 @@ def _descent_case(torch, states, dom, g, kernel_name, time_it):
         trans=True).transpose(-1, -2)
     x0 = dom.generate_uniform_random_points_in_domain(
         g, s * MULTISTARTS * NUM_MC).reshape(s, MULTISTARTS, NUM_MC, 2)
-    ops = kg._pack_descent_inputs(states, unions, v.detach(),
-                                  betas.detach(), normals)
+    v, betas = v.detach(), betas.detach()
     lengths = states.covariance.lengths.double()
-    geom = torch.stack([dom.lower / lengths, dom.upper / lengths,
-                        1.0 / lengths**2], dim=1).float().contiguous()
-    xs0 = (x0 / lengths[:, None, None, :]).transpose(-1, -2).float(
-    ).contiguous()
-    width = (dom.upper - dom.lower).double()
+    warm = kg.dataclasses.replace(DEFAULT_SGD_PARAMS_PS, max_num_steps=1,
+                                  max_num_restarts=1, num_steps_averaged=0)
+    return {
+        "states": states, "dom": dom, "unions": unions, "normals": normals,
+        "v": v, "betas": betas, "x0": x0, "lengths": lengths,
+        "ops": kg._pack_descent_inputs(states, unions, v, betas, normals),
+        "geom": torch.stack([dom.lower / lengths, dom.upper / lengths,
+                             1.0 / lengths**2], dim=1).float().contiguous(),
+        "xs0": (x0 / lengths[:, None, None, :]).transpose(-1, -2).float(
+        ).contiguous(),
+        "width": (dom.upper - dom.lower).double(),
+        "params": (("cold", DEFAULT_SGD_PARAMS_PS), ("warm", warm)),
+        "endpoints": {}}
+
+
+def _descent_case(torch, pb, kernel_name, time_it):
+    """Kernel A, plain float32 and plain float64 descents on one descent
+    problem, cold and warm parameters.  Keeps each one's endpoints (S, B,
+    M, d), in domain-width units, in pb["endpoints"][params], and the
+    timed cold call's arguments in pb["descent_run_cold"].  Yields
+    (params, max abs err kernel vs plain f32, quantiles kernel vs f64,
+    plain f32 vs f64, kernel vs plain f32, (kernel ms, plain ms) or
+    None)."""
+    from cornell_moe_tpu_torch.ops import kernels
+
+    lengths, width = pb["lengths"], pb["width"]
 
     def to_unit(xs):
         return xs.double().transpose(-1, -2) * lengths[:, None, None, :] / \
             width
 
-    warm = kg.dataclasses.replace(DEFAULT_SGD_PARAMS_PS, max_num_steps=1,
-                                  max_num_restarts=1, num_steps_averaged=0)
-    for label, params in (("cold", DEFAULT_SGD_PARAMS_PS), ("warm", warm)):
+    for label, params in pb["params"]:
         steps = params.max_num_steps
         avg_n = params.num_steps_averaged if \
             0 < params.num_steps_averaged <= steps else 0
         tail = (kernel_name, steps, params.max_num_restarts, avg_n,
                 params.gamma, params.pre_mult, params.max_relative_change)
-        dargs = (xs0, *ops, geom, *tail)
+        dargs = (pb["xs0"], *pb["ops"], pb["geom"], *tail)
         k = to_unit(kernels.descent_run(*dargs))
         p32 = to_unit(kernels.descent_run_plain(*dargs))
         p64 = to_unit(kernels.descent_run_plain(
-            *[a.double() for a in (xs0, *ops, geom)], *tail))
+            *[a.double() for a in (pb["xs0"], *pb["ops"], pb["geom"])],
+            *tail))
+        pb["endpoints"][label] = (k, p32, p64)
         t = None
         if time_it and label == "cold":
+            pb["descent_run_cold"] = dargs
             t = (_time_ms(torch, lambda: kernels.descent_run(*dargs), 5),
                  _time_ms(torch, lambda: kernels.descent_run_plain(*dargs),
                           5))
@@ -367,6 +406,122 @@ def _descent_case(torch, states, dom, g, kernel_name, time_it):
         yield (label, err, _quantiles(torch, (k - p64).abs()),
                _quantiles(torch, (p32 - p64).abs()),
                _quantiles(torch, (k - p32).abs()), t)
+
+
+def phase_descent_grad(torch, kernel_name, problems) -> dict:
+    """Kernel D and the per-step route it serves (``_descent_grad_bvg``
+    driven by ``optimizers.gradient_ascent_batch``) on the descent problems
+    of phase_equivalence.  Returns D's summary row.
+
+    (a) One direction at the starts against the float64 plain version: no
+    further than 2e-5 max(max|g|, 1) (tests/test_pallas_descent.py:48) or
+    1.5x the float32 plain version's own deviation; and against the float32
+    plain version within that bound wherever the float32 plain version is
+    itself within it of float64.  (g = x s0 - sx cancels: with |x s0| near
+    180 at |g| near 8, the plain version's float32 sums land 1.8e-4 from
+    float64 on a slice of the bench's problem, above the bound of 1.6e-4.)
+    (b) The route, cold and warm, against the float64 descent by A's
+    per-quantile rule.  (c) Each route run launches
+    D steps x restarts times and no other kernel.  (d) Times: D and its
+    plain version per launch, the whole route against one descent_run
+    launch (CUDA events, median of 20 after a warm-up)."""
+    from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
+    from cornell_moe_tpu_torch.ops import kernels, optimizers
+
+    errs, launches, times = [], 0, None
+    for label, pb in problems:
+        xs0, ops = pb["xs0"], pb["ops"]
+        got = kernels.descent_grad(xs0, *ops, kernel_name)
+        p32 = kernels.descent_grad_plain(xs0, *ops, kernel_name)
+        p64 = kernels.descent_grad_plain(
+            *[a.double() for a in (xs0, *ops)], kernel_name)
+        # compared where the float64 direction is finite; where it is not,
+        # the operands are (a fantasy factor that float32 could not form),
+        # and the kernel must be non-finite there too
+        fin = torch.isfinite(p64)
+        both = fin & torch.isfinite(p32)
+        g_max = _finite_or_none(p64[fin].abs())
+        bound = 2e-5 * max(g_max or 0.0, 1.0)
+        err = (got - p32)[both].abs().max().item()
+        dev_k = _finite_or_none((got.double() - p64)[fin].abs())
+        dev_p = (p32.double() - p64)[both].abs().max().item()
+        ok = g_max is not None and dev_k is not None and \
+            bool((torch.isfinite(got) == fin).all()) and \
+            dev_k <= max(bound, 1.5 * dev_p) and (err <= bound or
+                                                  dev_p > bound)
+        emit({"phase": "equivalence", "kernel": "descent_grad",
+              "check": "direction", "state": label,
+              "shape": list(got.shape),
+              "nonfinite": {"kernel": int((~torch.isfinite(got)).sum()),
+                            "plain_f32": int((~torch.isfinite(p32)).sum()),
+                            "plain_f64": int((~fin).sum())},
+              "nonfinite_operands": {
+                  n: int((~torch.isfinite(a)).sum()) for n, a in
+                  zip(("xs", "ws", "wt", "beta", "z", "us"), (xs0, *ops))},
+              "max_abs_g": g_max,
+              "max_abs_err": err, "kernel_vs_plain_f64": dev_k,
+              "plain_f32_vs_f64": dev_p,
+              "bound": bound,
+              "tolerance": "vs f64 <= max(bound, 1.5 x plain f32 vs f64); "
+                           "vs plain f32 <= bound where plain f32 vs f64 <= "
+                           "bound; bound = 2e-5 max(max|g|, 1)", "ok": ok})
+        check(ok, f"descent_grad ({label}) disagrees with its plain version")
+        errs.append(err)
+        del got, p32, p64
+        if times is None:
+            times = (_time_ms(torch, lambda: kernels.descent_grad(
+                         xs0, *ops, kernel_name), 20),
+                     _time_ms(torch, lambda: kernels.descent_grad_plain(
+                         xs0, *ops, kernel_name), 20))
+            emit({"phase": "descent_grad_timing", "state": label,
+                  "kernel_ms": times[0], "plain_ms": times[1],
+                  "timing": "CUDA events, median of 20 after a warm-up"})
+
+        for params_label, params in pb["params"]:
+            bvg = kg._descent_grad_bvg(pb["states"], pb["unions"], pb["v"],
+                                       pb["betas"], pb["normals"],
+                                       kernel_name)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            x = optimizers.gradient_ascent_batch(bvg, pb["dom"], pb["x0"],
+                                                 params)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            expected = params.max_num_steps * max(params.max_num_restarts, 1)
+            route = x.double() / pb["width"]
+            k_a, p32e, p64e = pb["endpoints"][params_label]
+            r64 = _quantiles(torch, (route - p64e).abs())
+            pp64 = _quantiles(torch, (p32e - p64e).abs())
+            launched_ok = counts["descent_grad"] == expected > 0 and \
+                all(c == 0 for n, c in counts.items() if n != "descent_grad")
+            ok = launched_ok and all(r64[k] <= max(5e-5, 1.5 * pp64[k])
+                                     for k in r64)
+            emit({"phase": "equivalence", "kernel": "descent_grad",
+                  "check": "route", "state": label, "params": params_label,
+                  "shape": list(x.shape), "launches": counts,
+                  "expected_launches": expected,
+                  "route_vs_plain_f64": r64, "plain_f32_vs_f64": pp64,
+                  "route_vs_descent_run": _quantiles(torch,
+                                                     (route - k_a).abs()),
+                  "tolerance": "per quantile, route vs f64 <= max(5e-5, "
+                               "1.5 x plain f32 vs f64), domain-width units",
+                  "ok": ok})
+            check(launched_ok, f"the route ({label}, {params_label}) did not "
+                               "launch descent_grad steps x restarts times")
+            check(ok, f"the descent_grad route ({label}, {params_label}) is "
+                      "less accurate than the plain float32 descent")
+            launches += counts["descent_grad"]
+            if "descent_run_cold" in pb and params_label == "cold":
+                emit({"phase": "descent_grad_route_timing", "state": label,
+                      "params": params_label,
+                      "route_ms": _time_ms(
+                          torch, lambda: optimizers.gradient_ascent_batch(
+                              bvg, pb["dom"], pb["x0"], params), 20),
+                      "descent_run_ms": _time_ms(
+                          torch, lambda: kernels.descent_run(
+                              *pb["descent_run_cold"]), 20),
+                      "timing": "CUDA events, median of 20 after a warm-up"})
+    return kernel_row("descent_grad", launches, max(errs), *times)
 
 
 def bench_problem_data():
@@ -510,7 +665,8 @@ def main() -> int:
     provenance(torch)
     phase_build()
     bo, counts = phase_main(torch)
-    summary = phase_equivalence(torch, bo.model, counts)
+    summary, problems = phase_equivalence(torch, bo.model, counts)
+    summary.append(phase_descent_grad(torch, bo.model.kernel_name, problems))
     phase_small_reference(torch)
     check("jax" not in sys.modules and "cornell_moe_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")

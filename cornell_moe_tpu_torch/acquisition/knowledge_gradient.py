@@ -22,7 +22,11 @@ Semantics (minimization):
 Dispatch rule of the inner descent: CUDA + float32 runs the whole descent in
 the hand-written kernel ``ops.kernels.descent_run``; float64 or CPU tensors
 take the analytic moment gradient (:func:`_make_descent_grad_fn`) driven by
-``optimizers.gradient_ascent_batch``.
+``optimizers.gradient_ascent_batch``.  The per-step route
+(:func:`_descent_grad_bvg`: one ``ops.kernels.descent_grad`` launch per GD
+step, the steps taken by ``gradient_ascent_batch``) is the counterpart of
+the JAX package's ``_pallas_descent_bvg``; as there, the dispatch never
+selects it, and only its callers (the tests, ``chip_smoke.py``) reach it.
 """
 
 from __future__ import annotations
@@ -233,6 +237,23 @@ def _descent_full(state: GaussianProcessState, unions_f, v_f, betas_f,
         pre_mult=float(params.pre_mult),
         mrc=float(params.max_relative_change))
     return (xs.transpose(-1, -2) * lengths[:, None, None, :]).to(x0.dtype)
+
+
+def _descent_grad_bvg(state: GaussianProcessState, unions_f, v_f, betas_f,
+                      normals, kernel_name: str):
+    """The inner descent's bvg through ``kernels.descent_grad``: x (S, B,
+    M, d) -> (zeros (S, B, M), ascent direction of -mu' (S, B, M, d)), for
+    ``optimizers.gradient_ascent_batch``.  One kernel launch per call."""
+    lengths = state.covariance.lengths[:, None, None, :]    # (S,1,1,d)
+    ops = _pack_descent_inputs(state, unions_f, v_f, betas_f, normals)
+
+    def bvg(x):
+        xs = (x / lengths).transpose(-1, -2).to(torch.float32).contiguous()
+        g_sc = kernels.descent_grad(xs, *ops, kernel_name)
+        g = g_sc.transpose(-1, -2).to(x.dtype) / lengths
+        return torch.zeros(x.shape[:3], dtype=x.dtype, device=x.device), g
+
+    return bvg
 
 
 def _make_descent_grad_fn(state: GaussianProcessState, unions_f, v_f,

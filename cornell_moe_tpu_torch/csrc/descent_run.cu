@@ -22,13 +22,11 @@
 //   running sums and its Polyak sum in registers and runs every step and
 //   restart without synchronizing.  The contraction is full f32 FMA.  The
 //   (d, q) = (2, 4) instance has compile-time loop bounds; other shapes use
-//   the generic instance (d <= 8, q <= 16, Wr <= 64).  Any M and Np.
+//   the generic instance (d <= 8, q <= 16, Wr <= 64).  Any M and Np.  The
+//   staging and the field gradient live in field_grad.cuh, shared with
+//   descent_grad.cu (one direction per launch).
 
-#include "common.cuh"
-
-#define DESC_MAXD 8
-#define DESC_MAXQ 16
-#define DESC_MAXW 64
+#include "field_grad.cuh"
 
 template <int DT, int QT>
 __global__ void cmoe_descent_run_kernel(
@@ -38,25 +36,19 @@ __global__ void cmoe_descent_run_kernel(
     const float* __restrict__ geom, float* __restrict__ out, int B, int d_rt,
     int M, int Np, int q_rt, int steps, int restarts, int avg_n, float gamma,
     float pre_mult, float mrc, int kernel) {
-  constexpr int DA = DT > 0 ? DT : DESC_MAXD;
-  constexpr int QA = QT > 0 ? QT : DESC_MAXQ;
-  constexpr int WA = (QA + 1) * (DA + 1) < DESC_MAXW ? (QA + 1) * (DA + 1)
-                                                      : DESC_MAXW;
+  constexpr int DA = DescDims<DT, QT>::D;
+  constexpr int QA = DescDims<DT, QT>::Q;
+  constexpr int WA = DescDims<DT, QT>::W;
   const int d = DT > 0 ? DT : d_rt;
   const int q = QT > 0 ? QT : q_rt;
   const int wr = (1 + q) * (1 + d);
 
   extern __shared__ float smem[];
-  float* sws = smem;             // (d, Np)
-  float* swt = smem + d * Np;    // (Wr, Np)
-
   const int sb = blockIdx.x;     // s * B + b
   const int s = sb / B;
-  const float* wsg = ws + (size_t)s * d * Np;
-  const float* wtg = wt + (size_t)sb * wr * Np;
-  for (int i = threadIdx.x; i < d * Np; i += blockDim.x) sws[i] = wsg[i];
-  for (int i = threadIdx.x; i < wr * Np; i += blockDim.x) swt[i] = wtg[i];
-  __syncthreads();
+  cmoe_stage_field(smem, ws, wt, s, sb, d, wr, Np);
+  const float* sws = smem;             // (d, Np)
+  const float* swt = smem + d * Np;    // (Wr, Np)
 
   float lo[DA], hi[DA], il2[DA], uq[QA * DA];
   const float* gs = geom + (size_t)s * 3 * d;
@@ -68,23 +60,11 @@ __global__ void cmoe_descent_run_kernel(
       il2[dd] = gs[2 * d + dd];
     }
   }
-  const float* ub = us + (size_t)sb * q * d;
-#pragma unroll
-  for (int e = 0; e < QA * DA; ++e)
-    if (e < q * d) uq[e] = ub[e];
+  cmoe_load_union<DA, QA>(us, sb, d, q, uq);
 
   for (int m = threadIdx.x; m < M; m += blockDim.x) {
     float x[DA], bz[QA], zz[QA];
-#pragma unroll
-    for (int dd = 0; dd < DA; ++dd)
-      if (dd < d) x[dd] = xs0[((size_t)sb * d + dd) * M + m];
-#pragma unroll
-    for (int j = 0; j < QA; ++j) {
-      if (j < q) {
-        bz[j] = beta[((size_t)sb * q + j) * M + m];
-        zz[j] = z[(size_t)j * M + m];
-      }
-    }
+    cmoe_load_draw<DA, QA>(xs0, beta, z, sb, d, q, M, m, x, bz, zz);
 
     for (int rnd = 0; rnd < restarts; ++rnd) {
       float xsum[DA];
@@ -92,58 +72,9 @@ __global__ void cmoe_descent_run_kernel(
       for (int dd = 0; dd < DA; ++dd) xsum[dd] = 0.0f;
       int nsum = 0;
       for (int i = 0; i < steps; ++i) {
-        // moment contraction a = W phi over the training points
-        float a[WA];
-#pragma unroll
-        for (int w = 0; w < WA; ++w) a[w] = 0.0f;
-        for (int n = 0; n < Np; ++n) {
-          float s2 = 0.0f;
-#pragma unroll
-          for (int dd = 0; dd < DA; ++dd) {
-            if (dd < d) {
-              const float diff = sws[dd * Np + n] - x[dd];
-              s2 = fmaf(diff, diff, s2);
-            }
-          }
-          const float phi = cmoe_unit_p(s2, kernel);
-#pragma unroll
-          for (int w = 0; w < WA; ++w)
-            if (w < wr) a[w] = fmaf(swt[w * Np + n], phi, a[w]);
-        }
-        // contract the draw's normals: w_eff = K^-1 y - V z
-        float s0 = a[0];
-#pragma unroll
-        for (int j = 0; j < QA; ++j)
-          if (j < q) s0 -= a[1 + j] * zz[j];
         float g[DA];
-#pragma unroll
-        for (int dd = 0; dd < DA; ++dd) {
-          if (dd < d) {
-            float sx = a[1 + q + dd];
-#pragma unroll
-            for (int j = 0; j < QA; ++j)
-              if (j < q) sx -= a[1 + q + (j + 1) * d + dd] * zz[j];
-            g[dd] = x[dd] * s0 - sx;
-          }
-        }
-        // union term
-#pragma unroll
-        for (int j = 0; j < QA; ++j) {
-          if (j < q) {
-            float su = 0.0f;
-#pragma unroll
-            for (int dd = 0; dd < DA; ++dd) {
-              if (dd < d) {
-                const float du = x[dd] - uq[j * d + dd];
-                su += du * du;
-              }
-            }
-            const float pb = cmoe_unit_p(su, kernel) * bz[j];
-#pragma unroll
-            for (int dd = 0; dd < DA; ++dd)
-              if (dd < d) g[dd] += pb * (x[dd] - uq[j * d + dd]);
-          }
-        }
+        cmoe_field_grad<DA, QA, WA>(x, sws, swt, Np, d, q, wr, bz, zz, uq,
+                                    kernel, g);
         // LimitUpdate-clamped step
         const float rate = pre_mult * powf((float)(i + 1), -gamma);
 #pragma unroll
@@ -192,15 +123,10 @@ static int launch_descent(const float* xs0, const float* ws, const float* wt,
                           float pre_mult, float mrc, int kernel,
                           cudaStream_t stream) {
   const size_t smem = (size_t)(d + wr) * Np * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cmoe_descent_run_kernel<DT, QT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int threads = ((M + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  cmoe_descent_run_kernel<DT, QT><<<S * B, threads, smem, stream>>>(
+  const int err = cmoe_field_smem(cmoe_descent_run_kernel<DT, QT>, smem);
+  if (err != (int)cudaSuccess) return err;
+  cmoe_descent_run_kernel<DT, QT><<<S * B, cmoe_field_threads(M), smem,
+                                    stream>>>(
       xs0, ws, wt, beta, z, us, geom, out, B, d, M, Np, q, steps, restarts,
       avg_n, gamma, pre_mult, mrc, kernel);
   return (int)cudaGetLastError();

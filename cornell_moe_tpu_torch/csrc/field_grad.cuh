@@ -1,0 +1,148 @@
+// The KG inner descent's field gradient, shared by descent_run.cu (the whole
+// descent) and descent_grad.cu (one direction per launch), as _field_grad is
+// shared by the two Pallas kernels of cornell_moe_tpu/ops/pallas_kernels.py.
+//
+// Layouts (one ensemble member s, one union b; sb = s * B + b):
+//   ws (S, d, Np) scaled training points; wt (S, B, Wr, Np) moment weights
+//   c [K^-1 y | V | (those) * ws_dd], Wr = (1 + q)(1 + d); us (S, B, q, d)
+//   scaled union points; per draw: beta (S, B, q, M), z (q, M).
+#pragma once
+
+#include "common.cuh"
+
+#define DESC_MAXD 8
+#define DESC_MAXQ 16
+#define DESC_MAXW 64
+
+// Register array bounds of an instance: compile-time (d, q) = (DT, QT), or
+// the generic instance's maxima when DT = QT = 0.
+template <int DT, int QT>
+struct DescDims {
+  static constexpr int D = DT > 0 ? DT : DESC_MAXD;
+  static constexpr int Q = QT > 0 ? QT : DESC_MAXQ;
+  static constexpr int W = (Q + 1) * (D + 1) < DESC_MAXW ? (Q + 1) * (D + 1)
+                                                         : DESC_MAXW;
+};
+
+// Copy member s's ws and union sb's W rows into shared memory:
+// (d + Wr) Np floats, ws first.  Ends with a block barrier.
+__device__ __forceinline__ void cmoe_stage_field(
+    float* smem, const float* __restrict__ ws, const float* __restrict__ wt,
+    int s, int sb, int d, int wr, int Np) {
+  const float* wsg = ws + (size_t)s * d * Np;
+  const float* wtg = wt + (size_t)sb * wr * Np;
+  float* swt = smem + d * Np;
+  for (int i = threadIdx.x; i < d * Np; i += blockDim.x) smem[i] = wsg[i];
+  for (int i = threadIdx.x; i < wr * Np; i += blockDim.x) swt[i] = wtg[i];
+  __syncthreads();
+}
+
+// Union sb's scaled points into uq (q, d).
+template <int DA, int QA>
+__device__ __forceinline__ void cmoe_load_union(const float* __restrict__ us,
+                                                int sb, int d, int q,
+                                                float* uq) {
+  const float* ub = us + (size_t)sb * q * d;
+#pragma unroll
+  for (int e = 0; e < QA * DA; ++e)
+    if (e < q * d) uq[e] = ub[e];
+}
+
+// Draw m of union sb: its scaled point x (from xs (S, B, d, M)), its betas
+// and its normals.
+template <int DA, int QA>
+__device__ __forceinline__ void cmoe_load_draw(
+    const float* __restrict__ xs, const float* __restrict__ beta,
+    const float* __restrict__ z, int sb, int d, int q, int M, int m,
+    float* x, float* bz, float* zz) {
+#pragma unroll
+  for (int dd = 0; dd < DA; ++dd)
+    if (dd < d) x[dd] = xs[((size_t)sb * d + dd) * M + m];
+#pragma unroll
+  for (int j = 0; j < QA; ++j) {
+    if (j < q) {
+      bz[j] = beta[((size_t)sb * q + j) * M + m];
+      zz[j] = z[(size_t)j * M + m];
+    }
+  }
+}
+
+// Ascent direction g of -mu' at one draw's scaled point x (d):
+//   a = W phi, phi_n = P(|ws_n - x|^2) over the Np staged training points,
+//   g = x s0 - sx + sum_j beta_j P(|x - u_j|^2) (x - u_j),
+// with s0, sx the draw's normals zz contracted into a.  sws, swt are the
+// staged ws (d, Np) and W (Wr, Np); bz, zz the draw's beta and normals;
+// uq (q, d) the scaled union points.  Full f32 FMA.
+template <int DA, int QA, int WA>
+__device__ __forceinline__ void cmoe_field_grad(
+    const float* x, const float* sws, const float* swt, int Np, int d, int q,
+    int wr, const float* bz, const float* zz, const float* uq, int kernel,
+    float* g) {
+  // moment contraction a = W phi over the training points
+  float a[WA];
+#pragma unroll
+  for (int w = 0; w < WA; ++w) a[w] = 0.0f;
+  for (int n = 0; n < Np; ++n) {
+    float s2 = 0.0f;
+#pragma unroll
+    for (int dd = 0; dd < DA; ++dd) {
+      if (dd < d) {
+        const float diff = sws[dd * Np + n] - x[dd];
+        s2 = fmaf(diff, diff, s2);
+      }
+    }
+    const float phi = cmoe_unit_p(s2, kernel);
+#pragma unroll
+    for (int w = 0; w < WA; ++w)
+      if (w < wr) a[w] = fmaf(swt[w * Np + n], phi, a[w]);
+  }
+  // contract the draw's normals: w_eff = K^-1 y - V z
+  float s0 = a[0];
+#pragma unroll
+  for (int j = 0; j < QA; ++j)
+    if (j < q) s0 -= a[1 + j] * zz[j];
+#pragma unroll
+  for (int dd = 0; dd < DA; ++dd) {
+    if (dd < d) {
+      float sx = a[1 + q + dd];
+#pragma unroll
+      for (int j = 0; j < QA; ++j)
+        if (j < q) sx -= a[1 + q + (j + 1) * d + dd] * zz[j];
+      g[dd] = x[dd] * s0 - sx;
+    }
+  }
+  // union term
+#pragma unroll
+  for (int j = 0; j < QA; ++j) {
+    if (j < q) {
+      float su = 0.0f;
+#pragma unroll
+      for (int dd = 0; dd < DA; ++dd) {
+        if (dd < d) {
+          const float du = x[dd] - uq[j * d + dd];
+          su += du * du;
+        }
+      }
+      const float pb = cmoe_unit_p(su, kernel) * bz[j];
+#pragma unroll
+      for (int dd = 0; dd < DA; ++dd)
+        if (dd < d) g[dd] += pb * (x[dd] - uq[j * d + dd]);
+    }
+  }
+}
+
+// Raise the block's dynamic shared-memory limit where (d + Wr) Np floats
+// exceed the default 48 KB; returns a cudaError_t.
+template <typename Kernel>
+static int cmoe_field_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return (int)cudaSuccess;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Threads of a block: one per draw, a multiple of 32, at most 256 (a block
+// loops over the draws beyond that).
+static inline int cmoe_field_threads(int M) {
+  const int threads = ((M + 31) / 32) * 32;
+  return threads > 256 ? 256 : threads;
+}

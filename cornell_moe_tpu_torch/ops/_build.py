@@ -1,6 +1,7 @@
 """Build and load the CUDA kernel library (``csrc/*.cu``) at first use.
 
-The sources are compiled by ``nvcc`` into one shared library with a plain C
+Each source is compiled by its own ``nvcc`` process, all started together,
+and the objects are linked into one shared library with a plain C
 interface, loaded through ``ctypes``.  The library lands in ``csrc/build/``
 under a name carrying a hash of the sources, so an edit to any source
 rebuilds it and an unchanged tree reuses it.  A missing ``nvcc`` or a failed
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +36,8 @@ SIGNATURES = {
                        _P],
     "cmoe_descent_run": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
+    "cmoe_descent_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _P],
 }
 
 _lib = None
@@ -75,18 +78,33 @@ def build(force: bool = False) -> Path:
     if target.exists() and not force:
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu_files = [str(p) for p in sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu_files]
+    nvcc = find_nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, target)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        jobs = []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append((cmd, proc.returncode, out, err))
+        if not failed:
+            lib = os.path.join(work, "lib.so")
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+                   *[obj for _, obj, _ in jobs]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed = [(cmd, proc.returncode, proc.stdout, proc.stderr)]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"({rc}) {' '.join(cmd)}\n{out}\n{err}"
+                for cmd, rc, out, err in failed))
+        os.replace(lib, target)
     build_seconds = time.time() - t0
     return target
 

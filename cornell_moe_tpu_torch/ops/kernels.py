@@ -1,24 +1,32 @@
-"""The hand-written CUDA kernels of the main path, their plain PyTorch
-versions, and their launch counters.
+"""The hand-written CUDA kernels of the port, their plain PyTorch versions,
+and their launch counters.
 
-Three kernels, each the Hopper counterpart of one Pallas kernel of
+Four kernels, each the Hopper counterpart of one Pallas kernel of
 ``cornell_moe_tpu/ops/pallas_kernels.py`` (sources in ``csrc/``):
 
 * :func:`descent_run` (``csrc/descent_run.cu``) — the KG inner
   posterior-mean descent, every (ensemble member, union, MC draw) at once.
+* :func:`descent_grad` (``csrc/descent_grad.cu``) — one ascent direction of
+  that descent per launch (the per-step route, where
+  ``optimizers.gradient_ascent_batch`` takes the steps); it shares its
+  field gradient with :func:`descent_run` (``csrc/field_grad.cuh``).
 * :func:`lml_fused` (``csrc/lml_fused.cu``) — K build + Cholesky + forward
   substitution + (quad, logdet) per MCMC walker.
 * :func:`covariance_with_noise` (``csrc/covariance_with_noise.cu``) —
   K + diag(noise) for every member of the GP ensemble.
 
+The main path (``BayesianOptimizer(method="KG")``) launches descent_run,
+lml_fused and covariance_with_noise; descent_grad serves the per-step
+route only.
+
 Wrapper rule: a CPU tensor goes to the plain version, a CUDA tensor launches
 the kernel or raises (wrong dtype, layout or shape, an input that requires
-grad, a failed launch).  There is no fallback.  None of the three sits under
-a gradient on the main path, so none has a backward kernel.
+grad, a failed launch).  There is no fallback.  None of the four sits under
+a gradient, so none has a backward kernel.
 
 Each wrapper adds one to its module-level launch counter where it launches
-its kernel and nowhere else (``chip_smoke.py`` reads them to prove the main
-path went through the kernels).
+its kernel and nowhere else (``chip_smoke.py`` reads them to prove each
+path went through its kernels).
 """
 
 from __future__ import annotations
@@ -32,20 +40,23 @@ KERNEL_CODES = {"matern_2.5": 0, "square_exponential": 1}
 covariance_with_noise_launches = 0
 lml_fused_launches = 0
 descent_run_launches = 0
+descent_grad_launches = 0
 
 
 def reset_launch_counts() -> None:
     global covariance_with_noise_launches, lml_fused_launches, \
-        descent_run_launches
+        descent_run_launches, descent_grad_launches
     covariance_with_noise_launches = 0
     lml_fused_launches = 0
     descent_run_launches = 0
+    descent_grad_launches = 0
 
 
 def launch_counts() -> dict:
     return {"covariance_with_noise": covariance_with_noise_launches,
             "lml_fused": lml_fused_launches,
-            "descent_run": descent_run_launches}
+            "descent_run": descent_run_launches,
+            "descent_grad": descent_grad_launches}
 
 
 def _unit_fields(kernel_name: str):
@@ -200,6 +211,24 @@ def lml_fused_plain(us, alpha, noise, y, n_real, kernel_name="matern_2.5"):
 # A: KG inner posterior-mean descent
 # ---------------------------------------------------------------------------
 
+def _descent_shapes(name, xs, ws, wt, beta, z, us):
+    """Check the descent operands' shapes against xs (S, B, d, M) and z
+    (q, M) and the kernels' limits; returns (S, B, d, M, q, Np, Wr)."""
+    s, b, d, m = xs.shape
+    q = z.shape[0]
+    np_ = ws.shape[-1]
+    wr = (1 + q) * (1 + d)
+    _expect(name, "ws", ws, (s, d, np_))
+    _expect(name, "wt", wt, (s, b, wr, np_))
+    _expect(name, "beta", beta, (s, b, q, m))
+    _expect(name, "z", z, (q, m))
+    _expect(name, "us", us, (s, b, q, d))
+    if d > 8 or q > 16 or wr > 64:
+        raise ValueError(f"{name}: d <= 8, q <= 16 and (1+q)(1+d) <= 64 "
+                         f"supported, got d={d}, q={q}")
+    return s, b, d, m, q, np_, wr
+
+
 def descent_run(xs0: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
                 beta: torch.Tensor, z: torch.Tensor, us: torch.Tensor,
                 geom: torch.Tensor, kernel_name: str, steps: int,
@@ -224,21 +253,11 @@ def descent_run(xs0: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
         return descent_run_plain(xs0, ws, wt, beta, z, us, geom,
                                  kernel_name, steps, restarts, avg_n, gamma,
                                  pre_mult, mrc)
-    s, b, d, m = xs0.shape
-    q = z.shape[0]
-    np_ = ws.shape[-1]
-    wr = (1 + q) * (1 + d)
-    _expect(name, "ws", ws, (s, d, np_))
-    _expect(name, "wt", wt, (s, b, wr, np_))
-    _expect(name, "beta", beta, (s, b, q, m))
-    _expect(name, "z", z, (q, m))
-    _expect(name, "us", us, (s, b, q, d))
+    s, b, d, m, q, np_, wr = _descent_shapes(name, xs0, ws, wt, beta, z,
+                                             us)
     _expect(name, "geom", geom, (s, 3, d))
     if not (0 <= avg_n <= steps and restarts >= 1):
         raise ValueError(f"{name}: need 0 <= avg_n <= steps, restarts >= 1")
-    if d > 8 or q > 16 or wr > 64:
-        raise ValueError(f"{name}: d <= 8, q <= 16 and (1+q)(1+d) <= 64 "
-                         f"supported, got d={d}, q={q}")
     out = torch.empty_like(xs0)
     _launch(name, _lib().cmoe_descent_run, xs0.data_ptr(), ws.data_ptr(),
             wt.data_ptr(), beta.data_ptr(), z.data_ptr(), us.data_ptr(),
@@ -250,8 +269,61 @@ def descent_run(xs0: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
     return out
 
 
-def _descent_direction_plain(xs, ws, wt, beta, z, us, unit_p):
-    """Ascent direction of -mu' in scaled coordinates, (S, B, d, M)."""
+def descent_run_plain(xs0, ws, wt, beta, z, us, geom, kernel_name, steps,
+                      restarts, avg_n, gamma, pre_mult, mrc):
+    """Plain version of :func:`descent_run`: the analytic moment gradient
+    driven by the gradient_ascent_batch schedule, in scaled coordinates."""
+    lo = geom[:, None, 0, :, None]
+    hi = geom[:, None, 1, :, None]
+    il2 = geom[:, None, 2, :, None]
+    xs = xs0
+    for _ in range(max(int(restarts), 1)):
+        traj = []
+        for i in range(int(steps)):
+            g = descent_grad_plain(xs, ws, wt, beta, z, us, kernel_name)
+            g = torch.where(torch.isfinite(g), g, 0.0)
+            rate = float(pre_mult) * (i + 1.0) ** (-float(gamma))
+            xs = xs + box_limit_update(lo, hi, mrc, xs, rate * g * il2)
+            if avg_n:
+                traj = (traj + [xs])[-int(avg_n):]
+        if avg_n and traj:
+            xs = torch.minimum(torch.maximum(
+                torch.mean(torch.stack(traj), dim=0), lo), hi)
+    return xs
+
+
+# ---------------------------------------------------------------------------
+# D: one ascent direction of the KG inner descent
+# ---------------------------------------------------------------------------
+
+def descent_grad(xs: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
+                 beta: torch.Tensor, z: torch.Tensor, us: torch.Tensor,
+                 kernel_name: str) -> torch.Tensor:
+    """Ascent direction of -mu' in scaled coordinates at the draws' points
+    xs (S, B, d, M); returns (S, B, d, M).
+
+    The operands are :func:`descent_run`'s: ws (S, d, Np), wt (S, B, Wr,
+    Np), beta (S, B, q, M), z (q, M), us (S, B, q, d).  Any M and Np.
+    """
+    global descent_grad_launches
+    name = "descent_grad"
+    if not _on_card(name, kernel_name, xs=xs, ws=ws, wt=wt, beta=beta, z=z,
+                    us=us):
+        return descent_grad_plain(xs, ws, wt, beta, z, us, kernel_name)
+    s, b, d, m, q, np_, wr = _descent_shapes(name, xs, ws, wt, beta, z, us)
+    out = torch.empty_like(xs)
+    _launch(name, _lib().cmoe_descent_grad, xs.data_ptr(), ws.data_ptr(),
+            wt.data_ptr(), beta.data_ptr(), z.data_ptr(), us.data_ptr(),
+            out.data_ptr(), s, b, d, m, np_, q, wr,
+            KERNEL_CODES[kernel_name], device=xs.device)
+    descent_grad_launches += 1
+    return out
+
+
+def descent_grad_plain(xs, ws, wt, beta, z, us, kernel_name):
+    """Plain version of :func:`descent_grad`: the moment contraction as one
+    batched matmul over the materialized (S, B, Np, M) field."""
+    unit_p = _unit_fields(kernel_name).unit_p
     sh = xs.shape
     q, d = z.shape[0], sh[2]
     diff = ws[:, None, :, :, None] - xs[:, :, :, None, :]   # (S,B,d,Np,M)
@@ -264,27 +336,3 @@ def _descent_direction_plain(xs, ws, wt, beta, z, us, unit_p):
     du = xs[:, :, None] - us[..., None]                     # (S,B,q,d,M)
     pb = unit_p(torch.sum(du * du, dim=3)) * beta           # (S,B,q,M)
     return g + torch.sum(pb[:, :, :, None] * du, dim=2)
-
-
-def descent_run_plain(xs0, ws, wt, beta, z, us, geom, kernel_name, steps,
-                      restarts, avg_n, gamma, pre_mult, mrc):
-    """Plain version of :func:`descent_run`: the analytic moment gradient
-    driven by the gradient_ascent_batch schedule, in scaled coordinates."""
-    unit_p = _unit_fields(kernel_name).unit_p
-    lo = geom[:, None, 0, :, None]
-    hi = geom[:, None, 1, :, None]
-    il2 = geom[:, None, 2, :, None]
-    xs = xs0
-    for _ in range(max(int(restarts), 1)):
-        traj = []
-        for i in range(int(steps)):
-            g = _descent_direction_plain(xs, ws, wt, beta, z, us, unit_p)
-            g = torch.where(torch.isfinite(g), g, 0.0)
-            rate = float(pre_mult) * (i + 1.0) ** (-float(gamma))
-            xs = xs + box_limit_update(lo, hi, mrc, xs, rate * g * il2)
-            if avg_n:
-                traj = (traj + [xs])[-int(avg_n):]
-        if avg_n and traj:
-            xs = torch.minimum(torch.maximum(
-                torch.mean(torch.stack(traj), dim=0), lo), hi)
-    return xs

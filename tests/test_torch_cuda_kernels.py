@@ -2,7 +2,7 @@
 
 ``chip_smoke.py`` checks each kernel at the main path's shapes; these tests
 cover what it does not reach: ragged sizes, the squared-exponential field,
-the descent kernel's generic (d, q) instance, a failed LML factorization,
+the descent kernels' generic (d, q) instance, a failed LML factorization,
 and the wrappers' refusals on CUDA tensors.  They need a CUDA card (marker
 ``cuda``) and skip without one.  On the card, without JAX installed:
 
@@ -14,7 +14,11 @@ against the plain version on the same inputs in float32 and in float64
 (tests/test_pallas_descent.py:168-171); descent endpoints against the
 float64 plain version, at most 1% of them more than 5e-5 of the domain
 width apart (tests/test_pallas_descent.py:64-65; the rest part where
-float32 rounding flips a clamped step).
+float32 rounding flips a clamped step); one descent direction against the
+float64 plain version no further than 2e-5 max(max|g|, 1)
+(tests/test_pallas_descent.py:48) or 1.5x the float32 plain version's own
+deviation, and against the float32 plain version within that bound
+wherever the float32 plain version is itself within it of float64.
 """
 
 import numpy as np
@@ -148,6 +152,30 @@ def test_descent_kernel_matches_float64_plain(dev, rng, kernel, d, q, m,
     assert bool(((got.double() >= 0) & (got.double() <= hi)).all())
 
 
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("d,q,m,np_", [(3, 2, 50, 70), (2, 4, 128, 512),
+                                       (2, 4, 40, 1000)])
+def test_descent_grad_kernel_matches_plain(dev, rng, kernel, d, q, m, np_):
+    """(3, 2) runs the generic instance, (2, 4) the main path's; Np = 1000
+    stages 68 KB, above the default 48 KB of shared memory."""
+    s, b = 2, 3
+    arrays, _ = _descent_inputs(rng, s, b, d, q, m, np_)
+    args = [_c(a, dev) for a in arrays[:6]]
+    before = kernels.descent_grad_launches
+    got = kernels.descent_grad(*args, kernel)
+    ref = kernels.descent_grad_plain(*args, kernel)
+    ref_64 = kernels.descent_grad_plain(
+        *[_c(a, dev, torch.float64) for a in arrays[:6]], kernel)
+    torch.cuda.synchronize()
+    assert kernels.descent_grad_launches == before + 1
+    bound = 2e-5 * max(ref_64.abs().max().item(), 1.0)
+    dev_plain = (ref.double() - ref_64).abs().max().item()
+    assert (got.double() - ref_64).abs().max().item() <= \
+        max(bound, 1.5 * dev_plain)
+    if dev_plain <= bound:
+        assert (got - ref).abs().max().item() <= bound
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev, rng):
     s, n, d = 2, 16, 2
     points = _c(rng.random((n, d)), dev)
@@ -167,4 +195,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, rng):
     with pytest.raises(ValueError):
         kernels.lml_fused(points.T[None].contiguous(), hypers[:1, 0],
                           noise[:1], noise[:1], n + 1)
+    desc = [_c(a, dev) for a in _descent_inputs(rng, 2, 3, 2, 4, 16, n)[0][:6]]
+    with pytest.raises(TypeError):
+        kernels.descent_grad(*[a.double() for a in desc], "matern_2.5")
+    with pytest.raises(ValueError):
+        kernels.descent_grad(desc[0].transpose(-1, -2).contiguous(
+        ).transpose(-1, -2), *desc[1:], "matern_2.5")
+    with pytest.raises(ValueError):
+        kernels.descent_grad(desc[0], *desc[1:3], desc[3][..., :-1],
+                             *desc[4:], "matern_2.5")
+    with pytest.raises(RuntimeError):
+        kernels.descent_grad(desc[0].clone().requires_grad_(), *desc[1:],
+                             "matern_2.5")
+    wide = [_c(a, dev) for a in _descent_inputs(rng, 1, 1, 9, 1, 8, n)[0][:6]]
+    with pytest.raises(ValueError):
+        kernels.descent_grad(*wide, "matern_2.5")
     assert kernels.launch_counts() == counts
