@@ -10,13 +10,17 @@ drives one q-KG iteration of ``BayesianOptimizer`` at the main path's size
 (Branin, 500 observations, 16-member ensemble, q = 4, 200 multistarts,
 128 MC draws, float32 on ``cuda:0``), checks that each kernel of that path
 launched during the run, and holds each kernel against its plain PyTorch
-version at the main path's shapes.  Then it drives the per-step route of
-the KG inner descent (one ``descent_grad`` launch per GD step, the steps
-taken by ``gradient_ascent_batch``), which the main path does not take,
-at the main path's shapes, checks that it went through its kernel, and
-holds it against the float64 descent.  Last, it checks the port against
-its own float64 CPU path on a small input.  Every phase prints one JSON
-line; the kernels' summary is one JSON line; the last line is
+version at the main path's shapes (the fused LML also against its large-Np
+instance, the three timed side by side, with its cluster occupancy).  Then
+it drives the per-step route of the KG inner descent (one
+``descent_grad`` launch per GD step, the steps taken by
+``gradient_ascent_batch``), which the main path does not take, at the main
+path's shapes, checks that it went through its kernel, and holds it
+against the float64 descent.  It profiles a window of the main path's MCMC
+chain (host wall clock per stretch-move step against the device's busy
+time), and last it checks the port against its own float64 CPU path on a
+small input.  Every phase prints one JSON line; the kernels' summary is
+one JSON line; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -49,7 +53,8 @@ KERNELS = {
         f"{PALLAS}:88"),
 }
 # the kernels the main path launches (descent_grad serves the per-step
-# route, driven by its own phase)
+# route, driven by its own phase; every lml_fused launch takes the cluster
+# instance, and the large-Np instance, lml_fused_global, none)
 MAIN_PATH_KERNELS = ("descent_run", "lml_fused", "covariance_with_noise")
 
 # Main-path size, and the card it runs on
@@ -116,7 +121,7 @@ def phase_main(torch):
           "ensemble": int(states.chol_K.shape[0]),
           "padded_n": int(states.chol_K.shape[-1]),
           "burnin_steps": bo.burnin_steps,
-          "last_chain_steps": bo.model.last_chain_steps,
+          "chain_steps": bo.model.chain_steps,
           "voi": rec["voi"], "suggested": rec["suggested"].tolist(),
           "recommended": rec["recommended"].tolist(),
           "true_value": rec["true_value"], "launches": counts})
@@ -130,6 +135,8 @@ def phase_main(torch):
     for name in MAIN_PATH_KERNELS:
         check(counts[name] > 0,
               f"kernel {name} was not launched on the main path")
+    check(counts["lml_fused_global"] == 0,
+          "an lml_fused launch of the main path took the large-Np instance")
     return bo, counts
 
 
@@ -190,10 +197,14 @@ def phase_equivalence(torch, model, counts):
         _time_ms(torch, lambda: kernels.covariance_with_noise_plain(*args),
                  20))
 
-    # --- B: fused LML, W = 16 walkers, Np = 512 and 384 ----------------------
-    # Walker hyperparameters drawn as tests/test_pallas_descent.py:131-150
-    # draws them (well-conditioned K), in the domain's units; the chain's
-    # own walkers are held to the log-posterior check below.
+    # --- B: fused LML, W = 8 and 16 walkers, Np = 512 and 384 ---------------
+    # The chain's stretch move evaluates one half-ensemble (W = 8) per
+    # launch, its starts the whole ensemble (W = 16).  Walker
+    # hyperparameters drawn as tests/test_pallas_descent.py:131-150 draws
+    # them (well-conditioned K), in the domain's units; the chain's own
+    # walkers are held to the log-posterior check below.  The cluster
+    # instance (which the wrapper takes at these Np) against the plain
+    # version, and against the large-Np instance on the same inputs.
     w, d = model.n_hypers, model.dim
     f32 = dict(device=dev, dtype=torch.float32)
     dom = kg_domain(dev, torch.float32)
@@ -201,39 +212,74 @@ def phase_equivalence(torch, model, counts):
     lengths = (0.3 + 0.4 * torch.rand((w, d), generator=g, **f32)) * width
     alphas = 0.8 + torch.rand((w,), generator=g, **f32)
     noises = 1e-2 + 1e-2 * torch.rand((w, 1), generator=g, **f32)
-    lml_errs = []
-    for np_ in (x.shape[0], min(384, x.shape[0])):
-        xs, ys = x[:np_].float(), y[:np_, 0].float()
-        us = (xs.T[None] / lengths[:, :, None]).contiguous()
-        noise = (noises + pn[None, :np_, 0]).contiguous()
-        yb = ys[None].expand(w, np_).contiguous()
-        largs = (us, alphas, noise, yb, np_, model.kernel_name)
-        quad, logdet = kernels.lml_fused(*largs)
-        quad_p, logdet_p = kernels.lml_fused_plain(*largs)
-        quad_64, logdet_64 = kernels.lml_fused_plain(
-            *[a.double() for a in largs[:4]], np_, model.kernel_name)
+    lml_errs, times = [], {}
 
-        def rel(a, b):
-            return ((a.double() - b.double()).abs() /
-                    b.double().abs().clamp_min(1.0)).max().item()
+    def rel(a, b):
+        return ((a.double() - b.double()).abs() /
+                b.double().abs().clamp_min(1.0)).max().item()
 
-        abs_err = max((quad - quad_p).abs().max().item(),
-                      (logdet - logdet_p).abs().max().item())
-        errs = {"quad": rel(quad, quad_p), "logdet": rel(logdet, logdet_p),
-                "kernel_vs_f64": max(rel(quad, quad_64),
-                                     rel(logdet, logdet_64)),
-                "plain_vs_f64": max(rel(quad_p, quad_64),
-                                    rel(logdet_p, logdet_64))}
-        ok = errs["quad"] < 5e-4 and errs["logdet"] < 5e-4
-        emit({"phase": "equivalence", "kernel": "lml_fused", "W": w,
-              "Np": np_, "max_abs_err": abs_err, "max_rel_err": errs,
-              "tolerance": "rtol 5e-4", "ok": ok})
-        check(ok, f"lml_fused disagrees with its plain version at Np={np_}")
-        lml_errs.append(abs_err)
-        if np_ == x.shape[0]:
-            times = (_time_ms(torch, lambda: kernels.lml_fused(*largs), 20),
-                     _time_ms(torch, lambda: kernels.lml_fused_plain(*largs),
-                              20))
+    for nw in (w // 2, w):
+        for np_ in (x.shape[0], min(384, x.shape[0])):
+            check(kernels.lml_fused_instance(np_) == "cluster",
+                  f"Np={np_} does not take the cluster instance")
+            xs, ys = x[:np_].float(), y[:np_, 0].float()
+            us = (xs.T[None] / lengths[:nw, :, None]).contiguous()
+            noise = (noises[:nw] + pn[None, :np_, 0]).contiguous()
+            yb = ys[None].expand(nw, np_).contiguous()
+            largs = (us, alphas[:nw].contiguous(), noise, yb, np_,
+                     model.kernel_name)
+            quad, logdet = kernels.lml_fused(*largs)
+            quad_g, logdet_g = kernels.lml_fused_global(*largs)
+            quad_p, logdet_p = kernels.lml_fused_plain(*largs)
+            quad_64, logdet_64 = kernels.lml_fused_plain(
+                *[a.double() for a in largs[:4]], np_, model.kernel_name)
+            abs_err = max((quad - quad_p).abs().max().item(),
+                          (logdet - logdet_p).abs().max().item())
+            errs = {"quad": rel(quad, quad_p),
+                    "logdet": rel(logdet, logdet_p),
+                    "kernel_vs_f64": max(rel(quad, quad_64),
+                                         rel(logdet, logdet_64)),
+                    "plain_vs_f64": max(rel(quad_p, quad_64),
+                                        rel(logdet_p, logdet_64)),
+                    "kernel_vs_large_np_instance": max(
+                        rel(quad, quad_g), rel(logdet, logdet_g))}
+            bitwise = bool(torch.equal(quad, quad_g) and
+                           torch.equal(logdet, logdet_g))
+            ok = errs["quad"] < 5e-4 and errs["logdet"] < 5e-4 and \
+                errs["kernel_vs_large_np_instance"] < 1e-6
+            emit({"phase": "equivalence", "kernel": "lml_fused",
+                  "instance": "cluster", "W": nw, "Np": np_,
+                  "max_abs_err": abs_err, "max_rel_err": errs,
+                  "bitwise_equal_to_large_np_instance": bitwise,
+                  "tolerance": "rtol 5e-4 vs plain, rtol 1e-6 vs the "
+                               "large-Np instance", "ok": ok})
+            check(ok, f"lml_fused disagrees at W={nw}, Np={np_}")
+            lml_errs.append(abs_err)
+            if np_ == x.shape[0]:
+                times[nw] = {
+                    "cluster_ms": _time_ms(
+                        torch, lambda: kernels.lml_fused(*largs), 20),
+                    "large_np_instance_ms": _time_ms(
+                        torch, lambda: kernels.lml_fused_global(*largs), 20),
+                    "plain_ms": _time_ms(
+                        torch, lambda: kernels.lml_fused_plain(*largs), 20)}
+                emit({"phase": "lml_fused_timing", "W": nw, "Np": np_,
+                      **times[nw],
+                      "timing": "CUDA events, median of 20 after a "
+                                "warm-up"})
+    np_main = x.shape[0]
+    smem = kernels._lib().cmoe_lml_fused_cluster_smem_bytes(np_main)
+    occupancy = {f"W{nw}_C{c}": kernels.lml_cluster_occupancy(nw, np_main, c)
+                 for nw in (w // 2, w) for c in (kernels.LML_CLUSTER, 16)}
+    emit({"phase": "lml_fused_cluster", "Np": np_main,
+          "cluster": kernels.LML_CLUSTER,
+          "smem_bytes_per_cta": smem,
+          "smem_bytes_per_cta_C16": kernels.lml_cluster_smem_bytes(np_main,
+                                                                    16),
+          "capacity_np": kernels.LML_CLUSTER_CAPACITY,
+          "max_active_clusters": occupancy})
+    check(smem == kernels.lml_cluster_smem_bytes(np_main),
+          "the kernel's shared-memory layout differs from the wrapper's")
     # the model's log-posterior at the chain's walkers, on the bench's
     # retrain problem (bench.py:297-315) and at the main path's walkers.
     # Against the float64 plain path, the kernel must be finite wherever
@@ -272,7 +318,8 @@ def phase_equivalence(torch, model, counts):
               "tolerance": "vs f64: max rel 5e-3 or the plain f32 "
                            "path's own max deviation", "ok": ok})
         check(ok, f"kernel log-posterior check failed ({label})")
-    row("lml_fused", max(lml_errs), *times)
+    row("lml_fused", max(lml_errs), times[w // 2]["cluster_ms"],
+        times[w // 2]["plain_ms"])
 
     # --- A: KG inner descent, S=16, B=200, q=4, d=2, M=128, Np=512 -----------
     # On the bench's suggest problem (bench.py:50-80) and on the main
@@ -524,6 +571,57 @@ def phase_descent_grad(torch, kernel_name, problems) -> dict:
     return kernel_row("descent_grad", launches, max(errs), *times)
 
 
+def phase_chain_profile(torch, model) -> None:
+    """Where a stretch-move step of the main path's chain spends its time:
+    host wall clock per step (32 steps after 8 warm-up steps) against the
+    device's busy time per step (the sum of its kernel and copy events in
+    32 more steps under torch.profiler, whose own host cost shows in the
+    profiled wall clock and not on the device)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cornell_moe_tpu_torch.models import mcmc
+
+    x, y, pn = model._padded_data()
+
+    def log_prob(t):
+        return model.log_posterior(t, x, y, pn)
+
+    gen = torch.Generator(device=model.device).manual_seed(7)
+    state = [model.p0, log_prob(model.p0)]
+    steps = 32
+
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(n):
+            state[:] = mcmc.stretch_move_step(gen, *state, log_prob)
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3 / n
+
+    run(8)
+    wall = run(steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_wall = run(steps)
+    by_name, launches = {}, 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            launches += 1
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + \
+                ev.time_range.elapsed_us() / 1e3 / steps
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    emit({"phase": "chain_profile", "walkers": int(state[0].shape[0]),
+          "steps": steps, "wall_ms_per_step": wall,
+          "profiled_wall_ms_per_step": profiled_wall,
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1.0 - busy / wall,
+          "device_ops_per_step": launches / steps,
+          "top_device_ms_per_step": {k[:48]: v for k, v in top}})
+    check(busy > 0.0, "the profiler saw no device time in the chain")
+
+
 def bench_problem_data():
     """The bench's data (bench.py:54-69): 500 points in the unit box,
     standardized Branin values plus 0.01 noise."""
@@ -667,6 +765,7 @@ def main() -> int:
     bo, counts = phase_main(torch)
     summary, problems = phase_equivalence(torch, bo.model, counts)
     summary.append(phase_descent_grad(torch, bo.model.kernel_name, problems))
+    phase_chain_profile(torch, bo.model)
     phase_small_reference(torch)
     check("jax" not in sys.modules and "cornell_moe_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")

@@ -258,6 +258,7 @@ class GaussianProcessLogLikelihoodMCMC:
         self.value_scale = 1.0
         self.chain_gate_tol = chain_gate_tol
         self.last_chain_steps: Optional[int] = None
+        self.chain_steps: list = []      # steps of every train()'s chain
         self.bucket = bucket
         self.dim = historical_data.dim
         n_dims = 1 + self.dim + 1
@@ -374,6 +375,7 @@ class GaussianProcessLogLikelihoodMCMC:
                     gen, log_prob, self.p0, self.chain_length,
                     rel_tol=self.chain_gate_tol)
             self.last_chain_steps = int(steps)
+            self.chain_steps.append(self.last_chain_steps)
             self.p0 = pos
             pick = torch.randint(0, self.n_hypers, (self.n_hypers,),
                                  generator=gen, device=self.device)

@@ -27,13 +27,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits).
 SIGNATURES = {
     "cmoe_covariance_with_noise": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "cmoe_lml_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _P],
+    "cmoe_lml_fused_cluster": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _P],
+    "cmoe_lml_fused_cluster_smem_bytes": [_I],
+    "cmoe_lml_fused_cluster_occupancy": [_I, _I, _I, _IP],
+    "cmoe_lml_fused_global": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _P],
     "cmoe_descent_run": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
     "cmoe_descent_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

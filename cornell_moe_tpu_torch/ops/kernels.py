@@ -11,7 +11,9 @@ Four kernels, each the Hopper counterpart of one Pallas kernel of
   ``optimizers.gradient_ascent_batch`` takes the steps); it shares its
   field gradient with :func:`descent_run` (``csrc/field_grad.cuh``).
 * :func:`lml_fused` (``csrc/lml_fused.cu``) — K build + Cholesky + forward
-  substitution + (quad, logdet) per MCMC walker.
+  substitution + (quad, logdet) per MCMC walker: one thread-block cluster
+  per walker with K in distributed shared memory, and above the clusters'
+  capacity the one-block-per-walker instance :func:`lml_fused_global`.
 * :func:`covariance_with_noise` (``csrc/covariance_with_noise.cu``) —
   K + diag(noise) for every member of the GP ensemble.
 
@@ -25,8 +27,9 @@ grad, a failed launch).  There is no fallback.  None of the four sits under
 a gradient, so none has a backward kernel.
 
 Each wrapper adds one to its module-level launch counter where it launches
-its kernel and nowhere else (``chip_smoke.py`` reads them to prove each
-path went through its kernels).
+its kernel and nowhere else: ``lml_fused`` counts B's cluster instance,
+``lml_fused_global`` its large-Np instance.  ``chip_smoke.py`` reads the
+counters to prove each path went through its kernels.
 """
 
 from __future__ import annotations
@@ -39,15 +42,18 @@ KERNEL_CODES = {"matern_2.5": 0, "square_exponential": 1}
 
 covariance_with_noise_launches = 0
 lml_fused_launches = 0
+lml_fused_global_launches = 0
 descent_run_launches = 0
 descent_grad_launches = 0
 
 
 def reset_launch_counts() -> None:
     global covariance_with_noise_launches, lml_fused_launches, \
-        descent_run_launches, descent_grad_launches
+        lml_fused_global_launches, descent_run_launches, \
+        descent_grad_launches
     covariance_with_noise_launches = 0
     lml_fused_launches = 0
+    lml_fused_global_launches = 0
     descent_run_launches = 0
     descent_grad_launches = 0
 
@@ -55,6 +61,7 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     return {"covariance_with_noise": covariance_with_noise_launches,
             "lml_fused": lml_fused_launches,
+            "lml_fused_global": lml_fused_global_launches,
             "descent_run": descent_run_launches,
             "descent_grad": descent_grad_launches}
 
@@ -154,6 +161,60 @@ def covariance_with_noise_plain(points, hypers, noise,
 # B: fused LML (K build + Cholesky + forward substitution + logdet)
 # ---------------------------------------------------------------------------
 
+LML_PANEL = 32             # csrc/lml_fused.cu LML_PANEL
+LML_CLUSTER = 8            # CTAs per walker, csrc/lml_fused.cu LML_CLUSTER
+SMEM_PER_BLOCK = 232_448   # shared memory one H100 block may opt into
+
+
+def lml_cluster_smem_bytes(np_: int, cluster: int = LML_CLUSTER) -> int:
+    """Shared memory of each CTA of the cluster instance at Np: the fullest
+    CTA's tiles of K, the panel column, L11, z, its y slices and the carry
+    (``lml_layout`` in ``csrc/lml_fused.cu``)."""
+    nt = -(-np_ // LML_PANEL)
+
+    def rows_of(rank):
+        return (nt - 1 - rank) // cluster + 1 if rank < nt else 0
+
+    tiles = max(l * (r + 1) + cluster * l * (l - 1) // 2
+                for r in range(cluster) for l in [rows_of(r)])
+    floats = (tiles + max(nt - 1, 0)) * LML_PANEL ** 2 + \
+        LML_PANEL * (LML_PANEL + 1) + LML_PANEL + \
+        rows_of(0) * LML_PANEL + 4
+    return 4 * floats
+
+
+def lml_cluster_capacity(cluster: int = LML_CLUSTER) -> int:
+    """Largest Np the cluster instance takes: its fullest CTA must fit in
+    one block's shared memory."""
+    np_ = LML_PANEL
+    while lml_cluster_smem_bytes(np_ + LML_PANEL, cluster) <= SMEM_PER_BLOCK:
+        np_ += LML_PANEL
+    return np_
+
+
+LML_CLUSTER_CAPACITY = lml_cluster_capacity()
+
+
+def lml_fused_instance(np_: int) -> str:
+    """Which kernel B's wrapper launches at Np: ``"cluster"`` up to
+    :data:`LML_CLUSTER_CAPACITY`, ``"global"`` above it."""
+    return "cluster" if np_ <= LML_CLUSTER_CAPACITY else "global"
+
+
+def _lml_shapes(name, us, alpha, noise, y, n_real, kernel_name):
+    """None for CPU tensors (the plain version), else (W, d, Np)."""
+    if not _on_card(name, kernel_name, us=us, alpha=alpha, noise=noise,
+                    y=y):
+        return None
+    w, d, np_ = us.shape
+    _expect(name, "alpha", alpha, (w,))
+    _expect(name, "noise", noise, (w, np_))
+    _expect(name, "y", y, (w, np_))
+    if not 0 < n_real <= np_:
+        raise ValueError(f"{name}: n_real {n_real} outside (0, {np_}]")
+    return w, d, np_
+
+
 def lml_fused(us: torch.Tensor, alpha: torch.Tensor, noise: torch.Tensor,
               y: torch.Tensor, n_real: int,
               kernel_name: str = "matern_2.5"):
@@ -163,29 +224,70 @@ def lml_fused(us: torch.Tensor, alpha: torch.Tensor, noise: torch.Tensor,
     us (W, d, Np) scaled points, alpha (W,), noise (W, Np) total diagonal
     noise, y (W, Np).  K_w = alpha_w k(us_w) + diag(noise_w).  Any Np.
     Returns (quad (W,), logdet (W,)); NaN where the factorization fails.
+
+    Two instances of kernel B, chosen by Np alone
+    (:func:`lml_fused_instance`): up to :data:`LML_CLUSTER_CAPACITY` (640)
+    the cluster instance, one 8-CTA cluster per walker with K in
+    distributed shared memory and no scratch; above it
+    :func:`lml_fused_global`, K in a (W, Np, Np) global scratch.
     """
     global lml_fused_launches
     name = "lml_fused"
-    if not _on_card(name, kernel_name, us=us, alpha=alpha, noise=noise,
-                    y=y):
+    shapes = _lml_shapes(name, us, alpha, noise, y, n_real, kernel_name)
+    if shapes is None:
         return lml_fused_plain(us, alpha, noise, y, n_real, kernel_name)
-    w, d, np_ = us.shape
-    _expect(name, "alpha", alpha, (w,))
-    _expect(name, "noise", noise, (w, np_))
-    _expect(name, "y", y, (w, np_))
-    if not 0 < n_real <= np_:
-        raise ValueError(f"{name}: n_real {n_real} outside (0, {np_}]")
+    w, d, np_ = shapes
+    if lml_fused_instance(np_) == "global":
+        return lml_fused_global(us, alpha, noise, y, n_real, kernel_name)
+    dev = us.device
+    quad = torch.empty((w,), device=dev, dtype=torch.float32)
+    logdet = torch.empty((w,), device=dev, dtype=torch.float32)
+    _launch(name, _lib().cmoe_lml_fused_cluster, us.data_ptr(),
+            alpha.data_ptr(), noise.data_ptr(), y.data_ptr(),
+            quad.data_ptr(), logdet.data_ptr(), w, d, np_, int(n_real),
+            KERNEL_CODES[kernel_name], device=dev)
+    lml_fused_launches += 1
+    return quad, logdet
+
+
+def lml_fused_global(us: torch.Tensor, alpha: torch.Tensor,
+                     noise: torch.Tensor, y: torch.Tensor, n_real: int,
+                     kernel_name: str = "matern_2.5"):
+    """Kernel B's large-Np instance at any Np: one block per walker, K in a
+    (W, Np, Np) global scratch.  :func:`lml_fused` takes it above the
+    cluster capacity; arguments and results as there."""
+    global lml_fused_global_launches
+    name = "lml_fused_global"
+    shapes = _lml_shapes(name, us, alpha, noise, y, n_real, kernel_name)
+    if shapes is None:
+        return lml_fused_plain(us, alpha, noise, y, n_real, kernel_name)
+    w, d, np_ = shapes
     dev = us.device
     k_scratch = torch.empty((w, np_, np_), device=dev, dtype=torch.float32)
     y_scratch = torch.empty((w, np_), device=dev, dtype=torch.float32)
     quad = torch.empty((w,), device=dev, dtype=torch.float32)
     logdet = torch.empty((w,), device=dev, dtype=torch.float32)
-    _launch(name, _lib().cmoe_lml_fused, us.data_ptr(), alpha.data_ptr(),
-            noise.data_ptr(), y.data_ptr(), k_scratch.data_ptr(),
-            y_scratch.data_ptr(), quad.data_ptr(), logdet.data_ptr(), w, d,
-            np_, int(n_real), KERNEL_CODES[kernel_name], device=dev)
-    lml_fused_launches += 1
+    _launch(name, _lib().cmoe_lml_fused_global, us.data_ptr(),
+            alpha.data_ptr(), noise.data_ptr(), y.data_ptr(),
+            k_scratch.data_ptr(), y_scratch.data_ptr(), quad.data_ptr(),
+            logdet.data_ptr(), w, d, np_, int(n_real),
+            KERNEL_CODES[kernel_name], device=dev)
+    lml_fused_global_launches += 1
     return quad, logdet
+
+
+def lml_cluster_occupancy(w: int, np_: int,
+                          cluster: int = LML_CLUSTER) -> int:
+    """cudaOccupancyMaxActiveClusters of the cluster kernel for W walkers
+    at Np with clusters of ``cluster`` CTAs (above 8: the non-portable
+    size) on the current card."""
+    import ctypes
+    out = ctypes.c_int(0)
+    rc = _lib().cmoe_lml_fused_cluster_occupancy(
+        w, cluster, lml_cluster_smem_bytes(np_, cluster), ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"lml_cluster_occupancy: CUDA error {rc}")
+    return out.value
 
 
 def lml_fused_plain(us, alpha, noise, y, n_real, kernel_name="matern_2.5"):

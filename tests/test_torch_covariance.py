@@ -98,8 +98,8 @@ def test_cpu_wrappers_take_the_plain_path(rng):
         mrc=0.1)
     kernels.descent_grad(*desc, "matern_2.5")
     assert kernels.launch_counts() == {"covariance_with_noise": 0,
-                                       "lml_fused": 0, "descent_run": 0,
-                                       "descent_grad": 0}
+                                       "lml_fused": 0, "lml_fused_global": 0,
+                                       "descent_run": 0, "descent_grad": 0}
 
 
 def test_wrapper_refuses_grad_inputs():

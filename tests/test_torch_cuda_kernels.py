@@ -2,7 +2,8 @@
 
 ``chip_smoke.py`` checks each kernel at the main path's shapes; these tests
 cover what it does not reach: ragged sizes, the squared-exponential field,
-the descent kernels' generic (d, q) instance, a failed LML factorization,
+both instances of the fused LML (the cluster one against the large-Np one),
+the descent kernels' generic (d, q) instance, failed LML factorizations,
 and the wrappers' refusals on CUDA tensors.  They need a CUDA card (marker
 ``cuda``) and skip without one.  On the card, without JAX installed:
 
@@ -11,7 +12,9 @@ and the wrappers' refusals on CUDA tensors.  They need a CUDA card (marker
 Tolerances: covariance at rtol 2e-4 / atol 2e-5 against the float32 plain
 version (tests/test_pallas_kernels.py:26); the fused LML at rtol 5e-4
 against the plain version on the same inputs in float32 and in float64
-(tests/test_pallas_descent.py:168-171); descent endpoints against the
+(tests/test_pallas_descent.py:168-171), and the cluster instance against
+the large-Np instance at rtol 1e-6 (the same arithmetic per element, in the
+same order); descent endpoints against the
 float64 plain version, at most 1% of them more than 5e-5 of the domain
 width apart (tests/test_pallas_descent.py:64-65; the rest part where
 float32 rounding flips a clamped step); one descent direction against the
@@ -80,37 +83,67 @@ def _lml_inputs(rng, w, d, np_, n_real, lengths, noise_level):
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
-@pytest.mark.parametrize("np_", [100, 128, 384])
-def test_lml_kernel_matches_plain(dev, rng, kernel, np_):
-    w, d, n_real = 5, 3, np_ - 7
+@pytest.mark.parametrize("np_", [100, 128, 384, 512, 520, 672])
+@pytest.mark.parametrize("w", [1, 8, 16])
+def test_lml_kernel_matches_plain(dev, rng, kernel, np_, w):
+    """Np <= 640 takes the cluster instance (520: a ragged 8-row last
+    panel), which must also agree with the large-Np instance on the same
+    inputs at rtol 1e-6; Np = 672 takes the large-Np instance."""
+    d, n_real = 3, np_ - 7
     lengths = 0.3 + 0.4 * rng.random((w, d))
     args = [_c(a, dev) for a in _lml_inputs(rng, w, d, np_, n_real,
                                             lengths, 1e-2)]
-    before = kernels.lml_fused_launches
+    instance = kernels.lml_fused_instance(np_)
+    assert instance == ("global" if np_ == 672 else "cluster")
+    before = kernels.launch_counts()
     got = kernels.lml_fused(*args, n_real, kernel)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    counter = "lml_fused" if instance == "cluster" else "lml_fused_global"
+    assert {n: after[n] - before[n] for n in after} == \
+        {n: int(n == counter) for n in after}
     ref = kernels.lml_fused_plain(*args, n_real, kernel)
     ref_64 = kernels.lml_fused_plain(*[a.double() for a in args], n_real,
                                      kernel)
-    torch.cuda.synchronize()
-    assert kernels.lml_fused_launches == before + 1
     for g, r, r64 in zip(got, ref, ref_64):
         torch.testing.assert_close(g, r, rtol=5e-4, atol=0.0)
         torch.testing.assert_close(g.double(), r64, rtol=5e-4, atol=0.0)
+    if instance == "cluster":
+        for g, r in zip(got, kernels.lml_fused_global(*args, n_real,
+                                                      kernel)):
+            torch.testing.assert_close(g, r, rtol=1e-6, atol=0.0)
 
 
-def test_lml_kernel_failure_is_nan(dev, rng):
-    """A walker whose K is not positive definite gets NaN, as the plain
-    version's failed factorization does; the others are unaffected."""
-    w, d, np_ = 4, 2, 512
+@pytest.mark.parametrize("np_,bad_row", [(512, 0), (512, 101), (520, 515),
+                                         (672, 650)],
+                         ids=["first_tile", "cta3_tile_row",
+                              "ragged_last_panel", "large_np"])
+def test_lml_kernel_failure_is_nan(dev, rng, np_, bad_row):
+    """Walkers whose K is not positive definite get NaN, as the plain
+    version's failed factorization does; the others are unaffected.  The
+    bad pivot sits in the first tile, in tile row 3 (owned by CTA 3), in
+    the ragged last panel, and in the large-Np instance."""
+    w, d, n_real = 4, 2, np_ - 4
     lengths = 0.3 + 0.4 * rng.random((w, d))
-    us, alpha, noise, y = _lml_inputs(rng, w, d, np_, 500, lengths, 1e-2)
-    noise[3, 0] = -10.0
+    us, alpha, noise, y = _lml_inputs(rng, w, d, np_, n_real, lengths, 1e-2)
+    noise[[1, 3], bad_row] = -10.0
     args = [_c(a, dev) for a in (us, alpha, noise, y)]
-    got = kernels.lml_fused(*args, 500)
-    ref = kernels.lml_fused_plain(*args, 500)
+    got = kernels.lml_fused(*args, n_real)
+    ref = kernels.lml_fused_plain(*args, n_real)
     for g, r in zip(got, ref):
-        assert torch.isnan(g[3]) and torch.isnan(r[3])
-        torch.testing.assert_close(g[:3], r[:3], rtol=5e-4, atol=0.0)
+        assert bool(torch.isnan(g[[1, 3]]).all())
+        assert bool(torch.isnan(r[[1, 3]]).all())
+        torch.testing.assert_close(g[[0, 2]], r[[0, 2]], rtol=5e-4, atol=0.0)
+
+
+def test_lml_cluster_layout_and_occupancy(dev):
+    """The kernel's shared-memory layout is the one the wrapper sizes its
+    choice by, and every walker's cluster of the main path fits at once."""
+    lib = kernels._lib()
+    for np_ in (100, 384, 512, 520, kernels.LML_CLUSTER_CAPACITY):
+        assert lib.cmoe_lml_fused_cluster_smem_bytes(np_) == \
+            kernels.lml_cluster_smem_bytes(np_)
+    assert kernels.lml_cluster_occupancy(8, 512) >= 8
 
 
 def _descent_inputs(rng, s, b, d, q, m, np_):
