@@ -11,8 +11,9 @@ drives one q-KG iteration of ``BayesianOptimizer`` at the main path's size
 128 MC draws, float32 on ``cuda:0``), checks that each kernel of that path
 launched during the run, and holds each kernel against its plain PyTorch
 version at the main path's shapes (the fused LML also against its large-Np
-instance, the three timed side by side, with its cluster occupancy).  Then
-it drives the per-step route of the KG inner descent (one
+instance, the three timed side by side, with its cluster occupancy; the KG
+inner descent in both its instances, tensor-core and FMA, timed in turns).
+Then it drives the per-step route of the KG inner descent (one
 ``descent_grad`` launch per GD step, the steps taken by
 ``gradient_ascent_batch``), which the main path does not take, at the main
 path's shapes, checks that it went through its kernel, and holds it
@@ -20,7 +21,8 @@ against the float64 descent.  It profiles a window of the main path's MCMC
 chain (host wall clock per stretch-move step against the device's busy
 time), and last it checks the port against its own float64 CPU path on a
 small input.  Every phase prints one JSON line; the kernels' summary is
-one JSON line; the last line is
+one JSON line, with each kernel's time beside its bound (the least time
+the card could take for the same work); the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -43,8 +45,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # TPU kernels replaced, by their pl.pallas_call line
 PALLAS = "cornell_moe_tpu/ops/pallas_kernels.py"
 KERNELS = {
-    "descent_run": ("cornell_moe_tpu_torch/csrc/descent_run.cu",
+    "descent_run": ("cornell_moe_tpu_torch/csrc/descent_run_mma.cu",
                     f"{PALLAS}:495"),
+    "descent_run_fma": ("cornell_moe_tpu_torch/csrc/descent_run.cu",
+                        f"{PALLAS}:495"),
     "descent_grad": ("cornell_moe_tpu_torch/csrc/descent_grad.cu",
                      f"{PALLAS}:538"),
     "lml_fused": ("cornell_moe_tpu_torch/csrc/lml_fused.cu", f"{PALLAS}:271"),
@@ -54,12 +58,21 @@ KERNELS = {
 }
 # the kernels the main path launches (descent_grad serves the per-step
 # route, driven by its own phase; every lml_fused launch takes the cluster
-# instance, and the large-Np instance, lml_fused_global, none)
+# instance, and the large-Np instance, lml_fused_global, none; every
+# descent_run launch the tensor-core instance, and the FMA instance,
+# descent_run_fma, none)
 MAIN_PATH_KERNELS = ("descent_run", "lml_fused", "covariance_with_noise")
+NOT_ON_MAIN_PATH = ("lml_fused_global", "descent_run_fma", "descent_grad")
 
 # Main-path size, and the card it runs on
 NUM_OBS, Q, N_HYPERS, NUM_MC, MULTISTARTS = 500, 4, 16, 128, 200
 DEVICE = "cuda:0"
+
+# Peaks of one H100 SXM at 700 W (data sheet, dense): float32 outside the
+# tensor cores, TF32 on the tensor cores, HBM, and the special-function
+# (MUFU) units: 16 per SM per clock, 132 SMs at 1.98 GHz
+FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
+MUFU_OPS = 16 * 132 * 1.98e9
 
 
 def emit(obj) -> None:
@@ -91,11 +104,16 @@ def phase_build() -> None:
     _build.library()
     emit({"phase": "build", "seconds": time.time() - t0,
           "compile_seconds": _build.build_seconds,
-          "library": os.path.relpath(str(_build.build()), HERE)})
+          "library": os.path.relpath(str(_build.build()), HERE),
+          "ptxas": _build.ptxas_report()})
 
 
-def phase_main(torch):
-    """One BO iteration through the driver; returns the optimizer."""
+def _iteration(torch, descent):
+    """One BO iteration through the driver with kernel A's launches sent to
+    ``descent`` (a wrapper of ``ops.kernels``), every launch counter set to
+    0 just before and read just after.  Returns the optimizer, the
+    iteration's record, its wall time, the counts and A's launches by shape
+    and schedule (S, B, M, steps x restarts)."""
     from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
     from cornell_moe_tpu_torch.ops import kernels
     from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
@@ -106,14 +124,38 @@ def phase_main(torch):
                            dtype=torch.float32, verbose=False)
     check(bo.sgd_params.num_multistarts == MULTISTARTS and
           bo.num_mc == NUM_MC, "main-path size changed")
+    shapes, descent_run = {}, kernels.descent_run
+
+    def recording_descent(xs0, *args, steps, restarts, **kw):
+        key = "S{}_B{}_M{}_steps{}".format(xs0.shape[0], xs0.shape[1],
+                                           xs0.shape[3], steps * restarts)
+        shapes[key] = shapes.get(key, 0) + 1
+        return descent(xs0, *args, steps=steps, restarts=restarts, **kw)
+
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    t0 = time.time()
-    history = bo.run(num_iterations=1, num_init_pts=NUM_OBS)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = kernels.launch_counts()
-    rec = history[-1]
+    kernels.descent_run = recording_descent
+    try:
+        t0 = time.time()
+        history = bo.run(num_iterations=1, num_init_pts=NUM_OBS)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        kernels.descent_run = descent_run
+    return bo, history[-1], wall, kernels.launch_counts(), shapes
+
+
+def phase_main(torch):
+    """One BO iteration through the driver; returns the optimizer and its
+    launch counts.  Then the same iteration again with kernel A's launches
+    sent to its FMA instance (``descent_run_fma``), as a witness: the first
+    chain runs before any A launch and must take the same steps in both;
+    the second chain and the VOI follow the suggested points, which move
+    with A's rounding."""
+    from cornell_moe_tpu_torch.ops import kernels
+
+    bo, rec, wall, counts, descent_shapes = _iteration(torch,
+                                                       kernels.descent_run)
     states = bo.model.models
     emit({"phase": "main_path", "seconds": wall,
           "stages": {r["phase"]: r["seconds"] for r in bo.timer.records},
@@ -124,7 +166,8 @@ def phase_main(torch):
           "chain_steps": bo.model.chain_steps,
           "voi": rec["voi"], "suggested": rec["suggested"].tolist(),
           "recommended": rec["recommended"].tolist(),
-          "true_value": rec["true_value"], "launches": counts})
+          "true_value": rec["true_value"], "launches": counts,
+          "descent_run_launches_by_shape": descent_shapes})
     check(math.isfinite(rec["voi"]), f"VOI not finite: {rec['voi']}")
     bounds = bo.objective_func._search_domain
     r = rec["recommended"]
@@ -135,17 +178,99 @@ def phase_main(torch):
     for name in MAIN_PATH_KERNELS:
         check(counts[name] > 0,
               f"kernel {name} was not launched on the main path")
-    check(counts["lml_fused_global"] == 0,
-          "an lml_fused launch of the main path took the large-Np instance")
+    for name in NOT_ON_MAIN_PATH:
+        check(counts[name] == 0, f"the main path launched {name}")
+    check(sum(descent_shapes.values()) == counts["descent_run"],
+          "descent_run launches and recorded shapes disagree")
+
+    wbo, wrec, wwall, wcounts, wshapes = _iteration(torch,
+                                                    kernels.descent_run_fma)
+    emit({"phase": "main_path_fma_witness", "seconds": wwall,
+          "chain_steps": wbo.model.chain_steps, "voi": wrec["voi"],
+          "suggested": wrec["suggested"].tolist(), "launches": wcounts,
+          "descent_run_launches_by_shape": wshapes,
+          "first_chain_as_main_path":
+              wbo.model.chain_steps[0] == bo.model.chain_steps[0]})
+    check(math.isfinite(wrec["voi"]),
+          f"witness VOI not finite: {wrec['voi']}")
+    check(wcounts["descent_run"] == 0 and
+          wcounts["descent_run_fma"] == sum(wshapes.values()) > 0,
+          "the witness run did not send every A launch to the FMA instance")
+    check(wbo.model.chain_steps[0] == bo.model.chain_steps[0],
+          "the chain before any A launch moved in the witness")
+    del wbo
     return bo, counts
 
 
-def kernel_row(name, launches, err, ms, plain_ms) -> dict:
-    """One row of the kernels' summary line."""
+def kernel_row(name, launches, err, ms, plain_ms, bound) -> dict:
+    """One row of the kernels' summary line.  bound: from :func:`_bound`.
+    No single PyTorch call computes any of these kernels' functions, so
+    library_ms is null."""
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["ms"], "bound_by": bound["by"],
+            "bound_pipe": bound["pipe"], "library_ms": None}
+
+
+def _bound(nbytes, fp32=0.0, matmul=0.0, mufu=0.0) -> dict:
+    """The least time the card could take for a piece of work: the largest
+    of the times its pipes need, since they run at once.  fp32: float32
+    operations outside the tensor cores, at the FP32 peak; matmul: FLOP of
+    matrix products, which reach float32 accuracy on the tensor cores as
+    3xTF32 (three TF32 products each), at the TF32 peak; mufu: special-
+    function operations (sqrt, exp); nbytes: each input read once, each
+    output written once, at the HBM rate.  Returns {"ms", "by" ("bytes" or
+    "operations"), "pipe", "pipes_ms"}."""
+    pipes = {"fp32": fp32 / FP32_FLOPS * 1e3,
+             "tf32x3": 3 * matmul / TF32_FLOPS * 1e3,
+             "mufu": mufu / MUFU_OPS * 1e3,
+             "hbm": nbytes / HBM_BYTES * 1e3}
+    pipe = max(pipes, key=pipes.get)
+    return {"ms": pipes[pipe], "by": "bytes" if pipe == "hbm" else
+            "operations", "pipe": pipe, "pipes_ms": pipes}
+
+
+def _mufu_per_field(kernel_name):
+    """Special-function operations per field value: the Matern field's
+    sqrt and exp, the squared exponential's exp."""
+    return 2 if kernel_name == "matern_2.5" else 1
+
+
+def descent_bound(s, b, m, np_, d, q, kernel_name, evaluations,
+                  direction_out=False):
+    """A (or D, evaluations = 1), over s b m np_ evaluations (draw, training
+    point) pairs: per pair 3d FP32 FLOP of distance and 6 of the field, the
+    field's MUFU operations, and 2 Wr FLOP of the moment contraction (a
+    matrix product); bytes of xs0, ws, wt, beta, z, us, geom in and the
+    points (or directions) out."""
+    wr = (1 + q) * (1 + d)
+    pairs = s * b * m * np_ * evaluations
+    floats = 2 * s * b * d * m + s * d * np_ + s * b * wr * np_ + \
+        s * b * q * m + q * m + s * b * q * d + \
+        (0 if direction_out else 3 * s * d)
+    return _bound(4 * floats, fp32=pairs * (3 * d + 6), matmul=pairs * 2 * wr,
+                  mufu=pairs * _mufu_per_field(kernel_name))
+
+
+def covariance_bound(s, n, d, kernel_name):
+    """C: per element 3d FP32 FLOP of distance, 8 of the field, 1 for the
+    amplitude, and the field's MUFU operations; the (S, n, n) output
+    dominates the bytes."""
+    return _bound(4 * (s * n * n + n * d + s * (1 + d) + s * n),
+                  fp32=s * n * n * (3 * d + 9),
+                  mufu=s * n * n * _mufu_per_field(kernel_name))
+
+
+def lml_bound(w, np_, d, kernel_name):
+    """B, per walker: the K build (Np^2 (3d + 9) FP32 FLOP and the field's
+    MUFU operations), the Cholesky factorization (Np^3 / 3 FLOP, its
+    trailing updates matrix products; Np square roots), forward
+    substitution (Np^2 FLOP); us, alpha, noise, y in and two values out."""
+    return _bound(4 * (w * d * np_ + w + 2 * w * np_ + 2 * w),
+                  fp32=w * np_ * np_ * (3 * d + 10), matmul=w * np_ ** 3 / 3,
+                  mufu=w * (np_ * np_ * _mufu_per_field(kernel_name) + np_))
 
 
 def _time_ms(torch, fn, reps: int) -> float:
@@ -176,8 +301,8 @@ def phase_equivalence(torch, model, counts):
     x, y, pn = model._padded_data()
     rows = []
 
-    def row(name, err, ms, plain_ms):
-        rows.append(kernel_row(name, counts[name], err, ms, plain_ms))
+    def row(name, err, ms, plain_ms, bound):
+        rows.append(kernel_row(name, counts[name], err, ms, plain_ms, bound))
 
     # --- C: covariance + noise, S = 16, n = 512 ------------------------------
     h = states.covariance.hyperparameters.contiguous()
@@ -195,7 +320,8 @@ def phase_equivalence(torch, model, counts):
     row("covariance_with_noise", err.max().item(),
         _time_ms(torch, lambda: kernels.covariance_with_noise(*args), 20),
         _time_ms(torch, lambda: kernels.covariance_with_noise_plain(*args),
-                 20))
+                 20), covariance_bound(h.shape[0], x.shape[0], x.shape[1],
+                                       model.kernel_name))
 
     # --- B: fused LML, W = 8 and 16 walkers, Np = 512 and 384 ---------------
     # The chain's stretch move evaluates one half-ensemble (W = 8) per
@@ -319,19 +445,23 @@ def phase_equivalence(torch, model, counts):
                            "path's own max deviation", "ok": ok})
         check(ok, f"kernel log-posterior check failed ({label})")
     row("lml_fused", max(lml_errs), times[w // 2]["cluster_ms"],
-        times[w // 2]["plain_ms"])
+        times[w // 2]["plain_ms"], lml_bound(w // 2, x.shape[0], d,
+                                             model.kernel_name))
 
     # --- A: KG inner descent, S=16, B=200, q=4, d=2, M=128, Np=512 -----------
-    # On the bench's suggest problem (bench.py:50-80) and on the main
-    # path's own ensemble.  A few descents in a thousand sit where float32
-    # rounding flips a clamped step (the steps are capped at 0.1 x the
-    # distance to the wall, so the sign of a near-zero gradient decides
-    # them), and there any two float32 evaluation orders part ways.  So the
-    # kernel is held to the float64 descent: at every quantile of the
-    # 409,600 endpoints' deviation (in domain-width units) it must be within
-    # 5e-5 (tests/test_pallas_descent.py:64-65) or within 1.5x the float32
-    # plain version's own deviation.
-    desc_errs, times, problems = [], None, []
+    # Both instances: the tensor-core one (descent_run, the main path's)
+    # and the FMA one (descent_run_fma).  On the bench's suggest problem
+    # (bench.py:50-80) and on the main path's own ensemble.  A few descents
+    # in a thousand sit where float32 rounding flips a clamped step (the
+    # steps are capped at 0.1 x the distance to the wall, so the sign of a
+    # near-zero gradient decides them), and there any two float32
+    # evaluation orders part ways.  So each instance is held to the float64
+    # descent: at every quantile of the 409,600 endpoints' deviation (in
+    # domain-width units) it must be within 5e-5
+    # (tests/test_pallas_descent.py:64-65) or within 1.5x the float32 plain
+    # version's own deviation.
+    errs = {"descent_run": [], "descent_run_fma": []}
+    problems = []
     for label, st, box in (("bench_suggest_problem",
                             bench_suggest_states(torch), "unit"),
                            ("main_path_ensemble", states, "branin")):
@@ -340,22 +470,37 @@ def phase_equivalence(torch, model, counts):
                                             dtype=torch.float32)
         pb = _descent_problem(torch, st, bdom, g)
         problems.append((label, pb))
-        for params_label, err, k64, p64, k32, t in _descent_case(
-                torch, pb, model.kernel_name, time_it=times is None):
-            ok = all(k64[q] <= max(5e-5, 1.5 * p64[q]) for q in k64)
+        for params_label, got, p32, p64 in _descent_case(
+                torch, pb, model.kernel_name):
+            p64q = _quantiles(torch, (p32 - p64).abs())
+            result, ok = {}, True
+            for name, k in got.items():
+                k64 = _quantiles(torch, (k - p64).abs())
+                ok_i = all(k64[q] <= max(5e-5, 1.5 * p64q[q]) for q in k64)
+                err = ((k - p32) * pb["width"]).abs().max().item()
+                result[name] = {"max_abs_err": err,
+                                "kernel_vs_plain_f64": k64,
+                                "kernel_vs_plain_f32": _quantiles(
+                                    torch, (k - p32).abs()),
+                                "ok": ok_i}
+                errs[name].append(err)
+                ok = ok and ok_i
             emit({"phase": "equivalence", "kernel": "descent_run",
                   "state": label, "params": params_label,
                   "shape": [st.chol_K.shape[0], MULTISTARTS, 2, NUM_MC],
-                  "max_abs_err": err, "kernel_vs_plain_f32": k32,
-                  "kernel_vs_plain_f64": k64, "plain_f32_vs_f64": p64,
+                  "instances": result, "plain_f32_vs_f64": p64q,
+                  "mma_vs_fma": _quantiles(
+                      torch, (got["descent_run"] -
+                              got["descent_run_fma"]).abs()),
                   "tolerance": "per quantile, kernel vs f64 <= max(5e-5, "
                                "1.5 x plain f32 vs f64), domain-width units",
                   "ok": ok})
-            check(ok, f"descent_run ({label}, {params_label}) is less "
-                      "accurate than its plain version")
-            desc_errs.append(err)
-            times = t or times
-    row("descent_run", max(desc_errs), *times)
+            check(ok, f"descent_run ({label}, {params_label}): an instance "
+                      "is less accurate than the plain version")
+    times = _descent_timing(torch, problems[0][1], model.kernel_name)
+    for name in errs:
+        row(name, max(errs[name]), times[name], times["plain"],
+            times["bound"])
     return rows, problems
 
 
@@ -414,17 +559,17 @@ def _descent_problem(torch, states, dom, g) -> dict:
         "endpoints": {}}
 
 
-def _descent_case(torch, pb, kernel_name, time_it):
-    """Kernel A, plain float32 and plain float64 descents on one descent
-    problem, cold and warm parameters.  Keeps each one's endpoints (S, B,
-    M, d), in domain-width units, in pb["endpoints"][params], and the
-    timed cold call's arguments in pb["descent_run_cold"].  Yields
-    (params, max abs err kernel vs plain f32, quantiles kernel vs f64,
-    plain f32 vs f64, kernel vs plain f32, (kernel ms, plain ms) or
-    None)."""
+def _descent_case(torch, pb, kernel_name):
+    """Kernel A's two instances, the plain float32 and the plain float64
+    descents on one descent problem, cold and warm parameters.  Keeps the
+    tensor-core instance's, plain float32 and plain float64 endpoints (S, B,
+    M, d), in domain-width units, in pb["endpoints"][params] and each
+    call's arguments in pb["dargs"][params].  Yields (params, {instance:
+    endpoints}, plain f32, plain f64)."""
     from cornell_moe_tpu_torch.ops import kernels
 
     lengths, width = pb["lengths"], pb["width"]
+    pb["dargs"] = {}
 
     def to_unit(xs):
         return xs.double().transpose(-1, -2) * lengths[:, None, None, :] / \
@@ -437,22 +582,53 @@ def _descent_case(torch, pb, kernel_name, time_it):
         tail = (kernel_name, steps, params.max_num_restarts, avg_n,
                 params.gamma, params.pre_mult, params.max_relative_change)
         dargs = (pb["xs0"], *pb["ops"], pb["geom"], *tail)
-        k = to_unit(kernels.descent_run(*dargs))
+        got = {"descent_run": to_unit(kernels.descent_run(*dargs)),
+               "descent_run_fma": to_unit(kernels.descent_run_fma(*dargs))}
         p32 = to_unit(kernels.descent_run_plain(*dargs))
         p64 = to_unit(kernels.descent_run_plain(
             *[a.double() for a in (pb["xs0"], *pb["ops"], pb["geom"])],
             *tail))
-        pb["endpoints"][label] = (k, p32, p64)
-        t = None
-        if time_it and label == "cold":
-            pb["descent_run_cold"] = dargs
-            t = (_time_ms(torch, lambda: kernels.descent_run(*dargs), 5),
-                 _time_ms(torch, lambda: kernels.descent_run_plain(*dargs),
-                          5))
-        err = ((k - p32) * width).abs().max().item()
-        yield (label, err, _quantiles(torch, (k - p64).abs()),
-               _quantiles(torch, (p32 - p64).abs()),
-               _quantiles(torch, (k - p32).abs()), t)
+        pb["endpoints"][label] = (got["descent_run"], p32, p64)
+        pb["dargs"][label] = dargs
+        yield label, got, p32, p64
+
+
+def _descent_timing(torch, pb, kernel_name) -> dict:
+    """Kernel A's two instances timed in turns (fma, mma, mma, fma; each
+    turn the median of 20 CUDA-event runs after a warm-up) at the cold and
+    warm schedules of one descent problem, beside the bound of the work and
+    each pipe's time under it; the plain version once, cold (median of 5).
+    Returns the cold times and bound for the kernels' summary."""
+    from cornell_moe_tpu_torch.ops import kernels
+
+    out = {}
+    for label, dargs in pb["dargs"].items():
+        turns = {"descent_run_fma": [], "descent_run": []}
+        for name in ("descent_run_fma", "descent_run", "descent_run",
+                     "descent_run_fma"):
+            fn = getattr(kernels, name)
+            turns[name].append(_time_ms(torch, lambda: fn(*dargs), 20))
+        s, b, d, m = dargs[0].shape
+        np_, q = dargs[1].shape[-1], dargs[4].shape[0]
+        evaluations = dargs[8] * dargs[9]
+        bound = descent_bound(s, b, m, np_, d, q, kernel_name, evaluations)
+        ms = {n: statistics.mean(t) for n, t in turns.items()}
+        rec = {"phase": "descent_run_timing", "params": label,
+               "shape": [s, b, d, m, np_], "field_evaluations": evaluations,
+               "turns_ms": turns, **{f"{n}_ms": v for n, v in ms.items()},
+               "bound_ms": bound["ms"], "bound_pipe": bound["pipe"],
+               "bound_pipes_ms": bound["pipes_ms"],
+               "share_of_bound": {n: bound["ms"] / v for n, v in ms.items()},
+               "mma_blocks_per_sm": kernels.descent_mma_occupancy(
+                   d, q, m, np_, kernel_name),
+               "timing": "in turns fma, mma, mma, fma; CUDA events, median "
+                         "of 20 after a warm-up per turn"}
+        if label == "cold":
+            out = {**ms, "bound": bound, "plain": _time_ms(
+                torch, lambda: kernels.descent_run_plain(*dargs), 5)}
+            rec["plain_ms"] = out["plain"]
+        emit(rec)
+    return out
 
 
 def phase_descent_grad(torch, kernel_name, problems) -> dict:
@@ -558,7 +734,7 @@ def phase_descent_grad(torch, kernel_name, problems) -> dict:
             check(ok, f"the descent_grad route ({label}, {params_label}) is "
                       "less accurate than the plain float32 descent")
             launches += counts["descent_grad"]
-            if "descent_run_cold" in pb and params_label == "cold":
+            if label == problems[0][0] and params_label == "cold":
                 emit({"phase": "descent_grad_route_timing", "state": label,
                       "params": params_label,
                       "route_ms": _time_ms(
@@ -566,9 +742,13 @@ def phase_descent_grad(torch, kernel_name, problems) -> dict:
                               bvg, pb["dom"], pb["x0"], params), 20),
                       "descent_run_ms": _time_ms(
                           torch, lambda: kernels.descent_run(
-                              *pb["descent_run_cold"]), 20),
+                              *pb["dargs"]["cold"]), 20),
                       "timing": "CUDA events, median of 20 after a warm-up"})
-    return kernel_row("descent_grad", launches, max(errs), *times)
+    s, b, d, m = problems[0][1]["xs0"].shape
+    wt = problems[0][1]["ops"][1]
+    bound = descent_bound(s, b, m, wt.shape[-1], d, (wt.shape[2] // (1 + d))
+                          - 1, kernel_name, 1, direction_out=True)
+    return kernel_row("descent_grad", launches, max(errs), *times, bound)
 
 
 def phase_chain_profile(torch, model) -> None:

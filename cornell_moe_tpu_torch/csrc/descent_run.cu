@@ -1,5 +1,8 @@
 // The KG inner posterior-mean descent for every (ensemble member s, union b,
-// MC draw m) at once, run to the end inside the kernel.
+// MC draw m) at once, run to the end inside the kernel: the FMA instance of
+// kernel A (C entry cmoe_descent_run_fma).  ops/kernels.py takes it where
+// the moment rows do not fit descent_run_mma.cu's one 16-row tensor-core
+// tile (Wr > 16), and descent_run_fma launches it at any shape.
 //
 // Replaces: cornell_moe_tpu/ops/pallas_kernels.py, pallas_descent_run
 //   (_descent_run_kernel + _field_grad), one program per member looping
@@ -75,26 +78,8 @@ __global__ void cmoe_descent_run_kernel(
         float g[DA];
         cmoe_field_grad<DA, QA, WA>(x, sws, swt, Np, d, q, wr, bz, zz, uq,
                                     kernel, g);
-        // LimitUpdate-clamped step
-        const float rate = pre_mult * powf((float)(i + 1), -gamma);
-#pragma unroll
-        for (int dd = 0; dd < DA; ++dd) {
-          if (dd < d) {
-            const float xr = x[dd];
-            float dx = rate * g[dd] * il2[dd];
-            if (!isfinite(dx)) dx = 0.0f;
-            const float cap = mrc * fminf(xr - lo[dd], hi[dd] - xr);
-            float step = dx;
-            if (fabsf(dx) > cap) step = dx > 0.0f ? cap : (dx < 0.0f ? -cap : 0.0f);
-            const float nxt = xr + step;
-            const float half = step * 0.5f;
-            const float fix_lo = (xr + half < lo[dd]) ? (lo[dd] - xr) * 0.5f : half;
-            const float fix_hi = (xr + half > hi[dd]) ? (hi[dd] - xr) * 0.5f : half;
-            if (nxt < lo[dd]) step = fix_lo;
-            else if (nxt > hi[dd]) step = fix_hi;
-            x[dd] = xr + step;
-          }
-        }
+        cmoe_limit_step<DA>(x, g, lo, hi, il2,
+                            pre_mult * powf((float)(i + 1), -gamma), mrc, d);
         if (avg_n > 0 && i >= steps - avg_n) {
 #pragma unroll
           for (int dd = 0; dd < DA; ++dd)
@@ -132,14 +117,14 @@ static int launch_descent(const float* xs0, const float* ws, const float* wt,
   return (int)cudaGetLastError();
 }
 
-extern "C" int cmoe_descent_run(const float* xs0, const float* ws,
-                                const float* wt, const float* beta,
-                                const float* z, const float* us,
-                                const float* geom, float* out, int S, int B,
-                                int d, int M, int Np, int q, int wr,
-                                int steps, int restarts, int avg_n,
-                                float gamma, float pre_mult, float mrc,
-                                int kernel, void* stream) {
+extern "C" int cmoe_descent_run_fma(const float* xs0, const float* ws,
+                                    const float* wt, const float* beta,
+                                    const float* z, const float* us,
+                                    const float* geom, float* out, int S,
+                                    int B, int d, int M, int Np, int q,
+                                    int wr, int steps, int restarts,
+                                    int avg_n, float gamma, float pre_mult,
+                                    float mrc, int kernel, void* stream) {
   if (wr != (1 + q) * (1 + d) || d > DESC_MAXD || q > DESC_MAXQ ||
       wr > DESC_MAXW)
     return (int)cudaErrorInvalidValue;

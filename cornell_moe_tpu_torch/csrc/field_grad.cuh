@@ -1,6 +1,8 @@
 // The KG inner descent's field gradient, shared by descent_run.cu (the whole
 // descent) and descent_grad.cu (one direction per launch), as _field_grad is
-// shared by the two Pallas kernels of cornell_moe_tpu/ops/pallas_kernels.py.
+// shared by the two Pallas kernels of cornell_moe_tpu/ops/pallas_kernels.py;
+// its direction from the moments and the clamped step also serve
+// descent_run_mma.cu.
 //
 // Layouts (one ensemble member s, one union b; sb = s * B + b):
 //   ws (S, d, Np) scaled training points; wt (S, B, Wr, Np) moment weights
@@ -67,35 +69,15 @@ __device__ __forceinline__ void cmoe_load_draw(
   }
 }
 
-// Ascent direction g of -mu' at one draw's scaled point x (d):
-//   a = W phi, phi_n = P(|ws_n - x|^2) over the Np staged training points,
+// Ascent direction g of -mu' at one draw's scaled point x (d) from its
+// moments a = W phi (Wr rows):
 //   g = x s0 - sx + sum_j beta_j P(|x - u_j|^2) (x - u_j),
-// with s0, sx the draw's normals zz contracted into a.  sws, swt are the
-// staged ws (d, Np) and W (Wr, Np); bz, zz the draw's beta and normals;
-// uq (q, d) the scaled union points.  Full f32 FMA.
-template <int DA, int QA, int WA>
-__device__ __forceinline__ void cmoe_field_grad(
-    const float* x, const float* sws, const float* swt, int Np, int d, int q,
-    int wr, const float* bz, const float* zz, const float* uq, int kernel,
-    float* g) {
-  // moment contraction a = W phi over the training points
-  float a[WA];
-#pragma unroll
-  for (int w = 0; w < WA; ++w) a[w] = 0.0f;
-  for (int n = 0; n < Np; ++n) {
-    float s2 = 0.0f;
-#pragma unroll
-    for (int dd = 0; dd < DA; ++dd) {
-      if (dd < d) {
-        const float diff = sws[dd * Np + n] - x[dd];
-        s2 = fmaf(diff, diff, s2);
-      }
-    }
-    const float phi = cmoe_unit_p(s2, kernel);
-#pragma unroll
-    for (int w = 0; w < WA; ++w)
-      if (w < wr) a[w] = fmaf(swt[w * Np + n], phi, a[w]);
-  }
+// with s0, sx the draw's normals zz contracted into a; bz, zz the draw's
+// beta and normals; uq (q, d) the scaled union points.
+template <int DA, int QA>
+__device__ __forceinline__ void cmoe_moment_direction(
+    const float* a, const float* x, int d, int q, const float* bz,
+    const float* zz, const float* uq, int kernel, float* g) {
   // contract the draw's normals: w_eff = K^-1 y - V z
   float s0 = a[0];
 #pragma unroll
@@ -127,6 +109,66 @@ __device__ __forceinline__ void cmoe_field_grad(
 #pragma unroll
       for (int dd = 0; dd < DA; ++dd)
         if (dd < d) g[dd] += pb * (x[dd] - uq[j * d + dd]);
+    }
+  }
+}
+
+// Ascent direction g of -mu' at one draw's scaled point x (d):
+//   a = W phi, phi_n = P(|ws_n - x|^2) over the Np staged training points,
+// then cmoe_moment_direction.  sws, swt are the staged ws (d, Np) and
+// W (Wr, Np).  Full f32 FMA.
+template <int DA, int QA, int WA>
+__device__ __forceinline__ void cmoe_field_grad(
+    const float* x, const float* sws, const float* swt, int Np, int d, int q,
+    int wr, const float* bz, const float* zz, const float* uq, int kernel,
+    float* g) {
+  // moment contraction a = W phi over the training points
+  float a[WA];
+#pragma unroll
+  for (int w = 0; w < WA; ++w) a[w] = 0.0f;
+  for (int n = 0; n < Np; ++n) {
+    float s2 = 0.0f;
+#pragma unroll
+    for (int dd = 0; dd < DA; ++dd) {
+      if (dd < d) {
+        const float diff = sws[dd * Np + n] - x[dd];
+        s2 = fmaf(diff, diff, s2);
+      }
+    }
+    const float phi = cmoe_unit_p(s2, kernel);
+#pragma unroll
+    for (int w = 0; w < WA; ++w)
+      if (w < wr) a[w] = fmaf(swt[w * Np + n], phi, a[w]);
+  }
+  cmoe_moment_direction<DA, QA>(a, x, d, q, bz, zz, uq, kernel, g);
+}
+
+// One LimitUpdate-clamped GD step of the draw's point x (d) along g at
+// `rate` (TensorProductDomain.LimitUpdate): a non-finite step is 0, the
+// step is capped at mrc times the distance to the nearer wall, and a step
+// that still leaves the box goes half-way to the wall it crosses.
+template <int DA>
+__device__ __forceinline__ void cmoe_limit_step(float* x, const float* g,
+                                                const float* lo,
+                                                const float* hi,
+                                                const float* il2, float rate,
+                                                float mrc, int d) {
+#pragma unroll
+  for (int dd = 0; dd < DA; ++dd) {
+    if (dd < d) {
+      const float xr = x[dd];
+      float dx = rate * g[dd] * il2[dd];
+      if (!isfinite(dx)) dx = 0.0f;
+      const float cap = mrc * fminf(xr - lo[dd], hi[dd] - xr);
+      float step = dx;
+      if (fabsf(dx) > cap) step = dx > 0.0f ? cap : (dx < 0.0f ? -cap : 0.0f);
+      const float nxt = xr + step;
+      const float half = step * 0.5f;
+      const float fix_lo = (xr + half < lo[dd]) ? (lo[dd] - xr) * 0.5f : half;
+      const float fix_hi = (xr + half > hi[dd]) ? (hi[dd] - xr) * 0.5f : half;
+      if (nxt < lo[dd]) step = fix_lo;
+      else if (nxt > hi[dd]) step = fix_hi;
+      x[dd] = xr + step;
     }
   }
 }

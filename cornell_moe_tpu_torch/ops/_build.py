@@ -4,8 +4,10 @@ Each source is compiled by its own ``nvcc`` process, all started together,
 and the objects are linked into one shared library with a plain C
 interface, loaded through ``ctypes``.  The library lands in ``csrc/build/``
 under a name carrying a hash of the sources, so an edit to any source
-rebuilds it and an unchanged tree reuses it.  A missing ``nvcc`` or a failed
-build raises; nothing falls back.
+rebuilds it and an unchanged tree reuses it.  What ``ptxas -v`` says of each
+kernel (registers, spills, shared memory) is kept beside the library
+(:func:`ptxas_report`).  A missing ``nvcc`` or a failed build raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,8 +42,12 @@ SIGNATURES = {
     "cmoe_lml_fused_cluster_occupancy": [_I, _I, _I, _IP],
     "cmoe_lml_fused_global": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _P],
-    "cmoe_descent_run": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
+    "cmoe_descent_run_mma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
+    "cmoe_descent_run_mma_smem_bytes": [_I, _I, _I],
+    "cmoe_descent_run_mma_occupancy": [_I, _I, _I, _I, _I, _IP],
+    "cmoe_descent_run_fma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
     "cmoe_descent_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P],
 }
@@ -76,10 +83,35 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _target() -> Path:
+    return BUILD_DIR / f"libcornell_moe_kernels_{source_hash()}.so"
+
+
+def ptxas_report() -> dict:
+    """Per kernel entry (mangled name) of the built library: registers,
+    spill stores and loads (bytes), from ``ptxas -v``."""
+    report, entry = {}, None
+    for line in _target().with_suffix(".ptxas.txt").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            report[entry] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            report[entry].update(spill_stores=int(m.group(1)),
+                                 spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            report[entry]["registers"] = int(m.group(1))
+    return report
+
+
 def build(force: bool = False) -> Path:
     """Compile the library if the sources changed; returns its path."""
     global build_seconds
-    target = BUILD_DIR / f"libcornell_moe_kernels_{source_hash()}.so"
+    target = _target()
     if target.exists() and not force:
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -93,9 +125,10 @@ def build(force: bool = False) -> Path:
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
-        failed = []
+        failed, ptxas = [], []
         for cmd, _, proc in jobs:
             out, err = proc.communicate()
+            ptxas.append(err)
             if proc.returncode != 0:
                 failed.append((cmd, proc.returncode, out, err))
         if not failed:
@@ -109,6 +142,7 @@ def build(force: bool = False) -> Path:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"({rc}) {' '.join(cmd)}\n{out}\n{err}"
                 for cmd, rc, out, err in failed))
+        target.with_suffix(".ptxas.txt").write_text("".join(ptxas))
         os.replace(lib, target)
     build_seconds = time.time() - t0
     return target

@@ -4,8 +4,12 @@ and their launch counters.
 Four kernels, each the Hopper counterpart of one Pallas kernel of
 ``cornell_moe_tpu/ops/pallas_kernels.py`` (sources in ``csrc/``):
 
-* :func:`descent_run` (``csrc/descent_run.cu``) — the KG inner
-  posterior-mean descent, every (ensemble member, union, MC draw) at once.
+* :func:`descent_run` — the KG inner posterior-mean descent, every
+  (ensemble member, union, MC draw) at once, in two instances chosen by
+  shape (:func:`descent_run_instance`): the moment contraction on the
+  tensor cores in 3xTF32 (``csrc/descent_run_mma.cu``) where the Wr moment
+  rows fit one 16-row tile, and the FMA instance
+  (``csrc/descent_run.cu``, :func:`descent_run_fma`) above that.
 * :func:`descent_grad` (``csrc/descent_grad.cu``) — one ascent direction of
   that descent per launch (the per-step route, where
   ``optimizers.gradient_ascent_batch`` takes the steps); it shares its
@@ -28,7 +32,8 @@ a gradient, so none has a backward kernel.
 
 Each wrapper adds one to its module-level launch counter where it launches
 its kernel and nowhere else: ``lml_fused`` counts B's cluster instance,
-``lml_fused_global`` its large-Np instance.  ``chip_smoke.py`` reads the
+``lml_fused_global`` its large-Np instance, ``descent_run`` A's tensor-core
+instance and ``descent_run_fma`` its FMA instance.  ``chip_smoke.py`` reads the
 counters to prove each path went through its kernels.
 """
 
@@ -44,17 +49,19 @@ covariance_with_noise_launches = 0
 lml_fused_launches = 0
 lml_fused_global_launches = 0
 descent_run_launches = 0
+descent_run_fma_launches = 0
 descent_grad_launches = 0
 
 
 def reset_launch_counts() -> None:
     global covariance_with_noise_launches, lml_fused_launches, \
         lml_fused_global_launches, descent_run_launches, \
-        descent_grad_launches
+        descent_run_fma_launches, descent_grad_launches
     covariance_with_noise_launches = 0
     lml_fused_launches = 0
     lml_fused_global_launches = 0
     descent_run_launches = 0
+    descent_run_fma_launches = 0
     descent_grad_launches = 0
 
 
@@ -63,6 +70,7 @@ def launch_counts() -> dict:
             "lml_fused": lml_fused_launches,
             "lml_fused_global": lml_fused_global_launches,
             "descent_run": descent_run_launches,
+            "descent_run_fma": descent_run_fma_launches,
             "descent_grad": descent_grad_launches}
 
 
@@ -331,6 +339,73 @@ def _descent_shapes(name, xs, ws, wt, beta, z, us):
     return s, b, d, m, q, np_, wr
 
 
+MMA_ROWS = 16              # csrc/descent_run_mma.cu MMA_ROWS: Wr <= 16
+MMA_WARPS = 4              # csrc/descent_run_mma.cu MMA_WARPS
+MMA_UQ = 16                # csrc/descent_run_mma.cu MMA_UQ
+MMA_ABUF = 40              # csrc/descent_run_mma.cu MMA_ABUF
+
+
+def descent_mma_smem_bytes(d: int, q: int, np_: int) -> int:
+    """Shared memory of a block of A's tensor-core instance at (d, q, Np):
+    the Wr W rows at a row stride of 8 (mod 32) floats, ws, the union
+    points and each warp's Wr x MMA_ABUF exchange buffer
+    (``mma_smem_bytes`` in ``csrc/descent_run_mma.cu``)."""
+    np8 = -(-np_ // 8) * 8
+    ldw = np8 + (40 - np8 % 32) % 32
+    wr = (1 + q) * (1 + d)
+    return 4 * (wr * ldw + d * np8 + MMA_UQ + MMA_WARPS * wr * MMA_ABUF)
+
+
+def descent_run_instance(d: int, q: int, np_: int) -> str:
+    """Which instance of kernel A :func:`descent_run` launches: ``"mma"``
+    where the Wr = (1 + q)(1 + d) moment rows fit one 16-row tensor-core
+    tile and its staged operands fit one block, ``"fma"`` otherwise."""
+    wr = (1 + q) * (1 + d)
+    return "mma" if wr <= MMA_ROWS and \
+        descent_mma_smem_bytes(d, q, np_) <= SMEM_PER_BLOCK else "fma"
+
+
+def descent_mma_occupancy(d: int, q: int, m: int, np_: int,
+                          kernel_name: str) -> int:
+    """Blocks of the tensor-core instance resident on one SM of the
+    current card at these shapes
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+    out = ctypes.c_int(0)
+    rc = _lib().cmoe_descent_run_mma_occupancy(
+        d, q, m, np_, KERNEL_CODES[kernel_name], ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"descent_mma_occupancy: CUDA error {rc}")
+    return out.value
+
+
+def _descent_run_args(name, xs0, ws, wt, beta, z, us, geom, kernel_name,
+                      steps, restarts, avg_n):
+    """None for CPU tensors (the plain version), else (S, B, d, M, q, Np,
+    Wr) after checking the shapes and the schedule."""
+    if not _on_card(name, kernel_name, xs0=xs0, ws=ws, wt=wt, beta=beta,
+                    z=z, us=us, geom=geom):
+        return None
+    shapes = _descent_shapes(name, xs0, ws, wt, beta, z, us)
+    _expect(name, "geom", geom, (shapes[0], 3, shapes[2]))
+    if not (0 <= avg_n <= steps and restarts >= 1):
+        raise ValueError(f"{name}: need 0 <= avg_n <= steps, restarts >= 1")
+    return shapes
+
+
+def _launch_descent_run(name, entry, xs0, ws, wt, beta, z, us, geom,
+                        kernel_name, shapes, steps, restarts, avg_n, gamma,
+                        pre_mult, mrc) -> torch.Tensor:
+    s, b, d, m, q, np_, wr = shapes
+    out = torch.empty_like(xs0)
+    _launch(name, entry, xs0.data_ptr(), ws.data_ptr(), wt.data_ptr(),
+            beta.data_ptr(), z.data_ptr(), us.data_ptr(), geom.data_ptr(),
+            out.data_ptr(), s, b, d, m, np_, q, wr, int(steps),
+            int(restarts), int(avg_n), float(gamma), float(pre_mult),
+            float(mrc), KERNEL_CODES[kernel_name], device=xs0.device)
+    return out
+
+
 def descent_run(xs0: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
                 beta: torch.Tensor, z: torch.Tensor, us: torch.Tensor,
                 geom: torch.Tensor, kernel_name: str, steps: int,
@@ -347,27 +422,51 @@ def descent_run(xs0: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
     rounds of ``steps`` GD steps at rate ``pre_mult (i+1)^-gamma`` with
     LimitUpdate clamping (``mrc``) and Polyak averaging of the last
     ``avg_n`` steps (0 = off) followed by a clip.
+
+    Launches the tensor-core instance where :func:`descent_run_instance`
+    says ``"mma"`` (the main path's d = 2, q = 4 among them), else
+    :func:`descent_run_fma`.
     """
     global descent_run_launches
     name = "descent_run"
-    if not _on_card(name, kernel_name, xs0=xs0, ws=ws, wt=wt, beta=beta,
-                    z=z, us=us, geom=geom):
+    shapes = _descent_run_args(name, xs0, ws, wt, beta, z, us, geom,
+                               kernel_name, steps, restarts, avg_n)
+    if shapes is None:
         return descent_run_plain(xs0, ws, wt, beta, z, us, geom,
                                  kernel_name, steps, restarts, avg_n, gamma,
                                  pre_mult, mrc)
-    s, b, d, m, q, np_, wr = _descent_shapes(name, xs0, ws, wt, beta, z,
-                                             us)
-    _expect(name, "geom", geom, (s, 3, d))
-    if not (0 <= avg_n <= steps and restarts >= 1):
-        raise ValueError(f"{name}: need 0 <= avg_n <= steps, restarts >= 1")
-    out = torch.empty_like(xs0)
-    _launch(name, _lib().cmoe_descent_run, xs0.data_ptr(), ws.data_ptr(),
-            wt.data_ptr(), beta.data_ptr(), z.data_ptr(), us.data_ptr(),
-            geom.data_ptr(), out.data_ptr(), s, b, d, m, np_, q, wr,
-            int(steps), int(restarts), int(avg_n), float(gamma),
-            float(pre_mult), float(mrc), KERNEL_CODES[kernel_name],
-            device=xs0.device)
+    tail = (steps, restarts, avg_n, gamma, pre_mult, mrc)
+    d, q, np_ = shapes[2], shapes[4], shapes[5]
+    if descent_run_instance(d, q, np_) == "fma":
+        return descent_run_fma(xs0, ws, wt, beta, z, us, geom, kernel_name,
+                               *tail)
+    out = _launch_descent_run(name, _lib().cmoe_descent_run_mma, xs0, ws, wt,
+                              beta, z, us, geom, kernel_name, shapes, *tail)
     descent_run_launches += 1
+    return out
+
+
+def descent_run_fma(xs0: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
+                    beta: torch.Tensor, z: torch.Tensor, us: torch.Tensor,
+                    geom: torch.Tensor, kernel_name: str, steps: int,
+                    restarts: int, avg_n: int, gamma: float,
+                    pre_mult: float, mrc: float) -> torch.Tensor:
+    """Kernel A's FMA instance at any shape (d <= 8, q <= 16, Wr <= 64):
+    one thread per draw, the contraction in float32 FMA.
+    :func:`descent_run` takes it above one tensor-core tile; arguments and
+    result as there."""
+    global descent_run_fma_launches
+    name = "descent_run_fma"
+    shapes = _descent_run_args(name, xs0, ws, wt, beta, z, us, geom,
+                               kernel_name, steps, restarts, avg_n)
+    if shapes is None:
+        return descent_run_plain(xs0, ws, wt, beta, z, us, geom,
+                                 kernel_name, steps, restarts, avg_n, gamma,
+                                 pre_mult, mrc)
+    out = _launch_descent_run(name, _lib().cmoe_descent_run_fma, xs0, ws, wt,
+                              beta, z, us, geom, kernel_name, shapes, steps,
+                              restarts, avg_n, gamma, pre_mult, mrc)
+    descent_run_fma_launches += 1
     return out
 
 

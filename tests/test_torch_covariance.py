@@ -92,14 +92,15 @@ def test_cpu_wrappers_take_the_plain_path(rng):
     desc = (torch.rand(s, b, d, m), us,
             torch.rand(s, b, (1 + q) * (1 + d), 10), torch.rand(s, b, q, m),
             torch.rand(q, m), torch.rand(s, b, q, d))
-    kernels.descent_run(
-        *desc, torch.tensor([[[0.0, 0.0], [1.0, 1.0], [1.0, 1.0]]]),
-        "matern_2.5", steps=2, restarts=1, avg_n=1, gamma=0.0, pre_mult=1.0,
-        mrc=0.1)
+    for run in (kernels.descent_run, kernels.descent_run_fma):
+        run(*desc, torch.tensor([[[0.0, 0.0], [1.0, 1.0], [1.0, 1.0]]]),
+            "matern_2.5", steps=2, restarts=1, avg_n=1, gamma=0.0,
+            pre_mult=1.0, mrc=0.1)
     kernels.descent_grad(*desc, "matern_2.5")
     assert kernels.launch_counts() == {"covariance_with_noise": 0,
                                        "lml_fused": 0, "lml_fused_global": 0,
-                                       "descent_run": 0, "descent_grad": 0}
+                                       "descent_run": 0, "descent_run_fma": 0,
+                                       "descent_grad": 0}
 
 
 def test_wrapper_refuses_grad_inputs():

@@ -3,9 +3,10 @@
 ``chip_smoke.py`` checks each kernel at the main path's shapes; these tests
 cover what it does not reach: ragged sizes, the squared-exponential field,
 both instances of the fused LML (the cluster one against the large-Np one),
-the descent kernels' generic (d, q) instance, failed LML factorizations,
-and the wrappers' refusals on CUDA tensors.  They need a CUDA card (marker
-``cuda``) and skip without one.  On the card, without JAX installed:
+both instances of the descent (tensor-core and FMA) and their generic
+(d, q) instances, the descent's dispatch and its non-finite blocks, failed
+LML factorizations, and the wrappers' refusals on CUDA tensors.  They need
+a CUDA card (marker ``cuda``) and skip without one.  On the card, without JAX installed:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 
@@ -160,29 +161,117 @@ def _descent_inputs(rng, s, b, d, q, m, np_):
     return (xs0, ws.transpose(0, 2, 1), wt, beta, z, us, geom), lengths
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
-@pytest.mark.parametrize("d,q,m,np_", [(3, 2, 50, 70), (2, 4, 40, 130)])
-@pytest.mark.parametrize("schedule", [(6, 2, 3), (1, 1, 0)],
-                         ids=["cold", "warm"])
-def test_descent_kernel_matches_float64_plain(dev, rng, kernel, d, q, m,
-                                              np_, schedule):
-    """(3, 2) runs the generic instance, (2, 4) the main path's."""
-    s, b = 2, 3
-    steps, restarts, avg_n = schedule
-    arrays, lengths = _descent_inputs(rng, s, b, d, q, m, np_)
-    tail = (kernel, steps, restarts, avg_n, 0.3, 1.0, 0.1)
-    before = kernels.descent_run_launches
-    got = kernels.descent_run(*[_c(a, dev) for a in arrays], *tail)
-    ref = kernels.descent_run_plain(
-        *[_c(a, dev, torch.float64) for a in arrays], *tail)
-    torch.cuda.synchronize()
-    assert kernels.descent_run_launches == before + 1
+def _check_descent_endpoints(got, ref, lengths, dev):
+    """At most 1% of the endpoints more than 5e-5 of the domain width from
+    the float64 descent, all finite and inside the box."""
     scale = torch.as_tensor(lengths, device=dev)[:, None, :, None]
     err = ((got.double() - ref) * scale).abs()       # domain-width units
     assert torch.isfinite(got).all()
     assert float((err > 5e-5).double().mean()) <= 0.01, float(err.max())
     hi = (1.0 / scale) * (1 + 1e-6)
     assert bool(((got.double() >= 0) & (got.double() <= hi)).all())
+
+
+def _launched(before, name):
+    after = kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == \
+        {n: int(n == name) for n in after}
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("d,q,m,np_", [(3, 2, 50, 70), (2, 4, 40, 130)])
+@pytest.mark.parametrize("schedule", [(6, 2, 3), (1, 1, 0)],
+                         ids=["cold", "warm"])
+def test_descent_kernel_matches_float64_plain(dev, rng, kernel, d, q, m,
+                                              np_, schedule):
+    """The FMA instance (descent_run_fma): (3, 2) runs its generic
+    instance, (2, 4) the main path's."""
+    s, b = 2, 3
+    steps, restarts, avg_n = schedule
+    arrays, lengths = _descent_inputs(rng, s, b, d, q, m, np_)
+    tail = (kernel, steps, restarts, avg_n, 0.3, 1.0, 0.1)
+    before = kernels.launch_counts()
+    got = kernels.descent_run_fma(*[_c(a, dev) for a in arrays], *tail)
+    ref = kernels.descent_run_plain(
+        *[_c(a, dev, torch.float64) for a in arrays], *tail)
+    torch.cuda.synchronize()
+    _launched(before, "descent_run_fma")
+    _check_descent_endpoints(got, ref, lengths, dev)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("d,q", [(2, 4), (3, 3), (1, 1)],
+                         ids=["d2q4", "d3q3_wr16", "d1q1"])
+@pytest.mark.parametrize("np_", [70, 130, 512, 520])
+@pytest.mark.parametrize("m", [40, 128, 200])
+@pytest.mark.parametrize("schedule", [(6, 1, 3), (1, 1, 0)],
+                         ids=["cold", "warm"])
+def test_descent_mma_kernel_matches_float64_plain(dev, rng, kernel, d, q,
+                                                  np_, m, schedule):
+    """The tensor-core instance, which descent_run takes at Wr <= 16: (2, 4)
+    its main-path instance, (3, 3) and (1, 1) its generic one; Np 70, 130
+    and 520 end in a ragged k-tile, M 40 and 200 in a partial warp."""
+    s, b = 2, 3
+    steps, restarts, avg_n = schedule
+    arrays, lengths = _descent_inputs(rng, s, b, d, q, m, np_)
+    tail = (kernel, steps, restarts, avg_n, 0.3, 1.0, 0.1)
+    assert kernels.descent_run_instance(d, q, np_) == "mma"
+    before = kernels.launch_counts()
+    got = kernels.descent_run(*[_c(a, dev) for a in arrays], *tail)
+    ref = kernels.descent_run_plain(
+        *[_c(a, dev, torch.float64) for a in arrays], *tail)
+    torch.cuda.synchronize()
+    _launched(before, "descent_run")
+    _check_descent_endpoints(got, ref, lengths, dev)
+
+
+def test_descent_nonfinite_block_stands_still_in_both_instances(dev, rng):
+    """A NaN in one block's K^-1 y row of W (as where the fantasy factor
+    fails): every direction of that block is NaN, so every draw keeps its
+    start (then the Polyak mean and the clip), bit for bit as in the FMA
+    instance; the other blocks are untouched by it."""
+    arrays, lengths = _descent_inputs(rng, 2, 3, 2, 4, 128, 512)
+    arrays[2][1, 2, 0, 100] = np.nan
+    args = [_c(a, dev) for a in arrays]
+    tail = ("matern_2.5", 6, 1, 3, 0.3, 1.0, 0.1)
+    got = kernels.descent_run(*args, *tail)
+    fma = kernels.descent_run_fma(*args, *tail)
+    ref = kernels.descent_run_plain(
+        *[_c(a, dev, torch.float64) for a in arrays], *tail)
+    assert torch.equal(got[1, 2], fma[1, 2])
+    torch.testing.assert_close(got[1, 2], args[0][1, 2], rtol=1e-6, atol=0.0)
+    keep = torch.ones(got.shape[:2], dtype=torch.bool, device=dev)
+    keep[1, 2] = False
+    for si in range(2):
+        rows = keep[si]
+        _check_descent_endpoints(got[si][rows][None], ref[si][rows][None],
+                                 lengths[si:si + 1], dev)
+
+
+def test_descent_run_dispatches_wide_moments_to_the_fma_instance(dev, rng):
+    """Wr = 20 (d 3, q 4) does not fit one tensor-core tile: descent_run
+    launches the FMA instance, by the counters."""
+    arrays, lengths = _descent_inputs(rng, 2, 3, 3, 4, 40, 130)
+    assert kernels.descent_run_instance(3, 4, 130) == "fma"
+    tail = ("square_exponential", 6, 1, 3, 0.3, 1.0, 0.1)
+    before = kernels.launch_counts()
+    got = kernels.descent_run(*[_c(a, dev) for a in arrays], *tail)
+    torch.cuda.synchronize()
+    _launched(before, "descent_run_fma")
+    ref = kernels.descent_run_plain(
+        *[_c(a, dev, torch.float64) for a in arrays], *tail)
+    _check_descent_endpoints(got, ref, lengths, dev)
+
+
+def test_descent_mma_layout_matches_the_wrapper(dev):
+    """The kernel's shared-memory count is the one the instance choice
+    uses."""
+    lib = kernels._lib()
+    for d, q in ((1, 1), (2, 4), (3, 3), (7, 1), (1, 7)):
+        for np_ in (1, 70, 130, 512, 520, 3000):
+            assert lib.cmoe_descent_run_mma_smem_bytes(d, q, np_) == \
+                kernels.descent_mma_smem_bytes(d, q, np_)
+    assert kernels.descent_mma_occupancy(2, 4, 128, 512, "matern_2.5") >= 4
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
