@@ -10,19 +10,24 @@ drives one q-KG iteration of ``BayesianOptimizer`` at the main path's size
 (Branin, 500 observations, 16-member ensemble, q = 4, 200 multistarts,
 128 MC draws, float32 on ``cuda:0``), checks that each kernel of that path
 launched during the run, and holds each kernel against its plain PyTorch
-version at the main path's shapes (the fused LML also against its large-Np
-instance, the three timed side by side, with its cluster occupancy; the KG
-inner descent in both its instances, tensor-core and FMA, timed in turns).
-Then it drives the per-step route of the KG inner descent (one
-``descent_grad`` launch per GD step, the steps taken by
+version at the main path's shapes (the covariance also against its own
+transpose, bit for bit; the fused LML also against its large-Np instance,
+the three timed side by side, with its cluster occupancy; the KG inner
+descent in both its instances, tensor-core and FMA, timed in turns).
+Then it holds both instances of one descent direction (``descent_grad``,
+tensor-core, and ``descent_grad_fma``) against the float64 plain version
+and times them in turns, and drives the per-step route of the KG inner
+descent (one ``descent_grad`` launch per GD step, the steps taken by
 ``gradient_ascent_batch``), which the main path does not take, at the main
 path's shapes, checks that it went through its kernel, and holds it
 against the float64 descent.  It profiles a window of the main path's MCMC
 chain (host wall clock per stretch-move step against the device's busy
 time), and last it checks the port against its own float64 CPU path on a
 small input.  Every phase prints one JSON line; the kernels' summary is
-one JSON line, with each kernel's time beside its bound (the least time
-the card could take for the same work); the last line is
+one JSON line, with each kernel's device time (its own CUDA events under
+``torch.profiler``) and call time (CUDA events around the wrapper) beside
+its bound (the least time the card could take for the same work); the
+last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -49,20 +54,23 @@ KERNELS = {
                     f"{PALLAS}:495"),
     "descent_run_fma": ("cornell_moe_tpu_torch/csrc/descent_run.cu",
                         f"{PALLAS}:495"),
-    "descent_grad": ("cornell_moe_tpu_torch/csrc/descent_grad.cu",
+    "descent_grad": ("cornell_moe_tpu_torch/csrc/descent_grad_mma.cu",
                      f"{PALLAS}:538"),
+    "descent_grad_fma": ("cornell_moe_tpu_torch/csrc/descent_grad.cu",
+                         f"{PALLAS}:538"),
     "lml_fused": ("cornell_moe_tpu_torch/csrc/lml_fused.cu", f"{PALLAS}:271"),
     "covariance_with_noise": (
         "cornell_moe_tpu_torch/csrc/covariance_with_noise.cu",
         f"{PALLAS}:88"),
 }
-# the kernels the main path launches (descent_grad serves the per-step
-# route, driven by its own phase; every lml_fused launch takes the cluster
-# instance, and the large-Np instance, lml_fused_global, none; every
-# descent_run launch the tensor-core instance, and the FMA instance,
-# descent_run_fma, none)
+# the kernels the main path launches (descent_grad and descent_grad_fma
+# serve the per-step route, driven by its own phase; every lml_fused launch
+# takes the cluster instance, and the large-Np instance, lml_fused_global,
+# none; every descent_run launch the tensor-core instance, and the FMA
+# instance, descent_run_fma, none)
 MAIN_PATH_KERNELS = ("descent_run", "lml_fused", "covariance_with_noise")
-NOT_ON_MAIN_PATH = ("lml_fused_global", "descent_run_fma", "descent_grad")
+NOT_ON_MAIN_PATH = ("lml_fused_global", "descent_run_fma", "descent_grad",
+                    "descent_grad_fma")
 
 # Main-path size, and the card it runs on
 NUM_OBS, Q, N_HYPERS, NUM_MC, MULTISTARTS = 500, 4, 16, 128, 200
@@ -202,16 +210,23 @@ def phase_main(torch):
     return bo, counts
 
 
-def kernel_row(name, launches, err, ms, plain_ms, bound) -> dict:
-    """One row of the kernels' summary line.  bound: from :func:`_bound`.
-    No single PyTorch call computes any of these kernels' functions, so
-    library_ms is null."""
+def kernel_row(name, launches, err, times, plain, bound) -> dict:
+    """One row of the kernels' summary line.  times, plain: the kernel's and
+    its plain version's {"device_ms", "call_ms"} (:func:`_timed`); ms is the
+    kernel's device time, and its share of the bound is bound / device_ms.
+    bound: from :func:`_bound`.  No single PyTorch call computes any of
+    these kernels' functions, so library_ms is null."""
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": times["device_ms"],
+            "device_ms": times["device_ms"], "call_ms": times["call_ms"],
+            "plain_ms": plain["device_ms"],
+            "plain_call_ms": plain["call_ms"],
             "bound_ms": bound["ms"], "bound_by": bound["by"],
-            "bound_pipe": bound["pipe"], "library_ms": None}
+            "bound_pipe": bound["pipe"],
+            "share_of_bound": bound["ms"] / times["device_ms"],
+            "library_ms": None}
 
 
 def _bound(nbytes, fp32=0.0, matmul=0.0, mufu=0.0) -> dict:
@@ -274,7 +289,9 @@ def lml_bound(w, np_, d, kernel_name):
 
 
 def _time_ms(torch, fn, reps: int) -> float:
-    """Median device time of fn over reps runs, after one warm-up."""
+    """Median time between CUDA events recorded before and after a call of
+    fn, over reps calls after one warm-up: the kernel's time plus the host
+    work of its wrapper, during which the card may sit idle."""
     fn()
     times = []
     for _ in range(reps):
@@ -286,6 +303,63 @@ def _time_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+DEVICE_MS_GAP_S = 0.02    # the card's idle time between two timed calls
+
+
+def _device_ms(torch, fn, reps: int) -> float:
+    """Median over reps calls of fn of the card's time in the work each call
+    launched: the sum of its CUDA events (kernels, copies, fills) under
+    torch.profiler, read as phase_chain_profile reads them.  The wrapper's
+    host work is left out, and a plain version's many small launches are
+    summed.
+
+    Calls are told apart on the device's own timeline: after each call a
+    synchronize and DEVICE_MS_GAP_S of sleep leave the card idle, and the
+    events split into calls wherever it sat idle for more than half of
+    that (no call waits on its host for that long).  The profiler's host
+    and device clocks disagree by up to a call's length on the H100, so
+    host ranges cannot place device events.  One warm-up call runs under
+    the profiler first; the first kernel after the profiler starts may go
+    unrecorded, so its events may be missing, and the last reps calls are
+    read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps + 1):
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(DEVICE_MS_GAP_S)
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    check(len(spans) > 0, "the profiler saw no device events")
+    calls, last_end = [[]], spans[0][0]
+    for start, end in spans:                # microseconds
+        if start - last_end > DEVICE_MS_GAP_S * 1e6 / 2:
+            calls.append([])
+        calls[-1].append(end - start)
+        last_end = max(last_end, end)
+    check(len(calls) in (reps, reps + 1),
+          f"{len(calls)} calls seen on the device, {reps + 1} made")
+    return statistics.median(sum(c) / 1e3 for c in calls[-reps:])
+
+
+def _timed(torch, fn, reps: int) -> dict:
+    """fn's device time (:func:`_device_ms`) and its call time between
+    CUDA events (:func:`_time_ms`), each the median of reps calls."""
+    return {"device_ms": _device_ms(torch, fn, reps),
+            "call_ms": _time_ms(torch, fn, reps)}
+
+
+TIMING = ("device_ms: the sum of the call's CUDA events under "
+          "torch.profiler; call_ms: CUDA events around the call, wrapper "
+          "included; each the median of {} calls after a warm-up")
 
 
 def phase_equivalence(torch, model, counts):
@@ -301,27 +375,33 @@ def phase_equivalence(torch, model, counts):
     x, y, pn = model._padded_data()
     rows = []
 
-    def row(name, err, ms, plain_ms, bound):
-        rows.append(kernel_row(name, counts[name], err, ms, plain_ms, bound))
+    def row(name, err, times, plain, bound):
+        rows.append(kernel_row(name, counts[name], err, times, plain, bound))
 
     # --- C: covariance + noise, S = 16, n = 512 ------------------------------
+    # Against the plain version, and K symmetric bit for bit: the kernel
+    # computes each off-diagonal tile once and writes it twice.
     h = states.covariance.hyperparameters.contiguous()
     nv = (states.noise_variance + states.point_noise[..., 0]).contiguous()
     args = (x.contiguous(), h, nv, model.kernel_name)
     got = kernels.covariance_with_noise(*args)
     ref = kernels.covariance_with_noise_plain(*args)
     err = (got - ref).abs()
-    tol_ok = bool((err <= 2e-5 + 2e-4 * ref.abs()).all())
+    symmetric = bool(torch.equal(got, got.transpose(-1, -2)))
+    ok = bool((err <= 2e-5 + 2e-4 * ref.abs()).all()) and symmetric
+    times = _timed(torch, lambda: kernels.covariance_with_noise(*args), 20)
     emit({"phase": "equivalence", "kernel": "covariance_with_noise",
           "shape": list(got.shape), "max_abs_err": err.max().item(),
           "max_rel_err": (err / ref.abs().clamp_min(1e-30)).max().item(),
-          "tolerance": "rtol 2e-4, atol 2e-5", "ok": tol_ok})
-    check(tol_ok, "covariance_with_noise disagrees with its plain version")
-    row("covariance_with_noise", err.max().item(),
-        _time_ms(torch, lambda: kernels.covariance_with_noise(*args), 20),
-        _time_ms(torch, lambda: kernels.covariance_with_noise_plain(*args),
-                 20), covariance_bound(h.shape[0], x.shape[0], x.shape[1],
-                                       model.kernel_name))
+          "symmetric_bitwise": symmetric, **times,
+          "tolerance": "rtol 2e-4, atol 2e-5; K equal to K^T bit for bit",
+          "ok": ok})
+    check(ok, "covariance_with_noise disagrees with its plain version or "
+              "is not symmetric")
+    row("covariance_with_noise", err.max().item(), times,
+        _timed(torch, lambda: kernels.covariance_with_noise_plain(*args), 20),
+        covariance_bound(h.shape[0], x.shape[0], x.shape[1],
+                         model.kernel_name))
 
     # --- B: fused LML, W = 8 and 16 walkers, Np = 512 and 384 ---------------
     # The chain's stretch move evaluates one half-ensemble (W = 8) per
@@ -383,16 +463,14 @@ def phase_equivalence(torch, model, counts):
             lml_errs.append(abs_err)
             if np_ == x.shape[0]:
                 times[nw] = {
-                    "cluster_ms": _time_ms(
+                    "cluster": _timed(
                         torch, lambda: kernels.lml_fused(*largs), 20),
-                    "large_np_instance_ms": _time_ms(
+                    "large_np_instance": _timed(
                         torch, lambda: kernels.lml_fused_global(*largs), 20),
-                    "plain_ms": _time_ms(
+                    "plain": _timed(
                         torch, lambda: kernels.lml_fused_plain(*largs), 20)}
                 emit({"phase": "lml_fused_timing", "W": nw, "Np": np_,
-                      **times[nw],
-                      "timing": "CUDA events, median of 20 after a "
-                                "warm-up"})
+                      **times[nw], "timing": TIMING.format(20)})
     np_main = x.shape[0]
     smem = kernels._lib().cmoe_lml_fused_cluster_smem_bytes(np_main)
     occupancy = {f"W{nw}_C{c}": kernels.lml_cluster_occupancy(nw, np_main, c)
@@ -444,9 +522,9 @@ def phase_equivalence(torch, model, counts):
               "tolerance": "vs f64: max rel 5e-3 or the plain f32 "
                            "path's own max deviation", "ok": ok})
         check(ok, f"kernel log-posterior check failed ({label})")
-    row("lml_fused", max(lml_errs), times[w // 2]["cluster_ms"],
-        times[w // 2]["plain_ms"], lml_bound(w // 2, x.shape[0], d,
-                                             model.kernel_name))
+    row("lml_fused", max(lml_errs), times[w // 2]["cluster"],
+        times[w // 2]["plain"], lml_bound(w // 2, x.shape[0], d,
+                                          model.kernel_name))
 
     # --- A: KG inner descent, S=16, B=200, q=4, d=2, M=128, Np=512 -----------
     # Both instances: the tensor-core one (descent_run, the main path's)
@@ -499,7 +577,7 @@ def phase_equivalence(torch, model, counts):
                       "is less accurate than the plain version")
     times = _descent_timing(torch, problems[0][1], model.kernel_name)
     for name in errs:
-        row(name, max(errs[name]), times[name], times["plain"],
+        row(name, max(errs[name]), times["times"][name], times["plain"],
             times["bound"])
     return rows, problems
 
@@ -593,48 +671,61 @@ def _descent_case(torch, pb, kernel_name):
         yield label, got, p32, p64
 
 
+def _in_turns(torch, fns: dict, order, reps: int) -> dict:
+    """Each of fns ({name: fn}) timed by :func:`_timed` in turns, in the
+    given order (fma, mma, mma, fma: a drift of the card's clock over the
+    turns falls on both alike).  Returns {name: {"device_ms", "call_ms":
+    the means over the name's turns, "turns": each turn's}}."""
+    turns = {n: {"device_ms": [], "call_ms": []} for n in fns}
+    for n in order:
+        for k, v in _timed(torch, fns[n], reps).items():
+            turns[n][k].append(v)
+    return {n: {**{k: statistics.mean(v) for k, v in t.items()},
+                "turns": t} for n, t in turns.items()}
+
+
 def _descent_timing(torch, pb, kernel_name) -> dict:
     """Kernel A's two instances timed in turns (fma, mma, mma, fma; each
-    turn the median of 20 CUDA-event runs after a warm-up) at the cold and
-    warm schedules of one descent problem, beside the bound of the work and
-    each pipe's time under it; the plain version once, cold (median of 5).
-    Returns the cold times and bound for the kernels' summary."""
+    turn :func:`_timed` over 20 calls) at the cold and warm schedules of
+    one descent problem, beside the bound of the work and each pipe's time
+    under it; the plain version once, cold (5 calls).  Returns the cold
+    times ({instance: times}), plain times and bound for the kernels'
+    summary."""
     from cornell_moe_tpu_torch.ops import kernels
 
     out = {}
     for label, dargs in pb["dargs"].items():
-        turns = {"descent_run_fma": [], "descent_run": []}
-        for name in ("descent_run_fma", "descent_run", "descent_run",
-                     "descent_run_fma"):
-            fn = getattr(kernels, name)
-            turns[name].append(_time_ms(torch, lambda: fn(*dargs), 20))
+        times = _in_turns(
+            torch, {n: (lambda fn=getattr(kernels, n): fn(*dargs))
+                    for n in ("descent_run_fma", "descent_run")},
+            ("descent_run_fma", "descent_run", "descent_run",
+             "descent_run_fma"), 20)
         s, b, d, m = dargs[0].shape
         np_, q = dargs[1].shape[-1], dargs[4].shape[0]
         evaluations = dargs[8] * dargs[9]
         bound = descent_bound(s, b, m, np_, d, q, kernel_name, evaluations)
-        ms = {n: statistics.mean(t) for n, t in turns.items()}
         rec = {"phase": "descent_run_timing", "params": label,
                "shape": [s, b, d, m, np_], "field_evaluations": evaluations,
-               "turns_ms": turns, **{f"{n}_ms": v for n, v in ms.items()},
-               "bound_ms": bound["ms"], "bound_pipe": bound["pipe"],
+               **times, "bound_ms": bound["ms"], "bound_pipe": bound["pipe"],
                "bound_pipes_ms": bound["pipes_ms"],
-               "share_of_bound": {n: bound["ms"] / v for n, v in ms.items()},
+               "share_of_bound": {n: bound["ms"] / t["device_ms"]
+                                  for n, t in times.items()},
                "mma_blocks_per_sm": kernels.descent_mma_occupancy(
                    d, q, m, np_, kernel_name),
-               "timing": "in turns fma, mma, mma, fma; CUDA events, median "
-                         "of 20 after a warm-up per turn"}
+               "timing": "in turns fma, mma, mma, fma; per turn " +
+                         TIMING.format(20)}
         if label == "cold":
-            out = {**ms, "bound": bound, "plain": _time_ms(
+            out = {"times": times, "bound": bound, "plain": _timed(
                 torch, lambda: kernels.descent_run_plain(*dargs), 5)}
-            rec["plain_ms"] = out["plain"]
+            rec["plain"] = out["plain"]
         emit(rec)
     return out
 
 
-def phase_descent_grad(torch, kernel_name, problems) -> dict:
+def phase_descent_grad(torch, kernel_name, problems) -> list:
     """Kernel D and the per-step route it serves (``_descent_grad_bvg``
     driven by ``optimizers.gradient_ascent_batch``) on the descent problems
-    of phase_equivalence.  Returns D's summary row.
+    of phase_equivalence.
 
     (a) One direction at the starts against the float64 plain version: no
     further than 2e-5 max(max|g|, 1) (tests/test_pallas_descent.py:48) or
@@ -643,18 +734,26 @@ def phase_descent_grad(torch, kernel_name, problems) -> dict:
     itself within it of float64.  (g = x s0 - sx cancels: with |x s0| near
     180 at |g| near 8, the plain version's float32 sums land 1.8e-4 from
     float64 on a slice of the bench's problem, above the bound of 1.6e-4.)
-    (b) The route, cold and warm, against the float64 descent by A's
-    per-quantile rule.  (c) Each route run launches
-    D steps x restarts times and no other kernel.  (d) Times: D and its
-    plain version per launch, the whole route against one descent_run
-    launch (CUDA events, median of 20 after a warm-up)."""
+    Both instances of D, the tensor-core one (descent_grad, which the
+    wrapper takes at these shapes) and the FMA one (descent_grad_fma), are
+    held to this rule.  (b) The route, cold and warm, against the float64
+    descent by A's per-quantile rule.  (c) Each route run launches the
+    tensor-core instance steps x restarts times and no other kernel.  (d)
+    Times: D's two instances in turns (fma, mma, mma, fma) and its plain
+    version per launch, the whole route against one descent_run launch
+    (:func:`_timed`, 20 calls each).  Returns D's two summary rows."""
     from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
     from cornell_moe_tpu_torch.ops import kernels, optimizers
 
-    errs, launches, times = [], 0, None
+    names = ("descent_grad", "descent_grad_fma")
+    errs = {n: [] for n in names}
+    launches = dict.fromkeys(names, 0)
+    times = None
     for label, pb in problems:
         xs0, ops = pb["xs0"], pb["ops"]
-        got = kernels.descent_grad(xs0, *ops, kernel_name)
+        check(kernels.descent_grad_instance(xs0.shape[2], ops[3].shape[0],
+                                            ops[0].shape[-1]) == "mma",
+              "the main path's shapes do not take D's tensor-core instance")
         p32 = kernels.descent_grad_plain(xs0, *ops, kernel_name)
         p64 = kernels.descent_grad_plain(
             *[a.double() for a in (xs0, *ops)], kernel_name)
@@ -665,40 +764,52 @@ def phase_descent_grad(torch, kernel_name, problems) -> dict:
         both = fin & torch.isfinite(p32)
         g_max = _finite_or_none(p64[fin].abs())
         bound = 2e-5 * max(g_max or 0.0, 1.0)
-        err = (got - p32)[both].abs().max().item()
-        dev_k = _finite_or_none((got.double() - p64)[fin].abs())
         dev_p = (p32.double() - p64)[both].abs().max().item()
-        ok = g_max is not None and dev_k is not None and \
-            bool((torch.isfinite(got) == fin).all()) and \
-            dev_k <= max(bound, 1.5 * dev_p) and (err <= bound or
-                                                  dev_p > bound)
+        result, got, ok = {}, {}, g_max is not None
+        for name in names:
+            got[name] = getattr(kernels, name)(xs0, *ops, kernel_name)
+            k = got[name]
+            err = (k - p32)[both].abs().max().item()
+            dev_k = _finite_or_none((k.double() - p64)[fin].abs())
+            ok_i = dev_k is not None and \
+                bool((torch.isfinite(k) == fin).all()) and \
+                dev_k <= max(bound, 1.5 * dev_p) and (err <= bound or
+                                                      dev_p > bound)
+            result[name] = {"max_abs_err": err, "kernel_vs_plain_f64": dev_k,
+                            "nonfinite": int((~torch.isfinite(k)).sum()),
+                            "ok": ok_i}
+            errs[name].append(err)
+            ok = ok and ok_i
         emit({"phase": "equivalence", "kernel": "descent_grad",
               "check": "direction", "state": label,
-              "shape": list(got.shape),
-              "nonfinite": {"kernel": int((~torch.isfinite(got)).sum()),
-                            "plain_f32": int((~torch.isfinite(p32)).sum()),
+              "shape": list(p32.shape), "instances": result,
+              "nonfinite": {"plain_f32": int((~torch.isfinite(p32)).sum()),
                             "plain_f64": int((~fin).sum())},
               "nonfinite_operands": {
                   n: int((~torch.isfinite(a)).sum()) for n, a in
                   zip(("xs", "ws", "wt", "beta", "z", "us"), (xs0, *ops))},
-              "max_abs_g": g_max,
-              "max_abs_err": err, "kernel_vs_plain_f64": dev_k,
-              "plain_f32_vs_f64": dev_p,
+              "max_abs_g": g_max, "plain_f32_vs_f64": dev_p,
+              "mma_vs_fma": _finite_or_none(
+                  (got["descent_grad"] - got["descent_grad_fma"])[
+                      both].abs()),
               "bound": bound,
               "tolerance": "vs f64 <= max(bound, 1.5 x plain f32 vs f64); "
                            "vs plain f32 <= bound where plain f32 vs f64 <= "
                            "bound; bound = 2e-5 max(max|g|, 1)", "ok": ok})
-        check(ok, f"descent_grad ({label}) disagrees with its plain version")
-        errs.append(err)
+        check(ok, f"descent_grad ({label}): an instance disagrees with the "
+                  "plain version")
         del got, p32, p64
         if times is None:
-            times = (_time_ms(torch, lambda: kernels.descent_grad(
-                         xs0, *ops, kernel_name), 20),
-                     _time_ms(torch, lambda: kernels.descent_grad_plain(
-                         xs0, *ops, kernel_name), 20))
-            emit({"phase": "descent_grad_timing", "state": label,
-                  "kernel_ms": times[0], "plain_ms": times[1],
-                  "timing": "CUDA events, median of 20 after a warm-up"})
+            times = _in_turns(
+                torch, {n: (lambda fn=getattr(kernels, n):
+                            fn(xs0, *ops, kernel_name)) for n in names},
+                ("descent_grad_fma", "descent_grad", "descent_grad",
+                 "descent_grad_fma"), 20)
+            times["plain"] = _timed(torch, lambda: kernels.descent_grad_plain(
+                xs0, *ops, kernel_name), 20)
+            emit({"phase": "descent_grad_timing", "state": label, **times,
+                  "timing": "in turns fma, mma, mma, fma; per turn " +
+                            TIMING.format(20)})
 
         for params_label, params in pb["params"]:
             bvg = kg._descent_grad_bvg(pb["states"], pb["unions"], pb["v"],
@@ -733,22 +844,24 @@ def phase_descent_grad(torch, kernel_name, problems) -> dict:
                                "launch descent_grad steps x restarts times")
             check(ok, f"the descent_grad route ({label}, {params_label}) is "
                       "less accurate than the plain float32 descent")
-            launches += counts["descent_grad"]
+            for n in names:
+                launches[n] += counts[n]
             if label == problems[0][0] and params_label == "cold":
                 emit({"phase": "descent_grad_route_timing", "state": label,
                       "params": params_label,
-                      "route_ms": _time_ms(
+                      "route": _timed(
                           torch, lambda: optimizers.gradient_ascent_batch(
                               bvg, pb["dom"], pb["x0"], params), 20),
-                      "descent_run_ms": _time_ms(
+                      "descent_run": _timed(
                           torch, lambda: kernels.descent_run(
                               *pb["dargs"]["cold"]), 20),
-                      "timing": "CUDA events, median of 20 after a warm-up"})
+                      "timing": TIMING.format(20)})
     s, b, d, m = problems[0][1]["xs0"].shape
     wt = problems[0][1]["ops"][1]
     bound = descent_bound(s, b, m, wt.shape[-1], d, (wt.shape[2] // (1 + d))
                           - 1, kernel_name, 1, direction_out=True)
-    return kernel_row("descent_grad", launches, max(errs), *times, bound)
+    return [kernel_row(n, launches[n], max(errs[n]), times[n],
+                       times["plain"], bound) for n in names]
 
 
 def phase_chain_profile(torch, model) -> None:
@@ -944,7 +1057,7 @@ def main() -> int:
     phase_build()
     bo, counts = phase_main(torch)
     summary, problems = phase_equivalence(torch, bo.model, counts)
-    summary.append(phase_descent_grad(torch, bo.model.kernel_name, problems))
+    summary += phase_descent_grad(torch, bo.model.kernel_name, problems)
     phase_chain_profile(torch, bo.model)
     phase_small_reference(torch)
     check("jax" not in sys.modules and "cornell_moe_tpu" not in sys.modules,

@@ -22,8 +22,13 @@ F32_CHOLESKY_JITTER = 1.0e-6
 
 
 def default_device() -> torch.device:
-    """``cuda:0`` when a card is present, else the CPU."""
-    return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+    """``cuda:0``, the device of an entry point given none.  Raises
+    ``RuntimeError`` when no CUDA card is present: the CPU is taken only
+    when the caller asks for it (``device="cpu"``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card: pass device='cpu' to run on the CPU")
+    return torch.device("cuda:0")
 
 
 def default_dtype(device) -> torch.dtype:

@@ -1,6 +1,8 @@
 // One ascent direction of -mu' (scaled coordinates) for every (ensemble
 // member s, union b, MC draw m): the per-step route of the KG inner
-// descent, where the caller takes each GD step.
+// descent, where the caller takes each GD step.  The FMA instance of kernel
+// D (C entry cmoe_descent_grad_fma), which ops/kernels.py takes where the
+// tensor-core instance (descent_grad_mma.cu, Wr <= 16) does not fit.
 //
 // Replaces: cornell_moe_tpu/ops/pallas_kernels.py, pallas_descent_grad
 //   (_descent_grad_kernel + _field_grad), grid (B,) with the whole (d, M)
@@ -77,11 +79,12 @@ static int launch_grad(const float* xs, const float* ws, const float* wt,
   return (int)cudaGetLastError();
 }
 
-extern "C" int cmoe_descent_grad(const float* xs, const float* ws,
-                                 const float* wt, const float* beta,
-                                 const float* z, const float* us, float* out,
-                                 int S, int B, int d, int M, int Np, int q,
-                                 int wr, int kernel, void* stream) {
+extern "C" int cmoe_descent_grad_fma(const float* xs, const float* ws,
+                                     const float* wt, const float* beta,
+                                     const float* z, const float* us,
+                                     float* out, int S, int B, int d, int M,
+                                     int Np, int q, int wr, int kernel,
+                                     void* stream) {
   if (wr != (1 + q) * (1 + d) || d > DESC_MAXD || q > DESC_MAXQ ||
       wr > DESC_MAXW)
     return (int)cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
 // The KG inner descent's field gradient, shared by descent_run.cu (the whole
 // descent) and descent_grad.cu (one direction per launch), as _field_grad is
 // shared by the two Pallas kernels of cornell_moe_tpu/ops/pallas_kernels.py;
-// its direction from the moments and the clamped step also serve
+// its direction from the moments also serves the tensor-core instances
+// (descent_run_mma.cu, descent_grad_mma.cu), and its clamped step
 // descent_run_mma.cu.
 //
 // Layouts (one ensemble member s, one union b; sb = s * B + b):

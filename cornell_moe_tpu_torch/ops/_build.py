@@ -48,8 +48,10 @@ SIGNATURES = {
     "cmoe_descent_run_mma_occupancy": [_I, _I, _I, _I, _I, _IP],
     "cmoe_descent_run_fma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
-    "cmoe_descent_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _P],
+    "cmoe_descent_grad_mma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _P],
+    "cmoe_descent_grad_fma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _P],
 }
 
 _lib = None

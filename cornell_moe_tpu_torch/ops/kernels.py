@@ -10,16 +10,21 @@ Four kernels, each the Hopper counterpart of one Pallas kernel of
   tensor cores in 3xTF32 (``csrc/descent_run_mma.cu``) where the Wr moment
   rows fit one 16-row tile, and the FMA instance
   (``csrc/descent_run.cu``, :func:`descent_run_fma`) above that.
-* :func:`descent_grad` (``csrc/descent_grad.cu``) — one ascent direction of
-  that descent per launch (the per-step route, where
-  ``optimizers.gradient_ascent_batch`` takes the steps); it shares its
-  field gradient with :func:`descent_run` (``csrc/field_grad.cuh``).
+* :func:`descent_grad` — one ascent direction of that descent per launch
+  (the per-step route, where ``optimizers.gradient_ascent_batch`` takes the
+  steps), in two instances chosen by the same rule
+  (:func:`descent_grad_instance`): the tensor-core one
+  (``csrc/descent_grad_mma.cu``), which shares its staging and contraction
+  with descent_run's (``csrc/field_mma.cuh``), and the FMA one
+  (``csrc/descent_grad.cu``, :func:`descent_grad_fma`), which shares its
+  field gradient with descent_run_fma (``csrc/field_grad.cuh``).
 * :func:`lml_fused` (``csrc/lml_fused.cu``) — K build + Cholesky + forward
   substitution + (quad, logdet) per MCMC walker: one thread-block cluster
   per walker with K in distributed shared memory, and above the clusters'
   capacity the one-block-per-walker instance :func:`lml_fused_global`.
 * :func:`covariance_with_noise` (``csrc/covariance_with_noise.cu``) —
-  K + diag(noise) for every member of the GP ensemble.
+  K + diag(noise) for every member of the GP ensemble, each pair of 64 x 64
+  tiles computed once and written twice (K is symmetric bit for bit).
 
 The main path (``BayesianOptimizer(method="KG")``) launches descent_run,
 lml_fused and covariance_with_noise; descent_grad serves the per-step
@@ -33,8 +38,10 @@ a gradient, so none has a backward kernel.
 Each wrapper adds one to its module-level launch counter where it launches
 its kernel and nowhere else: ``lml_fused`` counts B's cluster instance,
 ``lml_fused_global`` its large-Np instance, ``descent_run`` A's tensor-core
-instance and ``descent_run_fma`` its FMA instance.  ``chip_smoke.py`` reads the
-counters to prove each path went through its kernels.
+instance and ``descent_run_fma`` its FMA instance, ``descent_grad`` D's
+tensor-core instance and ``descent_grad_fma`` its FMA instance.
+``chip_smoke.py`` reads the counters to prove each path went through its
+kernels.
 """
 
 from __future__ import annotations
@@ -51,18 +58,21 @@ lml_fused_global_launches = 0
 descent_run_launches = 0
 descent_run_fma_launches = 0
 descent_grad_launches = 0
+descent_grad_fma_launches = 0
 
 
 def reset_launch_counts() -> None:
     global covariance_with_noise_launches, lml_fused_launches, \
         lml_fused_global_launches, descent_run_launches, \
-        descent_run_fma_launches, descent_grad_launches
+        descent_run_fma_launches, descent_grad_launches, \
+        descent_grad_fma_launches
     covariance_with_noise_launches = 0
     lml_fused_launches = 0
     lml_fused_global_launches = 0
     descent_run_launches = 0
     descent_run_fma_launches = 0
     descent_grad_launches = 0
+    descent_grad_fma_launches = 0
 
 
 def launch_counts() -> dict:
@@ -71,7 +81,8 @@ def launch_counts() -> dict:
             "lml_fused_global": lml_fused_global_launches,
             "descent_run": descent_run_launches,
             "descent_run_fma": descent_run_fma_launches,
-            "descent_grad": descent_grad_launches}
+            "descent_grad": descent_grad_launches,
+            "descent_grad_fma": descent_grad_fma_launches}
 
 
 def _unit_fields(kernel_name: str):
@@ -339,17 +350,17 @@ def _descent_shapes(name, xs, ws, wt, beta, z, us):
     return s, b, d, m, q, np_, wr
 
 
-MMA_ROWS = 16              # csrc/descent_run_mma.cu MMA_ROWS: Wr <= 16
-MMA_WARPS = 4              # csrc/descent_run_mma.cu MMA_WARPS
-MMA_UQ = 16                # csrc/descent_run_mma.cu MMA_UQ
-MMA_ABUF = 40              # csrc/descent_run_mma.cu MMA_ABUF
+MMA_ROWS = 16              # csrc/field_mma.cuh MMA_ROWS: Wr <= 16
+MMA_WARPS = 4              # csrc/field_mma.cuh MMA_WARPS
+MMA_UQ = 16                # csrc/field_mma.cuh MMA_UQ
+MMA_ABUF = 40              # csrc/field_mma.cuh MMA_ABUF
 
 
 def descent_mma_smem_bytes(d: int, q: int, np_: int) -> int:
-    """Shared memory of a block of A's tensor-core instance at (d, q, Np):
-    the Wr W rows at a row stride of 8 (mod 32) floats, ws, the union
-    points and each warp's Wr x MMA_ABUF exchange buffer
-    (``mma_smem_bytes`` in ``csrc/descent_run_mma.cu``)."""
+    """Shared memory of a block of A's and D's tensor-core instances at (d,
+    q, Np): the Wr W rows at a row stride of 8 (mod 32) floats, ws, the
+    union points and each warp's Wr x MMA_ABUF exchange buffer
+    (``cmoe_mma_smem_bytes`` in ``csrc/field_mma.cuh``)."""
     np8 = -(-np_ // 8) * 8
     ldw = np8 + (40 - np8 % 32) % 32
     wr = (1 + q) * (1 + d)
@@ -497,6 +508,25 @@ def descent_run_plain(xs0, ws, wt, beta, z, us, geom, kernel_name, steps,
 # D: one ascent direction of the KG inner descent
 # ---------------------------------------------------------------------------
 
+def descent_grad_instance(d: int, q: int, np_: int) -> str:
+    """Which instance of kernel D :func:`descent_grad` launches: ``"mma"``
+    or ``"fma"`` by :func:`descent_run_instance`'s rule, since D's
+    tensor-core instance stages A's operands in A's layout."""
+    return descent_run_instance(d, q, np_)
+
+
+def _launch_descent_grad(name, entry, shapes, xs, ws, wt, beta, z, us,
+                         kernel_name) -> torch.Tensor:
+    """Launch ``entry`` at shapes (:func:`_descent_shapes`); returns g (S,
+    B, d, M)."""
+    s, b, d, m, q, np_, wr = shapes
+    out = torch.empty_like(xs)
+    _launch(name, entry, xs.data_ptr(), ws.data_ptr(), wt.data_ptr(),
+            beta.data_ptr(), z.data_ptr(), us.data_ptr(), out.data_ptr(), s,
+            b, d, m, np_, q, wr, KERNEL_CODES[kernel_name], device=xs.device)
+    return out
+
+
 def descent_grad(xs: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
                  beta: torch.Tensor, z: torch.Tensor, us: torch.Tensor,
                  kernel_name: str) -> torch.Tensor:
@@ -505,19 +535,43 @@ def descent_grad(xs: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
 
     The operands are :func:`descent_run`'s: ws (S, d, Np), wt (S, B, Wr,
     Np), beta (S, B, q, M), z (q, M), us (S, B, q, d).  Any M and Np.
+
+    Launches the tensor-core instance, whose direction at x is the one
+    :func:`descent_run`'s tensor-core instance forms at x, where
+    :func:`descent_grad_instance` says ``"mma"`` (the main path's d = 2,
+    q = 4 among them), else :func:`descent_grad_fma`.
     """
     global descent_grad_launches
     name = "descent_grad"
     if not _on_card(name, kernel_name, xs=xs, ws=ws, wt=wt, beta=beta, z=z,
                     us=us):
         return descent_grad_plain(xs, ws, wt, beta, z, us, kernel_name)
-    s, b, d, m, q, np_, wr = _descent_shapes(name, xs, ws, wt, beta, z, us)
-    out = torch.empty_like(xs)
-    _launch(name, _lib().cmoe_descent_grad, xs.data_ptr(), ws.data_ptr(),
-            wt.data_ptr(), beta.data_ptr(), z.data_ptr(), us.data_ptr(),
-            out.data_ptr(), s, b, d, m, np_, q, wr,
-            KERNEL_CODES[kernel_name], device=xs.device)
+    shapes = _descent_shapes(name, xs, ws, wt, beta, z, us)
+    if descent_grad_instance(shapes[2], shapes[4], shapes[5]) == "fma":
+        return descent_grad_fma(xs, ws, wt, beta, z, us, kernel_name)
+    out = _launch_descent_grad(name, _lib().cmoe_descent_grad_mma, shapes,
+                               xs, ws, wt, beta, z, us, kernel_name)
     descent_grad_launches += 1
+    return out
+
+
+def descent_grad_fma(xs: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
+                     beta: torch.Tensor, z: torch.Tensor, us: torch.Tensor,
+                     kernel_name: str) -> torch.Tensor:
+    """Kernel D's FMA instance at any shape (d <= 8, q <= 16, Wr <= 64):
+    one thread per draw, the contraction in float32 FMA.
+    :func:`descent_grad` takes it above one tensor-core tile; arguments and
+    result as there."""
+    global descent_grad_fma_launches
+    name = "descent_grad_fma"
+    if not _on_card(name, kernel_name, xs=xs, ws=ws, wt=wt, beta=beta, z=z,
+                    us=us):
+        return descent_grad_plain(xs, ws, wt, beta, z, us, kernel_name)
+    out = _launch_descent_grad(
+        name, _lib().cmoe_descent_grad_fma,
+        _descent_shapes(name, xs, ws, wt, beta, z, us), xs, ws, wt, beta, z,
+        us, kernel_name)
+    descent_grad_fma_launches += 1
     return out
 
 

@@ -96,11 +96,13 @@ def test_cpu_wrappers_take_the_plain_path(rng):
         run(*desc, torch.tensor([[[0.0, 0.0], [1.0, 1.0], [1.0, 1.0]]]),
             "matern_2.5", steps=2, restarts=1, avg_n=1, gamma=0.0,
             pre_mult=1.0, mrc=0.1)
-    kernels.descent_grad(*desc, "matern_2.5")
+    for grad in (kernels.descent_grad, kernels.descent_grad_fma):
+        grad(*desc, "matern_2.5")
     assert kernels.launch_counts() == {"covariance_with_noise": 0,
                                        "lml_fused": 0, "lml_fused_global": 0,
                                        "descent_run": 0, "descent_run_fma": 0,
-                                       "descent_grad": 0}
+                                       "descent_grad": 0,
+                                       "descent_grad_fma": 0}
 
 
 def test_wrapper_refuses_grad_inputs():

@@ -2,10 +2,11 @@
 
 ``chip_smoke.py`` checks each kernel at the main path's shapes; these tests
 cover what it does not reach: ragged sizes, the squared-exponential field,
-both instances of the fused LML (the cluster one against the large-Np one),
-both instances of the descent (tensor-core and FMA) and their generic
-(d, q) instances, the descent's dispatch and its non-finite blocks, failed
-LML factorizations, and the wrappers' refusals on CUDA tensors.  They need
+the covariance's symmetry and diagonal, both instances of the fused LML
+(the cluster one against the large-Np one), both instances of the descent
+and of the descent direction (tensor-core and FMA) and their generic
+(d, q) instances, their dispatch and their non-finite blocks, failed LML
+factorizations, and the wrappers' refusals on CUDA tensors.  They need
 a CUDA card (marker ``cuda``) and skip without one.  On the card, without JAX installed:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
@@ -53,13 +54,21 @@ def _c(a, dev, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
-def test_covariance_kernel_matches_plain(dev, rng, kernel):
-    s, n, d = 3, 100, 3
+@pytest.mark.parametrize("n", [1, 3, 63, 64, 65, 100, 130, 511, 512, 520,
+                               768])
+@pytest.mark.parametrize("d", [1, 2, 3, 6])
+def test_covariance_kernel_matches_plain(dev, rng, kernel, n, d):
+    """Tiles of 64: n 63 and 65 end in a ragged tile, n 511 and 65 also in
+    rows that are not 16-byte aligned (scalar stores).  K equals its
+    transpose bit for bit (each off-diagonal tile is computed once and
+    written twice), and its diagonal is alpha unit_f0(0) + noise, with
+    unit_f0(0) = 1."""
+    s = 3
     points = _c(rng.random((n, d)), dev)
     hypers = _c(np.concatenate([0.5 + rng.random((s, 1)),
                                 0.2 + rng.random((s, d))], axis=1), dev)
     noise = np.full((s, n), 1e-2)
-    noise[:, 90:] = PAD_NOISE
+    noise[:, n - n // 10:] = PAD_NOISE
     noise = _c(noise, dev)
     before = kernels.covariance_with_noise_launches
     got = kernels.covariance_with_noise(points, hypers, noise, kernel)
@@ -67,6 +76,9 @@ def test_covariance_kernel_matches_plain(dev, rng, kernel):
     torch.cuda.synchronize()
     assert kernels.covariance_with_noise_launches == before + 1
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
+    assert torch.equal(got, got.transpose(-1, -2))
+    assert torch.equal(torch.diagonal(got, dim1=-2, dim2=-1),
+                       hypers[:, :1] + noise)
 
 
 def _lml_inputs(rng, w, d, np_, n_real, lengths, noise_level):
@@ -274,28 +286,94 @@ def test_descent_mma_layout_matches_the_wrapper(dev):
     assert kernels.descent_mma_occupancy(2, 4, 128, 512, "matern_2.5") >= 4
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
-@pytest.mark.parametrize("d,q,m,np_", [(3, 2, 50, 70), (2, 4, 128, 512),
-                                       (2, 4, 40, 1000)])
-def test_descent_grad_kernel_matches_plain(dev, rng, kernel, d, q, m, np_):
-    """(3, 2) runs the generic instance, (2, 4) the main path's; Np = 1000
-    stages 68 KB, above the default 48 KB of shared memory."""
-    s, b = 2, 3
-    arrays, _ = _descent_inputs(rng, s, b, d, q, m, np_)
-    args = [_c(a, dev) for a in arrays[:6]]
-    before = kernels.descent_grad_launches
-    got = kernels.descent_grad(*args, kernel)
+def _check_direction(got, args, arrays, kernel, dev, where=None):
+    """One direction against the float64 plain version, no further than
+    2e-5 max(max|g|, 1) or 1.5x the float32 plain version's deviation, and
+    against the float32 plain version within that bound where the float32
+    plain version is itself within it of float64; compared where `where`
+    (default: everywhere) holds."""
     ref = kernels.descent_grad_plain(*args, kernel)
     ref_64 = kernels.descent_grad_plain(
         *[_c(a, dev, torch.float64) for a in arrays[:6]], kernel)
-    torch.cuda.synchronize()
-    assert kernels.descent_grad_launches == before + 1
+    if where is None:
+        where = torch.ones_like(got, dtype=torch.bool)
+    got, ref, ref_64 = got[where], ref[where], ref_64[where]
     bound = 2e-5 * max(ref_64.abs().max().item(), 1.0)
     dev_plain = (ref.double() - ref_64).abs().max().item()
     assert (got.double() - ref_64).abs().max().item() <= \
         max(bound, 1.5 * dev_plain)
     if dev_plain <= bound:
         assert (got - ref).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("d,q,m,np_", [(3, 2, 50, 70), (2, 4, 128, 512),
+                                       (2, 4, 40, 1000)])
+def test_descent_grad_kernel_matches_plain(dev, rng, kernel, d, q, m, np_):
+    """The FMA instance (descent_grad_fma): (3, 2) runs its generic
+    instance, (2, 4) the main path's; Np = 1000 stages 68 KB, above the
+    default 48 KB of shared memory."""
+    s, b = 2, 3
+    arrays, _ = _descent_inputs(rng, s, b, d, q, m, np_)
+    args = [_c(a, dev) for a in arrays[:6]]
+    before = kernels.launch_counts()
+    got = kernels.descent_grad_fma(*args, kernel)
+    torch.cuda.synchronize()
+    _launched(before, "descent_grad_fma")
+    _check_direction(got, args, arrays, kernel, dev)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("d,q", [(2, 4), (3, 3), (1, 1)],
+                         ids=["d2q4", "d3q3_wr16", "d1q1"])
+@pytest.mark.parametrize("np_", [70, 130, 512, 520])
+@pytest.mark.parametrize("m", [40, 128, 200])
+def test_descent_grad_mma_kernel_matches_float64_plain(dev, rng, kernel, d,
+                                                       q, np_, m):
+    """The tensor-core instance, which descent_grad takes at Wr <= 16:
+    (2, 4) its main-path instance, (3, 3) and (1, 1) its generic one; Np
+    70, 130 and 520 end in a ragged k-tile, M 40 and 200 in a partial
+    warp."""
+    arrays, _ = _descent_inputs(rng, 2, 3, d, q, m, np_)
+    args = [_c(a, dev) for a in arrays[:6]]
+    assert kernels.descent_grad_instance(d, q, np_) == "mma"
+    before = kernels.launch_counts()
+    got = kernels.descent_grad(*args, kernel)
+    torch.cuda.synchronize()
+    _launched(before, "descent_grad")
+    assert torch.isfinite(got).all()
+    _check_direction(got, args, arrays, kernel, dev)
+
+
+def test_descent_grad_mma_nonfinite_operands_stay_where_they_are(dev, rng):
+    """A NaN in one block's K^-1 y row of W makes every direction of that
+    block non-finite, and a NaN beta its draw's direction, as in the plain
+    version; every other direction holds the rule."""
+    arrays, _ = _descent_inputs(rng, 2, 3, 2, 4, 128, 512)
+    arrays[2][1, 2, 0, 100] = np.nan
+    arrays[3][0, 1, 2, 5] = np.nan
+    args = [_c(a, dev) for a in arrays[:6]]
+    got = kernels.descent_grad(*args, "matern_2.5")
+    ref = kernels.descent_grad_plain(*args, "matern_2.5")
+    bad = torch.zeros_like(got, dtype=torch.bool)
+    bad[1, 2] = True
+    bad[0, 1, :, 5] = True
+    assert torch.equal(~torch.isfinite(got), bad)
+    assert torch.equal(~torch.isfinite(ref), bad)
+    _check_direction(got, args, arrays, "matern_2.5", dev, where=~bad)
+
+
+def test_descent_grad_dispatches_wide_moments_to_the_fma_instance(dev, rng):
+    """Wr = 20 (d 3, q 4) does not fit one tensor-core tile: descent_grad
+    launches the FMA instance, by the counters."""
+    arrays, _ = _descent_inputs(rng, 2, 3, 3, 4, 40, 130)
+    args = [_c(a, dev) for a in arrays[:6]]
+    assert kernels.descent_grad_instance(3, 4, 130) == "fma"
+    before = kernels.launch_counts()
+    got = kernels.descent_grad(*args, "square_exponential")
+    torch.cuda.synchronize()
+    _launched(before, "descent_grad_fma")
+    _check_direction(got, args, arrays, "square_exponential", dev)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev, rng):

@@ -31,6 +31,7 @@ from cornell_moe_tpu_torch.acquisition import knowledge_gradient as tkg
 from cornell_moe_tpu_torch.ops import kernels
 from cornell_moe_tpu_torch.ops import optimizers as topt
 from cornell_moe_tpu_torch.ops.domains import TensorProductDomain as TDom
+from test_torch_descent_mma import _emulated_descent_grad
 
 torch.set_num_threads(1)
 KERNELS = ["matern_2.5", "square_exponential"]
@@ -88,7 +89,17 @@ def _port_bvg(p, state, s, kernel):
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
-def test_descent_grad_bvg_matches_pallas(rng, kernel):
+@pytest.mark.parametrize("contraction", ["plain", "mma_emulated"])
+def test_descent_grad_bvg_matches_pallas(monkeypatch, rng, kernel,
+                                         contraction):
+    """mma_emulated: the moment contraction as kernel D's tensor-core
+    instance forms it (3xTF32 products, summed per 8-point k-tile and
+    accumulated in float32; its field is exact, where the kernel's takes
+    rsqrt.approx and ex2.approx), emulated in float32 by
+    tests/test_torch_descent_mma.py."""
+    if contraction == "mma_emulated":
+        monkeypatch.setattr(kernels, "descent_grad_plain",
+                            _emulated_descent_grad)
     p = _problem(rng, kernel)
     _, g_j = jkg._pallas_descent_bvg(p["j"], *_jax_args(p), kernel,
                                      interpret=True)(jnp.asarray(p["pts"]))

@@ -45,21 +45,29 @@ CSRC = Path(kernels.__file__).resolve().parent.parent / "csrc"
 S, B, M, NP, D, Q = 2, 8, 32, 130, 2, 4
 
 
+# kernel A's and kernel D's instance choices: D stages A's operands
+INSTANCE_CHOICES = pytest.mark.parametrize(
+    "choose", [kernels.descent_run_instance, kernels.descent_grad_instance],
+    ids=["descent_run", "descent_grad"])
+
+
+@INSTANCE_CHOICES
 @pytest.mark.parametrize("d,q,instance", [(2, 4, "mma"), (3, 3, "mma"),
                                           (2, 5, "fma")],
                          ids=["wr15", "wr16", "wr18"])
-def test_instance_chosen_by_moment_rows(d, q, instance):
-    assert kernels.descent_run_instance(d, q, 512) == instance
+def test_instance_chosen_by_moment_rows(choose, d, q, instance):
+    assert choose(d, q, 512) == instance
 
 
-def test_instance_falls_back_to_fma_above_the_shared_memory():
-    """The tensor-core instance stages the Wr W rows and ws per block; past
-    one block's shared memory the wrapper takes the FMA instance."""
+@INSTANCE_CHOICES
+def test_instance_falls_back_to_fma_above_the_shared_memory(choose):
+    """The tensor-core instances stage the Wr W rows and ws per block; past
+    one block's shared memory the wrappers take the FMA instances."""
     last = max(n for n in range(8, 4096, 8)
                if kernels.descent_mma_smem_bytes(2, 4, n) <=
                kernels.SMEM_PER_BLOCK)
-    assert kernels.descent_run_instance(2, 4, last) == "mma"
-    assert kernels.descent_run_instance(2, 4, last + 1) == "fma"
+    assert choose(2, 4, last) == "mma"
+    assert choose(2, 4, last + 1) == "fma"
 
 
 def test_main_path_block_fits_five_times_on_an_sm():
@@ -72,10 +80,15 @@ def test_main_path_block_fits_five_times_on_an_sm():
 
 
 def test_python_constants_match_the_kernel_source():
-    src = (CSRC / "descent_run_mma.cu").read_text()
-    defines = dict(re.findall(r"#define (MMA_\w+) (\d+)", src))
+    """Each MMA_* constant that the instance choice reads is defined once
+    in the CUDA sources (csrc/field_mma.cuh, which both tensor-core
+    instances include), with the value the wrapper uses."""
+    defines = [d for path in sorted(CSRC.glob("*.cu*"))
+               for d in re.findall(r"#define (MMA_\w+) (\d+)",
+                                   path.read_text())]
     for name in ("MMA_ROWS", "MMA_WARPS", "MMA_UQ", "MMA_ABUF"):
-        assert int(defines[name]) == getattr(kernels, name)
+        values = [int(v) for n, v in defines if n == name]
+        assert values == [getattr(kernels, name)], (name, values)
 
 
 def _tf32_split(x):
