@@ -1,10 +1,13 @@
-"""Monte-Carlo q,p-Expected Improvement (the parts the KG seeding uses).
+"""Expected Improvement: analytic 1,0-EI and Monte-Carlo q,p-EI.
 
 Counterpart of ``cornell_moe_tpu/acquisition/expected_improvement.py``.
 Objective is MINIMIZATION of f: EI = E[(best_so_far - min_j y_j)^+] over
-the joint posterior of the union, with 1e-6 jitter on the union variance
-before its Cholesky, and common random numbers (the normals are drawn once
-per suggest call).  Gradients are ``torch.autograd`` of the estimator.
+the joint posterior of the union's values, with 1e-6 jitter on the union
+variance before its Cholesky, and common random numbers (the normals are
+drawn once per suggest call); the analytic form for q = 1, p = 0 guards the
+standard deviation from below.  Gradients are ``torch.autograd`` of the
+estimator.  A state that observes derivative channels (d-EI) works
+unchanged: the posterior is over the union's value channels.
 
 States may carry a leading ensemble axis S; the ``_mcmc`` forms average
 over it.
@@ -12,6 +15,7 @@ over it.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -44,6 +48,21 @@ def _union(points_to_sample, points_being_sampled):
     if points_being_sampled is None or points_being_sampled.numel() == 0:
         return points_to_sample
     return torch.cat([points_to_sample, points_being_sampled], dim=-2)
+
+
+def analytic_expected_improvement(state: gp.GaussianProcessState,
+                                  point_to_sample: torch.Tensor,
+                                  best_so_far) -> torch.Tensor:
+    """Closed-form 1,0-EI at point_to_sample (..., 1, d): sigma (u Phi(u) +
+    phi(u)), u = (best - mu) / sigma.  Returns (...) for a single GP."""
+    pts = point_to_sample if point_to_sample.dim() > 1 else \
+        point_to_sample[None]
+    mu = gp.posterior_mean(state, pts)[..., 0, 0]
+    var = gp.posterior_variance(state, pts)[..., 0, 0]
+    sigma = torch.sqrt(torch.clamp(var, min=config.MINIMUM_STD_DEV**2))
+    u = (best_so_far - mu) / sigma
+    pdf = torch.exp(-0.5 * u * u) / math.sqrt(2.0 * math.pi)
+    return sigma * (u * torch.special.ndtr(u) + pdf)
 
 
 def monte_carlo_expected_improvement(state: gp.GaussianProcessState,
@@ -161,6 +180,53 @@ def multistart_expected_improvement_mcmc_optimization(
     def bvg(pts_batch):
         return expected_improvement_mcmc_batch_value_and_grad(
             states, pts_batch, points_being_sampled, best_so_far, normals)
+
+    return optimizers.multistart_optimize_batched(
+        bvg, rep, starts, params, chunk_size=chunk_size,
+        conv_tol=conv_tol).best_point
+
+
+def multistart_expected_improvement_optimization(
+        generator: torch.Generator, state, domain, num_to_sample: int,
+        params: optimizers.GradientDescentParameters,
+        points_being_sampled=None, best_so_far=None,
+        num_mc_iterations: int = 1000, use_analytic: Optional[bool] = None,
+        conv_tol: Optional[float] = None,
+        chunk_size: Optional[int] = None) -> torch.Tensor:
+    """q points maximizing one GP's q,p-EI (the closed form for q = 1,
+    p = 0) by the lockstep-batched multistart, each start's value and
+    gradient its own.  Returns (num_to_sample, dim)."""
+    p = 0 if points_being_sampled is None else points_being_sampled.shape[0]
+    if best_so_far is None:
+        best_so_far = state.best_observed_value
+    if use_analytic is None:
+        use_analytic = num_to_sample == 1 and p == 0
+    rep = RepeatedDomain(domain=domain, num_repeats=num_to_sample)
+    starts = rep.generate_latin_hypercube_points(generator,
+                                                 params.num_multistarts)
+    if use_analytic:
+        def value(pts_batch):
+            return analytic_expected_improvement(state, pts_batch,
+                                                 best_so_far)
+    else:
+        normals = draw_normals(generator, num_mc_iterations,
+                               num_to_sample + p, device=starts.device,
+                               dtype=starts.dtype)
+
+        def value(pts_batch):
+            unions = pts_batch if p == 0 else torch.cat(
+                [pts_batch, points_being_sampled.expand(
+                    (pts_batch.shape[0],) + points_being_sampled.shape)],
+                dim=1)
+            return monte_carlo_expected_improvement_batch(
+                state, unions, best_so_far, normals)
+
+    def bvg(pts_batch):
+        with torch.enable_grad():
+            x = pts_batch.detach().requires_grad_(True)
+            vals = value(x)
+            (grads,) = torch.autograd.grad(vals.sum(), x)
+        return vals.detach(), grads
 
     return optimizers.multistart_optimize_batched(
         bvg, rep, starts, params, chunk_size=chunk_size,

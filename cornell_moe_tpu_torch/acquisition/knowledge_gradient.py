@@ -1,16 +1,19 @@
-"""MCMC-averaged q-Knowledge-Gradient over value channels, and
-posterior-mean optimization.
+"""MCMC-averaged q-Knowledge-Gradient and d-KG, and posterior-mean
+optimization.
 
-Counterpart of ``cornell_moe_tpu/acquisition/knowledge_gradient.py`` for
-the main path (no derivative channels, no fidelity dims, no
-points-being-sampled).  Every function takes an ensemble state with a
-leading axis S and works on all members at once, where the JAX package
-vmaps over them.
+Counterpart of ``cornell_moe_tpu/acquisition/knowledge_gradient.py`` (no
+fidelity dims, no points-being-sampled).  Every function takes an ensemble
+state with a leading axis S and works on all members at once, where the JAX
+package vmaps over them.  The state may observe derivative channels
+(``state.derivatives``), and the fantasy observations at the union may
+include the derivative channels ``derivatives_to_sample`` (d-KG): each
+union point then carries 1 + ms channels, q_ch = q (1 + ms) in all.
 
 Semantics (minimization):
   * KG(U) = E_z[ best_posterior - min_x mu'_z(x) ],
     best_posterior = min(best_so_far, min_j mu(U_j))
-  * fantasy observations y_U = mu_U + C z, C = chol(PostCov(U) + noise)
+  * fantasy observations y_U = mu_U + C z, C = chol(PostCov(U) + noise),
+    the noise per channel
   * the fantasized mean collapses to
         mu'_z(x) = mean + k(x, X) (K^-1 y - V z) + k(x, U) C^-T z,
         V = K^-1 K(X, U) C^-T
@@ -19,20 +22,25 @@ Semantics (minimization):
     frozen (detached) fantasy model: gradients wrt U follow the envelope
     theorem.
 
-Dispatch rule of the inner descent: CUDA + float32 runs the whole descent in
-the hand-written kernel ``ops.kernels.descent_run``; float64 or CPU tensors
-take the analytic moment gradient (:func:`_make_descent_grad_fn`) driven by
-``optimizers.gradient_ascent_batch``.  The per-step route
-(:func:`_descent_grad_bvg`: one ``ops.kernels.descent_grad`` launch per GD
-step, the steps taken by ``gradient_ascent_batch``) is the counterpart of
-the JAX package's ``_pallas_descent_bvg``; as there, the dispatch never
-selects it, and only its callers (the tests, ``chip_smoke.py``) reach it.
+Dispatch rule of the inner descent (:func:`descent_kernel_for`): CUDA,
+float32, value channels on both sides and shapes the kernel takes
+(``kernels.descent_shapes_supported``) run the whole descent in the
+hand-written kernel ``ops.kernels.descent_run``.  Otherwise value channels
+take the analytic moment gradient (:func:`_make_descent_grad_fn`) and
+derivative channels the autograd gradient of the summed frozen fantasy mean
+(:func:`_make_fantasy_mean_grad_fn`), each driven by
+``optimizers.gradient_ascent_batch``, as in the JAX package.  The per-step
+route (:func:`_descent_grad_bvg`: one ``ops.kernels.descent_grad`` launch
+per GD step, the steps taken by ``gradient_ascent_batch``) is the
+counterpart of the JAX package's ``_pallas_descent_bvg``; as there, the
+dispatch never selects it, and only its callers (the tests,
+``chip_smoke.py``) reach it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -87,22 +95,37 @@ def compute_optimal_posterior_mean(
 # Fantasy model
 # ---------------------------------------------------------------------------
 
-def _noise_diag(state: GaussianProcessState, q: int) -> torch.Tensor:
-    """Fantasy observation noise per union point: (S, q)."""
-    return state.noise_variance[..., :1].expand(
-        state.noise_variance.shape[:-1] + (q,))
+def _channel_noise(state: GaussianProcessState, c: int) -> torch.Tensor:
+    """Per-channel fantasy observation noise, (S, c): the state's channel
+    noise, channels it does not observe taking the value channel's."""
+    nv = state.noise_variance
+    if nv.shape[-1] < c:
+        nv = torch.cat([nv, nv[..., :1].expand(
+            nv.shape[:-1] + (c - nv.shape[-1],))], dim=-1)
+    return nv[..., :c]
 
 
-def _build_fantasy_model(state: GaussianProcessState, union: torch.Tensor):
-    """(mu_u (S, q), chol_u (S, q, q), v (S, N, q)) for one union (q, d)."""
+def _noise_diag(state: GaussianProcessState, q: int, c: int
+                ) -> torch.Tensor:
+    """Fantasy observation noise over the union's channels: (S, q c)."""
+    nv = _channel_noise(state, c)
+    return nv.repeat((1,) * (nv.dim() - 1) + (q,))
+
+
+def _build_fantasy_model(state: GaussianProcessState, union: torch.Tensor,
+                         derivatives_to_sample: Sequence[int] = ()):
+    """(mu_u (S, q_ch), chol_u (S, q_ch, q_ch), v (S, N, q_ch)) for one
+    union (q, d)."""
+    ds = cov_mod.channels(derivatives_to_sample)
     q = union.shape[0]
-    mu_u = gp_mod.posterior_mean(state, union)[..., 0]
-    var_u = linalg.symmetrize(gp_mod.posterior_variance(state, union))
+    mu_u = gp_mod.posterior_mean(state, union, ds)
+    mu_u = mu_u.reshape(mu_u.shape[:-2] + (-1,))
+    var_u = linalg.symmetrize(gp_mod.posterior_variance(state, union, ds))
     min_diag = torch.min(torch.diagonal(var_u, dim1=-2, dim2=-1), dim=-1)
     repair = torch.clamp(-1.5 * min_diag.values, min=0.0).detach()
     chol_u = linalg.cholesky(var_u + torch.diag_embed(
-        _noise_diag(state, q) + repair[..., None]))
-    k_xu = gp_mod._mix_cov(state, union)
+        _noise_diag(state, q, 1 + len(ds)) + repair[..., None]))
+    k_xu = gp_mod._mix_cov(state, union, ds)
     if state.inv_chol_K is not None:
         w = linalg.cho_solve_with_refinement(state.chol_K, state.inv_chol_K,
                                              k_xu)
@@ -114,52 +137,67 @@ def _build_fantasy_model(state: GaussianProcessState, union: torch.Tensor):
 
 
 def _build_fantasy_model_batch(state: GaussianProcessState,
-                               unions: torch.Tensor):
+                               unions: torch.Tensor,
+                               derivatives_to_sample: Sequence[int] = ()):
     """Batched fantasy precompute for unions (B, q, d).
 
-    Returns (mu_u (S, B, q), chol_u (S, B, q, q), v (S, B, N, q),
-    noise_eff (S, B, q)), noise_eff being the diagonal shift (channel
-    noise + the float32 repair) inside chol_u.
+    Returns (mu_u (S, B, q_ch), chol_u (S, B, q_ch, q_ch), v (S, B, N,
+    q_ch), noise_eff (S, B, q_ch)), noise_eff being the diagonal shift
+    (channel noise + the float32 repair) inside chol_u.
     """
+    ds = cov_mod.channels(derivatives_to_sample)
     b, q, dim = unions.shape
-    k_xu = gp_mod._mix_cov(state, unions.reshape(b * q, dim))  # (S,N,B*q)
-    s, n = k_xu.shape[0], k_xu.shape[1]
+    c = 1 + len(ds)
+    k_xu = gp_mod._mix_cov(state, unions.reshape(b * q, dim), ds)
+    s, n = k_xu.shape[0], k_xu.shape[1]                     # (S,N,B*q_ch)
     mu_u = (k_xu.transpose(-1, -2) @ state.K_inv_y[..., None])[..., 0]
-    mu_u = mu_u.reshape(s, b, q) + state.mean[:, None, None]
+    mu_u = mu_u.reshape(s, b, q, c)
+    mu_u = torch.cat([mu_u[..., :1] + state.mean[:, None, None, None],
+                      mu_u[..., 1:]], dim=-1).reshape(s, b, q * c)
     va, w = linalg.fantasy_solves_rhs_grad_only(state.chol_K,
                                                 state.inv_chol_K, k_xu)
-    va = va.reshape(s, n, b, q)
+    va = va.reshape(s, n, b, q * c)
     prior_u = cov_mod.build_block_covariance(
-        _with_member_axes(state.covariance, 1), unions, (), unions, ())
+        _with_member_axes(state.covariance, 1), unions, ds, unions, ds)
     var_u = linalg.symmetrize(
         prior_u - torch.einsum("snbi,snbj->sbij", va, va))
     min_diag = torch.min(torch.diagonal(var_u, dim1=-2, dim2=-1), dim=-1)
     repair = torch.clamp(-1.5 * min_diag.values, min=0.0).detach()
-    noise_eff = _noise_diag(state, q)[:, None, :] + repair[..., None]
+    noise_eff = _noise_diag(state, q, c)[:, None, :] + repair[..., None]
     chol_u = linalg.cholesky_small(var_u + torch.diag_embed(noise_eff))
-    w = w.reshape(s, n, b, q).permute(0, 2, 3, 1)           # (S, B, q, N)
+    w = w.reshape(s, n, b, q * c).permute(0, 2, 3, 1)       # (S,B,q_ch,N)
     v = linalg.solve_triangular_small(chol_u, w).transpose(-1, -2)
     return mu_u, chol_u, v, noise_eff
 
 
 def _kernel_rows_flat(state: GaussianProcessState, x: torch.Tensor
                       ) -> torch.Tensor:
-    """k(x, X_train) for x (S, P, d): (S, P, N)."""
+    """k(x, X_train) over the state's channels for x (S, P, d):
+    (S, P, N)."""
     return cov_mod.build_block_covariance(state.covariance, x, (),
-                                          state.points_sampled, ())
+                                          state.points_sampled,
+                                          state.derivatives)
 
 
-def _union_rows(cov, x_full: torch.Tensor, unions: torch.Tensor
-                ) -> torch.Tensor:
-    """k(x, U_b) for x (S, B, M, d), unions (B, q, d): (S, B, M, q)."""
+def _union_rows(cov, x_full: torch.Tensor, unions: torch.Tensor,
+                derivatives_to_sample: Sequence[int] = ()) -> torch.Tensor:
+    """k(x, U_b) for x (S, B, M, d), unions (B, q, d): (S, B, M, q_ch)."""
+    ds = cov_mod.channels(derivatives_to_sample)
     diff = x_full[..., :, None, :] - unions[:, None, :, :]   # (S,B,M,q,d)
     inv_l2 = 1.0 / cov.lengths[:, None, None, None, :] ** 2
-    return cov.f0(torch.sum(diff * diff * inv_l2, dim=-1))
+    s = torch.sum(diff * diff * inv_l2, dim=-1)
+    if not ds:
+        return cov.f0(s)
+    p = cov.p(s)
+    t = diff * inv_l2
+    rows = torch.stack([cov.f0(s)] + [p * t[..., c] for c in ds], dim=-1)
+    return rows.reshape(rows.shape[:-2] + (-1,))
 
 
 def _fantasy_mean_batch(state: GaussianProcessState, x: torch.Tensor,
                         unions: torch.Tensor, v: torch.Tensor,
-                        betas: torch.Tensor, normals: torch.Tensor
+                        betas: torch.Tensor, normals: torch.Tensor,
+                        derivatives_to_sample: Sequence[int] = ()
                         ) -> torch.Tensor:
     """mu'_z at x (S, B, M, d) for every (member, union, draw): (S, B, M).
 
@@ -170,9 +208,10 @@ def _fantasy_mean_batch(state: GaussianProcessState, x: torch.Tensor,
     k_rows = _kernel_rows_flat(state, x.reshape(s, b * m, d)).reshape(
         s, b, m, -1)
     kiy = state.K_inv_y[:, None, :, None].expand(s, b, -1, 1)
-    out = k_rows @ torch.cat([kiy, v], dim=-1)              # (S,B,M,1+q)
+    out = k_rows @ torch.cat([kiy, v], dim=-1)              # (S,B,M,1+q_ch)
     t2 = torch.sum(out[..., 1:] * normals, dim=-1)
-    t3 = torch.sum(_union_rows(state.covariance, x, unions) * betas, dim=-1)
+    t3 = torch.sum(_union_rows(state.covariance, x, unions,
+                               derivatives_to_sample) * betas, dim=-1)
     return state.mean[:, None, None] + out[..., 0] - t2 + t3
 
 
@@ -180,15 +219,38 @@ def _fantasy_mean_batch(state: GaussianProcessState, x: torch.Tensor,
 # Inner descent: kernel path and plain path
 # ---------------------------------------------------------------------------
 
-def _descent_kernel_name(state: GaussianProcessState) -> Optional[str]:
-    """The kernel's name when the descent goes through the CUDA kernel
-    (CUDA, float32, known covariance), else None."""
-    pts = state.points_sampled
-    name = state.covariance.name
-    if pts.is_cuda and pts.dtype == torch.float32 and \
-            name in cov_mod.COVARIANCE_TYPES:
-        return name
-    return None
+def descent_kernel_for(device_type: str, dtype: torch.dtype,
+                       kernel_name: str, derivatives: Sequence[int],
+                       derivatives_to_sample: Sequence[int], d: int, q: int
+                       ) -> Optional[str]:
+    """Kernel A's gate: the kernel's name when the inner descent goes
+    through ``kernels.descent_run`` (CUDA, float32, a covariance it knows,
+    no derivative channel observed or sampled, d dimensions and q union
+    points it takes), else None for the plain route."""
+    if device_type != "cuda" or dtype != torch.float32 or \
+            kernel_name not in cov_mod.COVARIANCE_TYPES or \
+            cov_mod.channels(derivatives) or \
+            cov_mod.channels(derivatives_to_sample) or \
+            not kernels.descent_shapes_supported(d, q):
+        return None
+    return kernel_name
+
+
+def _make_fantasy_mean_grad_fn(state: GaussianProcessState, unions_f, v_f,
+                               betas_f, normals,
+                               derivatives_to_sample: Sequence[int]):
+    """Ascent direction of -mu' for x (S, B, M, d) by autograd of the summed
+    frozen fantasy mean (each mu'_{sbm} depends on x_{sbm} alone): the
+    inner descent over derivative channels."""
+    def bvg(x):
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            mu = _fantasy_mean_batch(state, xx, unions_f, v_f, betas_f,
+                                     normals, derivatives_to_sample)
+            (g,) = torch.autograd.grad(-mu.sum(), xx)
+        return torch.zeros(x.shape[:3], dtype=x.dtype, device=x.device), g
+
+    return bvg
 
 
 def _pack_descent_inputs(state: GaussianProcessState, unions_f, v_f,
@@ -307,27 +369,31 @@ def _make_descent_grad_fn(state: GaussianProcessState, unions_f, v_f,
 
 def knowledge_gradient(state: GaussianProcessState, union: torch.Tensor,
                        discrete_pts: torch.Tensor, normals: torch.Tensor,
-                       domain, inner_params, best_so_far) -> torch.Tensor:
+                       domain, inner_params, best_so_far,
+                       derivatives_to_sample: Sequence[int] = ()
+                       ) -> torch.Tensor:
     """Per-union MC q-KG for every member: (S,).
 
     ``union`` (q, d); ``discrete_pts`` (S, n_d, d) inner seeds;
-    ``normals`` (M, q); ``best_so_far`` (S,).
+    ``normals`` (M, q_ch); ``best_so_far`` (S,).
     """
+    ds = cov_mod.channels(derivatives_to_sample)
     s = state.points_sampled.shape[0]
     q, d = union.shape
-    mu_u, chol_u, v = _build_fantasy_model(state, union)
-    best_posterior = torch.minimum(best_so_far, torch.min(mu_u, dim=-1).values)
+    mu_u, chol_u, v = _build_fantasy_model(state, union, ds)
+    best_posterior = torch.minimum(
+        best_so_far, torch.min(mu_u.reshape(s, q, -1)[..., 0], dim=-1).values)
     union_f = union.detach()
     starts = torch.cat([discrete_pts, union_f.expand(s, q, d)], dim=1)
 
     betas = linalg.solve_triangular(
-        chol_u, normals.T.expand(s, q, -1), lower=True,
-        trans=True).transpose(-1, -2)                       # (S, M, q)
+        chol_u, normals.T.expand(s, -1, -1), lower=True,
+        trans=True).transpose(-1, -2)                       # (S, M, q_ch)
     alphas = state.K_inv_y[:, None, :] - normals @ v.transpose(-1, -2)
 
     k_sx = _kernel_rows_flat(state, starts)                 # (S, n_s, N)
     k_su = cov_mod.build_block_covariance(state.covariance, starts, (),
-                                          union_f, ())      # (S, n_s, q)
+                                          union_f, ds)      # (S, n_s, q_ch)
     mu_starts = state.mean[:, None, None] + \
         k_sx @ alphas.detach().transpose(-1, -2) + \
         k_su @ betas.detach().transpose(-1, -2)             # (S, n_s, M)
@@ -335,9 +401,8 @@ def knowledge_gradient(state: GaussianProcessState, union: torch.Tensor,
     x0 = torch.gather(starts, 1, idx[..., None].expand(-1, -1, d))
 
     def mu_fn(x, alpha, beta, u):
-        k_x = cov_mod.build_block_covariance(
-            state.covariance, x, (), state.points_sampled, ())
-        k_u = cov_mod.build_block_covariance(state.covariance, x, (), u, ())
+        k_x = _kernel_rows_flat(state, x)
+        k_u = cov_mod.build_block_covariance(state.covariance, x, (), u, ds)
         return state.mean[:, None] + torch.sum(k_x * alpha, dim=-1) + \
             torch.sum(k_u * beta, dim=-1)                   # (S, M)
 
@@ -358,35 +423,39 @@ def knowledge_gradient(state: GaussianProcessState, union: torch.Tensor,
 
 
 def knowledge_gradient_mcmc(states: GaussianProcessState, union, discrete_pts,
-                            normals, domain, inner_params, best_so_far
+                            normals, domain, inner_params, best_so_far,
+                            derivatives_to_sample: Sequence[int] = ()
                             ) -> torch.Tensor:
     """Ensemble mean of :func:`knowledge_gradient` (no fidelity cost)."""
     return torch.mean(knowledge_gradient(states, union, discrete_pts,
                                          normals, domain, inner_params,
-                                         best_so_far))
+                                         best_so_far, derivatives_to_sample))
 
 
 def knowledge_gradient_batch(state: GaussianProcessState,
                              unions: torch.Tensor,
                              discrete_pts: torch.Tensor,
                              normals: torch.Tensor, domain, inner_params,
-                             best_so_far, inner_x0=None):
+                             best_so_far, inner_x0=None,
+                             derivatives_to_sample: Sequence[int] = ()):
     """KG at B unions (B, q, d) for every member: returns (kg (S, B),
-    carried descent endpoints (S, B, M, d)).
+    carried descent endpoints (S, B, M, d)).  ``normals`` is (M, q_ch).
 
     Cold (``inner_x0`` None): the descents start from the seeded argmins.
     "reseed" warm start: they start from ``inner_x0``; the seeding (and so
     the estimator) is unchanged.  The returned endpoints re-seed any draw
     whose seed guard beat the descended endpoint.
     """
+    ds = cov_mod.channels(derivatives_to_sample)
     s = state.points_sampled.shape[0]
     b, q, d = unions.shape
-    mu_u, chol_u, v, _ = _build_fantasy_model_batch(state, unions)
-    best_posterior = torch.minimum(best_so_far[:, None],
-                                   torch.min(mu_u, dim=-1).values)
-    m = normals.shape[0]
+    mu_u, chol_u, v, _ = _build_fantasy_model_batch(state, unions, ds)
+    best_posterior = torch.minimum(
+        best_so_far[:, None],
+        torch.min(mu_u.reshape(s, b, q, -1)[..., 0], dim=-1).values)
+    m, q_ch = normals.shape
     betas = linalg.solve_triangular_small(
-        chol_u, normals.T.expand(s, b, q, m), trans=True).transpose(-1, -2)
+        chol_u, normals.T.expand(s, b, q_ch, m), trans=True).transpose(-1, -2)
 
     # seeding over the discretized set, factored through the q-dim fantasy
     # subspace, computed live (its minimum is the x0 guard value)
@@ -396,9 +465,9 @@ def knowledge_gradient_batch(state: GaussianProcessState,
     n_s = starts.shape[2]
     k_sx = _kernel_rows_flat(state, starts.reshape(s, b * n_s, d)).reshape(
         s, b, n_s, -1)
-    k_su = _union_rows(state.covariance, starts, unions)    # (S,B,n_s,q)
+    k_su = _union_rows(state.covariance, starts, unions, ds)  # (S,B,n_s,q_ch)
     base = torch.einsum("sbpn,sn->sbp", k_sx, state.K_inv_y)
-    ksv = k_sx @ v                                          # (S,B,n_s,q)
+    ksv = k_sx @ v                                          # (S,B,n_s,q_ch)
     mu_starts = state.mean[:, None, None, None] + base[..., None] - \
         torch.sum(ksv[:, :, :, None, :] * normals, dim=-1) + \
         torch.sum(k_su[:, :, :, None, :] * betas[:, :, None], dim=-1)
@@ -408,17 +477,26 @@ def knowledge_gradient_batch(state: GaussianProcessState,
     x0 = x0_seed if inner_x0 is None else inner_x0.detach()
 
     v_f, betas_f = v.detach(), betas.detach()
-    kernel_name = _descent_kernel_name(state)
+    pts = state.points_sampled
+    kernel_name = descent_kernel_for(pts.device.type, pts.dtype,
+                                     state.covariance.name,
+                                     state.derivatives, ds, d, q)
     if kernel_name is not None:
         x_star = _descent_full(state, unions_f, v_f, betas_f, normals, x0,
                                domain, inner_params, kernel_name)
     else:
-        bvg = _make_descent_grad_fn(state, unions_f, v_f, betas_f, normals)
+        if state.derivatives or ds:
+            bvg = _make_fantasy_mean_grad_fn(state, unions_f, v_f, betas_f,
+                                             normals, ds)
+        else:
+            bvg = _make_descent_grad_fn(state, unions_f, v_f, betas_f,
+                                        normals)
         x_star = optimizers.gradient_ascent_batch(bvg, domain, x0,
                                                   inner_params)
     x_star = x_star.detach()
 
-    mu_star = _fantasy_mean_batch(state, x_star, unions, v, betas, normals)
+    mu_star = _fantasy_mean_batch(state, x_star, unions, v, betas, normals,
+                                  ds)
     kg = torch.mean(best_posterior[..., None] -
                     torch.minimum(mu_star, mu_x0), dim=-1)
     won = (mu_star <= mu_x0).detach()[..., None]
@@ -427,17 +505,21 @@ def knowledge_gradient_batch(state: GaussianProcessState,
 
 def knowledge_gradient_mcmc_batch(states, unions, discrete_pts, normals,
                                   domain, inner_params, best_so_far,
-                                  inner_x0=None):
+                                  inner_x0=None,
+                                  derivatives_to_sample: Sequence[int] = ()):
     """Ensemble-averaged batched KG: ((B,), endpoints (S, B, M, d))."""
     kg, x_star = knowledge_gradient_batch(states, unions, discrete_pts,
                                           normals, domain, inner_params,
-                                          best_so_far, inner_x0)
+                                          best_so_far, inner_x0,
+                                          derivatives_to_sample)
     return torch.mean(kg, dim=0), x_star
 
 
 def knowledge_gradient_mcmc_batch_vg_carry(states, unions, discrete_pts,
                                            normals, domain, inner_params,
-                                           best_so_far, inner_x0=None):
+                                           best_so_far, inner_x0=None,
+                                           derivatives_to_sample: Sequence[
+                                               int] = ()):
     """((B,) values, (B, q, d) gradients, endpoints (S, B, M, d)).
 
     Each union's value depends only on its own block, so the gradient of
@@ -447,7 +529,7 @@ def knowledge_gradient_mcmc_batch_vg_carry(states, unions, discrete_pts,
         u = unions.detach().requires_grad_(True)
         vals, x_star = knowledge_gradient_mcmc_batch(
             states, u, discrete_pts, normals, domain, inner_params,
-            best_so_far, inner_x0)
+            best_so_far, inner_x0, derivatives_to_sample)
         (grads,) = torch.autograd.grad(vals.sum(), u)
     return vals.detach(), grads, x_star
 
@@ -458,18 +540,21 @@ def multistart_knowledge_gradient_mcmc_optimization(
         inner_params: optimizers.GradientDescentParameters,
         discrete_pts: torch.Tensor, best_so_far=None,
         num_mc_iterations: int = 128, chunk_size: Optional[int] = None,
-        conv_tol: Optional[float] = None) -> torch.Tensor:
-    """MCMC-averaged q-KG suggestion by the warm ("reseed") multistart:
-    the inner descents start from the previous outer step's argmins with
-    one step instead of ``inner_params.max_num_steps``.  Returns
-    (num_to_sample, d)."""
+        conv_tol: Optional[float] = None,
+        derivatives_to_sample: Sequence[int] = ()) -> torch.Tensor:
+    """MCMC-averaged q-KG (d-KG with ``derivatives_to_sample``) suggestion
+    by the warm ("reseed") multistart: the inner descents start from the
+    previous outer step's argmins with one step instead of
+    ``inner_params.max_num_steps``.  Returns (num_to_sample, d)."""
+    ds = cov_mod.channels(derivatives_to_sample)
     if best_so_far is None:
         best_so_far = states.best_observed_value
     rep = RepeatedDomain(domain=domain, num_repeats=num_to_sample)
     starts = rep.generate_latin_hypercube_points(generator,
                                                  params.num_multistarts)
     normals = draw_antithetic_normals(generator, num_mc_iterations,
-                                      num_to_sample, device=starts.device,
+                                      num_to_sample * (1 + len(ds)),
+                                      device=starts.device,
                                       dtype=starts.dtype)
     inner_warm = dataclasses.replace(inner_params, max_num_steps=1,
                                      max_num_restarts=1,
@@ -478,12 +563,12 @@ def multistart_knowledge_gradient_mcmc_optimization(
     def bvg_cold(pts_batch):
         return knowledge_gradient_mcmc_batch_vg_carry(
             states, pts_batch, discrete_pts, normals, domain, inner_params,
-            best_so_far)
+            best_so_far, derivatives_to_sample=ds)
 
     def bvg_warm(pts_batch, carry):
         return knowledge_gradient_mcmc_batch_vg_carry(
             states, pts_batch, discrete_pts, normals, domain, inner_warm,
-            best_so_far, inner_x0=carry)
+            best_so_far, inner_x0=carry, derivatives_to_sample=ds)
 
     return optimizers.multistart_optimize_batched_warm(
         bvg_cold, bvg_warm, rep, starts, params, chunk_size=chunk_size,

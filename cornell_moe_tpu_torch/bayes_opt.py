@@ -1,9 +1,11 @@
-"""High-level Bayesian-optimization driver (q-KG).
+"""High-level Bayesian-optimization driver (q-KG and d-KG).
 
 Counterpart of ``cornell_moe_tpu/bayes_opt.py`` for method "KG": MCMC train
 -> q-EI-seeded, warm and gated q-KG suggest -> observe and gated retrain ->
-recommend (argmin of the ensemble posterior mean).  The port runs eagerly;
-there is no cache of compiled programs.
+recommend (argmin of the ensemble posterior mean).  An objective with
+observed partial derivatives (``_observations``) trains on 1 + m channels
+per point, and its KG fantasizes those channels too (d-KG).  The port runs
+eagerly; there is no cache of compiled programs.
 """
 
 from __future__ import annotations
@@ -74,17 +76,22 @@ def best_so_far_from_discretization(states, discrete_pts) -> torch.Tensor:
 
 def _qkg_suggest_arrays(generator, states, domain, discrete_pts, params,
                         inner_params, num_to_sample, num_mc, conv_tol=None,
-                        chunk_size=None):
-    """Suggested points (q, d) and their VOI (ensemble KG, model units)."""
+                        chunk_size=None, derivatives_to_sample=()):
+    """Suggested points (q, d) and their VOI (ensemble KG, model units).
+    The fantasy observations at the suggested points include the
+    ``derivatives_to_sample`` channels (d-KG)."""
+    ds = tuple(int(i) for i in derivatives_to_sample)
     best_so_far = best_so_far_from_discretization(states, discrete_pts)
     pts = kg_mod.multistart_knowledge_gradient_mcmc_optimization(
         generator, states, domain, num_to_sample, params, inner_params,
         discrete_pts, best_so_far=best_so_far, num_mc_iterations=num_mc,
-        chunk_size=chunk_size, conv_tol=conv_tol)
+        chunk_size=chunk_size, conv_tol=conv_tol, derivatives_to_sample=ds)
     normals = ei_mod.draw_antithetic_normals(
-        generator, num_mc, num_to_sample, device=pts.device, dtype=pts.dtype)
+        generator, num_mc, num_to_sample * (1 + len(ds)), device=pts.device,
+        dtype=pts.dtype)
     voi = kg_mod.knowledge_gradient_mcmc(states, pts, discrete_pts, normals,
-                                         domain, inner_params, best_so_far)
+                                         domain, inner_params, best_so_far,
+                                         ds)
     return pts, voi
 
 
@@ -116,7 +123,8 @@ def recommend_from_guesses(states, domain, guesses: torch.Tensor,
 
 @dataclass
 class BayesianOptimizer:
-    """The suggest/observe/recommend loop for method "KG"."""
+    """The suggest/observe/recommend loop for method "KG"; on an objective
+    with observed partial derivatives, d-KG."""
 
     objective_func: object = None
     method: str = "KG"
@@ -138,8 +146,12 @@ class BayesianOptimizer:
     suggest_conv_tol: Optional[float] = 3e-3
     seed_conv_tol: Optional[float] = 3e-3
     chain_gate_tol: Optional[float] = 1.0
-    # train on standardized values; VOI is reported in raw units
+    # train on standardized values (derivative channels scaled by 1/std);
+    # VOI is reported in raw units
     standardize: bool = False
+    # KG's fantasy observations include the objective's observed derivative
+    # channels (d-KG); False fantasizes value channels only
+    kg_sample_derivatives: bool = True
     suggest_chunk_size: Optional[int] = None
     device: Optional[object] = None
     dtype: Optional[torch.dtype] = None
@@ -149,9 +161,9 @@ class BayesianOptimizer:
             raise NotImplementedError(
                 f"method {self.method!r}: the port drives 'KG' only")
         f = self.objective_func
-        if tuple(f._observations) or f._num_fidelity:
-            raise NotImplementedError(
-                "derivative observations and fidelity dims are not ported")
+        if f._num_fidelity:
+            raise NotImplementedError("fidelity dims are not ported")
+        self.derivatives = tuple(int(i) for i in f._observations)
         self.device = torch.device(self.device) if self.device is not None \
             else config.default_device()
         if self.dtype is None:
@@ -174,10 +186,11 @@ class BayesianOptimizer:
         n = num_init_pts or f._num_init_pts
         pts = self.domain.generate_latin_hypercube_points(
             self.generator, n).cpu().numpy()
-        data = HistoricalData(self.dim)
+        data = HistoricalData(self.dim, len(self.derivatives))
         for pt in pts:
             data.append_sample_points(
-                [SamplePoint(pt, f.evaluate(pt)[:1], f._sample_var)])
+                [SamplePoint(pt, f.evaluate(pt)[self._obs_idx],
+                             f._sample_var)])
         self.model = mcmc_mod.GaussianProcessLogLikelihoodMCMC(
             data, chain_length=self.chain_length,
             burnin_steps=self.burnin_steps, n_hypers=self.n_hypers,
@@ -185,12 +198,18 @@ class BayesianOptimizer:
             generator=self.generator, bucket=self.shape_bucket,
             standardize=self.standardize,
             chain_gate_tol=self.chain_gate_tol, device=self.device,
-            dtype=self.dtype)
+            dtype=self.dtype, derivatives=self.derivatives)
         t0 = time.time()
         self.model.train()
         self._log(f"initial training took {time.time() - t0:.2f}s on "
                   f"{n} points")
         return data
+
+    @property
+    def _obs_idx(self):
+        """The entries of ``evaluate``'s output that are observed: the
+        value and the observed partials."""
+        return [0] + [1 + i for i in self.derivatives]
 
     def suggest(self):
         t0 = time.time()
@@ -203,7 +222,9 @@ class BayesianOptimizer:
             self.generator, states, self.domain, discrete, self.sgd_params,
             self.inner_sgd_params, self.num_to_sample, self.num_mc,
             conv_tol=self.suggest_conv_tol,
-            chunk_size=self.suggest_chunk_size)
+            chunk_size=self.suggest_chunk_size,
+            derivatives_to_sample=self.derivatives
+            if self.kg_sample_derivatives else ())
         # VOI back to raw units (KG is linear in the value scale)
         pts = pts.cpu().numpy()
         voi = float(voi) * self.model.value_scale
@@ -213,7 +234,8 @@ class BayesianOptimizer:
 
     def observe(self, points):
         f = self.objective_func
-        sampled = [SamplePoint(pt, f.evaluate(pt)[:1], f._sample_var)
+        sampled = [SamplePoint(pt, f.evaluate(pt)[self._obs_idx],
+                               f._sample_var)
                    for pt in np.atleast_2d(points)]
         t0 = time.time()
         self.model.add_sampled_points(sampled)

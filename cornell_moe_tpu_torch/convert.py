@@ -27,10 +27,14 @@ GP_STATE_FIELDS = ("hyperparameters", "noise_variance", "points_sampled",
 def gp_state_from_arrays(arrays: Mapping[str, Optional[np.ndarray]],
                          kernel_name: str, device=None,
                          dtype=torch.float64) -> GaussianProcessState:
-    """A port GP state from the JAX state's arrays (value channels).
+    """A port GP state from the JAX state's arrays.
 
     A stacked JAX ensemble (leading axis S on every array) becomes an
-    ensemble state; ``inv_chol_K`` and ``point_noise`` may be None.
+    ensemble state; ``inv_chol_K`` and ``point_noise`` may be None.  The
+    observed derivative channels come from the mapping's ``"derivatives"``
+    entry (the JAX state's static field; none when absent);
+    ``noise_variance`` is then (S, 1 + m) and ``points_sampled_value``
+    (S, n, 1 + m).
     """
     def t(name):
         a = arrays.get(name)
@@ -44,16 +48,20 @@ def gp_state_from_arrays(arrays: Mapping[str, Optional[np.ndarray]],
         points_sampled=t("points_sampled"),
         points_sampled_value=t("points_sampled_value"),
         chol_K=t("chol_K"), K_inv_y=t("K_inv_y"), mean=t("mean"),
-        inv_chol_K=t("inv_chol_K"), point_noise=t("point_noise"))
+        inv_chol_K=t("inv_chol_K"), point_noise=t("point_noise"),
+        derivatives=tuple(int(i) for i in arrays.get("derivatives", ())))
 
 
 def gp_state_to_arrays(state: GaussianProcessState) -> dict:
-    """The port state's arrays under :data:`GP_STATE_FIELDS` names."""
+    """The port state's arrays under :data:`GP_STATE_FIELDS` names, and its
+    observed derivative channels under ``"derivatives"``."""
     out = {"hyperparameters": state.covariance.hyperparameters}
     for name in GP_STATE_FIELDS[1:]:
         out[name] = getattr(state, name)
-    return {k: None if v is None else v.detach().cpu().numpy()
-            for k, v in out.items()}
+    out = {k: None if v is None else v.detach().cpu().numpy()
+           for k, v in out.items()}
+    out["derivatives"] = tuple(state.derivatives)
+    return out
 
 
 def set_mcmc_walkers(model, p0: np.ndarray, hypers: Optional[np.ndarray]

@@ -1,16 +1,21 @@
-"""Gaussian-process posterior core (value channels).
+"""Gaussian-process posterior core over value and derivative channels.
 
 Counterpart of ``cornell_moe_tpu/models/gp.py``.  The fitted GP is a
 dataclass of tensors; an ensemble of S fitted GPs is the same dataclass
 with a leading axis S on every tensor (the covariance's hyperparameters
 are (S, 1 + d)).  Every posterior function below broadcasts over that axis,
 where the JAX package vmaps.
+
+Each sampled point carries ``1 + m`` observation channels (the value and
+the partial derivatives listed in ``derivatives``), so the training system
+has N = n (1 + m) rows, point-major.  The prior mean is the empirical mean
+of the value channel, subtracted from value channels only.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -24,15 +29,15 @@ class GaussianProcessState:
     """Fitted-GP state; optional leading ensemble axis on every tensor."""
 
     covariance: StationaryCovariance
-    noise_variance: torch.Tensor        # (..., 1) value-channel noise
+    noise_variance: torch.Tensor        # (..., 1 + m) per-channel noise
     points_sampled: torch.Tensor        # (..., n, dim)
-    points_sampled_value: torch.Tensor  # (..., n, 1)
-    chol_K: torch.Tensor                # (..., n, n) lower factor
-    K_inv_y: torch.Tensor               # (..., n)
+    points_sampled_value: torch.Tensor  # (..., n, 1 + m)
+    chol_K: torch.Tensor                # (..., N, N) lower factor
+    K_inv_y: torch.Tensor               # (..., N)
     mean: torch.Tensor                  # (...,) prior mean
-    inv_chol_K: Optional[torch.Tensor] = None    # (..., n, n) L^-1
-    point_noise: Optional[torch.Tensor] = None   # (..., n, 1)
-    derivatives: Tuple[int, ...] = ()
+    inv_chol_K: Optional[torch.Tensor] = None    # (..., N, N) L^-1
+    point_noise: Optional[torch.Tensor] = None   # (..., n, 1 + m)
+    derivatives: Tuple[int, ...] = ()   # observed partials, m of them
 
     @property
     def dim(self) -> int:
@@ -69,40 +74,49 @@ def fit_gp(covariance: StationaryCovariance, noise_variance,
 
     The covariance's hyperparameters may carry batch axes (...): the
     result is then an ensemble state over them, with ``noise_variance``
-    (..., 1) and ``jitter`` a float or a (...) tensor.  ``points_sampled``
-    (n, dim) and ``points_sampled_value`` (n, 1) are shared; ``point_noise``
-    (n, 1) is added per point on top of the channel noise (the
-    shape-bucketing mechanism).  ``mean`` defaults to the empirical mean of
-    the values.
+    (..., 1 + m), one entry per channel, and ``jitter`` a float or a (...)
+    tensor.  ``points_sampled`` (n, dim) and ``points_sampled_value``
+    (n, 1 + m) are shared; ``point_noise`` (n, 1 + m) is added per point on
+    top of the channel noise (the shape-bucketing mechanism).  ``mean``
+    defaults to the empirical mean of the value channel.
     """
-    cov_mod._value_only(derivatives)
+    ds = cov_mod.channels(derivatives)
+    c = 1 + len(ds)
     x = torch.as_tensor(points_sampled)
-    y = torch.as_tensor(points_sampled_value, dtype=x.dtype, device=x.device)
+    kw = dict(dtype=x.dtype, device=x.device)
+    y = torch.as_tensor(points_sampled_value, **kw)
     if y.dim() == 1:
         y = y[:, None]
     batch = covariance.hyperparameters.shape[:-1]
-    noise = torch.as_tensor(noise_variance, dtype=x.dtype,
-                            device=x.device).reshape(batch + (1,))
+    noise = torch.as_tensor(noise_variance, **kw)
+    if noise.numel() == c:
+        noise = noise.reshape(c).expand(batch + (c,))
+    elif noise.numel() == c * batch.numel():
+        noise = noise.reshape(batch + (c,))
+    else:
+        raise ValueError(
+            f"noise_variance of shape {tuple(noise.shape)}: expected {c} "
+            "channels (value + derivative observations) per member")
     if covariance.dim != x.shape[-1]:
         raise ValueError(
             f"covariance has {covariance.dim} length scales but points "
             f"have dim {x.shape[-1]}")
+    if y.shape[-1] != c:
+        raise ValueError(f"values have {y.shape[-1]} channels, expected {c}")
     n = x.shape[0]
-    noise_vec = noise.expand(batch + (n,))
     if point_noise is not None:
-        point_noise = torch.as_tensor(point_noise, dtype=x.dtype,
-                                      device=x.device).reshape(n, 1)
-        noise_vec = noise_vec + point_noise[:, 0]
-    k = cov_mod.build_covariance_matrix_with_noise(covariance, x, (),
-                                                   noise_vec)
+        point_noise = torch.as_tensor(point_noise, **kw).reshape(n, c)
+    k = cov_mod.build_covariance_matrix_with_noise(covariance, x, ds, noise,
+                                                   point_noise)
     chol = linalg.cholesky(k, jitter=jitter)
 
     if mean is None:
         mean = torch.mean(y[:, 0])
-    mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device)
-    k_inv_y = linalg.cho_solve(chol, (y[:, 0] - mean).expand(batch + (n,)))
+    mean = torch.as_tensor(mean, **kw)
+    y_centered = torch.cat([y[:, :1] - mean, y[:, 1:]], dim=1).reshape(-1)
+    k_inv_y = linalg.cho_solve(chol, y_centered.expand(batch + (n * c,)))
     inv_chol = linalg.solve_triangular(
-        chol, torch.eye(n, dtype=x.dtype, device=x.device).expand_as(chol),
+        chol, torch.eye(n * c, **kw).expand_as(chol),
         lower=True) if precompute_inverse else None
 
     def per_member(t):
@@ -113,33 +127,44 @@ def fit_gp(covariance: StationaryCovariance, noise_variance,
         points_sampled=per_member(x), points_sampled_value=per_member(y),
         chol_K=chol, K_inv_y=k_inv_y, mean=mean.expand(batch),
         inv_chol_K=inv_chol,
-        point_noise=None if point_noise is None else per_member(point_noise))
+        point_noise=None if point_noise is None else per_member(point_noise),
+        derivatives=ds)
 
 
-def _mix_cov(state: GaussianProcessState, points_to_sample: torch.Tensor
-             ) -> torch.Tensor:
-    """K(X_train, X_star): (..., n, q)."""
+def _mix_cov(state: GaussianProcessState, points_to_sample: torch.Tensor,
+             derivatives_to_sample: Sequence[int] = ()) -> torch.Tensor:
+    """K(X_train, X_star) over channels: (..., N, q (1 + ms))."""
     return cov_mod.build_block_covariance(
-        state.covariance, state.points_sampled, (), points_to_sample, ())
+        state.covariance, state.points_sampled, state.derivatives,
+        points_to_sample, derivatives_to_sample)
 
 
-def posterior_mean(state: GaussianProcessState, points_to_sample
+def posterior_mean(state: GaussianProcessState, points_to_sample,
+                   derivatives_to_sample: Sequence[int] = ()
                    ) -> torch.Tensor:
-    """Posterior mean at points (..., q, d): returns (..., q, 1)."""
-    kt = _mix_cov(state, points_to_sample)
+    """Posterior mean at points (..., q, d) over the value and the requested
+    derivative channels: (..., q, 1 + ms); the prior mean is added to the
+    value channel only."""
+    c = 1 + len(cov_mod.channels(derivatives_to_sample))
+    kt = _mix_cov(state, points_to_sample, derivatives_to_sample)
     mu = (kt.transpose(-1, -2) @ state.K_inv_y[..., None])[..., 0]
-    return (mu + state.mean[..., None])[..., None]
+    mu = mu.reshape(mu.shape[:-1] + (-1, c))
+    return torch.cat([mu[..., :1] + state.mean[..., None, None], mu[..., 1:]],
+                     dim=-1)
 
 
 def posterior_covariance(state: GaussianProcessState, points_1,
-                         points_2=None) -> torch.Tensor:
-    """K(A,B) - K(A,X) K^-1 K(X,B), refined inverse-Cholesky path when the
-    state carries L^-1."""
+                         points_2=None,
+                         derivatives_to_sample: Sequence[int] = ()
+                         ) -> torch.Tensor:
+    """K(A,B) - K(A,X) K^-1 K(X,B) over channel blocks, refined
+    inverse-Cholesky path when the state carries L^-1."""
+    ds = cov_mod.channels(derivatives_to_sample)
     b = points_1 if points_2 is None else points_2
-    prior = cov_mod.build_block_covariance(state.covariance, points_1, (),
-                                           b, ())
-    ka = _mix_cov(state, points_1)
-    kb = ka if points_2 is None else _mix_cov(state, b)
+    prior = cov_mod.build_block_covariance(state.covariance, points_1, ds,
+                                           b, ds)
+    ka = _mix_cov(state, points_1, ds)
+    kb = ka if points_2 is None else _mix_cov(state, b, ds)
 
     def solve(rhs):
         if state.inv_chol_K is not None:
@@ -152,7 +177,9 @@ def posterior_covariance(state: GaussianProcessState, points_1,
     return prior - va.transpose(-1, -2) @ vb
 
 
-def posterior_variance(state: GaussianProcessState, points_to_sample
+def posterior_variance(state: GaussianProcessState, points_to_sample,
+                       derivatives_to_sample: Sequence[int] = ()
                        ) -> torch.Tensor:
-    """Joint posterior covariance over points_to_sample."""
-    return posterior_covariance(state, points_to_sample)
+    """Joint posterior covariance over points_to_sample's channels."""
+    return posterior_covariance(state, points_to_sample, None,
+                                derivatives_to_sample)

@@ -1,22 +1,23 @@
 """MCMC hyperparameter inference and the batched GP ensemble.
 
-Counterpart of ``cornell_moe_tpu/models/mcmc.py`` (value channels).  The
+Counterpart of ``cornell_moe_tpu/models/mcmc.py``.  The
 affine-invariant stretch-move ensemble sampler (Goodman & Weare 2010) runs
 with the walkers as a batch axis; each half-step evaluates the proposals'
 log-posteriors in one call.  ``lax.scan`` becomes a Python loop over steps;
 the gated chain reads its convergence condition on the host once per
 64-step segment.
 
-Dispatch rule of the log-posterior: CUDA, float32 and value channels go
-through the fused LML kernel (``ops.kernels.lml_fused``); float64 or CPU
-tensors take the plain LML (``models.likelihood``).
+Dispatch rule of the log-posterior (:func:`uses_lml_kernel`): CUDA,
+float32 and value channels only go through the fused LML kernel
+(``ops.kernels.lml_fused``); float64, CPU tensors and derivative channels
+take the plain LML (``models.likelihood``), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import logging
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +41,13 @@ PAD_NOISE = 1.0e8
 
 # Stretch-move steps per convergence check of the gated chain.
 CHAIN_GATE_SEGMENT = 64
+
+
+def uses_lml_kernel(device_type: str, dtype: torch.dtype,
+                    derivatives: Sequence[int]) -> bool:
+    """Kernel B's gate: CUDA, float32 and value channels only."""
+    return device_type == "cuda" and dtype == torch.float32 and \
+        not cov_mod.channels(derivatives)
 
 
 def bucket_size(n: int, bucket: int) -> int:
@@ -193,15 +201,16 @@ def run_ensemble_mcmc_gated(generator: torch.Generator,
 
 def fit_gp_ensemble(kernel_name: str, hypers: torch.Tensor,
                     noises: torch.Tensor, points, values,
-                    jitter: float = 0.0, bucket: int = 0
-                    ) -> gp_mod.GaussianProcessState:
+                    derivatives: Sequence[int] = (), jitter: float = 0.0,
+                    bucket: int = 0) -> gp_mod.GaussianProcessState:
     """One GP per hyperparameter sample, as one ensemble state.
 
     ``hypers`` (S, 1+dim) linear-space covariance hyperparameters and
-    ``noises`` (S, 1) fix the device and dtype; points and values are
-    numpy or tensors.  With ``bucket`` > 1 the data is padded to a multiple
-    of it with PAD_NOISE rows.  In float32 the Cholesky gets a relative
-    jitter of ``config.F32_CHOLESKY_JITTER`` times each member's amplitude.
+    ``noises`` (S, 1+m), one per channel, fix the device and dtype; points
+    and values (n, 1+m) are numpy or tensors.  With ``bucket`` > 1 the data
+    is padded to a multiple of it with PAD_NOISE rows.  In float32 the
+    Cholesky gets a relative jitter of ``config.F32_CHOLESKY_JITTER`` times
+    each member's amplitude.
     """
     dev, dt = hypers.device, hypers.dtype
     x = np.asarray(torch.as_tensor(points).cpu())
@@ -219,7 +228,7 @@ def fit_gp_ensemble(kernel_name: str, hypers: torch.Tensor,
     cov = cov_mod.COVARIANCE_TYPES[kernel_name](hyperparameters=hypers)
     return gp_mod.fit_gp(
         cov, noises, torch.as_tensor(x, dtype=dt, device=dev),
-        torch.as_tensor(y, dtype=dt, device=dev), jitter=jit,
+        torch.as_tensor(y, dtype=dt, device=dev), derivatives, jitter=jit,
         mean=mean, point_noise=point_noise)
 
 
@@ -235,7 +244,8 @@ def ensemble_member(states: gp_mod.GaussianProcessState, i: int
 class GaussianProcessLogLikelihoodMCMC:
     """MCMC treatment of GP hyperparameters.
 
-    theta = log([alpha, l_1..l_d, noise]) under ``DefaultPrior``, sampled by
+    theta = log([alpha, l_1..l_d, noise_0..noise_m]) under ``DefaultPrior``
+    (one noise per observation channel), sampled by
     the stretch-move ensemble; ``train()`` burns in once, then continues
     the chain (gated when ``chain_gate_tol`` is set, with ``chain_length``
     as the cap) and keeps ``n_hypers`` random walkers as the ensemble.
@@ -247,7 +257,7 @@ class GaussianProcessLogLikelihoodMCMC:
                  generator: Optional[torch.Generator] = None,
                  bucket: int = 0, standardize: bool = False,
                  chain_gate_tol: Optional[float] = None,
-                 device=None, dtype=None):
+                 device=None, dtype=None, derivatives: Sequence[int] = ()):
         self._data = historical_data
         self.device = torch.device(device) if device is not None \
             else config.default_device()
@@ -259,11 +269,14 @@ class GaussianProcessLogLikelihoodMCMC:
         self.chain_gate_tol = chain_gate_tol
         self.last_chain_steps: Optional[int] = None
         self.chain_steps: list = []      # steps of every train()'s chain
+        self.members_replaced: list = []  # refit members of every fit
         self.bucket = bucket
+        self.derivatives = cov_mod.channels(derivatives)
         self.dim = historical_data.dim
-        n_dims = 1 + self.dim + 1
+        self.num_noise = 1 + len(self.derivatives)
+        n_dims = 1 + self.dim + self.num_noise
         self.prior = prior if prior is not None else DefaultPrior(
-            n_dims=n_dims, num_noise=1)
+            n_dims=n_dims, num_noise=self.num_noise)
         self.chain_length = chain_length
         self.burnin_steps = burnin_steps
         # even walker count >= 2 * D, as emcee requires
@@ -297,12 +310,16 @@ class GaussianProcessLogLikelihoodMCMC:
         self.value_mean, self.value_scale = mu, sigma
 
     def _scaled_values(self) -> np.ndarray:
+        """Training targets: the value channel as (y - mean) / std, the
+        derivative channels as y / std (no shift)."""
         y = np.asarray(self._data.points_sampled_value, dtype=float)
         if y.ndim == 1:
             y = y[:, None]
         if not self.standardize:
             return y
-        return (y - self.value_mean) / self.value_scale
+        scaled = y / self.value_scale
+        scaled[:, 0] = (y[:, 0] - self.value_mean) / self.value_scale
+        return scaled
 
     def _padded_data(self):
         x = self._data.points_sampled
@@ -327,10 +344,12 @@ class GaussianProcessLogLikelihoodMCMC:
         lp = self.prior.lnprob(thetas)
         hyps = torch.exp(thetas)
         cov_hyps = hyps[:, :dim + 1]
-        noise = hyps[:, dim + 1:dim + 2] if self.noisy else \
-            torch.full_like(hyps[:, :1], NOISELESS_VALUE)
+        noise = hyps[:, dim + 1:] if self.noisy else torch.full(
+            (hyps.shape[0], self.num_noise), NOISELESS_VALUE,
+            dtype=hyps.dtype, device=hyps.device)
         n = x.shape[0]
-        if x.is_cuda and x.dtype == torch.float32 and not force_plain:
+        if uses_lml_kernel(x.device.type, x.dtype, self.derivatives) and \
+                not force_plain:
             nv = noise.expand(-1, n)
             if point_noise is not None:
                 nv = nv + point_noise[None, :, 0]
@@ -344,6 +363,7 @@ class GaussianProcessLogLikelihoodMCMC:
             cov = cov_mod.COVARIANCE_TYPES[self.kernel_name](
                 hyperparameters=cov_hyps)
             lml = lik_mod.log_marginal_likelihood(cov, noise, x, y,
+                                                  self.derivatives,
                                                   point_noise=point_noise)
         val = lp + lml
         return torch.where(in_bounds & torch.isfinite(val), val,
@@ -387,7 +407,7 @@ class GaussianProcessLogLikelihoodMCMC:
         return fit_gp_ensemble(
             self.kernel_name, torch.as_tensor(cov_hypers, **kw),
             torch.as_tensor(noises, **kw), self._data.points_sampled,
-            self._scaled_values(), bucket=self.bucket)
+            self._scaled_values(), self.derivatives, bucket=self.bucket)
 
     def _finalize_models(self) -> None:
         if self.hypers is None:
@@ -400,13 +420,14 @@ class GaussianProcessLogLikelihoodMCMC:
         lin = np.exp(samples)
         cov_hypers = lin[:, :self.dim + 1]
         noises = lin[:, self.dim + 1:] if self.noisy else \
-            np.full((lin.shape[0], 1), NOISELESS_VALUE)
+            np.full((lin.shape[0], self.num_noise), NOISELESS_VALUE)
         models = self._fit(cov_hypers, noises)
         # a member whose factorization went non-finite poisons every
         # ensemble average downstream: refit it with a surviving walker's
         # hyperparameters (round-robin)
         bad = (~torch.isfinite(models.chol_K).flatten(1).all(dim=1)
                ).cpu().numpy()
+        self.members_replaced.append(int(bad.sum()))
         if bad.any():
             if bad.all():
                 raise FloatingPointError(

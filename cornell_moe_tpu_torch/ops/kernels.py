@@ -332,6 +332,16 @@ def lml_fused_plain(us, alpha, noise, y, n_real, kernel_name="matern_2.5"):
 # A: KG inner posterior-mean descent
 # ---------------------------------------------------------------------------
 
+DESCENT_MAX_D, DESCENT_MAX_Q, DESCENT_MAX_WR = 8, 16, 64
+
+
+def descent_shapes_supported(d: int, q: int) -> bool:
+    """Whether the descent kernels (A and D) take d dimensions and q union
+    points: d <= 8, q <= 16 and Wr = (1 + q)(1 + d) <= 64."""
+    return d <= DESCENT_MAX_D and q <= DESCENT_MAX_Q and \
+        (1 + q) * (1 + d) <= DESCENT_MAX_WR
+
+
 def _descent_shapes(name, xs, ws, wt, beta, z, us):
     """Check the descent operands' shapes against xs (S, B, d, M) and z
     (q, M) and the kernels' limits; returns (S, B, d, M, q, Np, Wr)."""
@@ -344,7 +354,7 @@ def _descent_shapes(name, xs, ws, wt, beta, z, us):
     _expect(name, "beta", beta, (s, b, q, m))
     _expect(name, "z", z, (q, m))
     _expect(name, "us", us, (s, b, q, d))
-    if d > 8 or q > 16 or wr > 64:
+    if not descent_shapes_supported(d, q):
         raise ValueError(f"{name}: d <= 8, q <= 16 and (1+q)(1+d) <= 64 "
                          f"supported, got d={d}, q={q}")
     return s, b, d, m, q, np_, wr

@@ -1,7 +1,7 @@
 """Synthetic objectives, in numpy.
 
 Counterpart of ``cornell_moe_tpu/utils/synthetic_functions.py`` for the
-objective the port's main path uses.  Each objective carries ``_dim``,
+objectives the port's paths use.  Each objective carries ``_dim``,
 ``_search_domain``, ``_num_init_pts``, ``_sample_var``, ``_min_value``,
 ``_observations`` and ``_num_fidelity``; ``evaluate(_true)`` returns
 ``[value, dvalue/dx_0, ..., dvalue/dx_{d-1}]`` with the gradient written
@@ -62,3 +62,44 @@ class Branin(SyntheticFunction):
             - s * (1 - t) * math.sin(x[0]),
             2.0 * a * inner])
         return value, grad
+
+
+class BraninWithDerivatives(Branin):
+    """Branin with both partials observed (the d-KG / d-EI setting)."""
+
+    _observations = (0, 1)
+
+
+_H6_ALPHA = np.array([1.0, 1.2, 3.0, 3.2])
+_H6_A = np.array([[10, 3, 17, 3.50, 1.7, 8], [0.05, 10, 17, 0.1, 8, 14],
+                  [3, 3.5, 1.7, 10, 17, 8], [17, 8, 0.05, 10, 0.1, 14]])
+_H6_P = 1e-4 * np.array(
+    [[1312, 1696, 5569, 124, 8283, 5886],
+     [2329, 4135, 8307, 3736, 1004, 9991],
+     [2348, 1451, 3522, 2883, 3047, 6650],
+     [4047, 8828, 8732, 5743, 1091, 381]])
+
+
+class Hartmann6(SyntheticFunction):
+    """Min -3.32237 at (0.20169, 0.150011, 0.476874, 0.275332, 0.311652,
+    0.6573)."""
+
+    def __init__(self):
+        self._dim = 6
+        self._search_domain = np.repeat([[0.0, 1.0]], 6, axis=0)
+        self._min_value = -3.32237
+        super().__init__()
+
+    def _value_and_grad(self, x):
+        diff = x[None, :] - _H6_P                          # (4, 6)
+        terms = _H6_ALPHA * np.exp(-np.sum(_H6_A * diff**2, axis=1))
+        value = -np.sum(terms)
+        grad = np.sum(terms[:, None] * 2.0 * _H6_A * diff, axis=0)
+        return value, grad
+
+
+class Hartmann6WithDerivatives(Hartmann6):
+    """Noisy Hartmann6 with all six partials observed."""
+
+    _observations = (0, 1, 2, 3, 4, 5)
+    _sample_var = 0.01

@@ -37,21 +37,24 @@ def test_block_covariance_matches_jax(kernel, rng):
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_ensemble_covariance_with_noise_matches_jax(kernel, rng):
-    """Batched hyperparameters (S, 1+d) against the JAX package per member,
-    with per-point noise (PAD_NOISE rows included)."""
+    """Batched hyperparameters (S, 1+d) and channel noise (S, 1) against the
+    JAX package per member, with per-point noise (PAD_NOISE rows
+    included)."""
     s, n = 3, 12
     hypers = np.concatenate([1.0 + rng.random((s, 1)),
                              0.4 + rng.random((s, 2))], axis=1)
     x = rng.standard_normal((n, 2))
-    noise = 1e-2 + 1e-2 * rng.random((s, n))
-    noise[:, -3:] = 1e8
+    noise = 1e-2 + 1e-2 * rng.random((s, 1))
+    point_noise = 1e-3 * rng.random((n, 1))
+    point_noise[-3:] = 1e8
     got = tcov.build_covariance_matrix_with_noise(
         tcov.make_covariance(kernel, torch.as_tensor(hypers)),
-        torch.as_tensor(x), (), torch.as_tensor(noise))
+        torch.as_tensor(x), (), torch.as_tensor(noise),
+        torch.as_tensor(point_noise))
     for i in range(s):
         ref = jcov.build_covariance_matrix_with_noise(
             jcov.make_covariance(kernel, hypers[i]), jnp.asarray(x), (),
-            jnp.asarray(noise[i][:, None]), use_pallas="never")
+            jnp.asarray(point_noise + noise[i]), use_pallas="never")
         np.testing.assert_allclose(got[i].numpy(), np.asarray(ref),
                                    rtol=1e-12)
 

@@ -6,7 +6,9 @@ the covariance's symmetry and diagonal, both instances of the fused LML
 (the cluster one against the large-Np one), both instances of the descent
 and of the descent direction (tensor-core and FMA) and their generic
 (d, q) instances, their dispatch and their non-finite blocks, failed LML
-factorizations, and the wrappers' refusals on CUDA tensors.  They need
+factorizations, the wrappers' refusals on CUDA tensors, and the KG
+descent's gate, which sends the shapes the descent kernels do not take and
+derivative-observed states to the plain route.  They need
 a CUDA card (marker ``cuda``) and skip without one.  On the card, without JAX installed:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
@@ -411,3 +413,51 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, rng):
     with pytest.raises(ValueError):
         kernels.descent_grad(*wide, "matern_2.5")
     assert kernels.launch_counts() == counts
+
+
+@pytest.mark.parametrize("d,q,ds,launches", [
+    (2, 4, (), 1), (9, 2, (), 0), (4, 12, (), 0), (2, 17, (), 0),
+    (2, 2, (0, 1), 0)], ids=["main", "d9", "wr65", "q17", "derivatives"])
+def test_kg_batch_descent_gate_on_the_card(dev, rng, d, q, ds, launches):
+    """Kernel A's gate on the card: one cold KG batch launches descent_run
+    at the main path's (d, q) and takes the plain route at d = 9, at Wr =
+    (1 + q)(1 + d) = 65, at q = 17 and on a derivative-observed state (d-KG),
+    where it raised or would be wrong before; the KG values agree with the
+    float64 CPU path within 1e-3 max(1, max |f64|)."""
+    from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
+    from cornell_moe_tpu_torch.bayes_opt import DEFAULT_SGD_PARAMS_PS
+    from cornell_moe_tpu_torch.models import mcmc
+    from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+
+    s, n, b, m = 2, 24, 2, 8
+    x = rng.random((n, d))
+    y = np.stack([np.sin(3 * x[:, 0]) + x[:, 1], 3 * np.cos(3 * x[:, 0]),
+                  np.ones(n)], axis=1)[:, :1 + len(ds)]
+    hypers = np.concatenate([np.ones((s, 1)), 0.4 + 0.4 * np.sqrt(d / 2) *
+                             rng.random((s, d))], axis=1)
+    noises = np.full((s, 1 + len(ds)), 1e-2)
+    unions = rng.random((b, q, d))
+    normals = rng.standard_normal((m, q * (1 + len(ds))))
+    discrete = rng.random((s, 5, d))
+    vals = {}
+    for where, dt in ((dev, torch.float32), ("cpu", torch.float64)):
+        def t(a):
+            return torch.as_tensor(a, device=where, dtype=dt)
+        states = mcmc.fit_gp_ensemble("matern_2.5", t(hypers), t(noises), x,
+                                      y, ds)
+        dom = TensorProductDomain.from_bounds([[0.0, 1.0]] * d, device=where,
+                                              dtype=dt)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        v, _ = kg.knowledge_gradient_batch(
+            states, t(unions), t(discrete), t(normals), dom,
+            DEFAULT_SGD_PARAMS_PS, t(np.full(s, y[:, 0].min())),
+            derivatives_to_sample=ds)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["descent_run"] + counts["descent_run_fma"] == \
+            (launches if where == dev else 0)
+        vals[str(where)] = v.double().cpu()
+    got, ref = vals[str(dev)], vals["cpu"]
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-3 * max(1.0, ref.abs().max())
