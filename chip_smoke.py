@@ -25,8 +25,14 @@ descent (one ``descent_grad`` launch per GD step, the steps taken by
 path's shapes, checks that it went through its kernel, and holds it
 against the float64 descent.  It profiles a window of the main path's MCMC
 chain (host wall clock per stretch-move step against the device's busy
-time), and last it checks the port against its own float64 CPU path on
-small inputs, value-only and with derivative channels.  Every phase
+time).  It drives one continuous-fidelity KG iteration (``BraninFidelity``,
+the main path's size, d = 3 with one fidelity dim: kernels B and C, no
+kernel A) and holds B and C against their plain versions at that path's
+shapes; one LCB batch selection on the main path's ensemble; and one
+iteration of ``pes_driver.run_PES`` on Hartmann6 at the reference scale
+(60 points, 100 hyperparameter sets, 1000 features, grid 500).  Last it
+checks the port against its own float64 CPU path on small inputs:
+value-only, with derivative channels, with a fidelity dim and PES.  Every phase
 prints one JSON line; the kernels' summary is one JSON line, with each
 kernel's device time (its own CUDA events under ``torch.profiler``) and
 call time (CUDA events around the wrapper) beside its bound (the least
@@ -82,6 +88,13 @@ DEVICE = "cuda:0"
 # The d-KG path (benchmarks/bench_suite.py:175-213): Branin with both
 # partials observed at the main path's size
 DKG_DERIVATIVES = (0, 1)
+
+# The LCB selection: candidates and picks (main path's ensemble, member 0)
+LCB_CANDIDATES = 10_000
+
+# The PES path (benchmarks/bench_suite.py:246-336): Hartmann6, 60 initial
+# points, M = 100 hyperparameter sets, burn-in 50, grid 500, one iteration
+PES_INIT, PES_SETS, PES_BURNIN, PES_GRID = 60, 100, 50, 500
 
 # Peaks of one H100 SXM at 700 W (data sheet, dense): float32 outside the
 # tensor cores, TF32 on the tensor cores, HBM, and the special-function
@@ -396,10 +409,11 @@ def _device_ms(torch, fn, reps: int) -> float:
     host ranges cannot place device events.  One warm-up call runs under
     the profiler first.  The profiler may leave a call's events unrecorded:
     the first kernel after it starts, on the H100 at times the last one
-    before it stops too, and in one whole run of this script 12 of 21
-    calls.  So only the calls whose event count is the most common one
-    (whole calls) are read, the last reps of them; when fewer than half
-    the calls made are whole, the profiled run is made again, up to
+    before it stops too, in one whole run of this script 12 of 21 calls,
+    and once every call of a profiled run.  So only the calls whose event
+    count is the most common one (whole calls) are read, the last reps of
+    them; when fewer than half the calls made are whole, or none was seen,
+    the profiled run is made again, up to
     DEVICE_MS_ATTEMPTS times, and each such run prints a
     ``device_ms_miscount`` line with what the profiler saw."""
     from torch.autograd import DeviceType
@@ -407,6 +421,7 @@ def _device_ms(torch, fn, reps: int) -> float:
 
     fn()
     torch.cuda.synchronize()
+    calls, whole = [], []
     for attempt in range(1, DEVICE_MS_ATTEMPTS + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -417,7 +432,11 @@ def _device_ms(torch, fn, reps: int) -> float:
         spans = sorted((ev.time_range.start, ev.time_range.end)
                        for ev in prof.events()
                        if ev.device_type == DeviceType.CUDA)
-        check(len(spans) > 0, "the profiler saw no device events")
+        if not spans:
+            emit({"phase": "device_ms_miscount", "attempt": attempt,
+                  "calls_made": reps + 1, "calls_seen": 0,
+                  "device_events": 0})
+            continue
         calls, last_end = [[]], spans[0][0]
         for start, end in spans:                # microseconds
             if start - last_end > DEVICE_MS_GAP_S * 1e6 / 2:
@@ -470,25 +489,16 @@ def phase_equivalence(torch, model, counts):
     # --- C: covariance + noise, S = 16, n = 512 ------------------------------
     # Against the plain version, and K symmetric bit for bit: the kernel
     # computes each off-diagonal tile once and writes it twice.
-    h = states.covariance.hyperparameters.contiguous()
-    nv = (states.noise_variance + states.point_noise[..., 0]).contiguous()
-    args = (x.contiguous(), h, nv, model.kernel_name)
-    got = kernels.covariance_with_noise(*args)
-    ref = kernels.covariance_with_noise_plain(*args)
-    err = (got - ref).abs()
-    symmetric = bool(torch.equal(got, got.transpose(-1, -2)))
-    ok = bool((err <= 2e-5 + 2e-4 * ref.abs()).all()) and symmetric
-    times = _timed(torch, lambda: kernels.covariance_with_noise(*args), 20)
-    emit({"phase": "equivalence", "kernel": "covariance_with_noise",
-          "shape": list(got.shape), "max_abs_err": err.max().item(),
-          "max_rel_err": (err / ref.abs().clamp_min(1e-30)).max().item(),
-          "symmetric_bitwise": symmetric, **times,
-          "tolerance": "rtol 2e-4, atol 2e-5; K equal to K^T bit for bit",
-          "ok": ok})
+    h = states.covariance.hyperparameters
+    nv = states.noise_variance + states.point_noise[..., 0]
+    fields, ok, call, plain = _covariance_case(torch, x, h, nv,
+                                               model.kernel_name)
+    times = _timed(torch, call, 20)
+    emit({"phase": "equivalence", **fields, **times})
     check(ok, "covariance_with_noise disagrees with its plain version or "
               "is not symmetric")
-    row("covariance_with_noise", err.max().item(), times,
-        _timed(torch, lambda: kernels.covariance_with_noise_plain(*args), 20),
+    row("covariance_with_noise", fields["max_abs_err"], times,
+        _timed(torch, plain, 20),
         covariance_bound(h.shape[0], x.shape[0], x.shape[1],
                          model.kernel_name))
 
@@ -983,15 +993,21 @@ def phase_chain_profile(torch, model, path="main_path") -> None:
 
     run(8)
     wall = run(steps)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        profiled_wall = run(steps)
-    by_name, launches = {}, 0
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            launches += 1
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + \
-                ev.time_range.elapsed_us() / 1e3 / steps
+    for attempt in range(1, DEVICE_MS_ATTEMPTS + 1):
+        # the profiler may record no device event in a whole run
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            profiled_wall = run(steps)
+        by_name, launches = {}, 0
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                launches += 1
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + \
+                    ev.time_range.elapsed_us() / 1e3 / steps
+        if by_name:
+            break
+        emit({"phase": "device_ms_miscount", "attempt": attempt,
+              "path": path, "device_events": 0})
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     emit({"phase": "chain_profile", "path": path,
@@ -1058,6 +1074,348 @@ def kg_domain(dev, dtype):
     from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
     return TensorProductDomain.from_bounds(
         np.asarray(Branin()._search_domain), device=dev, dtype=dtype)
+
+
+def phase_cfkg(torch):
+    """One cf-KG iteration through the driver at the main path's size:
+    BraninFidelity (d = 3, the last coordinate a fidelity in [0.05, 1]),
+    500 observations (512 after the bucket), 16 members, q = 4, 200
+    multistarts, 128 MC draws, float32 (the settings of
+    benchmarks/sample_efficiency_r04.py:117-121).  Every launch counter is
+    set to 0 just before and read just after: kernel A's gate takes no
+    fidelity dim, as the JAX package's does, so A may not launch, while B
+    (the chain) and C (the fits) must.  Returns the optimizer."""
+    import numpy as np
+    from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
+    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.utils.synthetic_functions import \
+        BraninFidelity
+
+    bo = BayesianOptimizer(objective_func=BraninFidelity(), method="KG",
+                           num_to_sample=Q, n_hypers=N_HYPERS, noisy=True,
+                           standardize=True, device=DEVICE,
+                           dtype=torch.float32, verbose=False)
+    check(bo.num_fidelity == 1 and bo.dim == 3 and
+          bo.sgd_params.num_multistarts == MULTISTARTS and
+          bo.num_mc == NUM_MC, "cf-KG size changed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    rec = bo.run(num_iterations=1, num_init_pts=NUM_OBS)[-1]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    states = bo.model.models
+    sugg, r = rec["suggested"], rec["recommended"]
+    capital = float(np.max(np.prod(sugg[:, 2:], axis=1)))
+    emit({"phase": "cfkg_path", "seconds": wall,
+          "stages": {x["phase"]: x["seconds"] for x in bo.timer.records},
+          "num_sampled": int(bo.model._data.num_sampled),
+          "ensemble": int(states.chol_K.shape[0]),
+          "padded_n": int(states.chol_K.shape[-1]), "dim": bo.dim,
+          "num_fidelity": bo.num_fidelity,
+          "chain_steps": bo.model.chain_steps,
+          "members_replaced": bo.model.members_replaced,
+          "voi": rec["voi"], "suggested": sugg.tolist(),
+          "recommended": r.tolist(), "true_value": rec["true_value"],
+          "capital": rec["capital"],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": counts})
+    check(counts["descent_run"] == 0 and counts["descent_run_fma"] == 0,
+          "the cf-KG path launched kernel A")
+    check(counts["lml_fused"] > 0 and counts["covariance_with_noise"] > 0,
+          "the cf-KG path did not launch kernels B and C")
+    check(bool(((sugg[:, 2] >= 0.05) & (sugg[:, 2] <= 1.0)).all()),
+          f"suggested fidelities {sugg[:, 2]} outside [0.05, 1]")
+    check(rec["capital"] == capital,
+          f"capital {rec['capital']} is not the batch's largest fidelity "
+          f"product {capital}")
+    check(r[2] == 1.0, f"recommended fidelity {r[2]} is not 1")
+    check(math.isfinite(rec["voi"]) and math.isfinite(rec["true_value"]),
+          "cf-KG VOI or true value not finite")
+    check(bool(torch.isfinite(states.chol_K).all()),
+          "a cf-KG ensemble member's chol_K is non-finite")
+    return bo
+
+
+def _covariance_case(torch, x, h, nv, kernel_name):
+    """Kernel C against its plain version on one input, by the rule of
+    phase_equivalence: rtol 2e-4, atol 2e-5, and K equal to K^T bit for
+    bit.  Returns (line fields, ok, the kernel's call, the plain version's
+    call)."""
+    from cornell_moe_tpu_torch.ops import kernels
+    args = (x.contiguous(), h.contiguous(), nv.contiguous(), kernel_name)
+    got = kernels.covariance_with_noise(*args)
+    ref = kernels.covariance_with_noise_plain(*args)
+    err = (got - ref).abs()
+    symmetric = bool(torch.equal(got, got.transpose(-1, -2)))
+    ok = bool((err <= 2e-5 + 2e-4 * ref.abs()).all()) and symmetric
+    return {"kernel": "covariance_with_noise", "shape": list(got.shape),
+            "max_abs_err": err.max().item(),
+            "max_rel_err": (err / ref.abs().clamp_min(1e-30)).max().item(),
+            "symmetric_bitwise": symmetric,
+            "tolerance": "rtol 2e-4, atol 2e-5; K equal to K^T bit for bit",
+            "ok": ok}, ok, (lambda: kernels.covariance_with_noise(*args)), \
+        (lambda: kernels.covariance_with_noise_plain(*args))
+
+
+def _covariance_line(torch, path, x, h, nv, kernel_name) -> None:
+    """Kernel C against its plain version (:func:`_covariance_case`) on one
+    of a path's own inputs, timed as the kernels' summary times the main
+    path's (device and call time, 20 calls); prints one equivalence line
+    and fails the script if they disagree."""
+    fields, ok, call, plain = _covariance_case(torch, x, h, nv, kernel_name)
+    emit({"phase": "equivalence", "path": path, "kernel_name": kernel_name,
+          **fields, "times": _timed(torch, call, 20),
+          "plain": _timed(torch, plain, 20), "timing": TIMING.format(20),
+          "bound_ms": covariance_bound(h.shape[0], x.shape[0], x.shape[1],
+                                       kernel_name)["ms"]})
+    check(ok, f"covariance_with_noise disagrees at the {path} shape "
+              f"{fields['shape']}")
+
+
+def phase_cfkg_equivalence(torch, bo) -> None:
+    """Kernels B and C against their plain versions at the cf-KG path's
+    shapes (d = 3), by phase_equivalence's rules at d = 2: C on the path's
+    ensemble (S 16, n 512); B (cluster instance, W = 8 and 16, Np 512) with
+    walker lengths drawn as there, against the plain version at rtol 5e-4
+    and the large-Np instance at rtol 1e-6.  Each is timed as the kernels'
+    summary times the main path's (device and call time, 20 calls)."""
+    from cornell_moe_tpu_torch.ops import kernels
+
+    model = bo.model
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(4321)
+    states = model.models
+    x, y, pn = model._padded_data()
+    _covariance_line(torch, "cfkg_path", x, states.covariance.hyperparameters,
+                     states.noise_variance + states.point_noise[..., 0],
+                     model.kernel_name)
+
+    w, d, np_ = model.n_hypers, model.dim, x.shape[0]
+    f32 = dict(device=dev, dtype=torch.float32)
+    width = (bo.domain.upper - bo.domain.lower).to(torch.float32)
+    lengths = (0.3 + 0.4 * torch.rand((w, d), generator=g, **f32)) * width
+    alphas = 0.8 + torch.rand((w,), generator=g, **f32)
+    noises = 1e-2 + 1e-2 * torch.rand((w, 1), generator=g, **f32)
+    for nw in (w // 2, w):
+        check(kernels.lml_fused_instance(np_) == "cluster",
+              f"Np={np_} does not take the cluster instance")
+        largs = ((x.T[None] / lengths[:nw, :, None]).contiguous(),
+                 alphas[:nw].contiguous(),
+                 (noises[:nw] + pn[None, :, 0]).contiguous(),
+                 y[None, :, 0].expand(nw, np_).contiguous(), np_,
+                 model.kernel_name)
+        quad, logdet = kernels.lml_fused(*largs)
+        quad_g, logdet_g = kernels.lml_fused_global(*largs)
+        quad_p, logdet_p = kernels.lml_fused_plain(*largs)
+
+        def rel(a, b):
+            return ((a.double() - b.double()).abs() /
+                    b.double().abs().clamp_min(1.0)).max().item()
+
+        errs = {"quad": rel(quad, quad_p), "logdet": rel(logdet, logdet_p),
+                "kernel_vs_large_np_instance": max(rel(quad, quad_g),
+                                                   rel(logdet, logdet_g))}
+        ok = errs["quad"] < 5e-4 and errs["logdet"] < 5e-4 and \
+            errs["kernel_vs_large_np_instance"] < 1e-6
+        emit({"phase": "equivalence", "path": "cfkg_path",
+              "kernel": "lml_fused", "instance": "cluster", "W": nw,
+              "Np": np_, "d": d,
+              "max_abs_err": max((quad - quad_p).abs().max().item(),
+                                 (logdet - logdet_p).abs().max().item()),
+              "max_rel_err": errs,
+              "times": _timed(torch, lambda: kernels.lml_fused(*largs), 20),
+              "plain": _timed(torch, lambda: kernels.lml_fused_plain(*largs),
+                              20), "timing": TIMING.format(20),
+              "bound_ms": lml_bound(nw, np_, d, model.kernel_name)["ms"],
+              "tolerance": "rtol 5e-4 vs plain, rtol 1e-6 vs the large-Np "
+                           "instance", "ok": ok})
+        check(ok, f"lml_fused disagrees at the cf-KG path's W={nw}, d={d}")
+
+
+LCB_MEAN_RTOL = 1e-3      # of max(1, max |mu64|), as phase_small_reference
+LCB_VARIANCE_RTOL = 1e-4  # of the member's signal variance alpha
+
+
+def phase_lcb(torch, states) -> None:
+    """LCB batch selection (``lower_confidence_bound_optimization``) on
+    member 0 of the main path's ensemble over 10,000 uniform candidates in
+    Branin's domain, q = 4, float32 on the card, held to the same member
+    refitted in float64 on the card.  Checks q picks and one launch of
+    kernel C per fantasy append; every pick in the plausible set (LCB <=
+    min(mu + sigma)) of the float64 posterior; the posterior mean at every
+    candidate within LCB_MEAN_RTOL max(1, max |mu64|) of float64's and the
+    posterior variance within LCB_VARIANCE_RTOL alpha (float32's alpha -
+    |L^-1 k|^2 cancels, PERF.md); every pick's standard deviation finite.
+    The float32 plausible set and the distinct picks are printed: the
+    reference's rule may repeat a pick (ROADMAP Queue 3).  Then C against
+    its plain version on the first fantasy append's input (n = 1)."""
+    from cornell_moe_tpu_torch.acquisition import lower_confidence_bound as lcb
+    from cornell_moe_tpu_torch.models import gp as gp_mod
+    from cornell_moe_tpu_torch.ops import kernels
+
+    member = states.member(0)
+    dom = kg_domain(member.points_sampled.device, torch.float32)
+    cand = dom.generate_uniform_random_points_in_domain(
+        torch.Generator(device=dom.bounds.device).manual_seed(99),
+        LCB_CANDIDATES)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    picks, _ = lcb.lower_confidence_bound_optimization(member, cand, Q)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+
+    def plain(v):
+        return None if v is None else v.double()
+
+    member64 = gp_mod.fit_gp(
+        type(member.covariance)(hyperparameters=plain(
+            member.covariance.hyperparameters)),
+        plain(member.noise_variance), plain(member.points_sampled),
+        plain(member.points_sampled_value), mean=plain(member.mean),
+        point_noise=plain(member.point_noise))
+    cand64 = cand.double()
+    picks64, _ = lcb.lower_confidence_bound_optimization(member64, cand64, Q)
+    mu = gp_mod.posterior_mean(member, cand)[:, 0].double()
+    sd = lcb.posterior_stddev(member, cand).double()
+    mu64 = gp_mod.posterior_mean(member64, cand64)[:, 0]
+    sd64 = lcb.posterior_stddev(member64, cand64)
+    plausible = (mu - sd) <= torch.min(mu + sd)
+    plausible64 = (mu64 - sd64) <= torch.min(mu64 + sd64)
+    at = [(cand == p).all(dim=1) for p in picks]
+    in_set64 = [bool(plausible64[i].any()) for i in at]
+    alpha = float(member64.covariance.hyperparameters[0])
+    errs = {"posterior_mean_abs": (mu - mu64).abs().max().item(),
+            "posterior_mean_limit": LCB_MEAN_RTOL * max(
+                1.0, mu64.abs().max().item()),
+            "posterior_variance_abs": (sd ** 2 - sd64 ** 2).abs().max().item(),
+            "posterior_variance_limit": LCB_VARIANCE_RTOL * alpha}
+    sd_picks = lcb.posterior_stddev(member, picks)
+    lcb64 = mu64 - sd64
+    emit({"phase": "lcb", "seconds": wall, "candidates": LCB_CANDIDATES,
+          "q": Q, "picks": picks.tolist(),
+          "distinct_picks": len({tuple(p) for p in picks.tolist()}),
+          "plausible_set_size": int(plausible.sum()),
+          "posterior_sd_at_picks": sd_picks.tolist(),
+          "candidates_with_sd_0": int((sd == 0).sum()),
+          "float64": {
+              "picks": picks64.tolist(),
+              "distinct_picks": len({tuple(p) for p in picks64.tolist()}),
+              "plausible_set_size": int(plausible64.sum()),
+              "candidates_with_sd_0": int((sd64 == 0).sum())},
+          "picks_in_float64_plausible_set": in_set64,
+          "first_pick_as_float64": bool(torch.equal(picks[0].double(),
+                                                    picks64[0])),
+          "float64_lcb_above_its_minimum_at_first_pick":
+              (lcb64[at[0]].min() - lcb64.min()).item(),
+          **errs, "alpha": alpha,
+          "tolerance": "every pick in the float64 plausible set; |mu - mu64| "
+                       f"<= {LCB_MEAN_RTOL} max(1, max |mu64|); |sd^2 - "
+                       f"sd64^2| <= {LCB_VARIANCE_RTOL} alpha",
+          "launches": counts})
+    check(tuple(picks.shape) == (Q, 2), "LCB did not return q picks")
+    check(counts["covariance_with_noise"] == Q - 1,
+          "LCB's fantasy appends did not each launch kernel C")
+    check(all(in_set64),
+          "an LCB pick lies outside the float64 posterior's plausible set")
+    check(errs["posterior_mean_abs"] <= errs["posterior_mean_limit"],
+          "LCB's float32 posterior mean disagrees with float64's")
+    check(errs["posterior_variance_abs"] <= errs["posterior_variance_limit"],
+          "LCB's float32 posterior variance disagrees with float64's")
+    check(bool(torch.isfinite(sd_picks).all()),
+          "an LCB pick's posterior standard deviation is not finite")
+    _covariance_line(torch, "lcb", picks[:1],
+                     member.covariance.hyperparameters.reshape(1, -1),
+                     member.noise_variance.reshape(1, 1),
+                     member.covariance.name)
+
+
+def phase_pes(torch) -> None:
+    """One iteration of ``pes_driver.run_PES`` on Hartmann6 at the
+    reference scale of benchmarks/bench_suite.py:246-336: 60 initial
+    points, M = 100 hyperparameter sets, burn-in 50, 1000 random features,
+    grid 500, float32 on the card, artifacts in a temporary directory.  Each
+    part is timed by the driver's PhaseTimer; C's launches are counted (the
+    port's gate has no size window, so the M-set SE fits at n = 60 and 61,
+    d = 6 launch it).  Then C against its plain version on those fits' own
+    inputs: the artifacts' first 60 and all 61 points, and the sets the
+    driver's ``sample_hypers`` draws there from the run's seed (the run's
+    draws replayed: its initial design, then the chain)."""
+    import tempfile
+
+    import numpy as np
+    from cornell_moe_tpu_torch.acquisition import pes_driver
+    from cornell_moe_tpu_torch.models.covariance import SquareExponential
+    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+    from cornell_moe_tpu_torch.utils.logging_utils import PhaseTimer
+    from cornell_moe_tpu_torch.utils.synthetic_functions import Hartmann6
+
+    f = Hartmann6()
+    timer = PhaseTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.time()
+        hist = pes_driver.run_PES(
+            lambda p: float(f.evaluate_true(p)[0]), [0.0] * 6, [1.0] * 6, 6,
+            number_of_hyperparameter_sets=PES_SETS,
+            number_of_burnin=PES_BURNIN, number_of_initial_points=PES_INIT,
+            number_of_iterations=1, gridsize=PES_GRID, seed=0,
+            output_dir=out_dir, verbose=False, device=DEVICE,
+            dtype=torch.float32, timer=timer)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.launch_counts()
+        art = {name: np.loadtxt(os.path.join(out_dir, name), ndmin=2)
+               for name in ("Xsamples.txt", "Ysamples.txt", "guesses.txt")}
+    rows = {name: a.shape[0] for name, a in art.items()}
+    finite_sets = [r["finite_sets"] for r in timer.records
+                   if r["phase"] == "x_star_draws_and_ep"][0]
+    h = hist[-1]
+    emit({"phase": "pes_path", "seconds": wall,
+          "parts": {r["phase"]: r["seconds"] for r in timer.records},
+          "initial_points": PES_INIT, "sets": PES_SETS,
+          "finite_sets": finite_sets,
+          "suggested": h["suggested"].tolist(),
+          "value": h["value"], "recommended": h["recommended"].tolist(),
+          "best_so_far": h["best_so_far"], "artifact_rows": rows,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": counts})
+    check(finite_sets >= 1, "no PES hyperparameter set came out finite")
+    check(counts["covariance_with_noise"] > 0,
+          "the PES path's fits did not launch kernel C")
+    for name in ("suggested", "recommended"):
+        v = np.asarray(h[name])
+        check(bool(np.isfinite(v).all() and (v >= 0.0).all() and
+                   (v <= 1.0).all()), f"PES {name} point {v} not finite in "
+                                      "[0, 1]^6")
+    check(rows == {"Xsamples.txt": PES_INIT + 1,
+                   "Ysamples.txt": PES_INIT + 1,
+                   "guesses.txt": PES_INIT + 1},
+          f"PES artifacts have {rows} rows")
+
+    f32 = dict(device=DEVICE, dtype=torch.float32)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    design = TensorProductDomain.from_bounds(
+        np.array([[0.0, 1.0]] * 6), **f32).generate_latin_hypercube_points(
+            g, PES_INIT)
+    xs = torch.as_tensor(art["Xsamples.txt"], **f32)
+    ys = torch.as_tensor(art["Ysamples.txt"][:, 0], **f32)
+    noise, lengths, sigma = pes_driver.sample_hypers(
+        g, xs[:PES_INIT], ys[:PES_INIT], PES_SETS, PES_BURNIN)
+    emit({"phase": "pes_fit_inputs", "replayed_design_as_artifact": bool(
+        torch.equal(design, xs[:PES_INIT])), "sets": int(sigma.shape[0])})
+    hypers = torch.cat([sigma[:, None], lengths], dim=1)
+    for n in (PES_INIT, PES_INIT + 1):
+        _covariance_line(torch, "pes_path", xs[:n], hypers,
+                         noise[:, None].expand(PES_SETS, n),
+                         SquareExponential.name)
 
 
 def phase_small_reference(torch) -> None:
@@ -1161,6 +1519,71 @@ def phase_small_reference(torch) -> None:
           "ok": ok})
     check(ok, "card float32 d-KG path disagrees with the float64 CPU path")
 
+    # cf-KG: 40 points in [0, 1] x [0.05, 1], the last coordinate a
+    # fidelity; one batch of KG values with the fidelity pinned inside
+    xf = rng.random((n, 2))
+    xf[:, 1] = 0.05 + 0.95 * xf[:, 1]
+    yf = np.sin(3 * xf[:, 0]) * (0.5 + 0.5 * xf[:, 1])
+    yf = (yf - yf.mean()) / yf.std()
+    unions_f = rng.random((b, Q, 2))
+    unions_f[..., 1] = 0.05 + 0.95 * unions_f[..., 1]
+    discrete_f = rng.random((s, 11, 1))
+    out = {}
+    for dev, dt in ((DEVICE, torch.float32), ("cpu", torch.float64)):
+        def t(a):
+            return torch.as_tensor(a, device=dev, dtype=dt)
+        states = mcmc.fit_gp_ensemble("matern_2.5", t(hypers), t(noises),
+                                      xf, yf[:, None], bucket=16)
+        dom = TensorProductDomain.from_bounds([[0.0, 1.0]], device=dev,
+                                              dtype=dt)
+        out[dev], _ = kg.knowledge_gradient_mcmc_batch(
+            states, t(unions_f), t(discrete_f), t(normals), dom,
+            DEFAULT_SGD_PARAMS_PS,
+            torch.full((s,), float(yf.min()), device=dev, dtype=dt),
+            num_fidelity=1)
+    kg_g, kg_c = out[DEVICE].double().cpu(), out["cpu"]
+    err = ((kg_g - kg_c).abs().max() /
+           kg_c.abs().max().clamp_min(1.0)).item()
+    emit({"phase": "small_reference_cfkg", "n": n, "num_fidelity": 1,
+          "S": s, "B": b, "M": m, "kg_gpu": kg_g.tolist(),
+          "kg_cpu_f64": kg_c.tolist(), "max_err_over_scale": err,
+          "tolerance": "max |f32 card - f64 CPU| <= 1e-3 max(1, max |f64|)",
+          "ok": err < 1e-3})
+    check(err < 1e-3, "card float32 cf-KG path disagrees with the float64 "
+                      "CPU path")
+
+    # PES: 8 points in [0, 1]^2, 4 hyperparameter sets, the multi-set
+    # acquisition at 16 points (PERF.md states why the tolerance is wider)
+    from cornell_moe_tpu_torch.acquisition import pes
+    rp = np.random.default_rng(0)
+    xp = rp.random((8, 2))
+    yp = np.sin(3 * xp[:, 0]) + xp[:, 1] ** 2
+    yp = (yp - yp.mean()) / yp.std()
+    x_min = rp.random((4, 2))
+    a = rp.standard_normal((4, 2, 2))
+    hess = a @ a.transpose(0, 2, 1) + 2 * np.eye(2)
+    sigma, lengths = 1.0 + 0.5 * rp.random(4), 0.3 + 0.2 * rp.random((4, 2))
+    pts = rp.random((16, 2))
+    out = {}
+    for dev, dt in ((DEVICE, torch.float32), ("cpu", torch.float64)):
+        def t(a_):
+            return torch.as_tensor(a_, device=dev, dtype=dt)
+        st = pes.make_pes_state(t(xp), t(yp), t(x_min), t(hess), t(sigma),
+                                t(lengths), t(np.full(4, 1e-2)))
+        out[dev] = pes.pes_acquisition_multi(t(pts), st, t(xp)).double(
+        ).cpu()
+    pes_g, pes_c = out[DEVICE], out["cpu"]
+    err = ((pes_g - pes_c).abs().max() /
+           pes_c.abs().max().clamp_min(1.0)).item()
+    ok = bool(torch.isfinite(pes_g).all()) and err < 1e-2
+    emit({"phase": "small_reference_pes", "n": 8, "d": 2, "sets": 4,
+          "points": 16, "acq_gpu": pes_g.tolist(),
+          "acq_cpu_f64": pes_c.tolist(), "max_err_over_scale": err,
+          "tolerance": "max |f32 card - f64 CPU| <= 1e-2 max(1, max |f64|)",
+          "ok": ok})
+    check(ok, "card float32 PES acquisition disagrees with the float64 CPU "
+              "path")
+
 
 def main() -> int:
     try:
@@ -1192,6 +1615,13 @@ def main() -> int:
     summary, problems = phase_equivalence(torch, bo.model, counts)
     summary += phase_descent_grad(torch, bo.model.kernel_name, problems)
     phase_chain_profile(torch, bo.model)
+    phase_lcb(torch, bo.model.models)
+    del problems
+    cf = phase_cfkg(torch)
+    phase_cfkg_equivalence(torch, cf)
+    del cf
+    torch.cuda.empty_cache()
+    phase_pes(torch)
     phase_small_reference(torch)
     check("jax" not in sys.modules and "cornell_moe_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")

@@ -1,13 +1,17 @@
-"""MCMC-averaged q-Knowledge-Gradient and d-KG, and posterior-mean
-optimization.
+"""MCMC-averaged q-Knowledge-Gradient, d-KG and continuous-fidelity KG
+(cf-KG), and posterior-mean optimization.
 
 Counterpart of ``cornell_moe_tpu/acquisition/knowledge_gradient.py`` (no
-fidelity dims, no points-being-sampled).  Every function takes an ensemble
+points-being-sampled).  Every function takes an ensemble
 state with a leading axis S and works on all members at once, where the JAX
 package vmaps over them.  The state may observe derivative channels
 (``state.derivatives``), and the fantasy observations at the union may
 include the derivative channels ``derivatives_to_sample`` (d-KG): each
-union point then carries 1 + ms channels, q_ch = q (1 + ms) in all.
+union point then carries 1 + ms channels, q_ch = q (1 + ms) in all.  With
+``num_fidelity`` > 0 the last ``num_fidelity`` coordinates are fidelity
+dims: the inner problem works on the first ``dim_opt = d - num_fidelity``
+coordinates with the fidelity coordinates pinned to 1, and the ensemble KG
+is divided by the union's cost (cf-KG).
 
 Semantics (minimization):
   * KG(U) = E_z[ best_posterior - min_x mu'_z(x) ],
@@ -26,9 +30,9 @@ Dispatch rule of the inner descent (:func:`descent_kernel_for`): CUDA,
 float32, value channels on both sides and shapes the kernel takes
 (``kernels.descent_shapes_supported``) run the whole descent in the
 hand-written kernel ``ops.kernels.descent_run``.  Otherwise value channels
-take the analytic moment gradient (:func:`_make_descent_grad_fn`) and
-derivative channels the autograd gradient of the summed frozen fantasy mean
-(:func:`_make_fantasy_mean_grad_fn`), each driven by
+take the analytic moment gradient (:func:`_make_descent_grad_fn`), and
+derivative channels and fidelity dims the autograd gradient of the summed
+frozen fantasy mean (:func:`_make_fantasy_mean_grad_fn`), each driven by
 ``optimizers.gradient_ascent_batch``, as in the JAX package.  The per-step
 route (:func:`_descent_grad_bvg`: one ``ops.kernels.descent_grad`` launch
 per GD step, the steps taken by ``gradient_ascent_batch``) is the
@@ -50,30 +54,64 @@ from cornell_moe_tpu_torch.models import covariance as cov_mod
 from cornell_moe_tpu_torch.models import gp as gp_mod
 from cornell_moe_tpu_torch.models.gp import GaussianProcessState
 from cornell_moe_tpu_torch.ops import kernels, linalg, optimizers
-from cornell_moe_tpu_torch.ops.domains import RepeatedDomain
+from cornell_moe_tpu_torch.ops.domains import (RepeatedDomain,
+                                               TensorProductDomain)
 
 
 # ---------------------------------------------------------------------------
 # Posterior mean as an optimizable objective
 # ---------------------------------------------------------------------------
 
+def _pin_fidelity(x_opt: torch.Tensor, num_fidelity: int) -> torch.Tensor:
+    """Lift points (..., dim_opt) to full dim with the fidelity coordinates
+    pinned to 1.0."""
+    if num_fidelity == 0:
+        return x_opt
+    ones = torch.ones(x_opt.shape[:-1] + (num_fidelity,), dtype=x_opt.dtype,
+                      device=x_opt.device)
+    return torch.cat([x_opt, ones], dim=-1)
+
+
+def fidelity_cost(unions: torch.Tensor, num_to_sample: int,
+                  num_fidelity: int) -> torch.Tensor:
+    """cost = max_i prod(fidelity coords of point i), i over the first
+    num_to_sample points of each union (..., q, d): (...)."""
+    if num_fidelity == 0:
+        return torch.ones(unions.shape[:-2], dtype=unions.dtype,
+                          device=unions.device)
+    fid = unions[..., :num_to_sample, unions.shape[-1] - num_fidelity:]
+    return torch.max(torch.prod(fid, dim=-1), dim=-1).values
+
+
+def inner_domain(domain: TensorProductDomain, num_fidelity: int
+                 ) -> TensorProductDomain:
+    """The inner problem's domain: the first dim - num_fidelity
+    coordinates."""
+    return TensorProductDomain(bounds=domain.bounds[:domain.dim -
+                                                    num_fidelity])
+
+
 def posterior_mean_objective(state: GaussianProcessState,
-                             x_opt: torch.Tensor) -> torch.Tensor:
-    """-posterior_mean at x (..., d) for a state with the same batch axes
-    (maximized)."""
-    return -gp_mod.posterior_mean(state, x_opt[..., None, :])[..., 0, 0]
+                             x_opt: torch.Tensor, num_fidelity: int = 0
+                             ) -> torch.Tensor:
+    """-posterior_mean at the fidelity-pinned x (..., dim_opt) for a state
+    with the same batch axes (maximized)."""
+    x = _pin_fidelity(x_opt, num_fidelity)
+    return -gp_mod.posterior_mean(state, x[..., None, :])[..., 0, 0]
 
 
 def compute_optimal_posterior_mean(
         state: GaussianProcessState, domain, initial_guesses: torch.Tensor,
-        params: optimizers.GradientDescentParameters):
-    """Per member, maximize -mu from the best of its guesses (..., G, d).
+        params: optimizers.GradientDescentParameters, num_fidelity: int = 0):
+    """Per member, maximize -mu from the best of its guesses (..., G,
+    dim_opt) over the inner ``domain``, fidelity coordinates pinned to 1.
 
-    Returns (best_point (..., d), best_value = -mu there (...)).  Each
-    member's value depends only on its own point, so one batched GD over
-    the members equals one GD per member.
+    Returns (best_point (..., dim_opt), best_value = -mu there (...)).
+    Each member's value depends only on its own point, so one batched GD
+    over the members equals one GD per member.
     """
-    vals = -gp_mod.posterior_mean(state, initial_guesses)[..., 0]
+    vals = -gp_mod.posterior_mean(
+        state, _pin_fidelity(initial_guesses, num_fidelity))[..., 0]
     idx = torch.argmax(vals, dim=-1)
     starts = torch.gather(
         initial_guesses, -2,
@@ -83,7 +121,7 @@ def compute_optimal_posterior_mean(
     def bvg(x):
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
-            v = posterior_mean_objective(state, xx)
+            v = posterior_mean_objective(state, xx, num_fidelity)
             (g,) = torch.autograd.grad(v.sum(), xx)
         return v.detach(), g
 
@@ -197,13 +235,15 @@ def _union_rows(cov, x_full: torch.Tensor, unions: torch.Tensor,
 def _fantasy_mean_batch(state: GaussianProcessState, x: torch.Tensor,
                         unions: torch.Tensor, v: torch.Tensor,
                         betas: torch.Tensor, normals: torch.Tensor,
-                        derivatives_to_sample: Sequence[int] = ()
-                        ) -> torch.Tensor:
-    """mu'_z at x (S, B, M, d) for every (member, union, draw): (S, B, M).
+                        derivatives_to_sample: Sequence[int] = (),
+                        num_fidelity: int = 0) -> torch.Tensor:
+    """mu'_z at x (S, B, M, dim_opt), fidelity coordinates pinned to 1, for
+    every (member, union, draw): (S, B, M).
 
     mu' = mean + k_x K^-1 y - (k_x V_b) z_m + k_xu beta_bm, one pass over
     the kernel rows against W = [K^-1 y | V].
     """
+    x = _pin_fidelity(x, num_fidelity)
     s, b, m, d = x.shape
     k_rows = _kernel_rows_flat(state, x.reshape(s, b * m, d)).reshape(
         s, b, m, -1)
@@ -221,16 +261,17 @@ def _fantasy_mean_batch(state: GaussianProcessState, x: torch.Tensor,
 
 def descent_kernel_for(device_type: str, dtype: torch.dtype,
                        kernel_name: str, derivatives: Sequence[int],
-                       derivatives_to_sample: Sequence[int], d: int, q: int
-                       ) -> Optional[str]:
+                       derivatives_to_sample: Sequence[int], d: int, q: int,
+                       num_fidelity: int = 0) -> Optional[str]:
     """Kernel A's gate: the kernel's name when the inner descent goes
     through ``kernels.descent_run`` (CUDA, float32, a covariance it knows,
-    no derivative channel observed or sampled, d dimensions and q union
-    points it takes), else None for the plain route."""
+    no derivative channel observed or sampled, no fidelity dim, d
+    dimensions and q union points it takes), else None for the plain
+    route."""
     if device_type != "cuda" or dtype != torch.float32 or \
             kernel_name not in cov_mod.COVARIANCE_TYPES or \
             cov_mod.channels(derivatives) or \
-            cov_mod.channels(derivatives_to_sample) or \
+            cov_mod.channels(derivatives_to_sample) or num_fidelity or \
             not kernels.descent_shapes_supported(d, q):
         return None
     return kernel_name
@@ -238,15 +279,17 @@ def descent_kernel_for(device_type: str, dtype: torch.dtype,
 
 def _make_fantasy_mean_grad_fn(state: GaussianProcessState, unions_f, v_f,
                                betas_f, normals,
-                               derivatives_to_sample: Sequence[int]):
-    """Ascent direction of -mu' for x (S, B, M, d) by autograd of the summed
-    frozen fantasy mean (each mu'_{sbm} depends on x_{sbm} alone): the
-    inner descent over derivative channels."""
+                               derivatives_to_sample: Sequence[int],
+                               num_fidelity: int = 0):
+    """Ascent direction of -mu' for x (S, B, M, dim_opt) by autograd of the
+    summed frozen fantasy mean (each mu'_{sbm} depends on x_{sbm} alone):
+    the inner descent over derivative channels or fidelity dims."""
     def bvg(x):
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
             mu = _fantasy_mean_batch(state, xx, unions_f, v_f, betas_f,
-                                     normals, derivatives_to_sample)
+                                     normals, derivatives_to_sample,
+                                     num_fidelity)
             (g,) = torch.autograd.grad(-mu.sum(), xx)
         return torch.zeros(x.shape[:3], dtype=x.dtype, device=x.device), g
 
@@ -370,37 +413,42 @@ def _make_descent_grad_fn(state: GaussianProcessState, unions_f, v_f,
 def knowledge_gradient(state: GaussianProcessState, union: torch.Tensor,
                        discrete_pts: torch.Tensor, normals: torch.Tensor,
                        domain, inner_params, best_so_far,
-                       derivatives_to_sample: Sequence[int] = ()
-                       ) -> torch.Tensor:
+                       derivatives_to_sample: Sequence[int] = (),
+                       num_fidelity: int = 0) -> torch.Tensor:
     """Per-union MC q-KG for every member: (S,).
 
-    ``union`` (q, d); ``discrete_pts`` (S, n_d, d) inner seeds;
-    ``normals`` (M, q_ch); ``best_so_far`` (S,).
+    ``union`` (q, d); ``discrete_pts`` (S, n_d, dim_opt) inner seeds;
+    ``normals`` (M, q_ch); ``best_so_far`` (S,); ``domain`` the inner
+    (dim_opt) domain.
     """
     ds = cov_mod.channels(derivatives_to_sample)
     s = state.points_sampled.shape[0]
     q, d = union.shape
+    dim_opt = d - num_fidelity
     mu_u, chol_u, v = _build_fantasy_model(state, union, ds)
     best_posterior = torch.minimum(
         best_so_far, torch.min(mu_u.reshape(s, q, -1)[..., 0], dim=-1).values)
     union_f = union.detach()
-    starts = torch.cat([discrete_pts, union_f.expand(s, q, d)], dim=1)
+    starts = torch.cat([discrete_pts,
+                        union_f[:, :dim_opt].expand(s, q, dim_opt)], dim=1)
+    starts_full = _pin_fidelity(starts, num_fidelity)
 
     betas = linalg.solve_triangular(
         chol_u, normals.T.expand(s, -1, -1), lower=True,
         trans=True).transpose(-1, -2)                       # (S, M, q_ch)
     alphas = state.K_inv_y[:, None, :] - normals @ v.transpose(-1, -2)
 
-    k_sx = _kernel_rows_flat(state, starts)                 # (S, n_s, N)
-    k_su = cov_mod.build_block_covariance(state.covariance, starts, (),
+    k_sx = _kernel_rows_flat(state, starts_full)            # (S, n_s, N)
+    k_su = cov_mod.build_block_covariance(state.covariance, starts_full, (),
                                           union_f, ds)      # (S, n_s, q_ch)
     mu_starts = state.mean[:, None, None] + \
         k_sx @ alphas.detach().transpose(-1, -2) + \
         k_su @ betas.detach().transpose(-1, -2)             # (S, n_s, M)
     idx = torch.argmin(mu_starts, dim=1)                    # (S, M)
-    x0 = torch.gather(starts, 1, idx[..., None].expand(-1, -1, d))
+    x0 = torch.gather(starts, 1, idx[..., None].expand(-1, -1, dim_opt))
 
     def mu_fn(x, alpha, beta, u):
+        x = _pin_fidelity(x, num_fidelity)
         k_x = _kernel_rows_flat(state, x)
         k_u = cov_mod.build_block_covariance(state.covariance, x, (), u, ds)
         return state.mean[:, None] + torch.sum(k_x * alpha, dim=-1) + \
@@ -424,12 +472,14 @@ def knowledge_gradient(state: GaussianProcessState, union: torch.Tensor,
 
 def knowledge_gradient_mcmc(states: GaussianProcessState, union, discrete_pts,
                             normals, domain, inner_params, best_so_far,
-                            derivatives_to_sample: Sequence[int] = ()
-                            ) -> torch.Tensor:
-    """Ensemble mean of :func:`knowledge_gradient` (no fidelity cost)."""
-    return torch.mean(knowledge_gradient(states, union, discrete_pts,
-                                         normals, domain, inner_params,
-                                         best_so_far, derivatives_to_sample))
+                            derivatives_to_sample: Sequence[int] = (),
+                            num_fidelity: int = 0) -> torch.Tensor:
+    """Ensemble mean of :func:`knowledge_gradient` divided by the union's
+    fidelity cost (every union point is a point to sample)."""
+    kg = torch.mean(knowledge_gradient(states, union, discrete_pts, normals,
+                                       domain, inner_params, best_so_far,
+                                       derivatives_to_sample, num_fidelity))
+    return kg / fidelity_cost(union, union.shape[0], num_fidelity)
 
 
 def knowledge_gradient_batch(state: GaussianProcessState,
@@ -437,9 +487,12 @@ def knowledge_gradient_batch(state: GaussianProcessState,
                              discrete_pts: torch.Tensor,
                              normals: torch.Tensor, domain, inner_params,
                              best_so_far, inner_x0=None,
-                             derivatives_to_sample: Sequence[int] = ()):
+                             derivatives_to_sample: Sequence[int] = (),
+                             num_fidelity: int = 0):
     """KG at B unions (B, q, d) for every member: returns (kg (S, B),
-    carried descent endpoints (S, B, M, d)).  ``normals`` is (M, q_ch).
+    carried descent endpoints (S, B, M, dim_opt)).  ``normals`` is (M,
+    q_ch); ``discrete_pts`` (S, n_d, dim_opt); ``domain`` the inner
+    (dim_opt) domain.
 
     Cold (``inner_x0`` None): the descents start from the seeded argmins.
     "reseed" warm start: they start from ``inner_x0``; the seeding (and so
@@ -449,6 +502,7 @@ def knowledge_gradient_batch(state: GaussianProcessState,
     ds = cov_mod.channels(derivatives_to_sample)
     s = state.points_sampled.shape[0]
     b, q, d = unions.shape
+    dim_opt = d - num_fidelity
     mu_u, chol_u, v, _ = _build_fantasy_model_batch(state, unions, ds)
     best_posterior = torch.minimum(
         best_so_far[:, None],
@@ -460,19 +514,23 @@ def knowledge_gradient_batch(state: GaussianProcessState,
     # seeding over the discretized set, factored through the q-dim fantasy
     # subspace, computed live (its minimum is the x0 guard value)
     unions_f = unions.detach()
-    starts = torch.cat([discrete_pts[:, None].expand(s, b, -1, d),
-                        unions_f[None].expand(s, b, q, d)], dim=2)
+    starts = torch.cat([discrete_pts[:, None].expand(s, b, -1, dim_opt),
+                        unions_f[None, :, :, :dim_opt].expand(
+                            s, b, q, dim_opt)], dim=2)
     n_s = starts.shape[2]
-    k_sx = _kernel_rows_flat(state, starts.reshape(s, b * n_s, d)).reshape(
-        s, b, n_s, -1)
-    k_su = _union_rows(state.covariance, starts, unions, ds)  # (S,B,n_s,q_ch)
+    starts_full = _pin_fidelity(starts, num_fidelity)
+    k_sx = _kernel_rows_flat(state, starts_full.reshape(s, b * n_s, d)
+                             ).reshape(s, b, n_s, -1)
+    k_su = _union_rows(state.covariance, starts_full, unions,
+                       ds)                                  # (S,B,n_s,q_ch)
     base = torch.einsum("sbpn,sn->sbp", k_sx, state.K_inv_y)
     ksv = k_sx @ v                                          # (S,B,n_s,q_ch)
     mu_starts = state.mean[:, None, None, None] + base[..., None] - \
         torch.sum(ksv[:, :, :, None, :] * normals, dim=-1) + \
         torch.sum(k_su[:, :, :, None, :] * betas[:, :, None], dim=-1)
     idx = torch.argmin(mu_starts.detach(), dim=2)           # (S, B, M)
-    x0_seed = torch.gather(starts, 2, idx[..., None].expand(-1, -1, -1, d))
+    x0_seed = torch.gather(starts, 2,
+                           idx[..., None].expand(-1, -1, -1, dim_opt))
     mu_x0 = torch.min(mu_starts, dim=2).values              # (S, B, M)
     x0 = x0_seed if inner_x0 is None else inner_x0.detach()
 
@@ -480,14 +538,15 @@ def knowledge_gradient_batch(state: GaussianProcessState,
     pts = state.points_sampled
     kernel_name = descent_kernel_for(pts.device.type, pts.dtype,
                                      state.covariance.name,
-                                     state.derivatives, ds, d, q)
+                                     state.derivatives, ds, d, q,
+                                     num_fidelity)
     if kernel_name is not None:
         x_star = _descent_full(state, unions_f, v_f, betas_f, normals, x0,
                                domain, inner_params, kernel_name)
     else:
-        if state.derivatives or ds:
+        if state.derivatives or ds or num_fidelity:
             bvg = _make_fantasy_mean_grad_fn(state, unions_f, v_f, betas_f,
-                                             normals, ds)
+                                             normals, ds, num_fidelity)
         else:
             bvg = _make_descent_grad_fn(state, unions_f, v_f, betas_f,
                                         normals)
@@ -496,7 +555,7 @@ def knowledge_gradient_batch(state: GaussianProcessState,
     x_star = x_star.detach()
 
     mu_star = _fantasy_mean_batch(state, x_star, unions, v, betas, normals,
-                                  ds)
+                                  ds, num_fidelity)
     kg = torch.mean(best_posterior[..., None] -
                     torch.minimum(mu_star, mu_x0), dim=-1)
     won = (mu_star <= mu_x0).detach()[..., None]
@@ -506,30 +565,35 @@ def knowledge_gradient_batch(state: GaussianProcessState,
 def knowledge_gradient_mcmc_batch(states, unions, discrete_pts, normals,
                                   domain, inner_params, best_so_far,
                                   inner_x0=None,
-                                  derivatives_to_sample: Sequence[int] = ()):
-    """Ensemble-averaged batched KG: ((B,), endpoints (S, B, M, d))."""
+                                  derivatives_to_sample: Sequence[int] = (),
+                                  num_fidelity: int = 0):
+    """Ensemble-averaged batched KG divided by each union's fidelity cost:
+    ((B,), endpoints (S, B, M, dim_opt))."""
     kg, x_star = knowledge_gradient_batch(states, unions, discrete_pts,
                                           normals, domain, inner_params,
                                           best_so_far, inner_x0,
-                                          derivatives_to_sample)
-    return torch.mean(kg, dim=0), x_star
+                                          derivatives_to_sample, num_fidelity)
+    costs = fidelity_cost(unions, unions.shape[1], num_fidelity)
+    return torch.mean(kg, dim=0) / costs, x_star
 
 
 def knowledge_gradient_mcmc_batch_vg_carry(states, unions, discrete_pts,
                                            normals, domain, inner_params,
                                            best_so_far, inner_x0=None,
                                            derivatives_to_sample: Sequence[
-                                               int] = ()):
-    """((B,) values, (B, q, d) gradients, endpoints (S, B, M, d)).
+                                               int] = (),
+                                           num_fidelity: int = 0):
+    """((B,) values, (B, q, d) gradients, endpoints (S, B, M, dim_opt)).
 
     Each union's value depends only on its own block, so the gradient of
-    the sum is the per-union gradient.
+    the sum is the per-union gradient.  It flows into the fidelity
+    coordinates through the union and the cost.
     """
     with torch.enable_grad():
         u = unions.detach().requires_grad_(True)
         vals, x_star = knowledge_gradient_mcmc_batch(
             states, u, discrete_pts, normals, domain, inner_params,
-            best_so_far, inner_x0, derivatives_to_sample)
+            best_so_far, inner_x0, derivatives_to_sample, num_fidelity)
         (grads,) = torch.autograd.grad(vals.sum(), u)
     return vals.detach(), grads, x_star
 
@@ -541,14 +605,18 @@ def multistart_knowledge_gradient_mcmc_optimization(
         discrete_pts: torch.Tensor, best_so_far=None,
         num_mc_iterations: int = 128, chunk_size: Optional[int] = None,
         conv_tol: Optional[float] = None,
-        derivatives_to_sample: Sequence[int] = ()) -> torch.Tensor:
-    """MCMC-averaged q-KG (d-KG with ``derivatives_to_sample``) suggestion
-    by the warm ("reseed") multistart: the inner descents start from the
-    previous outer step's argmins with one step instead of
-    ``inner_params.max_num_steps``.  Returns (num_to_sample, d)."""
+        derivatives_to_sample: Sequence[int] = (),
+        num_fidelity: int = 0) -> torch.Tensor:
+    """MCMC-averaged q-KG (d-KG with ``derivatives_to_sample``, cf-KG with
+    ``num_fidelity``) suggestion by the warm ("reseed") multistart: the
+    inner descents start from the previous outer step's argmins with one
+    step instead of ``inner_params.max_num_steps``.  The outer domain is
+    all d coordinates (fidelity coordinates included), the inner one the
+    first dim_opt.  Returns (num_to_sample, d)."""
     ds = cov_mod.channels(derivatives_to_sample)
     if best_so_far is None:
         best_so_far = states.best_observed_value
+    inner = inner_domain(domain, num_fidelity)
     rep = RepeatedDomain(domain=domain, num_repeats=num_to_sample)
     starts = rep.generate_latin_hypercube_points(generator,
                                                  params.num_multistarts)
@@ -562,13 +630,15 @@ def multistart_knowledge_gradient_mcmc_optimization(
 
     def bvg_cold(pts_batch):
         return knowledge_gradient_mcmc_batch_vg_carry(
-            states, pts_batch, discrete_pts, normals, domain, inner_params,
-            best_so_far, derivatives_to_sample=ds)
+            states, pts_batch, discrete_pts, normals, inner, inner_params,
+            best_so_far, derivatives_to_sample=ds,
+            num_fidelity=num_fidelity)
 
     def bvg_warm(pts_batch, carry):
         return knowledge_gradient_mcmc_batch_vg_carry(
-            states, pts_batch, discrete_pts, normals, domain, inner_warm,
-            best_so_far, inner_x0=carry, derivatives_to_sample=ds)
+            states, pts_batch, discrete_pts, normals, inner, inner_warm,
+            best_so_far, inner_x0=carry,
+            derivatives_to_sample=ds, num_fidelity=num_fidelity)
 
     return optimizers.multistart_optimize_batched_warm(
         bvg_cold, bvg_warm, rep, starts, params, chunk_size=chunk_size,

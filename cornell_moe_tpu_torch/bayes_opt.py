@@ -1,11 +1,16 @@
-"""High-level Bayesian-optimization driver (q-KG and d-KG).
+"""High-level Bayesian-optimization driver (q-KG, d-KG and cf-KG).
 
 Counterpart of ``cornell_moe_tpu/bayes_opt.py`` for method "KG": MCMC train
 -> q-EI-seeded, warm and gated q-KG suggest -> observe and gated retrain ->
 recommend (argmin of the ensemble posterior mean).  An objective with
 observed partial derivatives (``_observations``) trains on 1 + m channels
-per point, and its KG fantasizes those channels too (d-KG).  The port runs
-eagerly; there is no cache of compiled programs.
+per point, and its KG fantasizes those channels too (d-KG).  An objective
+with fidelity dims (``_num_fidelity``, the last coordinates) runs
+continuous-fidelity KG: the KG is divided by each union's cost, the inner
+problem, the seeding and the recommendation work on the other coordinates
+with the fidelity ones pinned to 1, and ``capital_so_far`` adds up the
+largest fidelity product of each observed batch.  The port runs eagerly;
+there is no cache of compiled programs.
 """
 
 from __future__ import annotations
@@ -48,62 +53,77 @@ def seed_kg_discretization(generator, states, domain, qei_params=None,
                            ps_params=DEFAULT_SGD_PARAMS_PS,
                            num_qei_pts: int = 10, num_eval_pts: int = 1000,
                            num_mc: int = 2**10, conv_tol=None,
-                           chunk_size=None) -> torch.Tensor:
-    """Per-member inner-optimization seeds for KG, (S, num_qei_pts + 1, d):
-    num_qei_pts points from ensemble q-EI plus each member's posterior-mean
-    argmin (uniform eval points + its sampled points, GD-polished)."""
+                           chunk_size=None, num_fidelity: int = 0
+                           ) -> torch.Tensor:
+    """Per-member inner-optimization seeds for KG, (S, num_qei_pts + 1,
+    dim_opt): num_qei_pts points from ensemble q-EI plus each member's
+    posterior-mean argmin (uniform eval points + its sampled points,
+    GD-polished), on the inner domain with fidelity coordinates pinned."""
     if qei_params is None:
         qei_params = DEFAULT_SGD_PARAMS_KG
     discrete = ei_mod.multistart_expected_improvement_mcmc_optimization(
         generator, states, domain, num_qei_pts, qei_params,
         num_mc_iterations=num_mc, conv_tol=conv_tol, chunk_size=chunk_size)
     s = states.points_sampled.shape[0]
-    eval_pts = domain.generate_uniform_random_points_in_domain(
+    inner = kg_mod.inner_domain(domain, num_fidelity)
+    dim_opt = inner.dim
+    eval_pts = inner.generate_uniform_random_points_in_domain(
         generator, num_eval_pts)
     guesses = torch.cat([eval_pts.expand((s,) + eval_pts.shape),
-                         states.points_sampled], dim=1)
-    pt, _ = kg_mod.compute_optimal_posterior_mean(states, domain, guesses,
-                                                  ps_params)
+                         states.points_sampled[..., :dim_opt]], dim=1)
+    pt, _ = kg_mod.compute_optimal_posterior_mean(states, inner, guesses,
+                                                  ps_params, num_fidelity)
+    discrete = discrete[:, :dim_opt]
     return torch.cat([discrete.expand((s,) + discrete.shape), pt[:, None]],
                      dim=1)
 
 
-def best_so_far_from_discretization(states, discrete_pts) -> torch.Tensor:
-    """Per-member min posterior mean over its discretization, (S,)."""
-    mus = gp_mod.posterior_mean(states, discrete_pts)[..., 0]
+def best_so_far_from_discretization(states, discrete_pts,
+                                    num_fidelity: int = 0) -> torch.Tensor:
+    """Per-member min posterior mean over its discretization (fidelity
+    coordinates pinned to 1), (S,)."""
+    mus = gp_mod.posterior_mean(
+        states, kg_mod._pin_fidelity(discrete_pts, num_fidelity))[..., 0]
     return torch.min(mus, dim=-1).values
 
 
 def _qkg_suggest_arrays(generator, states, domain, discrete_pts, params,
                         inner_params, num_to_sample, num_mc, conv_tol=None,
-                        chunk_size=None, derivatives_to_sample=()):
-    """Suggested points (q, d) and their VOI (ensemble KG, model units).
-    The fantasy observations at the suggested points include the
-    ``derivatives_to_sample`` channels (d-KG)."""
+                        chunk_size=None, derivatives_to_sample=(),
+                        num_fidelity: int = 0):
+    """Suggested points (q, d) and their VOI (ensemble KG divided by the
+    fidelity cost, model units).  The fantasy observations at the
+    suggested points include the ``derivatives_to_sample`` channels
+    (d-KG)."""
     ds = tuple(int(i) for i in derivatives_to_sample)
-    best_so_far = best_so_far_from_discretization(states, discrete_pts)
+    best_so_far = best_so_far_from_discretization(states, discrete_pts,
+                                                  num_fidelity)
     pts = kg_mod.multistart_knowledge_gradient_mcmc_optimization(
         generator, states, domain, num_to_sample, params, inner_params,
         discrete_pts, best_so_far=best_so_far, num_mc_iterations=num_mc,
-        chunk_size=chunk_size, conv_tol=conv_tol, derivatives_to_sample=ds)
+        chunk_size=chunk_size, conv_tol=conv_tol, derivatives_to_sample=ds,
+        num_fidelity=num_fidelity)
     normals = ei_mod.draw_antithetic_normals(
         generator, num_mc, num_to_sample * (1 + len(ds)), device=pts.device,
         dtype=pts.dtype)
-    voi = kg_mod.knowledge_gradient_mcmc(states, pts, discrete_pts, normals,
-                                         domain, inner_params, best_so_far,
-                                         ds)
+    voi = kg_mod.knowledge_gradient_mcmc(
+        states, pts, discrete_pts, normals,
+        kg_mod.inner_domain(domain, num_fidelity), inner_params, best_so_far,
+        ds, num_fidelity)
     return pts, voi
 
 
 def recommend_from_guesses(states, domain, guesses: torch.Tensor,
-                           params=DEFAULT_SGD_PARAMS_RECOMMEND
-                           ) -> torch.Tensor:
-    """Best guess (G, d) under the ensemble-mean posterior mean, then one
-    GD polish; the polish is kept only if it improves."""
+                           params=DEFAULT_SGD_PARAMS_RECOMMEND,
+                           num_fidelity: int = 0) -> torch.Tensor:
+    """Best guess (G, dim_opt) under the ensemble-mean posterior mean
+    (fidelity coordinates pinned to 1), then one GD polish over the inner
+    ``domain``; the polish is kept only if it improves."""
     dim = guesses.shape[-1]
 
-    def ensemble_neg_mean(x):                     # (..., d) -> (...)
-        mu = gp_mod.posterior_mean(states, x.reshape(-1, dim))
+    def ensemble_neg_mean(x):                     # (..., dim_opt) -> (...)
+        mu = gp_mod.posterior_mean(
+            states, kg_mod._pin_fidelity(x.reshape(-1, dim), num_fidelity))
         return -torch.mean(mu[..., 0], dim=0).reshape(x.shape[:-1])
 
     vals = ensemble_neg_mean(guesses)
@@ -124,7 +144,7 @@ def recommend_from_guesses(states, domain, guesses: torch.Tensor,
 @dataclass
 class BayesianOptimizer:
     """The suggest/observe/recommend loop for method "KG"; on an objective
-    with observed partial derivatives, d-KG."""
+    with observed partial derivatives, d-KG; with fidelity dims, cf-KG."""
 
     objective_func: object = None
     method: str = "KG"
@@ -161,8 +181,7 @@ class BayesianOptimizer:
             raise NotImplementedError(
                 f"method {self.method!r}: the port drives 'KG' only")
         f = self.objective_func
-        if f._num_fidelity:
-            raise NotImplementedError("fidelity dims are not ported")
+        self.num_fidelity = f._num_fidelity
         self.derivatives = tuple(int(i) for i in f._observations)
         self.device = torch.device(self.device) if self.device is not None \
             else config.default_device()
@@ -174,6 +193,7 @@ class BayesianOptimizer:
         self.num_mc = self.num_mc or 2**7
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
+        self.capital_so_far = 0.0
         self.history = []
         self.timer = PhaseTimer()
 
@@ -217,14 +237,16 @@ class BayesianOptimizer:
         discrete = seed_kg_discretization(
             self.generator, states, self.domain, qei_params=self.sgd_params,
             ps_params=self.inner_sgd_params, conv_tol=self.seed_conv_tol,
-            chunk_size=self.suggest_chunk_size)
+            chunk_size=self.suggest_chunk_size,
+            num_fidelity=self.num_fidelity)
         pts, voi = _qkg_suggest_arrays(
             self.generator, states, self.domain, discrete, self.sgd_params,
             self.inner_sgd_params, self.num_to_sample, self.num_mc,
             conv_tol=self.suggest_conv_tol,
             chunk_size=self.suggest_chunk_size,
             derivatives_to_sample=self.derivatives
-            if self.kg_sample_derivatives else ())
+            if self.kg_sample_derivatives else (),
+            num_fidelity=self.num_fidelity)
         # VOI back to raw units (KG is linear in the value scale)
         pts = pts.cpu().numpy()
         voi = float(voi) * self.model.value_scale
@@ -237,6 +259,10 @@ class BayesianOptimizer:
         sampled = [SamplePoint(pt, f.evaluate(pt)[self._obs_idx],
                                f._sample_var)
                    for pt in np.atleast_2d(points)]
+        if self.num_fidelity:
+            capitals = np.prod(np.atleast_2d(points)[
+                :, self.dim - self.num_fidelity:], axis=1)
+            self.capital_so_far += float(np.max(capitals))
         t0 = time.time()
         self.model.add_sampled_points(sampled)
         self.model.train()
@@ -245,15 +271,20 @@ class BayesianOptimizer:
 
     def recommend(self, num_eval_pts: int = 10000) -> np.ndarray:
         """Argmin of the ensemble posterior mean over a uniform grid plus
-        the (bucket-padded) sampled points, GD-polished."""
+        the (bucket-padded) sampled points, GD-polished, on the inner
+        domain; the fidelity coordinates of the result are 1."""
         t0 = time.time()
         states = self.model.models
-        eval_pts = self.domain.generate_uniform_random_points_in_domain(
+        inner = kg_mod.inner_domain(self.domain, self.num_fidelity)
+        eval_pts = inner.generate_uniform_random_points_in_domain(
             self.generator, num_eval_pts)
-        guesses = torch.cat([eval_pts, states.points_sampled[0]], dim=0)
-        best = recommend_from_guesses(states, self.domain, guesses)
+        guesses = torch.cat([eval_pts,
+                             states.points_sampled[0][:, :inner.dim]], dim=0)
+        best = recommend_from_guesses(states, inner, guesses,
+                                      num_fidelity=self.num_fidelity)
         self._log(f"recommendation took {time.time() - t0:.2f}s")
-        return best.cpu().numpy()
+        return np.concatenate([best.cpu().numpy(),
+                               np.ones(self.num_fidelity)])
 
     def run(self, num_iterations: int, num_init_pts: Optional[int] = None):
         with self.timer.phase("initialize"):
@@ -271,5 +302,6 @@ class BayesianOptimizer:
                       f"{true_val:.6f}")
             self.history.append({
                 "iteration": it, "voi": voi, "suggested": pts,
-                "recommended": report, "true_value": true_val})
+                "recommended": report, "true_value": true_val,
+                "capital": self.capital_so_far})
         return self.history

@@ -153,6 +153,16 @@ def posterior_mean(state: GaussianProcessState, points_to_sample,
                      dim=-1)
 
 
+def solve_lower(state: GaussianProcessState, rhs: torch.Tensor
+                ) -> torch.Tensor:
+    """L^-1 rhs for the state's factor L: the refined inverse-Cholesky
+    matmul when the state carries L^-1, else a triangular solve."""
+    if state.inv_chol_K is not None:
+        return linalg.solve_lower_with_refinement(state.chol_K,
+                                                  state.inv_chol_K, rhs)
+    return linalg.solve_triangular(state.chol_K, rhs, lower=True)
+
+
 def posterior_covariance(state: GaussianProcessState, points_1,
                          points_2=None,
                          derivatives_to_sample: Sequence[int] = ()
@@ -165,15 +175,8 @@ def posterior_covariance(state: GaussianProcessState, points_1,
                                            b, ds)
     ka = _mix_cov(state, points_1, ds)
     kb = ka if points_2 is None else _mix_cov(state, b, ds)
-
-    def solve(rhs):
-        if state.inv_chol_K is not None:
-            return linalg.solve_lower_with_refinement(
-                state.chol_K, state.inv_chol_K, rhs)
-        return linalg.solve_triangular(state.chol_K, rhs, lower=True)
-
-    va = solve(ka)
-    vb = va if points_2 is None else solve(kb)
+    va = solve_lower(state, ka)
+    vb = va if points_2 is None else solve_lower(state, kb)
     return prior - va.transpose(-1, -2) @ vb
 
 
@@ -183,3 +186,45 @@ def posterior_variance(state: GaussianProcessState, points_to_sample,
     """Joint posterior covariance over points_to_sample's channels."""
     return posterior_covariance(state, points_to_sample, None,
                                 derivatives_to_sample)
+
+
+def add_sampled_points(state: GaussianProcessState, new_points,
+                       new_values, jitter: float = 0.0,
+                       update_mean: bool = True) -> GaussianProcessState:
+    """A new state conditioned on additional observations ``new_points``
+    (q, d) with values (q, 1 + m), shared by every member.
+
+    The factor grows by the block-Cholesky append
+    (:func:`linalg.chol_update_append`) instead of a refactorization; the
+    new points' block carries the channel noise plus ``jitter``.  K^-1 y,
+    L^-1 (when the state carries it) and the per-point noise (zero rows)
+    are refreshed; the prior mean is re-estimated when ``update_mean``.
+    """
+    kw = dict(dtype=state.points_sampled.dtype,
+              device=state.points_sampled.device)
+    xp = torch.as_tensor(new_points, **kw).reshape(-1, state.dim)
+    yp = torch.as_tensor(new_values, **kw).reshape(xp.shape[0], -1)
+    batch = state.points_sampled.shape[:-2]
+
+    cross = _mix_cov(state, xp, state.derivatives)
+    new_block = cov_mod.build_covariance_matrix_with_noise(
+        state.covariance, xp, state.derivatives, state.noise_variance)
+    if jitter:
+        new_block = linalg.add_jitter(new_block, jitter)
+    chol = linalg.chol_update_append(state.chol_K, cross, new_block)
+
+    x = torch.cat([state.points_sampled, xp.expand(batch + xp.shape)], dim=-2)
+    y = torch.cat([state.points_sampled_value, yp.expand(batch + yp.shape)],
+                  dim=-2)
+    mean = torch.mean(y[..., 0], dim=-1) if update_mean else state.mean
+    y_centered = torch.cat([y[..., :1] - mean[..., None, None], y[..., 1:]],
+                           dim=-1).reshape(batch + (-1,))
+    inv_chol = None if state.inv_chol_K is None else linalg.solve_triangular(
+        chol, torch.eye(chol.shape[-1], **kw).expand_as(chol), lower=True)
+    pn = None if state.point_noise is None else torch.cat(
+        [state.point_noise, torch.zeros_like(yp).expand(batch + yp.shape)],
+        dim=-2)
+    return dataclasses.replace(
+        state, points_sampled=x, points_sampled_value=y, chol_K=chol,
+        K_inv_y=linalg.cho_solve(chol, y_centered), mean=mean,
+        inv_chol_K=inv_chol, point_noise=pn)

@@ -1,8 +1,9 @@
 """Hyperparameter priors (spearmint-style) on log-scale hyperparameters.
 
 Counterpart of ``cornell_moe_tpu/models/priors.py`` (the priors
-``DefaultPrior`` uses).  ``lnprob`` takes (..., D) and returns (...);
-``sample_from_prior`` draws from an explicit ``torch.Generator``.
+``DefaultPrior`` uses, and the lognormal prior of the PES driver).
+``lnprob`` takes (..., D) and returns (...); ``sample_from_prior`` draws
+from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -69,6 +70,29 @@ class HorseshoePrior:
         g = torch.randn((n_samples, d), generator=generator, device=device,
                         dtype=dtype)
         return torch.log(torch.abs(g * lamda * self.scale))
+
+
+@dataclasses.dataclass(frozen=True)
+class LognormalPrior:
+    """scipy.stats.lognorm.logpdf(theta, sigma, loc=mean): -inf where
+    theta <= mean."""
+
+    sigma: float = 1.0
+    mean: float = 0.0
+
+    def lnprob(self, theta: torch.Tensor) -> torch.Tensor:
+        x = theta - self.mean
+        pos = x > 0
+        log_x = torch.log(torch.where(pos, x, 1.0))
+        val = (-log_x - math.log(self.sigma) - 0.5 * math.log(2.0 * math.pi)
+               - 0.5 * (log_x / self.sigma) ** 2)
+        return torch.sum(torch.where(pos, val, float("-inf")), dim=-1)
+
+    def sample_from_prior(self, generator, n_samples, d=1, device=None,
+                          dtype=torch.float64):
+        return torch.exp(self.sigma * torch.randn(
+            (n_samples, d), generator=generator, device=device,
+            dtype=dtype)) + self.mean
 
 
 @dataclasses.dataclass(frozen=True)

@@ -186,3 +186,20 @@ def solve_triangular_small(l: torch.Tensor, rhs: torch.Tensor, *,
 
 def symmetrize(matrix: torch.Tensor) -> torch.Tensor:
     return 0.5 * (matrix + matrix.transpose(-1, -2))
+
+
+def chol_update_append(chol: torch.Tensor, cross_cov: torch.Tensor,
+                       new_block: torch.Tensor) -> torch.Tensor:
+    """Grow a Cholesky factor when appending rows/cols to an SPD matrix.
+
+    Given L (..., n, n) with A = L L^T, the cross-covariance B (..., n, q)
+    and the new diagonal block C (..., q, q), returns the (..., n+q, n+q)
+    lower factor of [[A, B], [B^T, C]] without refactorizing A:
+
+        L' = [[L, 0], [S^T, chol(C - S^T S)]],  S = L^-1 B.
+    """
+    s = solve_triangular(chol, cross_cov, lower=True)            # (.., n, q)
+    s_t = s.transpose(-1, -2)
+    chol_schur = cholesky(new_block - s_t @ s)
+    top = torch.cat([chol, torch.zeros_like(s)], dim=-1)
+    return torch.cat([top, torch.cat([s_t, chol_schur], dim=-1)], dim=-2)

@@ -26,9 +26,11 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str, **attrs):
+        """Times the block; yields ``attrs``, to which the block may add
+        what it found (they are recorded with the time)."""
         start = time.time()
         try:
-            yield
+            yield attrs
         finally:
             self.records.append(
                 {"phase": name, "seconds": time.time() - start, **attrs})

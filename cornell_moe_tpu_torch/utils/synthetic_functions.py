@@ -70,6 +70,29 @@ class BraninWithDerivatives(Branin):
     _observations = (0, 1)
 
 
+class BraninFidelity(Branin):
+    """Branin with one continuous-fidelity dimension (the last coordinate
+    s in [0.05, 1]): a fidelity s < 1 adds the smooth bias
+    10 (1 - s) cos^2(x_0 / 2), s = 1 recovers Branin.  An evaluation costs
+    s (the cf-KG setting)."""
+
+    _num_fidelity = 1
+
+    def __init__(self):
+        super().__init__()
+        self._dim = 3
+        self._search_domain = np.array([[0.0, 15.0], [-5.0, 15.0],
+                                        [0.05, 1.0]])
+
+    def _value_and_grad(self, x):
+        value, grad = super()._value_and_grad(x[:2])
+        c = math.cos(0.5 * x[0])
+        value = value + 10.0 * (1.0 - x[2]) * c**2
+        grad = np.array([grad[0] - 5.0 * (1.0 - x[2]) * math.sin(x[0]),
+                         grad[1], -10.0 * c**2])
+        return value, grad
+
+
 _H6_ALPHA = np.array([1.0, 1.2, 3.0, 3.2])
 _H6_A = np.array([[10, 3, 17, 3.50, 1.7, 8], [0.05, 10, 17, 0.1, 8, 14],
                   [3, 3.5, 1.7, 10, 17, 8], [17, 8, 0.05, 10, 0.1, 14]])

@@ -1,9 +1,12 @@
-"""The port's convert.py: JAX GP states and MCMC walkers carried across as
-numpy arrays compute what the JAX package computes.
+"""The port's convert.py: JAX GP states, MCMC walkers, random-feature
+samples and PES-state inputs carried across as numpy arrays compute what
+the JAX package computes.
 
 Tolerance: rtol 1e-9 / atol 1e-10 on posterior means, rtol 1e-8 / atol
-1e-10 on posterior covariances (tests/test_gp.py:31-32); arrays carried
-through exactly.
+1e-10 on posterior covariances (tests/test_gp.py:31-32); a carried
+random-feature sample's values at rtol 1e-12; the PES state built from
+carried inputs at rtol 1e-8 / atol 1e-10 (tests/test_pes.py:220, as
+tests/test_torch_pes.py holds EP); arrays carried through exactly.
 """
 
 import jax
@@ -12,11 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from cornell_moe_tpu.acquisition import pes as jpes
+from cornell_moe_tpu.models import covariance as jcov
 from cornell_moe_tpu.models import gp as jgp
 from cornell_moe_tpu.models import mcmc as jmcmc
+from cornell_moe_tpu.ops import random_features as jrf
 from cornell_moe_tpu_torch import convert
 from cornell_moe_tpu_torch.models import gp as tgp
 from cornell_moe_tpu_torch.models import mcmc as tmcmc
+from cornell_moe_tpu_torch.ops import random_features as trf
 from cornell_moe_tpu_torch.utils.data_containers import HistoricalData
 
 torch.set_num_threads(1)
@@ -77,3 +84,47 @@ def test_mcmc_walkers_carried(rng):
     np.testing.assert_allclose(
         model.models.covariance.hyperparameters.numpy(),
         np.exp(picks[:, :3]), rtol=1e-15)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_random_feature_sample_carried(rng, stacked):
+    """A JAX random-feature sample (one, or three stacked by vmap) carried
+    across evaluates to the JAX package's values."""
+    x = rng.random((7, 2))
+    state = jgp.fit_gp(jcov.make_covariance("matern_2.5", [1.2, 0.5, 0.7]),
+                       jnp.asarray([1e-3]), jnp.asarray(x),
+                       jnp.asarray(np.sin(3 * x[:, :1])))
+    keys = jax.random.split(jax.random.PRNGKey(4), 3)
+    draw = jax.jit(lambda k: jrf.sample_gp_with_random_features(k, state,
+                                                                  50))
+    sample = jax.vmap(draw)(keys) if stacked else draw(keys[0])
+    got = convert.random_feature_sample_from_arrays(
+        {name: np.asarray(v) for name, v in sample._asdict().items()})
+    pts = rng.random((6, 2))
+    ref = jax.jit(jax.vmap(jrf.evaluate_random_feature_sample,
+                           in_axes=(0, None)) if stacked else
+                  jrf.evaluate_random_feature_sample)(sample, jnp.asarray(pts))
+    vals = trf.evaluate_random_feature_sample(got, torch.as_tensor(pts))
+    assert vals.shape == ((3, 6) if stacked else (6,))
+    np.testing.assert_allclose(vals.numpy(), np.asarray(ref), rtol=1e-12)
+
+
+def test_pes_state_from_carried_inputs(rng):
+    """make_pes_state's inputs for two sets carried across give the JAX
+    package's PES state, set by set."""
+    x, y = rng.random((6, 2)), rng.standard_normal(6)
+    a = rng.standard_normal((2, 2, 2))
+    arrays = {"x_samples": x, "y": y, "x_min": rng.random((2, 2)),
+              "hess_at_min": a @ a.transpose(0, 2, 1) + 2 * np.eye(2),
+              "sigma": np.array([1.2, 0.9]),
+              "lengths": 0.4 + 0.3 * rng.random((2, 2)),
+              "noise": np.array([1e-3, 2e-3])}
+    got = convert.pes_state_from_arrays(arrays)
+    for i in range(2):
+        ref = jax.jit(jpes.make_pes_state)(*[
+            jnp.asarray(arrays[n] if n in ("x_samples", "y") else
+                        arrays[n][i]) for n in convert.PES_STATE_INPUTS])
+        for name in ref._fields:
+            np.testing.assert_allclose(getattr(got, name)[i].numpy(),
+                                       np.asarray(getattr(ref, name)),
+                                       rtol=1e-8, atol=1e-10, err_msg=name)

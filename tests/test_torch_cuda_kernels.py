@@ -6,9 +6,10 @@ the covariance's symmetry and diagonal, both instances of the fused LML
 (the cluster one against the large-Np one), both instances of the descent
 and of the descent direction (tensor-core and FMA) and their generic
 (d, q) instances, their dispatch and their non-finite blocks, failed LML
-factorizations, the wrappers' refusals on CUDA tensors, and the KG
-descent's gate, which sends the shapes the descent kernels do not take and
-derivative-observed states to the plain route.  They need
+factorizations, the wrappers' refusals on CUDA tensors, the KG descent's
+gate, which sends the shapes the descent kernels do not take,
+derivative-observed states and fidelity dims to the plain route, and
+kernels B and C at the shapes of the cf-KG and PES paths.  They need
 a CUDA card (marker ``cuda``) and skip without one.  On the card, without JAX installed:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
@@ -415,15 +416,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, rng):
     assert kernels.launch_counts() == counts
 
 
-@pytest.mark.parametrize("d,q,ds,launches", [
-    (2, 4, (), 1), (9, 2, (), 0), (4, 12, (), 0), (2, 17, (), 0),
-    (2, 2, (0, 1), 0)], ids=["main", "d9", "wr65", "q17", "derivatives"])
-def test_kg_batch_descent_gate_on_the_card(dev, rng, d, q, ds, launches):
+@pytest.mark.parametrize("d,q,ds,nf,launches", [
+    (2, 4, (), 0, 1), (9, 2, (), 0, 0), (4, 12, (), 0, 0), (2, 17, (), 0, 0),
+    (2, 2, (0, 1), 0, 0), (3, 4, (), 1, 0)],
+    ids=["main", "d9", "wr65", "q17", "derivatives", "fidelity"])
+def test_kg_batch_descent_gate_on_the_card(dev, rng, d, q, ds, nf, launches):
     """Kernel A's gate on the card: one cold KG batch launches descent_run
     at the main path's (d, q) and takes the plain route at d = 9, at Wr =
-    (1 + q)(1 + d) = 65, at q = 17 and on a derivative-observed state (d-KG),
-    where it raised or would be wrong before; the KG values agree with the
-    float64 CPU path within 1e-3 max(1, max |f64|)."""
+    (1 + q)(1 + d) = 65, at q = 17, on a derivative-observed state (d-KG),
+    where it raised or would be wrong before, and with a fidelity dim
+    (cf-KG); the KG values agree with the float64 CPU path within 1e-3
+    max(1, max |f64|)."""
     from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
     from cornell_moe_tpu_torch.bayes_opt import DEFAULT_SGD_PARAMS_PS
     from cornell_moe_tpu_torch.models import mcmc
@@ -438,21 +441,21 @@ def test_kg_batch_descent_gate_on_the_card(dev, rng, d, q, ds, launches):
     noises = np.full((s, 1 + len(ds)), 1e-2)
     unions = rng.random((b, q, d))
     normals = rng.standard_normal((m, q * (1 + len(ds))))
-    discrete = rng.random((s, 5, d))
+    discrete = rng.random((s, 5, d - nf))
     vals = {}
     for where, dt in ((dev, torch.float32), ("cpu", torch.float64)):
         def t(a):
             return torch.as_tensor(a, device=where, dtype=dt)
         states = mcmc.fit_gp_ensemble("matern_2.5", t(hypers), t(noises), x,
                                       y, ds)
-        dom = TensorProductDomain.from_bounds([[0.0, 1.0]] * d, device=where,
-                                              dtype=dt)
+        dom = TensorProductDomain.from_bounds([[0.0, 1.0]] * (d - nf),
+                                              device=where, dtype=dt)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         v, _ = kg.knowledge_gradient_batch(
             states, t(unions), t(discrete), t(normals), dom,
             DEFAULT_SGD_PARAMS_PS, t(np.full(s, y[:, 0].min())),
-            derivatives_to_sample=ds)
+            derivatives_to_sample=ds, num_fidelity=nf)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         assert counts["descent_run"] + counts["descent_run_fma"] == \
@@ -461,3 +464,61 @@ def test_kg_batch_descent_gate_on_the_card(dev, rng, d, q, ds, launches):
     got, ref = vals[str(dev)], vals["cpu"]
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-3 * max(1.0, ref.abs().max())
+
+
+@pytest.mark.parametrize("kernel,s,n,d", [
+    ("matern_2.5", 16, 512, 3), ("square_exponential", 100, 60, 6),
+    ("square_exponential", 100, 61, 6)],
+    ids=["cfkg_fit", "pes_fit", "pes_refit"])
+def test_covariance_kernel_at_the_new_paths_shapes(dev, rng, kernel, s, n, d):
+    """C at the cf-KG ensemble fit's shape (S 16, n 512 with 12 PAD_NOISE
+    rows, d 3) and the PES fits' (M 100 SE kernels, n 60 and 61, d 6, no
+    size window in the port's gate): against the plain version, symmetric
+    bit for bit, one launch."""
+    points = _c(rng.random((n, d)), dev)
+    hypers = _c(np.concatenate([0.5 + rng.random((s, 1)),
+                                0.2 + rng.random((s, d))], axis=1), dev)
+    noise = np.full((s, n), 1e-3)
+    if n == 512:
+        noise[:, 500:] = PAD_NOISE
+    noise = _c(noise, dev)
+    before = kernels.covariance_with_noise_launches
+    got = kernels.covariance_with_noise(points, hypers, noise, kernel)
+    torch.cuda.synchronize()
+    assert kernels.covariance_with_noise_launches == before + 1
+    torch.testing.assert_close(
+        got, kernels.covariance_with_noise_plain(points, hypers, noise,
+                                                 kernel),
+        rtol=2e-4, atol=2e-5)
+    assert torch.equal(got, got.transpose(-1, -2))
+
+
+@pytest.mark.parametrize("w", [8, 16])
+def test_lml_kernel_at_the_cfkg_chain_shapes(dev, rng, w):
+    """B at the cf-KG chain's shapes: W 8 (a half-ensemble) and 16, Np 512
+    with 500 real points and the chain's padding (the first point repeated
+    with PAD_NOISE, every row counted as the chain counts them), d 3,
+    Matern: against the plain version in float32 and
+    float64 at rtol 5e-4 and the large-Np instance at rtol 1e-6."""
+    np_, n_real, d = 512, 500, 3
+    x = rng.random((np_, d)) * [15.0, 20.0, 0.95] + [0.0, -5.0, 0.05]
+    x[n_real:] = x[0]
+    lengths = (0.3 + 0.4 * rng.random((w, d))) * [15.0, 20.0, 0.95]
+    noise = np.full((w, np_), 1e-2)
+    noise[:, n_real:] = PAD_NOISE
+    y = np.zeros((w, np_))
+    y[:, :n_real] = np.sin(x[:n_real, 0] / 3.0) + x[:n_real, 2]
+    args = [_c(a, dev) for a in (x.T[None] / lengths[:, :, None],
+                                 0.8 + rng.random(w), noise, y)]
+    before = kernels.launch_counts()
+    got = kernels.lml_fused(*args, np_, "matern_2.5")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["lml_fused"] == before["lml_fused"] + 1
+    ref = kernels.lml_fused_plain(*args, np_, "matern_2.5")
+    ref_64 = kernels.lml_fused_plain(*[a.double() for a in args], np_,
+                                     "matern_2.5")
+    large = kernels.lml_fused_global(*args, np_, "matern_2.5")
+    for g, r, r64, big in zip(got, ref, ref_64, large):
+        torch.testing.assert_close(g, r, rtol=5e-4, atol=0.0)
+        torch.testing.assert_close(g.double(), r64, rtol=5e-4, atol=0.0)
+        torch.testing.assert_close(g, big, rtol=1e-6, atol=0.0)

@@ -180,11 +180,12 @@ def test_port_imports_no_jax():
         "import cornell_moe_tpu_torch\n"
         "from cornell_moe_tpu_torch import bayes_opt, config, convert\n"
         "from cornell_moe_tpu_torch.acquisition import "
-        "expected_improvement, knowledge_gradient\n"
+        "expected_improvement, knowledge_gradient, lower_confidence_bound, "
+        "pes, pes_driver\n"
         "from cornell_moe_tpu_torch.models import covariance, gp, "
         "likelihood, mcmc, priors\n"
         "from cornell_moe_tpu_torch.ops import _build, domains, kernels, "
-        "linalg, optimizers\n"
+        "linalg, optimizers, random_features\n"
         "from cornell_moe_tpu_torch.utils import data_containers, "
         "logging_utils, synthetic_functions\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
