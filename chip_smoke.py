@@ -30,9 +30,17 @@ the main path's size, d = 3 with one fidelity dim: kernels B and C, no
 kernel A) and holds B and C against their plain versions at that path's
 shapes; one LCB batch selection on the main path's ensemble; and one
 iteration of ``pes_driver.run_PES`` on Hartmann6 at the reference scale
-(60 points, 100 hyperparameter sets, 1000 features, grid 500).  Last it
-checks the port against its own float64 CPU path on small inputs:
-value-only, with derivative channels, with a fidelity dim and PES.  Every phase
+(60 points, 100 hyperparameter sets, 1000 features, grid 500).  It
+drives one ``BayesianOptimizer(method="EI")`` iteration at the main path's
+size (kernels B and C, not A or D), heuristic q-EI on its member 0 under
+both estimation policies (C at the refit's ragged n 516, held against its
+plain version there), the MAP fit on its model (no launch of B), a
+checkpoint and resume at a reduced depth (the resumed iteration equal bit
+for bit to an uninterrupted one) and the command line
+(``cornell_moe_tpu_torch.main``) on Branin and on Hartmann6 through HeSBO.
+Last it checks the port against its own float64 CPU path on small inputs:
+value-only, with derivative channels, with a fidelity dim, PES and EI.
+Every phase
 prints one JSON line; the kernels' summary is one JSON line, with each
 kernel's device time (its own CUDA events under ``torch.profiler``) and
 call time (CUDA events around the wrapper) beside its bound (the least
@@ -95,6 +103,15 @@ LCB_CANDIDATES = 10_000
 # The PES path (benchmarks/bench_suite.py:246-336): Hartmann6, 60 initial
 # points, M = 100 hyperparameter sets, burn-in 50, grid 500, one iteration
 PES_INIT, PES_SETS, PES_BURNIN, PES_GRID = 60, 100, 50, 500
+
+# The EI path: the main path's size with method "EI", whose MC draws
+# default to 1024; heuristic q-EI on its member 0 refits at n0 + q points
+EI_NUM_MC = 2**10
+# the checkpoint phase's reduced depth: observations, members, burn-in,
+# chain cap, q
+CKPT_OBS, CKPT_HYPERS, CKPT_BURNIN, CKPT_CHAIN, CKPT_Q = 64, 8, 200, 128, 2
+# the MAP fit's starts
+MAP_RESTARTS = 4
 
 # Peaks of one H100 SXM at 700 W (data sheet, dense): float32 outside the
 # tensor cores, TF32 on the tensor cores, HBM, and the special-function
@@ -1584,6 +1601,343 @@ def phase_small_reference(torch) -> None:
     check(ok, "card float32 PES acquisition disagrees with the float64 CPU "
               "path")
 
+def _domain_check(points, bounds) -> bool:
+    import numpy as np
+    p = np.atleast_2d(points)
+    return bool(np.isfinite(p).all() and ((p >= bounds[:, 0]) &
+                                          (p <= bounds[:, 1])).all())
+
+
+def phase_ei(torch):
+    """One iteration of ``BayesianOptimizer(method="EI")`` at the main
+    path's size and data (Branin, 500 observations, 512 after the bucket,
+    16 members, q = 4, 200 multistarts, 1024 MC draws, float32, noisy,
+    standardized, seed 0): q,p-EI on ensemble member 0.  Every launch
+    counter is set to 0 just before and read just after: the chain
+    launches B and the ensemble fits C, while the EI suggest and the
+    recommendation launch neither A nor D.  Returns the optimizer."""
+    import numpy as np
+    from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
+    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
+
+    bo = BayesianOptimizer(objective_func=Branin(), method="EI",
+                           num_to_sample=Q, n_hypers=N_HYPERS, noisy=True,
+                           standardize=True, device=DEVICE,
+                           dtype=torch.float32, verbose=False)
+    check(bo.sgd_params.num_multistarts == MULTISTARTS and
+          bo.num_mc == EI_NUM_MC, "EI path size changed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    rec = bo.run(num_iterations=1, num_init_pts=NUM_OBS)[-1]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    states = bo.model.models
+    bounds = bo.objective_func._search_domain
+    sugg, r = rec["suggested"], rec["recommended"]
+    emit({"phase": "ei_path", "seconds": wall,
+          "stages": {x["phase"]: x["seconds"] for x in bo.timer.records},
+          "num_sampled": int(bo.model._data.num_sampled),
+          "ensemble": int(states.chol_K.shape[0]),
+          "padded_n": int(states.chol_K.shape[-1]), "num_mc": bo.num_mc,
+          "chain_steps": bo.model.chain_steps,
+          "members_replaced": bo.model.members_replaced,
+          "voi": rec["voi"], "suggested": sugg.tolist(),
+          "distinct_suggested": int(len(np.unique(sugg, axis=0))),
+          "recommended": r.tolist(), "true_value": rec["true_value"],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": counts})
+    check(math.isfinite(rec["voi"]) and rec["voi"] >= 0.0,
+          f"EI VOI {rec['voi']} not finite and >= 0")
+    check(sugg.shape == (Q, 2) and _domain_check(sugg, bounds),
+          f"EI suggestions {sugg} not q points inside the domain")
+    check(_domain_check(r, bounds) and math.isfinite(rec["true_value"]),
+          f"EI recommendation {r} not finite inside the domain")
+    for name in ("descent_run", "descent_run_fma", "descent_grad",
+                 "descent_grad_fma"):
+        check(counts[name] == 0, f"the EI path launched {name}")
+    check(counts["lml_fused"] > 0 and counts["covariance_with_noise"] > 0,
+          "the EI path did not launch kernels B and C")
+    check(bool(torch.isfinite(states.chol_K).all()),
+          "an EI ensemble member's chol_K is non-finite")
+    return bo
+
+
+def phase_heuristic_ei(torch, bo) -> None:
+    """Heuristic q-EI (q = 4) on member 0 of the EI path's ensemble, under
+    the kriging believer and under the constant liar (the lie: the best
+    observed value), with the driver's multistart parameters.  Each
+    policy refits one GP at n0 + q = 516 points five times (kernel C at
+    S 1, n 516, d 2); C's launches and their shapes are recorded.  Then C
+    against its plain version on the last refit's own inputs."""
+    import functools
+
+    from cornell_moe_tpu_torch.acquisition import expected_improvement as ei
+    from cornell_moe_tpu_torch.ops import kernels
+
+    member = bo.model.models.member(0)
+    bounds = bo.objective_func._search_domain
+    shapes, last = {}, {}
+    covariance = kernels.covariance_with_noise
+
+    def recording_covariance(points, hypers, noise, kernel_name):
+        key = f"S{hypers.shape[0]}_n{points.shape[0]}_d{points.shape[1]}"
+        shapes[key] = shapes.get(key, 0) + 1
+        last["args"] = (points, hypers, noise, kernel_name)
+        return covariance(points, hypers, noise, kernel_name)
+
+    policies = {
+        "kriging_believer": None,
+        "constant_liar": functools.partial(
+            ei.constant_liar_estimate,
+            lie_value=float(member.best_observed_value))}
+    picks, seconds = {}, {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    kernels.covariance_with_noise = recording_covariance
+    try:
+        for name, policy in policies.items():
+            t0 = time.time()
+            pts = ei.heuristic_expected_improvement_optimization(
+                bo.generator, member, bo.domain, Q, bo.sgd_params,
+                estimation_policy=policy, num_mc_iterations=bo.num_mc)
+            torch.cuda.synchronize()
+            seconds[name] = time.time() - t0
+            picks[name] = pts.cpu().numpy()
+    finally:
+        kernels.covariance_with_noise = covariance
+    counts = kernels.launch_counts()
+    n_refit = member.num_sampled + Q
+    emit({"phase": "heuristic_ei", "q": Q, "seconds": seconds,
+          "picks": {k: v.tolist() for k, v in picks.items()},
+          "refit_n": n_refit, "covariance_launches_by_shape": shapes,
+          "launches": counts})
+    for name, pts in picks.items():
+        check(pts.shape == (Q, 2) and _domain_check(pts, bounds),
+              f"heuristic q-EI ({name}) picks {pts} outside the domain")
+    check(n_refit == 516 and shapes == {f"S1_n{n_refit}_d2": 2 * (1 + Q)},
+          f"heuristic q-EI refits {shapes}, expected 10 at S1_n516_d2")
+    check(counts["covariance_with_noise"] == 2 * (1 + Q),
+          "the heuristic refits did not launch kernel C")
+    x, h, nv, kernel_name = last["args"]
+    _covariance_line(torch, "heuristic_ei", x, h, nv, kernel_name)
+
+
+def phase_map(torch, bo) -> None:
+    """The MAP fit, ``optimize(num_restarts=4)``, on the EI path's model:
+    a damped Newton from each of 4 prior draws over the plain log
+    posterior.  Kernel B has no backward, so the fit may not launch it;
+    its counter is set to 0 just before and read just after.  The chosen
+    point (the best finite end, else the best start) is held against the
+    best start."""
+    from cornell_moe_tpu_torch.ops import kernels
+
+    model = bo.model
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    model.optimize(num_restarts=MAP_RESTARTS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    x, y, pn = model._padded_data()
+
+    def log_posterior(theta):                   # one row, as optimize()
+        return model.log_posterior(theta[None], x, y, pn,
+                                   force_plain=True)[0]
+
+    start_lp = torch.stack([log_posterior(t) for t in model.map_starts])
+    ends = model.map_values
+    finite = torch.isfinite(ends)
+    chosen = float(log_posterior(torch.as_tensor(
+        model.hypers[0], dtype=x.dtype, device=x.device)))
+    best_start = float(start_lp.max())
+    emit({"phase": "map_path", "seconds": wall, "restarts": MAP_RESTARTS,
+          "finite_ends": int(finite.sum()), "end_log_posteriors":
+              [float(v) for v in ends], "start_log_posteriors":
+              [float(v) for v in start_lp], "chosen_log_posterior": chosen,
+          "best_start_log_posterior": best_start,
+          "chosen_from": "end" if bool(finite.any()) else "start",
+          "hypers": model.hypers.tolist(), "launches": counts})
+    check(counts["lml_fused"] == 0 and counts["lml_fused_global"] == 0,
+          "the MAP fit launched kernel B")
+    check(chosen >= best_start,
+          f"MAP point {chosen} below the best start {best_start}")
+    check(model.num_mcmc == 1 and
+          bool(torch.isfinite(model.models.chol_K).all()),
+          "the MAP member's fit is not finite")
+
+
+def phase_checkpoint_resume(torch) -> None:
+    """Checkpoint and resume at a reduced depth (Branin, 64 observations,
+    8 members, burn-in 200, chain cap 128, method "EI", q = 2): two
+    iterations in one run, against one iteration, a checkpoint, a fresh
+    driver that resumes from it, and the second iteration.  The second
+    iteration's suggested points, VOI and chain steps must agree bit for
+    bit."""
+    import tempfile
+
+    import numpy as np
+    from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
+    from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
+
+    def driver(path=None):
+        return BayesianOptimizer(
+            objective_func=Branin(), method="EI", num_to_sample=CKPT_Q,
+            n_hypers=CKPT_HYPERS, noisy=True, standardize=True,
+            burnin_steps=CKPT_BURNIN, chain_length=CKPT_CHAIN,
+            checkpoint_path=path, device=DEVICE, dtype=torch.float32,
+            verbose=False)
+
+    t0 = time.time()
+    whole = driver()
+    ref = whole.run(2, num_init_pts=CKPT_OBS)[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run.ckpt")
+        driver(path).run(1, num_init_pts=CKPT_OBS)
+        resumed = driver(path)
+        meta = resumed.resume()
+        got = resumed.run(2, start_iteration=1)[-1]
+    torch.cuda.synchronize()
+    same = {"suggested": bool(np.array_equal(got["suggested"],
+                                             ref["suggested"])),
+            "voi": got["voi"] == ref["voi"],
+            "chain_steps": resumed.model.last_chain_steps ==
+            whole.model.last_chain_steps,
+            "recommended": bool(np.array_equal(got["recommended"],
+                                               ref["recommended"]))}
+    emit({"phase": "checkpoint_resume", "seconds": time.time() - t0,
+          "observations": CKPT_OBS, "members": CKPT_HYPERS,
+          "burnin_steps": CKPT_BURNIN, "chain_cap": CKPT_CHAIN,
+          "q": CKPT_Q, "resumed_after_iteration": meta["iteration"],
+          "suggested": got["suggested"].tolist(), "voi": got["voi"],
+          "chain_steps": resumed.model.last_chain_steps,
+          "uninterrupted": {"suggested": ref["suggested"].tolist(),
+                            "voi": ref["voi"],
+                            "chain_steps": whole.model.last_chain_steps},
+          "bitwise_equal": same})
+    check(all(same.values()),
+          f"the resumed run's second iteration differs: {same}")
+
+
+def phase_cli(torch) -> None:
+    """The command line, in-process on the card at its own defaults:
+    ``Branin EI 2 1 none 0 1`` and ``Hartmann6 EI 1 1 HeSBO 2 1``.  Both
+    must return 0; their printed output is captured and its last lines
+    printed."""
+    import contextlib
+    import io
+
+    from cornell_moe_tpu_torch import main as cli
+
+    runs = {}
+    for args in (["Branin", "EI", "2", "1", "none", "0", "1"],
+                 ["Hartmann6", "EI", "1", "1", "HeSBO", "2", "1"]):
+        out = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["cornell_moe_tpu_torch.main"] + args)
+        torch.cuda.synchronize()
+        lines = out.getvalue().strip().splitlines()
+        runs[" ".join(args)] = {"rc": rc, "seconds": time.time() - t0,
+                                "last_line": lines[-1] if lines else ""}
+    emit({"phase": "cli", "runs": runs})
+    for args, run in runs.items():
+        check(run["rc"] == 0 and run["last_line"].startswith(
+            "final best recommended value: "),
+            f"the command line {args!r} failed: {run}")
+
+
+def phase_small_reference_ei(torch) -> None:
+    """The card's float32 EI paths against the port's own float64 CPU path
+    on a 12-point problem (S 2, bucket 16): the closed-form EI at 6
+    points, MC q-EI (q = 3) on given normals, one heuristic q-EI round
+    (its multistart from given starts, then the kriging believer's refit)
+    and the LML gradient.  Each within 1e-3 of max(1, max |float64|)."""
+    import numpy as np
+    from cornell_moe_tpu_torch.acquisition import expected_improvement as ei
+    from cornell_moe_tpu_torch.models import covariance as cov_mod
+    from cornell_moe_tpu_torch.models import gp as gp_mod
+    from cornell_moe_tpu_torch.models import likelihood as lik
+    from cornell_moe_tpu_torch.models import mcmc
+    from cornell_moe_tpu_torch.ops import optimizers
+    from cornell_moe_tpu_torch.ops.domains import (RepeatedDomain,
+                                                   TensorProductDomain)
+
+    rng = np.random.default_rng(11)
+    n = 12
+    x = rng.random((n, 2))
+    y = np.sin(3 * x[:, 0]) + x[:, 1] ** 2
+    y = (y - y.mean()) / y.std()
+    hypers = np.array([[1.2, 0.35, 0.5], [0.8, 0.5, 0.3]])
+    pts = rng.random((6, 2))
+    blocks = rng.random((4, 3, 2))
+    normals = rng.standard_normal((256, 3))
+    starts = rng.random((8, 1, 2))
+    params = optimizers.GradientDescentParameters(
+        num_multistarts=8, max_num_steps=20, max_num_restarts=1,
+        num_steps_averaged=5, gamma=0.7, pre_mult=1.0,
+        max_relative_change=0.5)
+    multistart = ei.multistart_expected_improvement_optimization
+    out = {}
+    for dev, dt in ((DEVICE, torch.float32), ("cpu", torch.float64)):
+        def t(a):
+            return torch.as_tensor(a, device=dev, dtype=dt)
+
+        states = mcmc.fit_gp_ensemble("matern_2.5", t(hypers),
+                                      t(np.full((2, 1), 1e-2)), x,
+                                      y[:, None], bucket=16)
+        member = states.member(0)
+        dom = TensorProductDomain.from_bounds([[0.0, 1.0]] * 2, device=dev,
+                                              dtype=dt)
+
+        def given_starts(generator, state, domain, q, params_,
+                         best_so_far=None, num_mc_iterations=None):
+            def bvg(p):
+                with torch.enable_grad():
+                    xx = p.detach().requires_grad_(True)
+                    v = ei.analytic_expected_improvement(state, xx,
+                                                         best_so_far)
+                    (g,) = torch.autograd.grad(v.sum(), xx)
+                return v.detach(), g
+            return optimizers.multistart_optimize_batched(
+                bvg, RepeatedDomain(domain=domain, num_repeats=1),
+                t(starts), params_).best_point
+
+        ei.multistart_expected_improvement_optimization = given_starts
+        try:
+            pick = ei.heuristic_expected_improvement_optimization(
+                None, member, dom, 1, params)
+        finally:
+            ei.multistart_expected_improvement_optimization = multistart
+        value, _ = ei.kriging_believer_estimate(member, pick)
+        cov = cov_mod.MaternNu2p5(hyperparameters=t(hypers[0]))
+        out[dev] = {
+            "analytic_ei": ei.evaluate_expected_improvement_at_point_list(
+                member, t(pts)),
+            "mc_qei": ei.evaluate_expected_improvement_at_point_list(
+                member, t(blocks), normals=t(normals)),
+            "heuristic_pick": pick[0],
+            "heuristic_fantasy_mean": gp_mod.posterior_mean(
+                gp_mod.add_sampled_points(member, pick, value[None, None],
+                                          update_mean=False), t(pts))[:, 0],
+            "lml_grad": lik.grad_log_marginal_likelihood(
+                cov, t([1e-2]), t(x), t(y[:, None]))}
+    errs = {k: ((out[DEVICE][k].double().cpu() - c).abs().max() /
+                c.abs().max().clamp_min(1.0)).item()
+            for k, c in out["cpu"].items()}
+    ok = all(e < 1e-3 for e in errs.values())
+    emit({"phase": "small_reference_ei", "n": n, "S": 2,
+          "values_gpu": {k: v.double().cpu().tolist()
+                         for k, v in out[DEVICE].items()},
+          "max_err_over_scale": errs,
+          "tolerance": "max |f32 card - f64 CPU| <= 1e-3 max(1, max |f64|)",
+          "ok": ok})
+    check(ok, "card float32 EI paths disagree with the float64 CPU path")
+
 
 def main() -> int:
     try:
@@ -1622,7 +1976,15 @@ def main() -> int:
     del cf
     torch.cuda.empty_cache()
     phase_pes(torch)
+    ei_bo = phase_ei(torch)
+    phase_heuristic_ei(torch, ei_bo)
+    phase_map(torch, ei_bo)
+    del ei_bo
+    torch.cuda.empty_cache()
+    phase_checkpoint_resume(torch)
+    phase_cli(torch)
     phase_small_reference(torch)
+    phase_small_reference_ei(torch)
     check("jax" not in sys.modules and "cornell_moe_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")
     emit({"kernels": summary})

@@ -482,28 +482,59 @@ def knowledge_gradient_mcmc(states: GaussianProcessState, union, discrete_pts,
     return kg / fidelity_cost(union, union.shape[0], num_fidelity)
 
 
+def evaluate_knowledge_gradient_at_point_list(
+        state: GaussianProcessState, points_list: torch.Tensor,
+        discrete_pts: torch.Tensor, normals: torch.Tensor, domain,
+        inner_params, best_so_far,
+        derivatives_to_sample: Sequence[int] = (),
+        num_fidelity: int = 0) -> torch.Tensor:
+    """Per-union KG (:func:`knowledge_gradient`) at each candidate block of
+    ``points_list`` (P, q, d), or (P, d) for single points: (P, S), one
+    value per block and member."""
+    pts = points_list if points_list.dim() == 3 else points_list[:, None, :]
+    return torch.stack([knowledge_gradient(
+        state, u, discrete_pts, normals, domain, inner_params, best_so_far,
+        derivatives_to_sample, num_fidelity) for u in pts])
+
+
 def knowledge_gradient_batch(state: GaussianProcessState,
                              unions: torch.Tensor,
                              discrete_pts: torch.Tensor,
                              normals: torch.Tensor, domain, inner_params,
                              best_so_far, inner_x0=None,
                              derivatives_to_sample: Sequence[int] = (),
-                             num_fidelity: int = 0):
+                             num_fidelity: int = 0,
+                             warm_mode: str = "reseed"):
     """KG at B unions (B, q, d) for every member: returns (kg (S, B),
     carried descent endpoints (S, B, M, dim_opt)).  ``normals`` is (M,
     q_ch); ``discrete_pts`` (S, n_d, dim_opt); ``domain`` the inner
     (dim_opt) domain.
 
     Cold (``inner_x0`` None): the descents start from the seeded argmins.
-    "reseed" warm start: they start from ``inner_x0``; the seeding (and so
-    the estimator) is unchanged.  The returned endpoints re-seed any draw
-    whose seed guard beat the descended endpoint.
+    Warm starts, from ``inner_x0``, come in two modes:
+
+    * ``warm_mode="reseed"`` keeps the seeding over the discretized set (so
+      the estimator is unchanged);
+    * ``warm_mode="pure"`` skips it.  The guard is then the closed-form
+      fantasy mean at the union points, mu'(U) = mu_U + C z - noise_eff
+      beta (Sigma C^-T z with Sigma = C C^T - diag(noise_eff)), live in the
+      unions; the union point that wins it is the reseed candidate.
+      Value channels only, no fidelity dims.
+
+    The returned endpoints re-seed any draw whose guard beat the descended
+    endpoint.
     """
     ds = cov_mod.channels(derivatives_to_sample)
     s = state.points_sampled.shape[0]
     b, q, d = unions.shape
     dim_opt = d - num_fidelity
-    mu_u, chol_u, v, _ = _build_fantasy_model_batch(state, unions, ds)
+    pure = inner_x0 is not None and warm_mode == "pure"
+    if pure and (state.derivatives or ds or num_fidelity):
+        raise NotImplementedError(
+            "pure warm-start KG requires value-only channels and no "
+            "fidelity dims; use warm_mode='reseed' or the cold path")
+    mu_u, chol_u, v, noise_eff = _build_fantasy_model_batch(state, unions,
+                                                            ds)
     best_posterior = torch.minimum(
         best_so_far[:, None],
         torch.min(mu_u.reshape(s, b, q, -1)[..., 0], dim=-1).values)
@@ -511,28 +542,40 @@ def knowledge_gradient_batch(state: GaussianProcessState,
     betas = linalg.solve_triangular_small(
         chol_u, normals.T.expand(s, b, q_ch, m), trans=True).transpose(-1, -2)
 
-    # seeding over the discretized set, factored through the q-dim fantasy
-    # subspace, computed live (its minimum is the x0 guard value)
     unions_f = unions.detach()
-    starts = torch.cat([discrete_pts[:, None].expand(s, b, -1, dim_opt),
-                        unions_f[None, :, :, :dim_opt].expand(
-                            s, b, q, dim_opt)], dim=2)
-    n_s = starts.shape[2]
-    starts_full = _pin_fidelity(starts, num_fidelity)
-    k_sx = _kernel_rows_flat(state, starts_full.reshape(s, b * n_s, d)
-                             ).reshape(s, b, n_s, -1)
-    k_su = _union_rows(state.covariance, starts_full, unions,
-                       ds)                                  # (S,B,n_s,q_ch)
-    base = torch.einsum("sbpn,sn->sbp", k_sx, state.K_inv_y)
-    ksv = k_sx @ v                                          # (S,B,n_s,q_ch)
-    mu_starts = state.mean[:, None, None, None] + base[..., None] - \
-        torch.sum(ksv[:, :, :, None, :] * normals, dim=-1) + \
-        torch.sum(k_su[:, :, :, None, :] * betas[:, :, None], dim=-1)
-    idx = torch.argmin(mu_starts.detach(), dim=2)           # (S, B, M)
-    x0_seed = torch.gather(starts, 2,
-                           idx[..., None].expand(-1, -1, -1, dim_opt))
-    mu_x0 = torch.min(mu_starts, dim=2).values              # (S, B, M)
-    x0 = x0_seed if inner_x0 is None else inner_x0.detach()
+    if pure:
+        # the guard at the union points, closed form and live
+        cz = torch.einsum("sbij,mj->sbim", chol_u, normals)  # (S,B,q,M)
+        mu_union = mu_u[..., None] + cz - \
+            noise_eff[..., None] * betas.transpose(-1, -2)
+        mu_x0 = torch.min(mu_union, dim=2).values            # (S, B, M)
+        idx = torch.argmin(mu_union.detach(), dim=2)         # (S, B, M)
+        x0_seed = torch.gather(
+            unions_f[None, :, :, :dim_opt].expand(s, b, q, dim_opt), 2,
+            idx[..., None].expand(-1, -1, -1, dim_opt))
+        x0 = inner_x0.detach()
+    else:
+        # seeding over the discretized set, factored through the q-dim
+        # fantasy subspace, computed live (its minimum is the x0 guard)
+        starts = torch.cat([discrete_pts[:, None].expand(s, b, -1, dim_opt),
+                            unions_f[None, :, :, :dim_opt].expand(
+                                s, b, q, dim_opt)], dim=2)
+        n_s = starts.shape[2]
+        starts_full = _pin_fidelity(starts, num_fidelity)
+        k_sx = _kernel_rows_flat(state, starts_full.reshape(s, b * n_s, d)
+                                 ).reshape(s, b, n_s, -1)
+        k_su = _union_rows(state.covariance, starts_full, unions,
+                           ds)                              # (S,B,n_s,q_ch)
+        base = torch.einsum("sbpn,sn->sbp", k_sx, state.K_inv_y)
+        ksv = k_sx @ v                                      # (S,B,n_s,q_ch)
+        mu_starts = state.mean[:, None, None, None] + base[..., None] - \
+            torch.sum(ksv[:, :, :, None, :] * normals, dim=-1) + \
+            torch.sum(k_su[:, :, :, None, :] * betas[:, :, None], dim=-1)
+        idx = torch.argmin(mu_starts.detach(), dim=2)       # (S, B, M)
+        x0_seed = torch.gather(starts, 2,
+                               idx[..., None].expand(-1, -1, -1, dim_opt))
+        mu_x0 = torch.min(mu_starts, dim=2).values          # (S, B, M)
+        x0 = x0_seed if inner_x0 is None else inner_x0.detach()
 
     v_f, betas_f = v.detach(), betas.detach()
     pts = state.points_sampled
@@ -566,13 +609,15 @@ def knowledge_gradient_mcmc_batch(states, unions, discrete_pts, normals,
                                   domain, inner_params, best_so_far,
                                   inner_x0=None,
                                   derivatives_to_sample: Sequence[int] = (),
-                                  num_fidelity: int = 0):
+                                  num_fidelity: int = 0,
+                                  warm_mode: str = "reseed"):
     """Ensemble-averaged batched KG divided by each union's fidelity cost:
     ((B,), endpoints (S, B, M, dim_opt))."""
     kg, x_star = knowledge_gradient_batch(states, unions, discrete_pts,
                                           normals, domain, inner_params,
                                           best_so_far, inner_x0,
-                                          derivatives_to_sample, num_fidelity)
+                                          derivatives_to_sample, num_fidelity,
+                                          warm_mode)
     costs = fidelity_cost(unions, unions.shape[1], num_fidelity)
     return torch.mean(kg, dim=0) / costs, x_star
 
@@ -582,7 +627,8 @@ def knowledge_gradient_mcmc_batch_vg_carry(states, unions, discrete_pts,
                                            best_so_far, inner_x0=None,
                                            derivatives_to_sample: Sequence[
                                                int] = (),
-                                           num_fidelity: int = 0):
+                                           num_fidelity: int = 0,
+                                           warm_mode: str = "reseed"):
     """((B,) values, (B, q, d) gradients, endpoints (S, B, M, dim_opt)).
 
     Each union's value depends only on its own block, so the gradient of
@@ -593,7 +639,8 @@ def knowledge_gradient_mcmc_batch_vg_carry(states, unions, discrete_pts,
         u = unions.detach().requires_grad_(True)
         vals, x_star = knowledge_gradient_mcmc_batch(
             states, u, discrete_pts, normals, domain, inner_params,
-            best_so_far, inner_x0, derivatives_to_sample, num_fidelity)
+            best_so_far, inner_x0, derivatives_to_sample, num_fidelity,
+            warm_mode)
         (grads,) = torch.autograd.grad(vals.sum(), u)
     return vals.detach(), grads, x_star
 

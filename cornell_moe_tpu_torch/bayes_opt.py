@@ -1,16 +1,18 @@
-"""High-level Bayesian-optimization driver (q-KG, d-KG and cf-KG).
+"""High-level Bayesian-optimization driver (q-KG, d-KG, cf-KG and q-EI).
 
-Counterpart of ``cornell_moe_tpu/bayes_opt.py`` for method "KG": MCMC train
--> q-EI-seeded, warm and gated q-KG suggest -> observe and gated retrain ->
-recommend (argmin of the ensemble posterior mean).  An objective with
-observed partial derivatives (``_observations``) trains on 1 + m channels
-per point, and its KG fantasizes those channels too (d-KG).  An objective
-with fidelity dims (``_num_fidelity``, the last coordinates) runs
-continuous-fidelity KG: the KG is divided by each union's cost, the inner
-problem, the seeding and the recommendation work on the other coordinates
-with the fidelity ones pinned to 1, and ``capital_so_far`` adds up the
-largest fidelity product of each observed batch.  The port runs eagerly;
-there is no cache of compiled programs.
+Counterpart of ``cornell_moe_tpu/bayes_opt.py``: MCMC train -> suggest ->
+observe and gated retrain -> recommend (argmin of the ensemble posterior
+mean), checkpointed after each iteration when ``checkpoint_path`` is set
+and resumable from it.  Method "KG" seeds its discretization with q-EI and
+runs the warm, gated q-KG multistart.  An objective with observed partial
+derivatives (``_observations``) trains on 1 + m channels per point, and its
+KG fantasizes those channels too (d-KG).  An objective with fidelity dims
+(``_num_fidelity``, the last coordinates) runs continuous-fidelity KG: the
+KG is divided by each union's cost, the inner problem, the seeding and the
+recommendation work on the other coordinates with the fidelity ones pinned
+to 1, and ``capital_so_far`` adds up the largest fidelity product of each
+observed batch.  Method "EI" maximizes q,p-EI on ensemble member 0.  The
+port runs eagerly; there is no cache of compiled programs.
 """
 
 from __future__ import annotations
@@ -29,9 +31,12 @@ from cornell_moe_tpu_torch.models import gp as gp_mod
 from cornell_moe_tpu_torch.models import mcmc as mcmc_mod
 from cornell_moe_tpu_torch.ops import optimizers
 from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+from cornell_moe_tpu_torch.utils import checkpoint as ckpt
 from cornell_moe_tpu_torch.utils.data_containers import (HistoricalData,
                                                          SamplePoint)
 from cornell_moe_tpu_torch.utils.logging_utils import PhaseTimer
+
+METHODS = ("KG", "EI")
 
 # The reference driver's optimizer parameter packs
 DEFAULT_SGD_PARAMS_KG = optimizers.GradientDescentParameters(
@@ -47,6 +52,40 @@ DEFAULT_SGD_PARAMS_RECOMMEND = optimizers.GradientDescentParameters(
     num_multistarts=1, max_num_steps=1000, max_num_restarts=1,
     num_steps_averaged=15, gamma=0.7, pre_mult=1.0,
     max_relative_change=0.02, tolerance=1.0e-10)
+
+
+def _qei_suggest_arrays(generator, state, domain, params, num_to_sample,
+                        num_mc, conv_tol=None, chunk_size=None):
+    """One GP's q-EI suggestion (q, d) and its EI on fresh draws (model
+    units)."""
+    pts = ei_mod.multistart_expected_improvement_optimization(
+        generator, state, domain, num_to_sample, params,
+        num_mc_iterations=num_mc, conv_tol=conv_tol, chunk_size=chunk_size)
+    voi = ei_mod.evaluate_expected_improvement_at_point_list(
+        state, pts[None], generator=generator, num_mc_iterations=num_mc)[0]
+    return pts, voi
+
+
+def gen_sample_from_qei(generator, state, domain, params, num_to_sample,
+                        num_mc=2**10):
+    """q-EI suggestion from one GP: (points (q, d), EI)."""
+    pts, voi = _qei_suggest_arrays(generator, state, domain, params,
+                                   num_to_sample, num_mc)
+    return pts, float(voi)
+
+
+def gen_sample_from_qei_mcmc(generator, states, domain, params,
+                             num_to_sample, num_mc=2**10):
+    """Ensemble-averaged q-EI suggestion: (points (q, d), mean EI on fresh
+    draws)."""
+    pts = ei_mod.multistart_expected_improvement_mcmc_optimization(
+        generator, states, domain, num_to_sample, params,
+        num_mc_iterations=num_mc)
+    normals = ei_mod.draw_normals(generator, num_mc, num_to_sample,
+                                  device=pts.device, dtype=pts.dtype)
+    voi = ei_mod.monte_carlo_expected_improvement_mcmc(
+        states, pts, None, states.best_observed_value, normals)
+    return pts, float(voi)
 
 
 def seed_kg_discretization(generator, states, domain, qei_params=None,
@@ -113,6 +152,19 @@ def _qkg_suggest_arrays(generator, states, domain, discrete_pts, params,
     return pts, voi
 
 
+def gen_sample_from_qkg_mcmc(generator, states, domain, discrete_pts,
+                             params=None, inner_params=DEFAULT_SGD_PARAMS_PS,
+                             num_to_sample: int = 1, num_mc=2**7,
+                             num_fidelity: int = 0):
+    """Ensemble-averaged q-KG suggestion: (points (q, d), KG)."""
+    if params is None:
+        params = DEFAULT_SGD_PARAMS_KG
+    pts, voi = _qkg_suggest_arrays(generator, states, domain, discrete_pts,
+                                   params, inner_params, num_to_sample,
+                                   num_mc, num_fidelity=num_fidelity)
+    return pts, float(voi)
+
+
 def recommend_from_guesses(states, domain, guesses: torch.Tensor,
                            params=DEFAULT_SGD_PARAMS_RECOMMEND,
                            num_fidelity: int = 0) -> torch.Tensor:
@@ -143,8 +195,9 @@ def recommend_from_guesses(states, domain, guesses: torch.Tensor,
 
 @dataclass
 class BayesianOptimizer:
-    """The suggest/observe/recommend loop for method "KG"; on an objective
-    with observed partial derivatives, d-KG; with fidelity dims, cf-KG."""
+    """The suggest/observe/recommend loop for method "KG" (on an objective
+    with observed partial derivatives, d-KG; with fidelity dims, cf-KG) or
+    "EI"."""
 
     objective_func: object = None
     method: str = "KG"
@@ -160,6 +213,8 @@ class BayesianOptimizer:
         DEFAULT_SGD_PARAMS_PS
     seed: int = 0
     verbose: bool = True
+    # written after each iteration when set (utils/checkpoint.py)
+    checkpoint_path: Optional[str] = None
     # pad num_sampled to multiples of this (huge-noise dummy points)
     shape_bucket: int = 16
     # step-norm gates: warm KG outer GD, seeding q-EI GD, retrain chain
@@ -177,9 +232,9 @@ class BayesianOptimizer:
     dtype: Optional[torch.dtype] = None
 
     def __post_init__(self):
-        if self.method != "KG":
-            raise NotImplementedError(
-                f"method {self.method!r}: the port drives 'KG' only")
+        if self.method not in METHODS:
+            raise ValueError(f"method {self.method!r} not supported: "
+                             f"choose one of {METHODS}")
         f = self.objective_func
         self.num_fidelity = f._num_fidelity
         self.derivatives = tuple(int(i) for i in f._observations)
@@ -190,7 +245,8 @@ class BayesianOptimizer:
         self.dim = f._dim
         self.domain = TensorProductDomain.from_bounds(
             f._search_domain, device=self.device, dtype=self.dtype)
-        self.num_mc = self.num_mc or 2**7
+        self.num_mc = self.num_mc or (2**7 if self.method == "KG"
+                                      else 2**10)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
         self.capital_so_far = 0.0
@@ -234,23 +290,32 @@ class BayesianOptimizer:
     def suggest(self):
         t0 = time.time()
         states = self.model.models
-        discrete = seed_kg_discretization(
-            self.generator, states, self.domain, qei_params=self.sgd_params,
-            ps_params=self.inner_sgd_params, conv_tol=self.seed_conv_tol,
-            chunk_size=self.suggest_chunk_size,
-            num_fidelity=self.num_fidelity)
-        pts, voi = _qkg_suggest_arrays(
-            self.generator, states, self.domain, discrete, self.sgd_params,
-            self.inner_sgd_params, self.num_to_sample, self.num_mc,
-            conv_tol=self.suggest_conv_tol,
-            chunk_size=self.suggest_chunk_size,
-            derivatives_to_sample=self.derivatives
-            if self.kg_sample_derivatives else (),
-            num_fidelity=self.num_fidelity)
-        # VOI back to raw units (KG is linear in the value scale)
+        if self.method == "KG":
+            discrete = seed_kg_discretization(
+                self.generator, states, self.domain,
+                qei_params=self.sgd_params, ps_params=self.inner_sgd_params,
+                conv_tol=self.seed_conv_tol,
+                chunk_size=self.suggest_chunk_size,
+                num_fidelity=self.num_fidelity)
+            pts, voi = _qkg_suggest_arrays(
+                self.generator, states, self.domain, discrete,
+                self.sgd_params, self.inner_sgd_params, self.num_to_sample,
+                self.num_mc, conv_tol=self.suggest_conv_tol,
+                chunk_size=self.suggest_chunk_size,
+                derivatives_to_sample=self.derivatives
+                if self.kg_sample_derivatives else (),
+                num_fidelity=self.num_fidelity)
+        else:
+            # q,p-EI on a single GP, member 0 of the ensemble
+            pts, voi = _qei_suggest_arrays(
+                self.generator, mcmc_mod.ensemble_member(states, 0),
+                self.domain, self.sgd_params, self.num_to_sample,
+                self.num_mc, conv_tol=self.suggest_conv_tol,
+                chunk_size=self.suggest_chunk_size)
+        # VOI back to raw units (KG and EI are linear in the value scale)
         pts = pts.cpu().numpy()
         voi = float(voi) * self.model.value_scale
-        self._log(f"KG suggest took {time.time() - t0:.2f}s, "
+        self._log(f"{self.method} suggest took {time.time() - t0:.2f}s, "
                   f"VOI {voi:.6f}")
         return pts, voi
 
@@ -286,11 +351,38 @@ class BayesianOptimizer:
         return np.concatenate([best.cpu().numpy(),
                                np.ones(self.num_fidelity)])
 
-    def run(self, num_iterations: int, num_init_pts: Optional[int] = None):
-        with self.timer.phase("initialize"):
-            self.initialize(num_init_pts)
-        for it in range(num_iterations):
-            self._log(f"--- iteration {it} (KG, q={self.num_to_sample}) ---")
+    def save_checkpoint(self, iteration: int) -> None:
+        """Write the data, the model's walker state and the generator's
+        state to ``checkpoint_path`` (nothing when it is None)."""
+        if self.checkpoint_path is None:
+            return
+        ckpt.save_checkpoint(
+            self.checkpoint_path, self.model._data, mcmc_model=self.model,
+            generator=self.generator,
+            metadata={"iteration": iteration, "method": self.method,
+                      "capital": self.capital_so_far})
+
+    def resume(self, path: Optional[str] = None) -> dict:
+        """Restore the model (data, walker state, ensemble) and the
+        generator's state from a checkpoint; returns its metadata (the last
+        completed iteration among it).  A JAX package checkpoint carries
+        no generator state: the generator is then seeded from ``seed``."""
+        self.model, manifest = ckpt.restore_mcmc_model(
+            path or self.checkpoint_path, generator=self.generator,
+            seed=self.seed, device=self.device, dtype=self.dtype)
+        self.capital_so_far = manifest["metadata"].get("capital", 0.0)
+        return manifest["metadata"]
+
+    def run(self, num_iterations: int, num_init_pts: Optional[int] = None,
+            start_iteration: int = 0):
+        """Iterations ``start_iteration`` .. ``num_iterations`` - 1; the
+        first initializes the model unless the run resumes."""
+        if start_iteration == 0:
+            with self.timer.phase("initialize"):
+                self.initialize(num_init_pts)
+        for it in range(start_iteration, num_iterations):
+            self._log(f"--- iteration {it} ({self.method}, "
+                      f"q={self.num_to_sample}) ---")
             with self.timer.phase("suggest", method=self.method):
                 pts, voi = self.suggest()
             with self.timer.phase("observe_retrain"):
@@ -304,4 +396,5 @@ class BayesianOptimizer:
                 "iteration": it, "voi": voi, "suggested": pts,
                 "recommended": report, "true_value": true_val,
                 "capital": self.capital_so_far})
+            self.save_checkpoint(it)
         return self.history

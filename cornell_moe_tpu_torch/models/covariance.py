@@ -102,6 +102,19 @@ class StationaryCovariance:
     def q(self, s: torch.Tensor) -> torch.Tensor:
         return self._scaled(self.q_scale * self.unit_q(s))
 
+    def covariance(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """k(x, y) for single points (dim,) of an unbatched kernel."""
+        diff = x - y
+        return self.f0(torch.sum(diff * diff / self.lengths ** 2, dim=-1))
+
+    def hyperparameter_grad_covariance(self, x: torch.Tensor,
+                                       y: torch.Tensor) -> torch.Tensor:
+        """d k(x, y) / d hyperparameters, (1 + dim,), by forward-mode
+        autograd (``torch.func.jacfwd``)."""
+        return torch.func.jacfwd(
+            lambda h: type(self)(hyperparameters=h).covariance(x, y))(
+                self.hyperparameters)
+
 
 class SquareExponential(StationaryCovariance):
     """k = alpha * exp(-s / 2)."""
@@ -197,6 +210,18 @@ def build_covariance_matrix(cov: StationaryCovariance, points: torch.Tensor,
     """Training covariance K over (value + derivative) channels."""
     return build_block_covariance(cov, points, derivatives, points,
                                   derivatives)
+
+
+def hyperparameter_grad_covariance_matrix(
+        cov: StationaryCovariance, points: torch.Tensor,
+        derivatives: Sequence[int]) -> torch.Tensor:
+    """dK/dtheta of an unbatched kernel over (value + derivative) channels,
+    (1 + dim, N, N), by forward-mode autograd of the block builder
+    (``torch.func.jacfwd``)."""
+    jac = torch.func.jacfwd(lambda h: build_covariance_matrix(
+        type(cov)(hyperparameters=h), points, derivatives))(
+            cov.hyperparameters)                       # (N, N, 1 + dim)
+    return torch.movedim(jac, -1, 0)
 
 
 def noise_diagonal(noise_variance, point_noise, batch, n: int, c: int,

@@ -48,8 +48,19 @@ class GaussianProcessState:
         return self.points_sampled.shape[-2]
 
     @property
+    def num_derivatives(self) -> int:
+        return len(self.derivatives)
+
+    @property
     def best_observed_value(self) -> torch.Tensor:
         return torch.min(self.points_sampled_value[..., 0], dim=-1).values
+
+    @property
+    def best_observed_point(self) -> torch.Tensor:
+        """The sampled point of the least observed value, (..., dim)."""
+        idx = torch.argmin(self.points_sampled_value[..., 0], dim=-1)
+        return torch.take_along_dim(self.points_sampled,
+                                    idx[..., None, None], dim=-2)[..., 0, :]
 
     def member(self, i: int) -> "GaussianProcessState":
         """Member ``i`` of an ensemble state (leading axis dropped)."""
@@ -188,6 +199,50 @@ def posterior_variance(state: GaussianProcessState, points_to_sample,
                                 derivatives_to_sample)
 
 
+def posterior_cholesky_variance(state: GaussianProcessState,
+                                points_to_sample,
+                                derivatives_to_sample: Sequence[int] = (),
+                                jitter: float = 0.0) -> torch.Tensor:
+    """Lower Cholesky factor of the posterior variance (NaN on failure)."""
+    var = posterior_variance(state, points_to_sample, derivatives_to_sample)
+    return linalg.cholesky(var, jitter=jitter)
+
+
+def _jacobian(fn, points_to_sample: torch.Tensor) -> torch.Tensor:
+    """d fn / d points by reverse-mode autograd (``torch.func.jacrev``):
+    fn's output axes, then the points' (q, dim)."""
+    return torch.func.jacrev(fn)(points_to_sample)
+
+
+def grad_posterior_mean(state: GaussianProcessState, points_to_sample,
+                        derivatives_to_sample: Sequence[int] = ()
+                        ) -> torch.Tensor:
+    """d mean / d points for one GP: (q, 1 + ms, q, dim); the diagonal
+    blocks ``out[i, :, i, :]`` are the per-point gradients."""
+    return _jacobian(lambda p: posterior_mean(state, p,
+                                              derivatives_to_sample),
+                     points_to_sample)
+
+
+def grad_posterior_variance(state: GaussianProcessState, points_to_sample,
+                            derivatives_to_sample: Sequence[int] = ()
+                            ) -> torch.Tensor:
+    """d Var / d points for one GP: (N, N, q, dim), N = q (1 + ms)."""
+    return _jacobian(lambda p: posterior_variance(state, p,
+                                                  derivatives_to_sample),
+                     points_to_sample)
+
+
+def grad_posterior_cholesky_variance(
+        state: GaussianProcessState, points_to_sample,
+        derivatives_to_sample: Sequence[int] = (),
+        jitter: float = 0.0) -> torch.Tensor:
+    """d chol(Var) / d points for one GP: (N, N, q, dim), through the
+    Cholesky's own derivative."""
+    return _jacobian(lambda p: posterior_cholesky_variance(
+        state, p, derivatives_to_sample, jitter=jitter), points_to_sample)
+
+
 def add_sampled_points(state: GaussianProcessState, new_points,
                        new_values, jitter: float = 0.0,
                        update_mean: bool = True) -> GaussianProcessState:
@@ -228,3 +283,56 @@ def add_sampled_points(state: GaussianProcessState, new_points,
         state, points_sampled=x, points_sampled_value=y, chol_K=chol,
         K_inv_y=linalg.cho_solve(chol, y_centered), mean=mean,
         inv_chol_K=inv_chol, point_noise=pn)
+
+
+def fantasy_update_vector(state: GaussianProcessState, union_points,
+                          eval_points, chol_union: torch.Tensor,
+                          derivatives_to_sample: Sequence[int] = ()
+                          ) -> torch.Tensor:
+    """sigma_tilde(a) = PostCov(a, U) C^-T, the one-shot fantasy map: for
+    fantasy observations y_U = mu_U + C z (C the lower Cholesky factor of
+    the union's posterior covariance plus noise) the fantasized posterior
+    mean is mu(a) + sigma_tilde(a) z.  Returns (..., n_eval (1 + ms),
+    n_union_channels)."""
+    cross = posterior_covariance(state, eval_points, union_points,
+                                 derivatives_to_sample)
+    return linalg.solve_triangular(chol_union, cross.transpose(-1, -2),
+                                   lower=True).transpose(-1, -2)
+
+
+def sample_point_from_gp(generator: Optional[torch.Generator],
+                         state: GaussianProcessState, point_to_sample,
+                         noise_variance=None,
+                         normal: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """One noisy observation drawn from one GP's posterior at a point (d,)
+    or (1, d): mu + sqrt(var + noise) z.  ``noise_variance`` defaults to
+    the value channel's; ``normal`` is the standard normal z, drawn from
+    ``generator`` when not given."""
+    pts = point_to_sample.reshape(1, -1)
+    mu = posterior_mean(state, pts)[0, 0]
+    var = posterior_variance(state, pts)[0, 0]
+    if noise_variance is None:
+        noise_variance = state.noise_variance[0]
+    std = torch.sqrt(torch.clamp(var, min=0.0) + noise_variance)
+    if normal is None:
+        normal = torch.randn((), generator=generator, dtype=mu.dtype,
+                             device=mu.device)
+    return mu + std * normal
+
+
+def sample_points_from_gp(generator: Optional[torch.Generator],
+                          state: GaussianProcessState, points_to_sample,
+                          jitter: float = 1e-10,
+                          normals: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """A joint draw of one GP's latent values at points (q, d): mu + L z,
+    L the Cholesky factor of the posterior variance plus ``jitter``;
+    ``normals`` (q,) are z, drawn from ``generator`` when not given."""
+    pts = points_to_sample.reshape(-1, state.dim)
+    mu = posterior_mean(state, pts)[:, 0]
+    chol = posterior_cholesky_variance(state, pts, jitter=jitter)
+    if normals is None:
+        normals = torch.randn((pts.shape[0],), generator=generator,
+                              dtype=mu.dtype, device=mu.device)
+    return mu + chol @ normals

@@ -232,6 +232,10 @@ def fit_gp_ensemble(kernel_name: str, hypers: torch.Tensor,
         mean=mean, point_noise=point_noise)
 
 
+def ensemble_size(states: gp_mod.GaussianProcessState) -> int:
+    return states.points_sampled.shape[0]
+
+
 def ensemble_member(states: gp_mod.GaussianProcessState, i: int
                     ) -> gp_mod.GaussianProcessState:
     return states.member(i)
@@ -249,6 +253,8 @@ class GaussianProcessLogLikelihoodMCMC:
     the stretch-move ensemble; ``train()`` burns in once, then continues
     the chain (gated when ``chain_gate_tol`` is set, with ``chain_length``
     as the cap) and keeps ``n_hypers`` random walkers as the ensemble.
+    ``optimize()`` is the MAP alternative: one member at the best end of a
+    multistart damped Newton.
     """
 
     def __init__(self, historical_data, prior=None, chain_length: int = 1000,
@@ -369,6 +375,11 @@ class GaussianProcessLogLikelihoodMCMC:
         return torch.where(in_bounds & torch.isfinite(val), val,
                            float("-inf"))
 
+    def compute_log_likelihood(self, theta) -> torch.Tensor:
+        """Log posterior at one log-hyperparameter vector (D,)."""
+        t = torch.as_tensor(theta, dtype=self.dtype, device=self.device)
+        return self.log_posterior(t.reshape(1, -1), *self._padded_data())[0]
+
     # -- training -----------------------------------------------------------
     def train(self, do_optimize: bool = True) -> None:
         self._refresh_value_affine()
@@ -400,6 +411,49 @@ class GaussianProcessLogLikelihoodMCMC:
             pick = torch.randint(0, self.n_hypers, (self.n_hypers,),
                                  generator=gen, device=self.device)
             self.hypers = pos[pick].cpu().numpy()
+        self._finalize_models()
+
+    def optimize(self, num_restarts: int = 1) -> None:
+        """MAP fit: a multistart damped Newton over the log posterior
+        (``optimizers.newton_optimize``, 40 steps, gamma 1.05, time factor
+        1e-2), from starts drawn from the prior and clipped inside the
+        bounds.  The best finite end wins; when no end is finite, the best
+        start stands (the JAX package keeps start 0 there).  A Newton step
+        can leave the Tophat prior's support of the log length scales,
+        where the log posterior is -inf and the step stops.  The log
+        posterior is the plain one (``force_plain``): kernel B has no
+        backward.  ``map_starts`` and ``map_values`` keep the starts and
+        the ends' log posteriors."""
+        from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+        from cornell_moe_tpu_torch.ops.optimizers import (NewtonParameters,
+                                                          newton_optimize)
+
+        self._refresh_value_affine()
+        x, y, point_noise = self._padded_data()
+        kw = dict(device=self.device, dtype=self.dtype)
+        bound = LOG_BOUND - 1e-3
+        dom = TensorProductDomain.from_bounds(
+            [[-bound, bound]] * self.prior.n_dims, **kw)
+        nparams = NewtonParameters(
+            num_multistarts=max(num_restarts, 1), max_num_steps=40,
+            gamma=1.05, time_factor=1e-2, max_relative_change=1.0)
+        starts = torch.clamp(self.prior.sample_from_prior(
+            self.generator, max(num_restarts, 1), **kw), -bound, bound)
+
+        def value(t):
+            return self.log_posterior(t[None], x, y, point_noise,
+                                      force_plain=True)[0]
+
+        finals = torch.stack([newton_optimize(value, dom, t0, nparams)
+                              for t0 in starts])
+        vals = torch.stack([value(t) for t in finals])
+        self.map_starts, self.map_values = starts, vals
+        if not bool(torch.isfinite(vals).any()):
+            finals = starts
+            vals = torch.stack([value(t) for t in starts])
+        pick = int(torch.argmax(torch.where(torch.isfinite(vals), vals,
+                                            float("-inf"))))
+        self.hypers = finals[pick][None].cpu().numpy()
         self._finalize_models()
 
     def _fit(self, cov_hypers: np.ndarray, noises: np.ndarray):
@@ -452,6 +506,14 @@ class GaussianProcessLogLikelihoodMCMC:
         if self._models is None:
             raise RuntimeError("call train() first")
         return self._models
+
+    @property
+    def is_trained(self) -> bool:
+        return self._models is not None
+
+    @property
+    def num_mcmc(self) -> int:
+        return 0 if self._models is None else ensemble_size(self._models)
 
     def add_sampled_points(self, sampled_points) -> None:
         """Append observations; refit the ensemble at the current

@@ -1,8 +1,8 @@
-"""Optimization domains: the tensor-product box and its q-point repeat.
+"""Optimization domains: the tensor-product box, its intersection with
+the unit simplex, its q-point repeat, and the domain of every point.
 
-Counterpart of ``TensorProductDomain`` and ``RepeatedDomain`` in
-``cornell_moe_tpu/ops/domains.py``.  Random points come from an explicit
-``torch.Generator`` on the bounds' device.
+Counterpart of ``cornell_moe_tpu/ops/domains.py``.  Random points come from
+an explicit ``torch.Generator`` on the bounds' device.
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ import torch
 # When a proposed step would exit the domain, fall back to the larger of
 # half the step or half the distance to the wall (kInvalidStepScaleFactor).
 _INVALID_STEP_SCALE = 0.5
+# A relative change of exactly 1 could land on a wall of the simplex
+# domain's box; it is reduced by this much (4 float32 epsilons).
+_RELATIVE_CHANGE_EPSILON_TWEAK = 4.0 * torch.finfo(torch.float32).eps
 
 
 def box_limit_update(lower, upper, max_relative_change, x: torch.Tensor,
@@ -94,6 +97,71 @@ class TensorProductDomain:
 
 
 @dataclasses.dataclass
+class SimplexIntersectTensorProductDomain:
+    """The box intersected with the unit simplex (sum(x) <= 1, x >= 0)."""
+
+    tensor_product_domain: TensorProductDomain
+
+    @classmethod
+    def from_bounds(cls, bounds, device=None, dtype=torch.float64
+                    ) -> "SimplexIntersectTensorProductDomain":
+        """The box ``bounds`` intersected with [0, 1]^d, as the reference's
+        constructor does."""
+        box = TensorProductDomain.from_bounds(bounds, device=device,
+                                              dtype=dtype)
+        return cls(tensor_product_domain=TensorProductDomain(
+            bounds=torch.clamp(box.bounds, 0.0, 1.0)))
+
+    @property
+    def dim(self) -> int:
+        return self.tensor_product_domain.dim
+
+    def check_point_inside(self, point: torch.Tensor) -> torch.Tensor:
+        in_box = self.tensor_product_domain.check_point_inside(point)
+        in_simplex = (torch.sum(point, dim=-1) <= 1.0) & \
+            torch.all(point >= 0.0, dim=-1)
+        return in_box & in_simplex
+
+    def clip(self, point: torch.Tensor) -> torch.Tensor:
+        """Clip to the box, then scale onto the simplex where the sum
+        exceeds 1."""
+        p = self.tensor_product_domain.clip(point)
+        total = torch.sum(p, dim=-1, keepdim=True)
+        return p * torch.where(total > 1.0, (1.0 - 1e-12) / total, 1.0)
+
+    def generate_uniform_random_points_in_domain(
+            self, generator: torch.Generator, num_points: int,
+            oversample: int = 8) -> torch.Tensor:
+        """Draw ``oversample`` times the points in the box, keep those
+        inside the simplex first, and repair any shortfall by
+        :meth:`clip`: the output size never depends on the draws."""
+        cand = self.tensor_product_domain.\
+            generate_uniform_random_points_in_domain(
+                generator, num_points * oversample)
+        ok = self.check_point_inside(cand)
+        order = torch.argsort((~ok).to(torch.int8), stable=True)
+        chosen = cand[order[:num_points]]
+        return torch.where(self.check_point_inside(chosen)[:, None],
+                           chosen, self.clip(chosen))
+
+    def limit_update(self, max_relative_change, current_point: torch.Tensor,
+                     update_vector: torch.Tensor) -> torch.Tensor:
+        """The box's limit, then the step shrunk along its direction so
+        that the new point's sum stays at most 1."""
+        if max_relative_change == 1.0:
+            max_relative_change -= _RELATIVE_CHANGE_EPSILON_TWEAK
+        step = self.tensor_product_domain.limit_update(
+            max_relative_change, current_point, update_vector)
+        total = torch.sum(current_point + step, dim=-1, keepdim=True)
+        step_sum = torch.sum(step, dim=-1, keepdim=True)
+        denom = torch.where(torch.abs(step_sum) > 1e-300, step_sum, 1.0)
+        scale = torch.clamp(
+            (1.0 - torch.sum(current_point, dim=-1, keepdim=True)) / denom,
+            0.0, 1.0)
+        return torch.where(total > 1.0, step * scale, step)
+
+
+@dataclasses.dataclass
 class RepeatedDomain:
     """q-point product domain: arrays of shape (..., num_repeats, dim)."""
 
@@ -127,3 +195,24 @@ class RepeatedDomain:
                      update_vector: torch.Tensor) -> torch.Tensor:
         return self.domain.limit_update(max_relative_change, current_point,
                                         update_vector)
+
+
+def tensor_product_domain(bounds, device=None, dtype=torch.float64
+                          ) -> TensorProductDomain:
+    return TensorProductDomain.from_bounds(bounds, device=device, dtype=dtype)
+
+
+class DummyDomain:
+    """The domain that holds every point: no clipping, no step limit."""
+
+    def check_point_inside(self, point: torch.Tensor) -> torch.Tensor:
+        return torch.ones(point.shape[:-1], dtype=torch.bool,
+                          device=point.device)
+
+    def clip(self, point: torch.Tensor) -> torch.Tensor:
+        return point
+
+    def limit_update(self, max_relative_change, current_point,
+                     update_vector):
+        del max_relative_change, current_point
+        return update_vector

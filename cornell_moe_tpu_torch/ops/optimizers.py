@@ -1,4 +1,5 @@
-"""Multistart gradient ascent with the reference GD loop's semantics.
+"""Multistart gradient ascent with the reference GD loop's semantics, a
+backtracking line-search ascent, and damped Newton.
 
 Counterpart of ``cornell_moe_tpu/ops/optimizers.py``: decaying step size
 ``pre_mult * (i+1)^(-gamma)`` (reset each restart round), steps clamped by
@@ -26,6 +27,16 @@ class GradientDescentParameters:
     pre_mult: float = 1.0
     max_relative_change: float = 1.0
     tolerance: float = 1.0e-7
+
+
+@dataclasses.dataclass(frozen=True)
+class NewtonParameters:
+    num_multistarts: int = 8
+    max_num_steps: int = 100
+    gamma: float = 1.05
+    time_factor: float = 1.0e-2
+    max_relative_change: float = 1.0
+    tolerance: float = 1.0e-9
 
 
 class MultistartResult(NamedTuple):
@@ -131,6 +142,35 @@ def gradient_ascent(value_and_grad_fn: Callable, domain, x0: torch.Tensor,
                     conv_tol: Optional[float] = None) -> torch.Tensor:
     """One restarted GD trajectory from x0; returns the final point."""
     return _ascend(value_and_grad_fn, domain, x0, params, conv_tol, None)
+
+
+def gradient_ascent_line_search(value_and_grad_fn: Callable, domain,
+                                x0: torch.Tensor,
+                                params: GradientDescentParameters,
+                                max_backtracks: int = 8,
+                                shrink: float = 0.5) -> torch.Tensor:
+    """Backtracking line-search gradient ascent: propose the domain-limited
+    ``alpha_i * grad``, shrink it while the objective does not improve.
+    The backtrack budget is fixed: all ``max_backtracks`` trials run, the
+    first accepted step is kept, and a step with no acceptance leaves x
+    where it is."""
+    v, _ = value_and_grad_fn(x0)
+    x = x0
+    for i in range(int(params.max_num_steps)):
+        _, g = value_and_grad_fn(x)
+        alpha = params.pre_mult * (i + 1.0) ** (-params.gamma)
+        dx = domain.limit_update(params.max_relative_change, x,
+                                 alpha * _finite(g))
+        accepted = torch.zeros((), dtype=torch.bool, device=x.device)
+        for _ in range(max_backtracks):
+            v_try, _ = value_and_grad_fn(x + dx)
+            ok = v_try > v
+            dx = torch.where(ok & ~accepted, dx,
+                             dx * torch.where(accepted, 1.0, shrink))
+            accepted = accepted | ok
+        x = torch.where(accepted, x + dx, x)
+        v, _ = value_and_grad_fn(x)
+    return x
 
 
 def gradient_ascent_batch(batched_value_and_grad: Callable, domain,
@@ -247,3 +287,49 @@ def multistart_optimize(value_and_grad_fn: Callable, domain,
     return _chunked_multistart(
         run_batch, lambda c: torch.stack([value_fn(x) for x in c]),
         initial_points, chunk_size)
+
+
+def multistart_optimize_with_dumb_search_fallback(
+        value_and_grad_fn: Callable, domain, initial_points: torch.Tensor,
+        search_points: torch.Tensor, params: GradientDescentParameters,
+        value_fn: Optional[Callable] = None) -> MultistartResult:
+    """Per-start multistart GD, then the best of a brute-force evaluation
+    at ``search_points`` where it beats the GD's best (non-finite values
+    lose).  ``all_points`` and ``all_values`` are the GD's."""
+    if value_fn is None:
+        def value_fn(x):
+            return value_and_grad_fn(x)[0]
+
+    gd = multistart_optimize(value_and_grad_fn, domain, initial_points,
+                             params, value_fn)
+    search_values = torch.stack([value_fn(x) for x in search_points])
+    safe = torch.where(torch.isfinite(search_values), search_values,
+                       float("-inf"))
+    best_search = torch.argmax(safe)
+    take_search = safe[best_search] > gd.best_value
+    return MultistartResult(
+        best_point=torch.where(take_search, search_points[best_search],
+                               gd.best_point),
+        best_value=torch.where(take_search, safe[best_search],
+                               gd.best_value),
+        all_points=gd.all_points, all_values=gd.all_values)
+
+
+def newton_optimize(value_fn: Callable, domain, x0: torch.Tensor,
+                    params: NewtonParameters) -> torch.Tensor:
+    """Damped Newton ascent of a differentiable scalar ``value_fn`` over
+    points (D,): the gradient is ``torch.func.grad`` of it and the Hessian
+    ``torch.func.hessian``.  Step i solves
+    (-H + I / (time_factor gamma^(i+1))) dx = g, the damping fading as the
+    steps go on; a non-finite step becomes 0, and the domain limits it."""
+    grad_fn = torch.func.grad(value_fn)
+    hessian_fn = torch.func.hessian(value_fn)
+    eye = torch.eye(x0.shape[-1], dtype=x0.dtype, device=x0.device)
+    x = x0
+    for i in range(int(params.max_num_steps)):
+        g = grad_fn(x)
+        damp = 1.0 / (params.time_factor * params.gamma ** (i + 1.0))
+        dx, _ = torch.linalg.solve_ex(-hessian_fn(x) + damp * eye, g)
+        dx = _finite(dx)
+        x = x + domain.limit_update(params.max_relative_change, x, dx)
+    return x

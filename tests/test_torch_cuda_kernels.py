@@ -522,3 +522,55 @@ def test_lml_kernel_at_the_cfkg_chain_shapes(dev, rng, w):
         torch.testing.assert_close(g, r, rtol=5e-4, atol=0.0)
         torch.testing.assert_close(g.double(), r64, rtol=5e-4, atol=0.0)
         torch.testing.assert_close(g, big, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("n", [516, 520])
+def test_covariance_kernel_at_the_heuristic_refit_shapes(dev, rng, kernel,
+                                                         n):
+    """C at heuristic q-EI's refit of one GP (S 1, d 2): the main path's
+    500 points bucketed to 512 with 12 PAD_NOISE rows, then n - 512
+    fantasy slots (PAD_NOISE until filled, one filled at 1e-3): against
+    the plain version, symmetric bit for bit, one launch."""
+    points = _c(rng.random((n, 2)) * [15.0, 20.0] + [0.0, -5.0], dev)
+    hypers = _c([[1.3, 4.0, 6.0]], dev)
+    noise = np.full((1, n), 1e-2)
+    noise[:, 500:] = PAD_NOISE
+    noise[:, 512] = 1e-3
+    noise = _c(noise, dev)
+    before = kernels.covariance_with_noise_launches
+    got = kernels.covariance_with_noise(points, hypers, noise, kernel)
+    torch.cuda.synchronize()
+    assert kernels.covariance_with_noise_launches == before + 1
+    torch.testing.assert_close(
+        got, kernels.covariance_with_noise_plain(points, hypers, noise,
+                                                 kernel),
+        rtol=2e-4, atol=2e-5)
+    assert torch.equal(got, got.transpose(-1, -2))
+
+
+def test_map_fit_launches_no_lml_kernel_on_the_card(dev, rng):
+    """optimize() on the card in float32 takes the plain log posterior:
+    no launch of B, while the chain's log posterior on the same data
+    launches it and the MAP member's fit launches C."""
+    from cornell_moe_tpu_torch.models.mcmc import \
+        GaussianProcessLogLikelihoodMCMC
+    from cornell_moe_tpu_torch.utils.data_containers import HistoricalData
+
+    x = rng.random((40, 2))
+    data = HistoricalData(2)
+    data.append_historical_data(x, np.sin(3 * x[:, 0]) + x[:, 1])
+    model = GaussianProcessLogLikelihoodMCMC(
+        data, bucket=16, n_hypers=8, standardize=True, device=dev,
+        dtype=torch.float32,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    kernels.reset_launch_counts()
+    model.optimize(num_restarts=2)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["lml_fused"] == counts["lml_fused_global"] == 0
+    assert counts["covariance_with_noise"] > 0
+    assert model.num_mcmc == 1 and np.isfinite(model.hypers).all()
+    model.compute_log_likelihood(model.hypers[0])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["lml_fused"] == 1

@@ -741,8 +741,12 @@ def test_dkg_optimizer_run_on_cpu_is_finite():
     assert bo.model.models.points_sampled_value.shape[-1] == 3
     assert bo.model.models.noise_variance.shape[-1] == 3
     assert bo.model._data.num_sampled == 5
-    with pytest.raises(NotImplementedError):
-        tbo.BayesianOptimizer(objective_func=tsf.Branin(), method="EI",
+    # method "EI" is driven too (tests/test_torch_ei_driver.py); a method
+    # the driver does not know is refused
+    assert tbo.BayesianOptimizer(objective_func=tsf.Branin(), method="EI",
+                                 device="cpu").num_mc == 2**10
+    with pytest.raises(ValueError):
+        tbo.BayesianOptimizer(objective_func=tsf.Branin(), method="UCB",
                               device="cpu")
 
 

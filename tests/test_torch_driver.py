@@ -178,7 +178,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import cornell_moe_tpu_torch\n"
-        "from cornell_moe_tpu_torch import bayes_opt, config, convert\n"
+        "from cornell_moe_tpu_torch import bayes_opt, config, convert, "
+        "main\n"
         "from cornell_moe_tpu_torch.acquisition import "
         "expected_improvement, knowledge_gradient, lower_confidence_bound, "
         "pes, pes_driver\n"
@@ -186,8 +187,8 @@ def test_port_imports_no_jax():
         "likelihood, mcmc, priors\n"
         "from cornell_moe_tpu_torch.ops import _build, domains, kernels, "
         "linalg, optimizers, random_features\n"
-        "from cornell_moe_tpu_torch.utils import data_containers, "
-        "logging_utils, synthetic_functions\n"
+        "from cornell_moe_tpu_torch.utils import checkpoint, "
+        "data_containers, hesbo, logging_utils, synthetic_functions\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'cornell_moe_tpu')]\n"
         "print(bad)\n"
