@@ -9,9 +9,16 @@ It builds the CUDA kernels of ``cornell_moe_tpu_torch`` from ``csrc/``,
 drives one q-KG iteration of ``BayesianOptimizer`` at the main path's size
 (Branin, 500 observations, 16-member ensemble, q = 4, 200 multistarts,
 128 MC draws, float32 on ``cuda:0``), checks that each kernel of that path
-launched during the run, and holds each kernel against its plain PyTorch
-version at the main path's shapes (the covariance also against its own
-transpose, bit for bit; the fused LML also against its large-Np instance,
+launched during the run, drives the same iteration sharded over
+``torch.distributed`` (``BayesianOptimizer(n_devices=)``): a world of one
+over NCCL on ``cuda:0``, equal bit for bit to the unsharded iteration, and
+a world of two ranks over gloo, both on ``cuda:0`` (one card; NCCL refuses
+two ranks on one GPU), each rank counting its own launches of A, B and C,
+held to an unsharded iteration with the same chunking, with the latency of
+the chain's per-half-step ``all_gather``; then it holds each kernel
+against its plain PyTorch version at the main path's shapes (the
+covariance also against its own transpose, bit for bit; the fused LML
+also against its large-Np instance,
 the three timed side by side, with its cluster occupancy; the KG inner
 descent in both its instances, tensor-core and FMA, timed in turns).
 It drives one d-KG iteration (Branin with both partials observed, the
@@ -37,7 +44,8 @@ both estimation policies (C at the refit's ragged n 516, held against its
 plain version there), the MAP fit on its model (no launch of B), a
 checkpoint and resume at a reduced depth (the resumed iteration equal bit
 for bit to an uninterrupted one) and the command line
-(``cornell_moe_tpu_torch.main``) on Branin and on Hartmann6 through HeSBO.
+(``cornell_moe_tpu_torch.main``) on Branin, on Hartmann6 through HeSBO and
+on KISSGP (d-KG on a real-function objective).
 Last it checks the port against its own float64 CPU path on small inputs:
 value-only, with derivative channels, with a fidelity dim, PES and EI.
 Every phase
@@ -107,6 +115,10 @@ PES_INIT, PES_SETS, PES_BURNIN, PES_GRID = 60, 100, 50, 500
 # The EI path: the main path's size with method "EI", whose MC draws
 # default to 1024; heuristic q-EI on its member 0 refits at n0 + q points
 EI_NUM_MC = 2**10
+# The scale-out phase's group: SCALE_OUT_WORLD ranks over gloo, all on
+# DEVICE, held within SCALE_OUT_RTOL of each quantity's scale to the
+# unsharded iteration with the same chunking, within SCALE_OUT_TIMEOUT_S
+SCALE_OUT_WORLD, SCALE_OUT_RTOL, SCALE_OUT_TIMEOUT_S = 2, 1e-4, 600.0
 # the checkpoint phase's reduced depth: observations, members, burn-in,
 # chain cap, q
 CKPT_OBS, CKPT_HYPERS, CKPT_BURNIN, CKPT_CHAIN, CKPT_Q = 64, 8, 200, 128, 2
@@ -153,41 +165,21 @@ def phase_build() -> None:
           "ptxas": _build.ptxas_report()})
 
 
-def _iteration(torch, descent):
-    """One BO iteration through the driver with kernel A's launches sent to
-    ``descent`` (a wrapper of ``ops.kernels``), every launch counter set to
-    0 just before and read just after.  Returns the optimizer, the
-    iteration's record, its wall time, the counts and A's launches by shape
-    and schedule (S, B, M, steps x restarts)."""
-    from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
-    from cornell_moe_tpu_torch.ops import kernels
-    from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
-
-    bo = BayesianOptimizer(objective_func=Branin(), method="KG",
-                           num_to_sample=Q, n_hypers=N_HYPERS, noisy=True,
-                           standardize=True, device=DEVICE,
-                           dtype=torch.float32, verbose=False)
-    check(bo.sgd_params.num_multistarts == MULTISTARTS and
-          bo.num_mc == NUM_MC, "main-path size changed")
-    shapes, descent_run = {}, kernels.descent_run
-
-    def recording_descent(xs0, *args, steps, restarts, **kw):
-        key = "S{}_B{}_M{}_steps{}".format(xs0.shape[0], xs0.shape[1],
-                                           xs0.shape[3], steps * restarts)
-        shapes[key] = shapes.get(key, 0) + 1
-        return descent(xs0, *args, steps=steps, restarts=restarts, **kw)
-
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    kernels.descent_run = recording_descent
-    try:
-        t0 = time.time()
-        history = bo.run(num_iterations=1, num_init_pts=NUM_OBS)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    finally:
-        kernels.descent_run = descent_run
-    return bo, history[-1], wall, kernels.launch_counts(), shapes
+def _iteration(torch, descent, **bo_kwargs):
+    """One BO iteration through the driver at the main path's size
+    (``tools.scale_out.iteration``: ``bo_kwargs`` added, kernel A's
+    launches sent to ``descent``, every launch counter set to 0 just
+    before and read just after).  Returns the optimizer, the record, the
+    wall time, the counts, A's launches and B's calls by shape."""
+    from cornell_moe_tpu_torch.tools import scale_out
+    check(scale_out.NUM_OBS == NUM_OBS and
+          scale_out.MAIN_PATH["num_to_sample"] == Q and
+          scale_out.MAIN_PATH["n_hypers"] == N_HYPERS,
+          "main-path size changed")
+    run = scale_out.iteration(DEVICE, descent, **bo_kwargs)
+    check(run[0].sgd_params.num_multistarts == MULTISTARTS and
+          run[0].num_mc == NUM_MC, "main-path size changed")
+    return run
 
 
 def phase_main(torch):
@@ -199,8 +191,8 @@ def phase_main(torch):
     with A's rounding."""
     from cornell_moe_tpu_torch.ops import kernels
 
-    bo, rec, wall, counts, descent_shapes = _iteration(torch,
-                                                       kernels.descent_run)
+    bo, rec, wall, counts, descent_shapes, lml_shapes = _iteration(
+        torch, kernels.descent_run)
     states = bo.model.models
     emit({"phase": "main_path", "seconds": wall,
           "stages": {r["phase"]: r["seconds"] for r in bo.timer.records},
@@ -212,7 +204,8 @@ def phase_main(torch):
           "voi": rec["voi"], "suggested": rec["suggested"].tolist(),
           "recommended": rec["recommended"].tolist(),
           "true_value": rec["true_value"], "launches": counts,
-          "descent_run_launches_by_shape": descent_shapes})
+          "descent_run_launches_by_shape": descent_shapes,
+          "lml_fused_calls_by_shape": lml_shapes})
     check(math.isfinite(rec["voi"]), f"VOI not finite: {rec['voi']}")
     bounds = bo.objective_func._search_domain
     r = rec["recommended"]
@@ -228,8 +221,8 @@ def phase_main(torch):
     check(sum(descent_shapes.values()) == counts["descent_run"],
           "descent_run launches and recorded shapes disagree")
 
-    wbo, wrec, wwall, wcounts, wshapes = _iteration(torch,
-                                                    kernels.descent_run_fma)
+    wbo, wrec, wwall, wcounts, wshapes, _ = _iteration(
+        torch, kernels.descent_run_fma)
     emit({"phase": "main_path_fma_witness", "seconds": wwall,
           "chain_steps": wbo.model.chain_steps, "voi": wrec["voi"],
           "suggested": wrec["suggested"].tolist(), "launches": wcounts,
@@ -244,7 +237,111 @@ def phase_main(torch):
     check(wbo.model.chain_steps[0] == bo.model.chain_steps[0],
           "the chain before any A launch moved in the witness")
     del wbo
-    return bo, counts
+    return bo, rec, counts
+
+
+def _scale_out_rank() -> dict:
+    """One rank of the scale-out phase's gloo group: the main path's
+    iteration on cuda:0 with ``n_devices`` = SCALE_OUT_WORLD (the restart
+    axis, the walkers and the recommend grid sharded over the ranks), its
+    launch counters set to 0 just before and read just after."""
+    import torch
+    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.tools import scale_out
+    out = scale_out.summary(*_iteration(torch, kernels.descent_run,
+                                        n_devices=SCALE_OUT_WORLD))
+    out["rank"] = torch.distributed.get_rank()
+    out["backend"] = str(torch.distributed.get_backend())
+    out["all_gather_ms"] = scale_out.gather_ms(
+        torch.distributed.group.WORLD, DEVICE, N_HYPERS // 2)
+    return out
+
+
+def phase_scale_out(torch, main_bo, main_rec) -> None:
+    """The main path's iteration sharded (``BayesianOptimizer(n_devices=)``,
+    ``parallel.sharding``), twice.  (a) A world of one over NCCL on cuda:0,
+    the group made by ``n_devices=1`` itself: equal bit for bit to the
+    main path's unsharded iteration (its chunk, 200 / 1, is one chunk).
+    (b) A world of SCALE_OUT_WORLD ranks over gloo, spawned here, every
+    rank on cuda:0 (the machine has one card, and NCCL refuses two ranks on
+    one GPU): each rank counts its own launches of A, B and C, the ranks
+    must agree bit for bit, and each is held to an unsharded iteration
+    with the same chunking (suggest_chunk_size 200 / SCALE_OUT_WORLD)
+    within SCALE_OUT_RTOL of each quantity's scale."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.parallel import spawn
+    from cornell_moe_tpu_torch.tools import scale_out
+
+    main = {"walkers": main_bo.model.p0.cpu().numpy(),
+            "hypers": np.asarray(main_bo.model.hypers),
+            "chain_steps": list(main_bo.model.chain_steps),
+            **{k: main_rec[k] for k in ("suggested", "voi", "recommended",
+                                        "true_value")}}
+    t0 = time.time()
+    run = _iteration(torch, kernels.descent_run, n_devices=1)
+    group = run[0].process_group
+    one = {"backend": str(dist.get_backend(group)),
+           "world": dist.get_world_size(group),
+           "all_gather_ms": scale_out.gather_ms(group, DEVICE,
+                                                N_HYPERS // 2)}
+    dist.destroy_process_group()
+    one.update(scale_out.summary(*run))
+    del run
+    one["bitwise_equal_to_main_path"] = scale_out.bitwise(one, main)
+
+    chunk = MULTISTARTS // SCALE_OUT_WORLD
+    np_ = main_bo.model.models.chol_K.shape[-1]
+    ref = scale_out.summary(*_iteration(torch, kernels.descent_run,
+                                        suggest_chunk_size=chunk))
+    t1 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn.run_process_group(
+            _scale_out_rank, SCALE_OUT_WORLD, os.path.join(tmp, "store"),
+            timeout_s=SCALE_OUT_TIMEOUT_S)
+    group_wall = time.time() - t1
+    width = np.ptp(main_bo.objective_func._search_domain, axis=1)
+    errors = scale_out.errors_over_scale(ranks[0], ref, width)
+    ranks_agree = scale_out.bitwise(ranks[0], ranks[1])
+    emit({"phase": "scale_out", "seconds": time.time() - t0,
+          "nccl_world_of_one": scale_out.printable(one),
+          "gloo_world": {
+              "world": SCALE_OUT_WORLD, "device": DEVICE,
+              "group_seconds": group_wall,
+              "ranks": [scale_out.printable(r) for r in ranks],
+              "ranks_bitwise_equal": ranks_agree,
+              "unsharded_chunk_100": scale_out.printable(ref),
+              "bitwise_equal_to_unsharded": scale_out.bitwise(ranks[0],
+                                                              ref),
+              "max_err_over_scale": errors,
+              "tolerance": f"<= {SCALE_OUT_RTOL} of scale (walkers: "
+                           "max(1, |walker|); points: domain width; VOI: "
+                           "|VOI|)"}})
+    check(one["backend"] == "nccl" and one["world"] == 1 and
+          one["suggest_chunk_size"] == MULTISTARTS,
+          f"the world of one is not NCCL with one chunk: {one}")
+    check(all(one["bitwise_equal_to_main_path"].values()),
+          "the NCCL world of one differs from the main path: "
+          f"{one['bitwise_equal_to_main_path']}")
+    for r in [one] + ranks:
+        for name in MAIN_PATH_KERNELS:
+            check(r["launches"][name] > 0,
+                  f"{name} not launched in a scale-out run: {r['launches']}")
+    for r in ranks:
+        check(r["backend"] == "gloo" and
+              r["suggest_chunk_size"] == chunk and
+              all(key.split("_")[1] == f"B{chunk}"
+                  for key in r["descent_run_launches_by_shape"]) and
+              {f"W{N_HYPERS // 2 // SCALE_OUT_WORLD}_Np{np_}",
+               f"W{N_HYPERS // SCALE_OUT_WORLD}_Np{np_}"} ==
+              set(r["lml_fused_calls_by_shape"]),
+              f"rank {r['rank']} did not run its shard's shapes")
+    check(all(ranks_agree.values()), f"the ranks disagree: {ranks_agree}")
+    check(all(e <= SCALE_OUT_RTOL for e in errors.values()),
+          f"the gloo world differs from the unsharded run: {errors}")
 
 
 def phase_dkg(torch) -> None:
@@ -1825,9 +1922,10 @@ def phase_checkpoint_resume(torch) -> None:
 
 def phase_cli(torch) -> None:
     """The command line, in-process on the card at its own defaults:
-    ``Branin EI 2 1 none 0 1`` and ``Hartmann6 EI 1 1 HeSBO 2 1``.  Both
-    must return 0; their printed output is captured and its last lines
-    printed."""
+    ``Branin EI 2 1 none 0 1``, ``Hartmann6 EI 1 1 HeSBO 2 1`` and
+    ``KISSGP KG 1 1 none 0 1`` (d-KG on the real-function objective, 3
+    gradient channels).  Each must return 0; their printed output is
+    captured and its last lines printed."""
     import contextlib
     import io
 
@@ -1835,7 +1933,8 @@ def phase_cli(torch) -> None:
 
     runs = {}
     for args in (["Branin", "EI", "2", "1", "none", "0", "1"],
-                 ["Hartmann6", "EI", "1", "1", "HeSBO", "2", "1"]):
+                 ["Hartmann6", "EI", "1", "1", "HeSBO", "2", "1"],
+                 ["KISSGP", "KG", "1", "1", "none", "0", "1"]):
         out = io.StringIO()
         t0 = time.time()
         with contextlib.redirect_stdout(out):
@@ -1964,7 +2063,8 @@ def main() -> int:
 
     provenance(torch)
     phase_build()
-    bo, counts = phase_main(torch)
+    bo, rec, counts = phase_main(torch)
+    phase_scale_out(torch, bo, rec)
     phase_dkg(torch)
     summary, problems = phase_equivalence(torch, bo.model, counts)
     summary += phase_descent_grad(torch, bo.model.kernel_name, problems)

@@ -27,6 +27,7 @@ from cornell_moe_tpu_torch.models import covariance as cov_mod
 from cornell_moe_tpu_torch.models import gp
 from cornell_moe_tpu_torch.ops import linalg, optimizers
 from cornell_moe_tpu_torch.ops.domains import RepeatedDomain
+from cornell_moe_tpu_torch.parallel import sharding
 
 
 def draw_normals(generator: torch.Generator, num_mc: int, n: int,
@@ -243,10 +244,11 @@ def multistart_expected_improvement_mcmc_optimization(
         params: optimizers.GradientDescentParameters,
         points_being_sampled=None, best_so_far=None,
         num_mc_iterations: int = 1000, conv_tol: Optional[float] = None,
-        chunk_size: Optional[int] = None) -> torch.Tensor:
+        chunk_size: Optional[int] = None, group=None) -> torch.Tensor:
     """q points maximizing ensemble-averaged q,p-EI by the lockstep-batched
-    multistart; ``conv_tol`` gates each chunk on its max step norm.
-    Returns (num_to_sample, dim)."""
+    multistart; ``conv_tol`` gates each chunk on its max step norm.  A
+    ``group`` shards the restart axis over its ranks
+    (``parallel.sharding``).  Returns (num_to_sample, dim)."""
     if best_so_far is None:
         best_so_far = states.best_observed_value
     p = 0 if points_being_sampled is None else points_being_sampled.shape[0]
@@ -260,8 +262,8 @@ def multistart_expected_improvement_mcmc_optimization(
         return expected_improvement_mcmc_batch_value_and_grad(
             states, pts_batch, points_being_sampled, best_so_far, normals)
 
-    return optimizers.multistart_optimize_batched(
-        bvg, rep, starts, params, chunk_size=chunk_size,
+    return sharding.sharded_multistart_optimize_batched_gated(
+        bvg, rep, starts, params, group, chunk_size=chunk_size,
         conv_tol=conv_tol).best_point
 
 
@@ -272,14 +274,16 @@ def multistart_expected_improvement_optimization(
         num_mc_iterations: int = 1000, num_random_search: int = 0,
         use_analytic: Optional[bool] = None,
         conv_tol: Optional[float] = None, use_batched: bool = True,
-        chunk_size: Optional[int] = None) -> torch.Tensor:
+        chunk_size: Optional[int] = None, group=None) -> torch.Tensor:
     """q points maximizing one GP's q,p-EI (the closed form for q = 1,
     p = 0).  ``use_batched``: the lockstep-batched multistart, each start's
     value and gradient its own and ``conv_tol`` gating each chunk on its
     max step norm; otherwise the per-start multistart, each start gated on
     its own.  ``num_random_search`` > 0 takes the per-start multistart with
     the brute-force fallback over that many Latin-hypercube blocks, drawn
-    after the starts and the normals.  Returns (num_to_sample, dim)."""
+    after the starts and the normals.  A ``group`` shards the batched
+    route's restart axis over its ranks (``parallel.sharding``), as the JAX
+    package's mesh does.  Returns (num_to_sample, dim)."""
     p = 0 if points_being_sampled is None else points_being_sampled.shape[0]
     if best_so_far is None:
         best_so_far = state.best_observed_value
@@ -319,8 +323,8 @@ def multistart_expected_improvement_optimization(
         result = optimizers.multistart_optimize_with_dumb_search_fallback(
             vg, rep, starts, search, params)
     elif use_batched:
-        result = optimizers.multistart_optimize_batched(
-            bvg, rep, starts, params, chunk_size=chunk_size,
+        result = sharding.sharded_multistart_optimize_batched_gated(
+            bvg, rep, starts, params, group, chunk_size=chunk_size,
             conv_tol=conv_tol)
     else:
         result = optimizers.multistart_optimize(vg, rep, starts, params,

@@ -56,6 +56,7 @@ from cornell_moe_tpu_torch.models.gp import GaussianProcessState
 from cornell_moe_tpu_torch.ops import kernels, linalg, optimizers
 from cornell_moe_tpu_torch.ops.domains import (RepeatedDomain,
                                                TensorProductDomain)
+from cornell_moe_tpu_torch.parallel import sharding
 
 
 # ---------------------------------------------------------------------------
@@ -653,13 +654,23 @@ def multistart_knowledge_gradient_mcmc_optimization(
         num_mc_iterations: int = 128, chunk_size: Optional[int] = None,
         conv_tol: Optional[float] = None,
         derivatives_to_sample: Sequence[int] = (),
-        num_fidelity: int = 0) -> torch.Tensor:
+        num_fidelity: int = 0, use_batched: bool = True,
+        warm_start: bool = True, group=None) -> torch.Tensor:
     """MCMC-averaged q-KG (d-KG with ``derivatives_to_sample``, cf-KG with
-    ``num_fidelity``) suggestion by the warm ("reseed") multistart: the
-    inner descents start from the previous outer step's argmins with one
-    step instead of ``inner_params.max_num_steps``.  The outer domain is
-    all d coordinates (fidelity coordinates included), the inner one the
-    first dim_opt.  Returns (num_to_sample, d)."""
+    ``num_fidelity``) suggestion; returns (num_to_sample, d).  The outer
+    domain is all d coordinates (fidelity coordinates included), the inner
+    one the first dim_opt.
+
+    Three routes, as in the JAX package: ``warm_start`` (the default) runs
+    the warm ("reseed") batched multistart, the inner descents starting
+    from the previous outer step's argmins with one step instead of
+    ``inner_params.max_num_steps``, gated by ``conv_tol``; ``use_batched``
+    without ``warm_start`` the cold batched multistart (no gate); neither,
+    the per-start multistart through :func:`knowledge_gradient_mcmc`.  A
+    ``group`` (``torch.distributed``) shards the restart axis over its
+    ranks (``parallel.sharding``); ``chunk_size`` equal to the per-rank
+    shard makes the batched routes equal to an unsharded run with that
+    chunking (the per-start route takes no chunking)."""
     ds = cov_mod.channels(derivatives_to_sample)
     if best_so_far is None:
         best_so_far = states.best_observed_value
@@ -671,9 +682,6 @@ def multistart_knowledge_gradient_mcmc_optimization(
                                       num_to_sample * (1 + len(ds)),
                                       device=starts.device,
                                       dtype=starts.dtype)
-    inner_warm = dataclasses.replace(inner_params, max_num_steps=1,
-                                     max_num_restarts=1,
-                                     num_steps_averaged=0)
 
     def bvg_cold(pts_batch):
         return knowledge_gradient_mcmc_batch_vg_carry(
@@ -681,12 +689,34 @@ def multistart_knowledge_gradient_mcmc_optimization(
             best_so_far, derivatives_to_sample=ds,
             num_fidelity=num_fidelity)
 
-    def bvg_warm(pts_batch, carry):
-        return knowledge_gradient_mcmc_batch_vg_carry(
-            states, pts_batch, discrete_pts, normals, inner, inner_warm,
-            best_so_far, inner_x0=carry,
-            derivatives_to_sample=ds, num_fidelity=num_fidelity)
+    if use_batched and warm_start:
+        inner_warm = dataclasses.replace(inner_params, max_num_steps=1,
+                                         max_num_restarts=1,
+                                         num_steps_averaged=0)
 
-    return optimizers.multistart_optimize_batched_warm(
-        bvg_cold, bvg_warm, rep, starts, params, chunk_size=chunk_size,
-        conv_tol=conv_tol).best_point
+        def bvg_warm(pts_batch, carry):
+            return knowledge_gradient_mcmc_batch_vg_carry(
+                states, pts_batch, discrete_pts, normals, inner, inner_warm,
+                best_so_far, inner_x0=carry,
+                derivatives_to_sample=ds, num_fidelity=num_fidelity)
+
+        res = sharding.sharded_multistart_optimize_batched_warm(
+            bvg_cold, bvg_warm, rep, starts, params, group,
+            chunk_size=chunk_size, conv_tol=conv_tol)
+    elif use_batched:
+        res = sharding.sharded_multistart_optimize_batched_gated(
+            lambda u: bvg_cold(u)[:2], rep, starts, params, group,
+            chunk_size=chunk_size)
+    else:
+        def vg(pts):
+            with torch.enable_grad():
+                u = pts.detach().requires_grad_(True)
+                val = knowledge_gradient_mcmc(
+                    states, u, discrete_pts, normals, inner, inner_params,
+                    best_so_far, ds, num_fidelity)
+                (g,) = torch.autograd.grad(val, u)
+            return val.detach(), g
+
+        res = sharding.sharded_multistart_optimize(vg, rep, starts, params,
+                                                   group)
+    return res.best_point

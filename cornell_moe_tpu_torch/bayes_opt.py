@@ -13,6 +13,13 @@ recommendation work on the other coordinates with the fidelity ones pinned
 to 1, and ``capital_so_far`` adds up the largest fidelity product of each
 observed batch.  Method "EI" maximizes q,p-EI on ensemble member 0.  The
 port runs eagerly; there is no cache of compiled programs.
+
+Scale-out (``n_devices`` or ``process_group``): every rank of a
+``torch.distributed`` group runs this loop from the same seed, and the
+multistarts' restart axis, the chain's walkers and the recommend grid are
+sharded over the ranks (``parallel.sharding``).  Rank 0 alone evaluates the
+objective, and the values are broadcast, so the observations never diverge;
+rank 0 alone prints and writes checkpoints, and every rank reads them.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cornell_moe_tpu_torch import config
 from cornell_moe_tpu_torch.acquisition import expected_improvement as ei_mod
@@ -31,6 +39,7 @@ from cornell_moe_tpu_torch.models import gp as gp_mod
 from cornell_moe_tpu_torch.models import mcmc as mcmc_mod
 from cornell_moe_tpu_torch.ops import optimizers
 from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+from cornell_moe_tpu_torch.parallel import sharding
 from cornell_moe_tpu_torch.utils import checkpoint as ckpt
 from cornell_moe_tpu_torch.utils.data_containers import (HistoricalData,
                                                          SamplePoint)
@@ -55,12 +64,13 @@ DEFAULT_SGD_PARAMS_RECOMMEND = optimizers.GradientDescentParameters(
 
 
 def _qei_suggest_arrays(generator, state, domain, params, num_to_sample,
-                        num_mc, conv_tol=None, chunk_size=None):
+                        num_mc, conv_tol=None, chunk_size=None, group=None):
     """One GP's q-EI suggestion (q, d) and its EI on fresh draws (model
     units)."""
     pts = ei_mod.multistart_expected_improvement_optimization(
         generator, state, domain, num_to_sample, params,
-        num_mc_iterations=num_mc, conv_tol=conv_tol, chunk_size=chunk_size)
+        num_mc_iterations=num_mc, conv_tol=conv_tol, chunk_size=chunk_size,
+        group=group)
     voi = ei_mod.evaluate_expected_improvement_at_point_list(
         state, pts[None], generator=generator, num_mc_iterations=num_mc)[0]
     return pts, voi
@@ -92,17 +102,19 @@ def seed_kg_discretization(generator, states, domain, qei_params=None,
                            ps_params=DEFAULT_SGD_PARAMS_PS,
                            num_qei_pts: int = 10, num_eval_pts: int = 1000,
                            num_mc: int = 2**10, conv_tol=None,
-                           chunk_size=None, num_fidelity: int = 0
-                           ) -> torch.Tensor:
+                           chunk_size=None, num_fidelity: int = 0,
+                           group=None) -> torch.Tensor:
     """Per-member inner-optimization seeds for KG, (S, num_qei_pts + 1,
     dim_opt): num_qei_pts points from ensemble q-EI plus each member's
     posterior-mean argmin (uniform eval points + its sampled points,
-    GD-polished), on the inner domain with fidelity coordinates pinned."""
+    GD-polished), on the inner domain with fidelity coordinates pinned.
+    A ``group`` shards the q-EI's restart axis."""
     if qei_params is None:
         qei_params = DEFAULT_SGD_PARAMS_KG
     discrete = ei_mod.multistart_expected_improvement_mcmc_optimization(
         generator, states, domain, num_qei_pts, qei_params,
-        num_mc_iterations=num_mc, conv_tol=conv_tol, chunk_size=chunk_size)
+        num_mc_iterations=num_mc, conv_tol=conv_tol, chunk_size=chunk_size,
+        group=group)
     s = states.points_sampled.shape[0]
     inner = kg_mod.inner_domain(domain, num_fidelity)
     dim_opt = inner.dim
@@ -129,7 +141,7 @@ def best_so_far_from_discretization(states, discrete_pts,
 def _qkg_suggest_arrays(generator, states, domain, discrete_pts, params,
                         inner_params, num_to_sample, num_mc, conv_tol=None,
                         chunk_size=None, derivatives_to_sample=(),
-                        num_fidelity: int = 0):
+                        num_fidelity: int = 0, group=None):
     """Suggested points (q, d) and their VOI (ensemble KG divided by the
     fidelity cost, model units).  The fantasy observations at the
     suggested points include the ``derivatives_to_sample`` channels
@@ -141,7 +153,7 @@ def _qkg_suggest_arrays(generator, states, domain, discrete_pts, params,
         generator, states, domain, num_to_sample, params, inner_params,
         discrete_pts, best_so_far=best_so_far, num_mc_iterations=num_mc,
         chunk_size=chunk_size, conv_tol=conv_tol, derivatives_to_sample=ds,
-        num_fidelity=num_fidelity)
+        num_fidelity=num_fidelity, group=group)
     normals = ei_mod.draw_antithetic_normals(
         generator, num_mc, num_to_sample * (1 + len(ds)), device=pts.device,
         dtype=pts.dtype)
@@ -167,10 +179,12 @@ def gen_sample_from_qkg_mcmc(generator, states, domain, discrete_pts,
 
 def recommend_from_guesses(states, domain, guesses: torch.Tensor,
                            params=DEFAULT_SGD_PARAMS_RECOMMEND,
-                           num_fidelity: int = 0) -> torch.Tensor:
+                           num_fidelity: int = 0, group=None
+                           ) -> torch.Tensor:
     """Best guess (G, dim_opt) under the ensemble-mean posterior mean
     (fidelity coordinates pinned to 1), then one GD polish over the inner
-    ``domain``; the polish is kept only if it improves."""
+    ``domain``; the polish is kept only if it improves.  A ``group`` shards
+    the guesses' evaluation over its ranks."""
     dim = guesses.shape[-1]
 
     def ensemble_neg_mean(x):                     # (..., dim_opt) -> (...)
@@ -178,7 +192,8 @@ def recommend_from_guesses(states, domain, guesses: torch.Tensor,
             states, kg_mod._pin_fidelity(x.reshape(-1, dim), num_fidelity))
         return -torch.mean(mu[..., 0], dim=0).reshape(x.shape[:-1])
 
-    vals = ensemble_neg_mean(guesses)
+    vals = sharding.sharded_point_evaluation(ensemble_neg_mean, guesses,
+                                             group)
     vals = torch.where(torch.isfinite(vals), vals, float("-inf"))
     x0 = guesses[torch.argmax(vals)]
 
@@ -227,9 +242,17 @@ class BayesianOptimizer:
     # KG's fantasy observations include the objective's observed derivative
     # channels (d-KG); False fantasizes value channels only
     kg_sample_derivatives: bool = True
+    # the restart axis's chunking (KG, the seeding q-EI and the EI suggest);
+    # with a process group, the per-rank shard by default, so that a
+    # sharded run equals an unsharded one given the same chunking
     suggest_chunk_size: Optional[int] = None
     device: Optional[object] = None
     dtype: Optional[torch.dtype] = None
+    # scale-out: a torch.distributed group, or n_devices to take the
+    # default one (sharding.default_process_group: the initialized group,
+    # else torchrun's, else a world of one)
+    n_devices: Optional[int] = None
+    process_group: Optional[object] = None
 
     def __post_init__(self):
         if self.method not in METHODS:
@@ -238,6 +261,14 @@ class BayesianOptimizer:
         f = self.objective_func
         self.num_fidelity = f._num_fidelity
         self.derivatives = tuple(int(i) for i in f._observations)
+        if self.process_group is None and self.n_devices:
+            self.process_group = sharding.default_process_group(
+                self.n_devices, self.device)
+        if self.process_group is not None and \
+                self.suggest_chunk_size is None:
+            self.suggest_chunk_size = max(
+                self.sgd_params.num_multistarts //
+                dist.get_world_size(self.process_group), 1)
         self.device = torch.device(self.device) if self.device is not None \
             else config.default_device()
         if self.dtype is None:
@@ -253,9 +284,28 @@ class BayesianOptimizer:
         self.history = []
         self.timer = PhaseTimer()
 
+    @property
+    def is_rank0(self) -> bool:
+        return self.process_group is None or \
+            dist.get_rank(self.process_group) == 0
+
     def _log(self, msg):
-        if self.verbose:
+        if self.verbose and self.is_rank0:
             print(msg, flush=True)
+
+    def _on_rank0(self, fn, *args):
+        """``fn(*args)`` run on rank 0 alone, its value broadcast to every
+        rank (the objective's evaluations)."""
+        if self.process_group is None:
+            return fn(*args)
+        value = fn(*args) if self.is_rank0 else None
+        return sharding.broadcast_from_rank0(value, self.process_group)
+
+    def _evaluate(self, points) -> list:
+        """The observed entries of ``evaluate`` at each point (rank 0's)."""
+        f = self.objective_func
+        return self._on_rank0(
+            lambda: [f.evaluate(pt)[self._obs_idx] for pt in points])
 
     def initialize(self, num_init_pts: Optional[int] = None):
         f = self.objective_func
@@ -263,10 +313,8 @@ class BayesianOptimizer:
         pts = self.domain.generate_latin_hypercube_points(
             self.generator, n).cpu().numpy()
         data = HistoricalData(self.dim, len(self.derivatives))
-        for pt in pts:
-            data.append_sample_points(
-                [SamplePoint(pt, f.evaluate(pt)[self._obs_idx],
-                             f._sample_var)])
+        for pt, val in zip(pts, self._evaluate(pts)):
+            data.append_sample_points([SamplePoint(pt, val, f._sample_var)])
         self.model = mcmc_mod.GaussianProcessLogLikelihoodMCMC(
             data, chain_length=self.chain_length,
             burnin_steps=self.burnin_steps, n_hypers=self.n_hypers,
@@ -274,7 +322,8 @@ class BayesianOptimizer:
             generator=self.generator, bucket=self.shape_bucket,
             standardize=self.standardize,
             chain_gate_tol=self.chain_gate_tol, device=self.device,
-            dtype=self.dtype, derivatives=self.derivatives)
+            dtype=self.dtype, derivatives=self.derivatives,
+            process_group=self.process_group)
         t0 = time.time()
         self.model.train()
         self._log(f"initial training took {time.time() - t0:.2f}s on "
@@ -296,7 +345,7 @@ class BayesianOptimizer:
                 qei_params=self.sgd_params, ps_params=self.inner_sgd_params,
                 conv_tol=self.seed_conv_tol,
                 chunk_size=self.suggest_chunk_size,
-                num_fidelity=self.num_fidelity)
+                num_fidelity=self.num_fidelity, group=self.process_group)
             pts, voi = _qkg_suggest_arrays(
                 self.generator, states, self.domain, discrete,
                 self.sgd_params, self.inner_sgd_params, self.num_to_sample,
@@ -304,14 +353,14 @@ class BayesianOptimizer:
                 chunk_size=self.suggest_chunk_size,
                 derivatives_to_sample=self.derivatives
                 if self.kg_sample_derivatives else (),
-                num_fidelity=self.num_fidelity)
+                num_fidelity=self.num_fidelity, group=self.process_group)
         else:
             # q,p-EI on a single GP, member 0 of the ensemble
             pts, voi = _qei_suggest_arrays(
                 self.generator, mcmc_mod.ensemble_member(states, 0),
                 self.domain, self.sgd_params, self.num_to_sample,
                 self.num_mc, conv_tol=self.suggest_conv_tol,
-                chunk_size=self.suggest_chunk_size)
+                chunk_size=self.suggest_chunk_size, group=self.process_group)
         # VOI back to raw units (KG and EI are linear in the value scale)
         pts = pts.cpu().numpy()
         voi = float(voi) * self.model.value_scale
@@ -321,9 +370,9 @@ class BayesianOptimizer:
 
     def observe(self, points):
         f = self.objective_func
-        sampled = [SamplePoint(pt, f.evaluate(pt)[self._obs_idx],
-                               f._sample_var)
-                   for pt in np.atleast_2d(points)]
+        points = np.atleast_2d(points)
+        sampled = [SamplePoint(pt, val, f._sample_var)
+                   for pt, val in zip(points, self._evaluate(points))]
         if self.num_fidelity:
             capitals = np.prod(np.atleast_2d(points)[
                 :, self.dim - self.num_fidelity:], axis=1)
@@ -346,30 +395,38 @@ class BayesianOptimizer:
         guesses = torch.cat([eval_pts,
                              states.points_sampled[0][:, :inner.dim]], dim=0)
         best = recommend_from_guesses(states, inner, guesses,
-                                      num_fidelity=self.num_fidelity)
+                                      num_fidelity=self.num_fidelity,
+                                      group=self.process_group)
         self._log(f"recommendation took {time.time() - t0:.2f}s")
         return np.concatenate([best.cpu().numpy(),
                                np.ones(self.num_fidelity)])
 
     def save_checkpoint(self, iteration: int) -> None:
         """Write the data, the model's walker state and the generator's
-        state to ``checkpoint_path`` (nothing when it is None)."""
+        state to ``checkpoint_path`` (nothing when it is None).  In a group
+        rank 0 writes, and every rank waits until it has."""
         if self.checkpoint_path is None:
             return
-        ckpt.save_checkpoint(
-            self.checkpoint_path, self.model._data, mcmc_model=self.model,
-            generator=self.generator,
-            metadata={"iteration": iteration, "method": self.method,
-                      "capital": self.capital_so_far})
+        if self.is_rank0:
+            ckpt.save_checkpoint(
+                self.checkpoint_path, self.model._data,
+                mcmc_model=self.model, generator=self.generator,
+                metadata={"iteration": iteration, "method": self.method,
+                          "capital": self.capital_so_far})
+        if self.process_group is not None:
+            dist.barrier(group=self.process_group)
 
     def resume(self, path: Optional[str] = None) -> dict:
         """Restore the model (data, walker state, ensemble) and the
         generator's state from a checkpoint; returns its metadata (the last
         completed iteration among it).  A JAX package checkpoint carries
-        no generator state: the generator is then seeded from ``seed``."""
+        no generator state: the generator is then seeded from ``seed``.
+        Every rank reads the checkpoint; the driver's process group is
+        attached to the restored model."""
         self.model, manifest = ckpt.restore_mcmc_model(
             path or self.checkpoint_path, generator=self.generator,
             seed=self.seed, device=self.device, dtype=self.dtype)
+        self.model.process_group = self.process_group
         self.capital_so_far = manifest["metadata"].get("capital", 0.0)
         return manifest["metadata"]
 
@@ -389,7 +446,8 @@ class BayesianOptimizer:
                 self.observe(pts)
             with self.timer.phase("recommend"):
                 report = self.recommend()
-            true_val = float(self.objective_func.evaluate_true(report)[0])
+            true_val = float(self._on_rank0(
+                self.objective_func.evaluate_true, report)[0])
             self._log(f"recommended point {report}, true value "
                       f"{true_val:.6f}")
             self.history.append({

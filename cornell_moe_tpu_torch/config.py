@@ -7,6 +7,8 @@ the defaults for entry points that create tensors from numpy data.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 # Jitter on the diagonal of the union posterior covariance inside the MC-EI
@@ -22,13 +24,14 @@ F32_CHOLESKY_JITTER = 1.0e-6
 
 
 def default_device() -> torch.device:
-    """``cuda:0``, the device of an entry point given none.  Raises
+    """``cuda:0``, or ``cuda:LOCAL_RANK`` on a rank of a ``torchrun``
+    launch: the device of an entry point given none.  Raises
     ``RuntimeError`` when no CUDA card is present: the CPU is taken only
     when the caller asks for it (``device="cpu"``)."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA card: pass device='cpu' to run on the CPU")
-    return torch.device("cuda:0")
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
 
 
 def default_dtype(device) -> torch.dtype:

@@ -28,6 +28,7 @@ from cornell_moe_tpu_torch.models import gp as gp_mod
 from cornell_moe_tpu_torch.models import likelihood as lik_mod
 from cornell_moe_tpu_torch.models.priors import DefaultPrior
 from cornell_moe_tpu_torch.ops import kernels
+from cornell_moe_tpu_torch.parallel import sharding
 
 # Hard bounds on log-hyperparameters.
 LOG_BOUND = 20.0
@@ -253,6 +254,10 @@ class GaussianProcessLogLikelihoodMCMC:
     the stretch-move ensemble; ``train()`` burns in once, then continues
     the chain (gated when ``chain_gate_tol`` is set, with ``chain_length``
     as the cap) and keeps ``n_hypers`` random walkers as the ensemble.
+    With a ``process_group`` the walkers' log-posteriors are computed in
+    blocks, one per rank, and gathered (``parallel.sharding``): every rank
+    holds every walker's value, so the gate stops every rank's chain at
+    the same step.
     ``optimize()`` is the MAP alternative: one member at the best end of a
     multistart damped Newton.
     """
@@ -263,8 +268,10 @@ class GaussianProcessLogLikelihoodMCMC:
                  generator: Optional[torch.Generator] = None,
                  bucket: int = 0, standardize: bool = False,
                  chain_gate_tol: Optional[float] = None,
-                 device=None, dtype=None, derivatives: Sequence[int] = ()):
+                 device=None, dtype=None, derivatives: Sequence[int] = (),
+                 process_group=None):
         self._data = historical_data
+        self.process_group = process_group
         self.device = torch.device(device) if device is not None \
             else config.default_device()
         self.dtype = dtype if dtype is not None else \
@@ -387,7 +394,9 @@ class GaussianProcessLogLikelihoodMCMC:
             x, y, point_noise = self._padded_data()
 
             def log_prob(t):
-                return self.log_posterior(t, x, y, point_noise)
+                return sharding.sharded_point_evaluation(
+                    lambda tt: self.log_posterior(tt, x, y, point_noise), t,
+                    self.process_group)
 
             gen = self.generator
             if not self.burned:

@@ -199,6 +199,12 @@ def _chunked_multistart(run_batch: Callable, value_fn: Callable,
     else:
         final_points = run_batch(initial_points)
         values = value_fn(final_points)
+    return select_best(final_points, values)
+
+
+def select_best(final_points: torch.Tensor, values: torch.Tensor
+                ) -> MultistartResult:
+    """The argmax over every start's endpoint (non-finite values lose)."""
     safe = torch.where(torch.isfinite(values), values, float("-inf"))
     best = int(torch.argmax(safe))
     return MultistartResult(best_point=final_points[best],

@@ -188,7 +188,9 @@ def test_port_imports_no_jax():
         "from cornell_moe_tpu_torch.ops import _build, domains, kernels, "
         "linalg, optimizers, random_features\n"
         "from cornell_moe_tpu_torch.utils import checkpoint, "
-        "data_containers, hesbo, logging_utils, synthetic_functions\n"
+        "data_containers, hesbo, logging_utils, real_functions, "
+        "synthetic_functions\n"
+        "from cornell_moe_tpu_torch.parallel import sharding, spawn\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'cornell_moe_tpu')]\n"
         "print(bad)\n"

@@ -35,6 +35,7 @@ from cornell_moe_tpu_torch.ops import optimizers as topt
 from cornell_moe_tpu_torch.ops.domains import RepeatedDomain as TRep
 from cornell_moe_tpu_torch.ops.domains import TensorProductDomain as TDom
 from cornell_moe_tpu_torch.utils import checkpoint as tck
+from cornell_moe_tpu_torch.utils import real_functions as trf
 from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
 
 torch.set_num_threads(1)
@@ -547,34 +548,52 @@ def test_sampling_helpers_run(ens):
 # the command line
 # ---------------------------------------------------------------------------
 
+def _cpu_sized_cifar10():
+    """CIFAR10 on 40 synthetic images for one epoch, its channel widths cut
+    to 2^5 (log2 units in [5, 5.4]) so that a training run takes a
+    fraction of a second on the CPU."""
+    f = trf.CIFAR10(epochs=1, subset=40)
+    f._search_domain[2:] = [5.0, 5.4]
+    return f
+
+
 @pytest.fixture
 def tiny_cli(monkeypatch):
-    """The command line with the optimizer at tiny sizes."""
+    """The command line with the optimizer and the real objectives at tiny
+    sizes."""
     sgd = topt.GradientDescentParameters(**dict(SGD, max_num_steps=2))
     monkeypatch.setattr(cli, "BayesianOptimizer", functools.partial(
         tbo.BayesianOptimizer, n_hypers=4, burnin_steps=20, chain_length=64,
         sgd_params=sgd, num_mc=8, verbose=False))
+    monkeypatch.setitem(cli.REAL_FUNCTIONS, "KISSGP", functools.partial(
+        trf.KISSGP, n_data=60, grid_size=20))
+    monkeypatch.setitem(cli.REAL_FUNCTIONS, "CIFAR10", _cpu_sized_cifar10)
 
 
 @pytest.mark.parametrize("args", [
     ["Branin", "EI", "2", "1", "none", "0", "1"],
     ["Branin", "KG", "2", "1", "none", "0", "1"],
-    ["Hartmann6", "EI", "1", "1", "HeSBO", "2", "1"]],
-    ids=["branin_ei", "branin_kg", "hartmann6_hesbo"])
+    ["Hartmann6", "EI", "1", "1", "HeSBO", "2", "1"],
+    ["KISSGP", "KG", "1", "1", "none", "0", "1"],
+    ["CIFAR10", "EI", "1", "1", "none", "0", "1"],
+    ["Branin", "KG", "2", "1", "none", "0", "1", "--devices=1"]],
+    ids=["branin_ei", "branin_kg", "hartmann6_hesbo", "kissgp", "cifar10",
+         "devices_1"])
 def test_command_line_runs_on_the_cpu(tiny_cli, capsys, args):
     assert cli.main(["main"] + args + ["--device=cpu"]) == 0
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last.startswith("final best recommended value: ")
     assert np.isfinite(float(last.split()[4]))
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("args,says", [
-    (["Branin", "EI", "2", "1", "--devices=2"], "Queue 1 item 6"),
-    (["KISSGP", "EI", "2", "1", "--device=cpu"], "real_functions"),
-    (["CIFAR10", "KG", "2", "1", "--device=cpu"], "real_functions"),
+    (["Branin", "EI", "2", "1", "--devices=2"],
+     "torchrun --nproc_per_node=2"),
+    (["Branin", "EI", "2", "1", "--devices", "2"], "use --devices=N"),
     (["Nowhere", "EI", "2", "1", "--device=cpu"], "unknown objective"),
     (["Branin", "EI", "2", "1", "--device", "cpu"], "requires '='")],
-    ids=["devices", "kissgp", "cifar10", "unknown", "device_without_eq"])
+    ids=["devices", "devices_without_eq", "unknown", "device_without_eq"])
 def test_command_line_refusals_exit_1(capsys, args, says):
     assert cli.main(["main"] + args) == 1
     assert says in capsys.readouterr().out
