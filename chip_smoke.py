@@ -45,7 +45,11 @@ plain version there), the MAP fit on its model (no launch of B), a
 checkpoint and resume at a reduced depth (the resumed iteration equal bit
 for bit to an uninterrupted one) and the command line
 (``cornell_moe_tpu_torch.main``) on Branin, on Hartmann6 through HeSBO and
-on KISSGP (d-KG on a real-function objective).
+on KISSGP (d-KG on a real-function objective).  It runs the upstream
+Cornell-MOE class flow through ``compat`` at the main path's width (the
+chain, the ensemble, the KG multistart held bit for bit to the core's with
+and without a point being sampled, the recommendation) and the single-GP
+surface against its float64 CPU refit.
 Last it checks the port against its own float64 CPU path on small inputs:
 value-only, with derivative channels, with a fidelity dim, PES and EI.
 Every phase
@@ -1950,6 +1954,258 @@ def phase_cli(torch) -> None:
             f"the command line {args!r} failed: {run}")
 
 
+# The compat phase's single-GP check points and its chain depth
+# (BayesianOptimizer's defaults); the single GP's float32 posterior is held
+# to the float64 refit as the LCB phase holds member 0 (LCB_*_RTOL)
+COMPAT_POINTS, COMPAT_BURNIN, COMPAT_CHAIN = 100, 2000, 1000
+
+
+def phase_compat(torch) -> None:
+    """The upstream Cornell-MOE class flow through ``compat`` at the main
+    path's full width: Branin on its raw domain, 500 observations (no
+    bucket: the compat classes fit the data as given), 16 members, q = 4,
+    200 multistarts, 128 MC draws, float32 on the card.
+    ``GaussianProcessLogLikelihoodMCMC.train`` (kernel B; the model's fit,
+    C) -> ``GaussianProcessMCMC`` from the trained walkers (C at S16 n500)
+    -> ``KnowledgeGradientMCMC`` on the main path's seeded discretization
+    with ``GradientDescentOptimizer`` and
+    ``multistart_knowledge_gradient_mcmc_optimization`` (A), held bit for
+    bit to the core's multistart from the same generator state, once with
+    q = 4 and once with q = 3 and one point being sampled (A at union
+    width 4) -> ``PosteriorMeanMCMC`` polished by
+    ``GradientDescentOptimizer`` (the recommendation).  Then the
+    single-GP surface on member 0: ``GaussianProcess`` (C at S1 n500)
+    against its float64 CPU refit at COMPAT_POINTS points, analytic EI and
+    its multistart (q = 1), and ``KnowledgeGradient``'s value and gradient
+    at a q = 4 union (no kernel).  Last it records what float32 makes of
+    duplicate points with zero noise (the CPU tests' SingularMatrixError
+    case; C at S1 n2 d1).  Every launch counter is set to 0 at the start
+    and read at the end (each stage's launches too, the core comparisons'
+    kept apart)."""
+    import dataclasses
+
+    import numpy as np
+    from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
+    from cornell_moe_tpu_torch.bayes_opt import (
+        DEFAULT_SGD_PARAMS_KG, DEFAULT_SGD_PARAMS_PS,
+        DEFAULT_SGD_PARAMS_RECOMMEND, seed_kg_discretization)
+    from cornell_moe_tpu_torch.compat import covariance as cov_c
+    from cornell_moe_tpu_torch.compat import domain as dom_c
+    from cornell_moe_tpu_torch.compat import expected_improvement as ei_c
+    from cornell_moe_tpu_torch.compat import gaussian_process as gp_c
+    from cornell_moe_tpu_torch.compat import knowledge_gradient as kg_c
+    from cornell_moe_tpu_torch.compat import knowledge_gradient_mcmc as kgm_c
+    from cornell_moe_tpu_torch.compat import optimization as opt_c
+    from cornell_moe_tpu_torch.compat.log_likelihood_mcmc import \
+        GaussianProcessLogLikelihoodMCMC
+    from cornell_moe_tpu_torch.exceptions import SingularMatrixError
+    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.utils.data_containers import HistoricalData
+    from cornell_moe_tpu_torch.utils.geometry import ClosedInterval
+    from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
+
+    f32 = dict(device=DEVICE, dtype=torch.float32)
+    f = Branin()
+    bounds = f._search_domain
+    r = np.random.default_rng(0)
+    x = bounds[:, 0] + r.random((NUM_OBS, 2)) * (bounds[:, 1] - bounds[:, 0])
+    y = np.array([f.evaluate_true(p)[0] for p in x])
+    params = dataclasses.replace(DEFAULT_SGD_PARAMS_KG,
+                                 num_multistarts=MULTISTARTS)
+    stages, stage_launches, widths = {}, {}, []
+    names = {"A": "descent_run", "B": "lml_fused",
+             "C": "covariance_with_noise"}
+
+    def abc(counts):
+        return {k: counts[v] + counts.get(v + "_fma", 0) +
+                counts.get(v + "_global", 0) for k, v in names.items()}
+
+    def stage(name, fn):
+        before = abc(kernels.launch_counts())
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.time() - t0
+        after = abc(kernels.launch_counts())
+        stage_launches[name] = {k: after[k] - before[k] for k in after}
+        return out
+
+    descent_run = kernels.descent_run
+
+    def recording(xs0, ws, wt, beta, z, us, *args, **kw):
+        widths.append(int(us.shape[2]))
+        return descent_run(xs0, ws, wt, beta, z, us, *args, **kw)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    kernels.descent_run = recording
+    try:
+        data = HistoricalData(2)
+        data.append_historical_data(x, y)
+        model = GaussianProcessLogLikelihoodMCMC(
+            data, chain_length=COMPAT_CHAIN, burnin_steps=COMPAT_BURNIN,
+            n_hypers=N_HYPERS, noisy=True, chain_gate_tol=1.0, bucket=16,
+            standardize=True, generator=torch.Generator(
+                device=DEVICE).manual_seed(0), **f32)
+        stage("train", model.train)
+        hypers, noises = model._hypers, model._noises
+        scaled = HistoricalData(2)
+        scaled.append_historical_data(x, model._scaled_values())
+        gp_mcmc = stage("gaussian_process_mcmc",
+                        lambda: kgm_c.GaussianProcessMCMC(
+                            hypers, noises, scaled, **f32))
+        domain = dom_c.TensorProductDomain(
+            [ClosedInterval(*b) for b in bounds], **f32)
+        discrete = stage("discretization", lambda: seed_kg_discretization(
+            torch.Generator(device=DEVICE).manual_seed(2), gp_mcmc.states,
+            domain.core, conv_tol=3e-3)).cpu().numpy()
+
+        def suggest(num_to_sample, being):
+            kg_obj = kgm_c.KnowledgeGradientMCMC(
+                gp_mcmc, inner_optimizer=DEFAULT_SGD_PARAMS_PS,
+                discrete_pts_list=list(discrete),
+                num_to_sample=num_to_sample, num_mc_iterations=NUM_MC,
+                points_being_sampled=being, generator=3)
+            gen = torch.Generator(device=DEVICE).manual_seed(1)
+            state = gen.get_state()
+            tag = f"q{num_to_sample}_p{0 if being is None else len(being)}"
+            picks = stage("suggest_" + tag, lambda: kgm_c.
+                          multistart_knowledge_gradient_mcmc_optimization(
+                              opt_c.GradientDescentOptimizer(
+                                  domain, kg_obj, params), generator=gen))
+            gen.set_state(state)
+            core = stage("core_" + tag, lambda: kg.
+                         multistart_knowledge_gradient_mcmc_optimization(
+                             gen, gp_mcmc.states, domain.core,
+                             num_to_sample, params, DEFAULT_SGD_PARAMS_PS,
+                             kg_obj._discrete_pts,
+                             points_being_sampled=kg_obj._being(),
+                             best_so_far=kg_obj._best_so_far_list,
+                             num_mc_iterations=NUM_MC)).cpu().numpy()
+            kg_obj.set_current_point(picks)
+            voi = stage("voi_" + tag, kg_obj.compute_knowledge_gradient_mcmc)
+            return picks, core, voi
+
+        width_start = len(widths)
+        picks, core, voi = suggest(Q, None)
+        widths_q = sorted(set(widths[width_start:]))
+        width_start = len(widths)
+        picks_b, core_b, voi_b = suggest(Q - 1, picks[:1])
+        widths_qp = sorted(set(widths[width_start:]))
+
+        ps = kgm_c.PosteriorMeanMCMC(gp_mcmc)
+        ps.set_current_point(data.best_point)
+        start_value = ps.compute_objective_function()
+        recommended = stage("recommend", opt_c.GradientDescentOptimizer(
+            domain, ps, DEFAULT_SGD_PARAMS_RECOMMEND).optimize)
+        rec_value = ps.compute_objective_function()
+
+        member = {}
+        for where, kw in (("card", f32),
+                          ("cpu64", dict(device="cpu",
+                                         dtype=torch.float64))):
+            member[where] = stage("gaussian_process_" + where,
+                                  lambda: gp_c.GaussianProcess(
+                                      cov_c.MaternNu2p5(hypers[0], **kw),
+                                      noises[0], scaled))
+        pts = bounds[:, 0] + r.random((COMPAT_POINTS, 2)) * (
+            bounds[:, 1] - bounds[:, 0])
+        mu, mu64 = (member[k].compute_mean_of_points(pts)
+                    for k in ("card", "cpu64"))
+        var, var64 = (member[k].compute_variance_of_points(pts)
+                      for k in ("card", "cpu64"))
+        alpha = float(hypers[0][0])
+        errs = {"posterior_mean": float(np.max(np.abs(mu - mu64))) / max(
+                    1.0, float(np.max(np.abs(mu64)))),
+                "posterior_variance": float(np.max(np.abs(var - var64))) /
+                alpha}
+        gp = member["card"]
+        ei = ei_c.ExpectedImprovement(gp, points_to_sample=[data.best_point])
+        ei_start = ei.compute_expected_improvement()
+        ei_pick = stage("ei_multistart", lambda: ei_c.
+                        multistart_expected_improvement_optimization(
+                            opt_c.GradientDescentOptimizer(domain, ei,
+                                                           params),
+                            num_to_sample=1))
+        ei.set_current_point(ei_pick)
+        ei_value = ei.compute_expected_improvement()
+        kg_one = kg_c.KnowledgeGradient(gp, DEFAULT_SGD_PARAMS_PS,
+                                        discrete[0], points_to_sample=picks,
+                                        num_mc_iterations=NUM_MC)
+        kg_value = stage("knowledge_gradient",
+                         kg_one.compute_knowledge_gradient)
+        kg_grad = stage("knowledge_gradient_grad",
+                        kg_one.compute_grad_knowledge_gradient)
+        # what float32 (with its relative Cholesky jitter) makes of the
+        # CPU tests' singular case: duplicate points, zero noise
+        duplicate = HistoricalData(1)
+        duplicate.append_historical_data(np.array([[0.5], [0.5]]),
+                                         np.array([1.0, 1.0]))
+        try:
+            gp_c.GaussianProcess(cov_c.SquareExponential([1.0, 1.0], **f32),
+                                 [0.0], duplicate)
+            singular = "factored"
+        except SingularMatrixError:
+            singular = "raised SingularMatrixError"
+    finally:
+        kernels.descent_run = descent_run
+    launches = abc(kernels.launch_counts())
+    comparisons = {k: sum(v[k] for s_, v in stage_launches.items()
+                          if s_.startswith("core_")) for k in names}
+    bitwise = {"q4": bool(np.array_equal(picks, core)),
+               "q3_p1": bool(np.array_equal(picks_b, core_b))}
+    emit({"phase": "compat_path", "num_sampled": NUM_OBS,
+          "ensemble": int(gp_mcmc.num_mcmc), "q": Q,
+          "multistarts": MULTISTARTS, "num_mc": NUM_MC,
+          "chain_steps": model.chain_steps,
+          "members_replaced": model.members_replaced,
+          "picks": picks.tolist(), "voi": voi,
+          "picks_with_point_being_sampled": picks_b.tolist(),
+          "point_being_sampled": picks[:1].tolist(),
+          "voi_with_point_being_sampled": voi_b,
+          "bitwise_equal_to_core": bitwise,
+          "descent_run_union_widths": {"q4": widths_q, "q3_p1": widths_qp},
+          "recommended": recommended.tolist(),
+          "recommended_neg_mean": rec_value,
+          "start_neg_mean": start_value,
+          "max_err_over_scale": errs,
+          "tolerance": f"|mu32 - mu64| <= {LCB_MEAN_RTOL} max(1, max "
+                       f"|mu64|); |var32 - var64| <= {LCB_VARIANCE_RTOL} "
+                       "alpha, at every pair of the points",
+          "ei_at_best_point": ei_start, "ei_pick": ei_pick.tolist(),
+          "ei_at_pick": ei_value, "single_gp_kg": kg_value,
+          "single_gp_kg_grad": kg_grad.tolist(),
+          "duplicate_points_zero_noise_float32": singular,
+          "launches": launches,
+          "launches_of_the_core_comparisons": comparisons,
+          "launches_by_stage": stage_launches, "seconds": stages})
+    for k in names:
+        check(launches[k] - comparisons[k] > 0,
+              f"the compat path did not launch kernel {k}")
+    check(all(bitwise.values()),
+          f"the compat picks differ from the core's: {bitwise}")
+    check(widths_q == [Q] and widths_qp == [Q],
+          f"kernel A's union widths {widths_q} / {widths_qp}, expected "
+          f"[{Q}] with and without a point being sampled")
+    check(_domain_check(picks, bounds) and _domain_check(picks_b, bounds) and
+          picks.shape == (Q, 2) and picks_b.shape == (Q - 1, 2),
+          "compat picks are not q points inside the domain")
+    check(math.isfinite(voi) and math.isfinite(voi_b),
+          f"compat VOI not finite: {voi}, {voi_b}")
+    check(_domain_check(recommended, bounds) and rec_value >= start_value,
+          "the compat recommendation left the domain or lost to its start")
+    check(errs["posterior_mean"] <= LCB_MEAN_RTOL and
+          errs["posterior_variance"] <= LCB_VARIANCE_RTOL,
+          f"the card's single GP disagrees with its float64 refit: {errs}")
+    check(_domain_check(ei_pick, bounds) and math.isfinite(ei_value) and
+          ei_value >= 0.0, f"compat EI pick {ei_pick} ({ei_value}) invalid")
+    check(math.isfinite(kg_value) and bool(np.isfinite(kg_grad).all()),
+          f"single-GP KG not finite: {kg_value}, {kg_grad}")
+    check(stage_launches["knowledge_gradient"]["A"] == 0 and
+          stage_launches["knowledge_gradient_grad"]["A"] == 0,
+          "the single-GP KG launched kernel A")
+
+
 def phase_small_reference_ei(torch) -> None:
     """The card's float32 EI paths against the port's own float64 CPU path
     on a 12-point problem (S 2, bucket 16): the closed-form EI at 6
@@ -2083,6 +2339,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_checkpoint_resume(torch)
     phase_cli(torch)
+    phase_compat(torch)
     phase_small_reference(torch)
     phase_small_reference_ei(torch)
     check("jax" not in sys.modules and "cornell_moe_tpu" not in sys.modules,

@@ -1,10 +1,15 @@
 """MCMC-averaged q-Knowledge-Gradient, d-KG and continuous-fidelity KG
 (cf-KG), and posterior-mean optimization.
 
-Counterpart of ``cornell_moe_tpu/acquisition/knowledge_gradient.py`` (no
-points-being-sampled).  Every function takes an ensemble
-state with a leading axis S and works on all members at once, where the JAX
-package vmaps over them.  The state may observe derivative channels
+Counterpart of ``cornell_moe_tpu/acquisition/knowledge_gradient.py``.
+Every function takes an ensemble state with a leading axis S and works on
+all members at once, where the JAX package vmaps over them; the single-GP
+surface (:func:`knowledge_gradient_value_and_grad`,
+:func:`multistart_knowledge_gradient_optimization`,
+:func:`posterior_mean_optimization`) takes one GP and runs it as an
+ensemble of one.  A union is the points to sample followed by the points
+being sampled: gradients flow to the former only, and the fidelity cost
+counts the former only.  The state may observe derivative channels
 (``state.derivatives``), and the fantasy observations at the union may
 include the derivative channels ``derivatives_to_sample`` (d-KG): each
 union point then carries 1 + ms channels, q_ch = q (1 + ms) in all.  With
@@ -49,7 +54,7 @@ from typing import Optional, Sequence
 import torch
 
 from cornell_moe_tpu_torch.acquisition.expected_improvement import (
-    _with_member_axes, draw_antithetic_normals)
+    _batch_unions, _union, _with_member_axes, draw_antithetic_normals)
 from cornell_moe_tpu_torch.models import covariance as cov_mod
 from cornell_moe_tpu_torch.models import gp as gp_mod
 from cornell_moe_tpu_torch.models.gp import GaussianProcessState
@@ -471,16 +476,27 @@ def knowledge_gradient(state: GaussianProcessState, union: torch.Tensor,
     return torch.mean(best_posterior[:, None] - best_min, dim=1)
 
 
+def _num_to_sample(unions: torch.Tensor, num_to_sample: Optional[int]
+                   ) -> int:
+    """The points to sample of unions (..., q + p, d): the first
+    ``num_to_sample``, every point when None."""
+    return unions.shape[-2] if num_to_sample is None else num_to_sample
+
+
 def knowledge_gradient_mcmc(states: GaussianProcessState, union, discrete_pts,
                             normals, domain, inner_params, best_so_far,
                             derivatives_to_sample: Sequence[int] = (),
-                            num_fidelity: int = 0) -> torch.Tensor:
-    """Ensemble mean of :func:`knowledge_gradient` divided by the union's
-    fidelity cost (every union point is a point to sample)."""
+                            num_fidelity: int = 0,
+                            num_to_sample: Optional[int] = None
+                            ) -> torch.Tensor:
+    """Ensemble mean of :func:`knowledge_gradient` divided by the fidelity
+    cost of the union's first ``num_to_sample`` points (the points to
+    sample; all of them when None)."""
     kg = torch.mean(knowledge_gradient(states, union, discrete_pts, normals,
                                        domain, inner_params, best_so_far,
                                        derivatives_to_sample, num_fidelity))
-    return kg / fidelity_cost(union, union.shape[0], num_fidelity)
+    return kg / fidelity_cost(union, _num_to_sample(union, num_to_sample),
+                              num_fidelity)
 
 
 def evaluate_knowledge_gradient_at_point_list(
@@ -611,15 +627,18 @@ def knowledge_gradient_mcmc_batch(states, unions, discrete_pts, normals,
                                   inner_x0=None,
                                   derivatives_to_sample: Sequence[int] = (),
                                   num_fidelity: int = 0,
-                                  warm_mode: str = "reseed"):
-    """Ensemble-averaged batched KG divided by each union's fidelity cost:
-    ((B,), endpoints (S, B, M, dim_opt))."""
+                                  warm_mode: str = "reseed",
+                                  num_to_sample: Optional[int] = None):
+    """Ensemble-averaged batched KG divided by the fidelity cost of each
+    union's first ``num_to_sample`` points (all when None): ((B,),
+    endpoints (S, B, M, dim_opt))."""
     kg, x_star = knowledge_gradient_batch(states, unions, discrete_pts,
                                           normals, domain, inner_params,
                                           best_so_far, inner_x0,
                                           derivatives_to_sample, num_fidelity,
                                           warm_mode)
-    costs = fidelity_cost(unions, unions.shape[1], num_fidelity)
+    costs = fidelity_cost(unions, _num_to_sample(unions, num_to_sample),
+                          num_fidelity)
     return torch.mean(kg, dim=0) / costs, x_star
 
 
@@ -629,8 +648,12 @@ def knowledge_gradient_mcmc_batch_vg_carry(states, unions, discrete_pts,
                                            derivatives_to_sample: Sequence[
                                                int] = (),
                                            num_fidelity: int = 0,
-                                           warm_mode: str = "reseed"):
-    """((B,) values, (B, q, d) gradients, endpoints (S, B, M, dim_opt)).
+                                           warm_mode: str = "reseed",
+                                           num_to_sample: Optional[int] = None
+                                           ):
+    """((B,) values, (B, q + p, d) gradients, endpoints (S, B, M,
+    dim_opt)); the cost counts each union's first ``num_to_sample``
+    points.
 
     Each union's value depends only on its own block, so the gradient of
     the sum is the per-union gradient.  It flows into the fidelity
@@ -641,7 +664,7 @@ def knowledge_gradient_mcmc_batch_vg_carry(states, unions, discrete_pts,
         vals, x_star = knowledge_gradient_mcmc_batch(
             states, u, discrete_pts, normals, domain, inner_params,
             best_so_far, inner_x0, derivatives_to_sample, num_fidelity,
-            warm_mode)
+            warm_mode, num_to_sample)
         (grads,) = torch.autograd.grad(vals.sum(), u)
     return vals.detach(), grads, x_star
 
@@ -650,16 +673,19 @@ def multistart_knowledge_gradient_mcmc_optimization(
         generator: torch.Generator, states: GaussianProcessState, domain,
         num_to_sample: int, params: optimizers.GradientDescentParameters,
         inner_params: optimizers.GradientDescentParameters,
-        discrete_pts: torch.Tensor, best_so_far=None,
-        num_mc_iterations: int = 128, chunk_size: Optional[int] = None,
-        conv_tol: Optional[float] = None,
+        discrete_pts: torch.Tensor, points_being_sampled=None,
+        best_so_far=None, num_mc_iterations: int = 128,
+        chunk_size: Optional[int] = None, conv_tol: Optional[float] = None,
         derivatives_to_sample: Sequence[int] = (),
         num_fidelity: int = 0, use_batched: bool = True,
         warm_start: bool = True, group=None) -> torch.Tensor:
     """MCMC-averaged q-KG (d-KG with ``derivatives_to_sample``, cf-KG with
     ``num_fidelity``) suggestion; returns (num_to_sample, d).  The outer
     domain is all d coordinates (fidelity coordinates included), the inner
-    one the first dim_opt.
+    one the first dim_opt.  ``points_being_sampled`` (p, d) follow every
+    start block in its union (q + p points, the fantasy over all of them);
+    the gradient moves the q points to sample alone, and the fidelity
+    cost counts them alone.
 
     Three routes, as in the JAX package: ``warm_start`` (the default) runs
     the warm ("reseed") batched multistart, the inner descents starting
@@ -674,20 +700,26 @@ def multistart_knowledge_gradient_mcmc_optimization(
     ds = cov_mod.channels(derivatives_to_sample)
     if best_so_far is None:
         best_so_far = states.best_observed_value
+    being = None if points_being_sampled is None or \
+        points_being_sampled.numel() == 0 else \
+        points_being_sampled.reshape(-1, states.dim)
+    p = 0 if being is None else being.shape[0]
+    q = num_to_sample
     inner = inner_domain(domain, num_fidelity)
-    rep = RepeatedDomain(domain=domain, num_repeats=num_to_sample)
+    rep = RepeatedDomain(domain=domain, num_repeats=q)
     starts = rep.generate_latin_hypercube_points(generator,
                                                  params.num_multistarts)
     normals = draw_antithetic_normals(generator, num_mc_iterations,
-                                      num_to_sample * (1 + len(ds)),
+                                      (q + p) * (1 + len(ds)),
                                       device=starts.device,
                                       dtype=starts.dtype)
 
     def bvg_cold(pts_batch):
-        return knowledge_gradient_mcmc_batch_vg_carry(
-            states, pts_batch, discrete_pts, normals, inner, inner_params,
-            best_so_far, derivatives_to_sample=ds,
-            num_fidelity=num_fidelity)
+        vals, grads, xs = knowledge_gradient_mcmc_batch_vg_carry(
+            states, _batch_unions(pts_batch, being), discrete_pts, normals,
+            inner, inner_params, best_so_far, derivatives_to_sample=ds,
+            num_fidelity=num_fidelity, num_to_sample=q)
+        return vals, grads[:, :q], xs
 
     if use_batched and warm_start:
         inner_warm = dataclasses.replace(inner_params, max_num_steps=1,
@@ -695,10 +727,12 @@ def multistart_knowledge_gradient_mcmc_optimization(
                                          num_steps_averaged=0)
 
         def bvg_warm(pts_batch, carry):
-            return knowledge_gradient_mcmc_batch_vg_carry(
-                states, pts_batch, discrete_pts, normals, inner, inner_warm,
-                best_so_far, inner_x0=carry,
-                derivatives_to_sample=ds, num_fidelity=num_fidelity)
+            vals, grads, xs = knowledge_gradient_mcmc_batch_vg_carry(
+                states, _batch_unions(pts_batch, being), discrete_pts,
+                normals, inner, inner_warm, best_so_far, inner_x0=carry,
+                derivatives_to_sample=ds, num_fidelity=num_fidelity,
+                num_to_sample=q)
+            return vals, grads[:, :q], xs
 
         res = sharding.sharded_multistart_optimize_batched_warm(
             bvg_cold, bvg_warm, rep, starts, params, group,
@@ -710,13 +744,105 @@ def multistart_knowledge_gradient_mcmc_optimization(
     else:
         def vg(pts):
             with torch.enable_grad():
-                u = pts.detach().requires_grad_(True)
+                x = pts.detach().requires_grad_(True)
                 val = knowledge_gradient_mcmc(
-                    states, u, discrete_pts, normals, inner, inner_params,
-                    best_so_far, ds, num_fidelity)
-                (g,) = torch.autograd.grad(val, u)
+                    states, _union(x, being), discrete_pts, normals, inner,
+                    inner_params, best_so_far, ds, num_fidelity, q)
+                (g,) = torch.autograd.grad(val, x)
             return val.detach(), g
 
         res = sharding.sharded_multistart_optimize(vg, rep, starts, params,
                                                    group)
     return res.best_point
+
+
+# ---------------------------------------------------------------------------
+# The single-GP surface (the compat layer's): one GP as an ensemble of one,
+# through the per-union route (no kernel), as in the JAX package
+# ---------------------------------------------------------------------------
+
+def knowledge_gradient_value_and_grad(
+        state: GaussianProcessState, points_to_sample: torch.Tensor,
+        points_being_sampled, discrete_pts: torch.Tensor,
+        normals: torch.Tensor, domain,
+        inner_params: optimizers.GradientDescentParameters, best_so_far,
+        num_fidelity: int = 0, derivatives_to_sample: Sequence[int] = ()):
+    """One GP's KG at the union points_to_sample (q, d) ++
+    points_being_sampled (p, d), and its gradient with respect to
+    points_to_sample (q, d), by autograd of :func:`knowledge_gradient`.
+    ``discrete_pts`` (n_d, dim_opt) inner seeds; ``normals`` (M, q_ch);
+    ``best_so_far`` a scalar; ``domain`` the inner (dim_opt) domain."""
+    pts = torch.atleast_2d(points_to_sample)
+    being = None if points_being_sampled is None else \
+        torch.atleast_2d(points_being_sampled)
+    best = torch.as_tensor(best_so_far, dtype=pts.dtype,
+                           device=pts.device).reshape(1)
+    with torch.enable_grad():
+        x = pts.detach().requires_grad_(True)
+        kg = knowledge_gradient(state.as_ensemble(), _union(x, being),
+                                discrete_pts[None], normals, domain,
+                                inner_params, best, derivatives_to_sample,
+                                num_fidelity)[0]
+        (g,) = torch.autograd.grad(kg, x)
+    return kg.detach(), g
+
+
+def multistart_knowledge_gradient_optimization(
+        generator: torch.Generator, state: GaussianProcessState, domain,
+        num_to_sample: int, params: optimizers.GradientDescentParameters,
+        inner_params: optimizers.GradientDescentParameters,
+        discrete_pts: torch.Tensor, points_being_sampled=None,
+        best_so_far=None, num_mc_iterations: int = 128,
+        num_fidelity: int = 0, derivatives_to_sample: Sequence[int] = (),
+        chunk_size: Optional[int] = None) -> torch.Tensor:
+    """One GP's q-KG suggestion (ComputeKGOptimalPointsToSample): the
+    per-start multistart of :func:`knowledge_gradient_value_and_grad` from
+    Latin-hypercube start blocks, then antithetic normals over the union's
+    (q + p)(1 + ms) channels, both drawn from ``generator``.  Returns
+    (num_to_sample, d)."""
+    ds = cov_mod.channels(derivatives_to_sample)
+    if best_so_far is None:
+        best_so_far = state.best_observed_value
+    p = 0 if points_being_sampled is None else \
+        torch.atleast_2d(points_being_sampled).shape[0]
+    rep = RepeatedDomain(domain=domain, num_repeats=num_to_sample)
+    starts = rep.generate_latin_hypercube_points(generator,
+                                                 params.num_multistarts)
+    normals = draw_antithetic_normals(generator, num_mc_iterations,
+                                      (num_to_sample + p) * (1 + len(ds)),
+                                      device=starts.device,
+                                      dtype=starts.dtype)
+    inner = inner_domain(domain, num_fidelity)
+
+    def vg(pts):
+        return knowledge_gradient_value_and_grad(
+            state, pts, points_being_sampled, discrete_pts, normals, inner,
+            inner_params, best_so_far, num_fidelity, ds)
+
+    return optimizers.multistart_optimize(vg, rep, starts, params,
+                                          chunk_size=chunk_size).best_point
+
+
+def posterior_mean_optimization(
+        state: GaussianProcessState, domain,
+        params: optimizers.GradientDescentParameters,
+        initial_guesses: torch.Tensor, num_fidelity: int = 0,
+        top_k: int = 1):
+    """Argmin of one GP's posterior mean (the recommendation step): GD
+    polish of -mu over the inner (first dim - num_fidelity coordinates)
+    domain from the ``top_k`` best of ``initial_guesses`` (G, dim_opt).
+    Returns (point (dim_opt,), -mu there)."""
+    inner = inner_domain(domain, num_fidelity)
+    vals = posterior_mean_objective(state, initial_guesses, num_fidelity)
+    idx = torch.topk(vals, min(top_k, initial_guesses.shape[0])).indices
+
+    def vg(x):
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            v = posterior_mean_objective(state, xx, num_fidelity)
+            (g,) = torch.autograd.grad(v, xx)
+        return v.detach(), g
+
+    res = optimizers.multistart_optimize(vg, inner, initial_guesses[idx],
+                                         params)
+    return res.best_point, res.best_value

@@ -39,3 +39,11 @@ def default_dtype(device) -> torch.dtype:
     (the precision the parity tests hold the port to)."""
     return torch.float32 if torch.device(device).type == "cuda" \
         else torch.float64
+
+
+def placement(device=None, dtype=None):
+    """(device, dtype) of an entry point: ``device`` as given, else
+    :func:`default_device`; ``dtype`` as given, else
+    :func:`default_dtype` of that device."""
+    device = default_device() if device is None else torch.device(device)
+    return device, default_dtype(device) if dtype is None else dtype

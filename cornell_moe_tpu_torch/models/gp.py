@@ -76,6 +76,21 @@ class GaussianProcessState:
             mean=self.mean[i], inv_chol_K=take(self.inv_chol_K),
             point_noise=take(self.point_noise))
 
+    def as_ensemble(self) -> "GaussianProcessState":
+        """One GP as an ensemble of one member (a leading axis of 1 on
+        every tensor): the inverse of ``member(0)``."""
+        def lift(t):
+            return None if t is None else t[None]
+        return dataclasses.replace(
+            self, covariance=type(self.covariance)(
+                hyperparameters=self.covariance.hyperparameters[None]),
+            noise_variance=self.noise_variance[None],
+            points_sampled=self.points_sampled[None],
+            points_sampled_value=self.points_sampled_value[None],
+            chol_K=self.chol_K[None], K_inv_y=self.K_inv_y[None],
+            mean=self.mean[None], inv_chol_K=lift(self.inv_chol_K),
+            point_noise=lift(self.point_noise))
+
 
 def fit_gp(covariance: StationaryCovariance, noise_variance,
            points_sampled, points_sampled_value, derivatives=(),

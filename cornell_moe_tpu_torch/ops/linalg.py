@@ -67,6 +67,19 @@ def log_det_from_chol(chol: torch.Tensor) -> torch.Tensor:
         torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
 
 
+def spd_solve(matrix: torch.Tensor, rhs: torch.Tensor, jitter=0.0
+              ) -> torch.Tensor:
+    """Solve an SPD system through its Cholesky factor (with optional
+    diagonal jitter); NaN where the factorization fails."""
+    return cho_solve(cholesky(matrix, jitter=jitter), rhs)
+
+
+def batched_cholesky(matrices: torch.Tensor, jitter=0.0) -> torch.Tensor:
+    """Cholesky over leading batch axes (the hyperparameter ensemble's):
+    :func:`cholesky`, NaN for each matrix whose factorization fails."""
+    return cholesky(matrices, jitter=jitter)
+
+
 def solve_lower_with_refinement(chol: torch.Tensor, inv_chol: torch.Tensor,
                                 rhs: torch.Tensor, iterations: int = 1
                                 ) -> torch.Tensor:
@@ -203,3 +216,8 @@ def chol_update_append(chol: torch.Tensor, cross_cov: torch.Tensor,
     chol_schur = cholesky(new_block - s_t @ s)
     top = torch.cat([chol, torch.zeros_like(s)], dim=-1)
     return torch.cat([top, torch.cat([s_t, chol_schur], dim=-1)], dim=-2)
+
+
+def lower_triangular_only(matrix: torch.Tensor) -> torch.Tensor:
+    """Zero the strict upper triangle (ZeroUpperTriangle counterpart)."""
+    return torch.tril(matrix)

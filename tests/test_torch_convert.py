@@ -6,7 +6,10 @@ Tolerance: rtol 1e-9 / atol 1e-10 on posterior means, rtol 1e-8 / atol
 1e-10 on posterior covariances (tests/test_gp.py:31-32); a carried
 random-feature sample's values at rtol 1e-12; the PES state built from
 carried inputs at rtol 1e-8 / atol 1e-10 (tests/test_pes.py:220, as
-tests/test_torch_pes.py holds EP); arrays carried through exactly.
+tests/test_torch_pes.py holds EP); a carried compat model's posterior
+mean and its EI on carried normals at rtol 1e-10 (as
+tests/test_torch_compat.py holds the compat classes); arrays carried
+through exactly.
 """
 
 import jax
@@ -128,3 +131,65 @@ def test_pes_state_from_carried_inputs(rng):
             np.testing.assert_allclose(getattr(got, name)[i].numpy(),
                                        np.asarray(getattr(ref, name)),
                                        rtol=1e-8, atol=1e-10, err_msg=name)
+
+
+@pytest.mark.parametrize("model", ["gaussian_process", "ensemble"])
+def test_compat_model_and_draws_carried(rng, model):
+    """A JAX compat GaussianProcess (or GaussianProcessMCMC), its MC-EI
+    object's normals and a multistart's starts carried across: the port's
+    objects give the JAX package's posterior mean and EI."""
+    from cornell_moe_tpu.compat import covariance as jcov_c
+    from cornell_moe_tpu.compat import expected_improvement as jei_c
+    from cornell_moe_tpu.compat import expected_improvement_mcmc as jeim_c
+    from cornell_moe_tpu.compat import gaussian_process as jgp_c
+    from cornell_moe_tpu.compat import knowledge_gradient_mcmc as jkgm_c
+    from cornell_moe_tpu.utils.data_containers import HistoricalData as JD
+    from cornell_moe_tpu_torch.compat import expected_improvement as tei_c
+    from cornell_moe_tpu_torch.compat import \
+        expected_improvement_mcmc as teim_c
+
+    x = rng.random((8, 2))
+    data = JD(2)
+    data.append_historical_data(x, np.sin(3 * x[:, 0]))
+    pts = rng.random((2, 2))
+    if model == "ensemble":
+        j = jkgm_c.GaussianProcessMCMC([[1.1, 0.5, 0.7], [0.8, 0.4, 0.6]],
+                                       [[1e-3], [2e-3]], data)
+        j_ei = jeim_c.ExpectedImprovementMCMC(j, num_to_sample=2,
+                                              num_mc_iterations=16)
+    else:
+        j = jgp_c.GaussianProcess(jcov_c.SquareExponential([1.1, 0.5, 0.7]),
+                                  [1e-3], data)
+        j_ei = jei_c.ExpectedImprovement(j, points_to_sample=pts,
+                                         num_mc_iterations=16)
+    arrays = convert.compat_model_to_arrays(j)
+    t = convert.compat_model_from_arrays(arrays, device="cpu",
+                                         dtype=torch.float64)
+    back = convert.compat_model_to_arrays(t)
+    for name, value in arrays.items():
+        np.testing.assert_array_equal(np.asarray(back[name]),
+                                      np.asarray(value), err_msg=name)
+    if model == "ensemble":
+        t_ei = teim_c.ExpectedImprovementMCMC(t, num_to_sample=2,
+                                              num_mc_iterations=16)
+        mu = tgp.posterior_mean(t.states, torch.as_tensor(pts)).numpy()
+        for i in range(2):
+            np.testing.assert_allclose(mu[i], np.asarray(jgp.posterior_mean(
+                jmcmc.ensemble_member(j.states, i), jnp.asarray(pts))),
+                rtol=1e-10)
+    else:
+        t_ei = tei_c.ExpectedImprovement(t, points_to_sample=pts,
+                                         num_mc_iterations=16)
+        np.testing.assert_allclose(t.compute_mean_of_points(pts),
+                                   j.compute_mean_of_points(pts),
+                                   rtol=1e-10)
+    convert.carry_normals(t_ei, np.asarray(j_ei._normals))
+    for obj in (j_ei, t_ei):
+        obj.set_current_point(pts)
+    np.testing.assert_allclose(t_ei.compute_objective_function(),
+                               j_ei.compute_objective_function(),
+                               rtol=1e-10)
+    starts = np.asarray(jax.random.uniform(jax.random.PRNGKey(1), (3, 2, 2)))
+    carried = convert.starts_from_array(starts)
+    assert carried.dtype == torch.float64
+    np.testing.assert_array_equal(carried.numpy(), starts)

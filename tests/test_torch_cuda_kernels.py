@@ -8,7 +8,8 @@ and of the descent direction (tensor-core and FMA) and their generic
 (d, q) instances, their dispatch and their non-finite blocks, failed LML
 factorizations, the wrappers' refusals on CUDA tensors, the KG descent's
 gate, which sends the shapes the descent kernels do not take,
-derivative-observed states and fidelity dims to the plain route, and
+derivative-observed states and fidelity dims to the plain route and reads
+a union's width with its points being sampled (q + p), and
 kernels B and C at the shapes of the cf-KG and PES paths.  They need
 a CUDA card (marker ``cuda``) and skip without one.  On the card, without JAX installed:
 
@@ -464,6 +465,62 @@ def test_kg_batch_descent_gate_on_the_card(dev, rng, d, q, ds, nf, launches):
     got, ref = vals[str(dev)], vals["cpu"]
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-3 * max(1.0, ref.abs().max())
+
+
+@pytest.mark.parametrize("q,p,width", [(3, 1, 4), (16, 1, 17)],
+                         ids=["q3_p1", "q16_p1"])
+def test_kg_descent_gate_reads_the_union_width_on_the_card(dev, rng, q, p,
+                                                           width):
+    """The ensemble KG multistart with points being sampled (warm route)
+    on the card: every descent_run launch carries unions of the width
+    q + p, and a union of 17 points (q + p > 16) takes the plain route;
+    the picks are q finite points inside the domain."""
+    from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
+    from cornell_moe_tpu_torch.bayes_opt import DEFAULT_SGD_PARAMS_PS
+    from cornell_moe_tpu_torch.models import mcmc
+    from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+    from cornell_moe_tpu_torch.ops.optimizers import \
+        GradientDescentParameters
+
+    s, n, d = 2, 24, 2
+    f32 = dict(device=dev, dtype=torch.float32)
+    x = rng.random((n, d))
+    states = mcmc.fit_gp_ensemble(
+        "matern_2.5", _c(np.concatenate([np.ones((s, 1)), 0.3 + 0.3 *
+                                         rng.random((s, d))], axis=1), dev),
+        torch.full((s, 1), 1e-2, **f32), x,
+        (np.sin(3 * x[:, 0]) + x[:, 1])[:, None])
+    dom = TensorProductDomain.from_bounds([[0.0, 1.0]] * d, **f32)
+    widths = []
+    descent_run = kernels.descent_run
+
+    def recording(xs0, ws, wt, beta, z, us, *args, **kw):
+        widths.append(us.shape[2])
+        return descent_run(xs0, ws, wt, beta, z, us, *args, **kw)
+
+    kernels.reset_launch_counts()
+    kernels.descent_run = recording
+    try:
+        pts = kg.multistart_knowledge_gradient_mcmc_optimization(
+            torch.Generator(device=dev).manual_seed(0), states, dom, q,
+            GradientDescentParameters(num_multistarts=4, max_num_steps=3,
+                                      max_num_restarts=1, pre_mult=0.4,
+                                      max_relative_change=0.5),
+            DEFAULT_SGD_PARAMS_PS, _c(rng.random((s, 5, d)), dev),
+            points_being_sampled=_c(rng.random((p, d)), dev),
+            num_mc_iterations=8)
+        torch.cuda.synchronize()
+    finally:
+        kernels.descent_run = descent_run
+    counts = kernels.launch_counts()
+    assert pts.shape == (q, d) and bool(torch.isfinite(pts).all())
+    assert bool(dom.check_point_inside(pts).all())
+    if width <= 16:
+        assert counts["descent_run"] + counts["descent_run_fma"] == \
+            len(widths) > 0
+        assert set(widths) == {width}
+    else:
+        assert counts["descent_run"] + counts["descent_run_fma"] == 0
 
 
 @pytest.mark.parametrize("kernel,s,n,d", [

@@ -191,6 +191,14 @@ def test_port_imports_no_jax():
         "data_containers, hesbo, logging_utils, real_functions, "
         "synthetic_functions\n"
         "from cornell_moe_tpu_torch.parallel import sharding, spawn\n"
+        "from cornell_moe_tpu_torch import exceptions\n"
+        "from cornell_moe_tpu_torch.utils import constant, geometry, rng\n"
+        "from cornell_moe_tpu_torch.compat import covariance, domain, "
+        "estimation_policies, expected_improvement_mcmc, gaussian_process, "
+        "interfaces, knowledge_gradient_mcmc, log_likelihood, "
+        "log_likelihood_mcmc, misc, optimization, repeated_domain\n"
+        "from cornell_moe_tpu_torch.compat import expected_improvement, "
+        "knowledge_gradient\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'cornell_moe_tpu')]\n"
         "print(bad)\n"
