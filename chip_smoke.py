@@ -9,7 +9,11 @@ It builds the CUDA kernels of ``cornell_moe_tpu_torch`` from ``csrc/``,
 drives one q-KG iteration of ``BayesianOptimizer`` at the main path's size
 (Branin, 500 observations, 16-member ensemble, q = 4, 200 multistarts,
 128 MC draws, float32 on ``cuda:0``), checks that each kernel of that path
-launched during the run, drives the same iteration sharded over
+launched during the run (the stages run as CUDA graphs built once per shape
+bucket, ``ops/programs.py``, whose replays count their launches), drives
+two iterations with those programs and again with ``programs.CAPTURE =
+"never"`` (the second iteration builds nothing, and both runs agree bit for
+bit), drives the same iteration sharded over
 ``torch.distributed`` (``BayesianOptimizer(n_devices=)``): a world of one
 over NCCL on ``cuda:0``, equal bit for bit to the unsharded iteration, and
 a world of two ranks over gloo, both on ``cuda:0`` (one card; NCCL refuses
@@ -32,8 +36,9 @@ descent (one ``descent_grad`` launch per GD step, the steps taken by
 path's shapes, checks that it went through its kernel, and holds it
 against the float64 descent.  It profiles a window of the main path's MCMC
 chain (host wall clock per stretch-move step against the device's busy
-time).  It drives one continuous-fidelity KG iteration (``BraninFidelity``,
-the main path's size, d = 3 with one fidelity dim: kernels B and C, no
+time, step by step and as the chain's captured 64-step segment).  It
+drives one continuous-fidelity KG iteration (``BraninFidelity``, the main
+path's size, d = 3 with one fidelity dim: kernels B and C, no
 kernel A) and holds B and C against their plain versions at that path's
 shapes; one LCB batch selection on the main path's ensemble; and one
 iteration of ``pes_driver.run_PES`` on Hartmann6 at the reference scale
@@ -66,6 +71,7 @@ non-zero and prints no result.  Any failed check raises.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -242,6 +248,138 @@ def phase_main(torch):
           "the chain before any A launch moved in the witness")
     del wbo
     return bo, rec, counts
+
+
+PROGRAM_ITERATIONS = 2
+
+
+def _program_name(key) -> str:
+    """A program's stage, and a chain segment's steps: "chain_64"."""
+    return f"chain_{key[4]}" if key[0] == "chain" else key[0]
+
+
+def _program_run(torch, capture: str) -> dict:
+    """PROGRAM_ITERATIONS main-path iterations through the driver's entry
+    points (initialize, then suggest, observe and recommend) with
+    ``programs.CAPTURE`` = ``capture``: each stage's wall time and builds,
+    each program's replays after each iteration, launches, the memory
+    allocated before and at the peak, and the results."""
+    import numpy as np
+    from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
+    from cornell_moe_tpu_torch.ops import kernels, programs
+    from cornell_moe_tpu_torch.tools import scale_out
+    from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
+
+    programs.CAPTURE = capture
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        allocated = torch.cuda.memory_allocated()
+        bo = BayesianOptimizer(**dict(scale_out.MAIN_PATH,
+                                      objective_func=Branin(),
+                                      device=DEVICE))
+        kernels.reset_launch_counts()
+        programs.reset_builds()
+        stages, replays, results = [], [], []
+
+        def timed(name, fn, *args):
+            b0 = programs.build_count()
+            t0 = time.time()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            stages[-1][name] = {"seconds": time.time() - t0,
+                                "builds": programs.build_count() - b0}
+            return out
+
+        stages.append({})
+        timed("initialize", bo.initialize, NUM_OBS)
+        for _ in range(PROGRAM_ITERATIONS):
+            stages.append({})
+            pts, voi = timed("suggest", bo.suggest)
+            timed("observe_retrain", bo.observe, pts)
+            rec = timed("recommend", bo.recommend)
+            replays.append({_program_name(key): prog.replays for key, prog
+                            in bo.program_cache.programs().items()})
+            results.append({"suggested": pts, "voi": voi,
+                            "recommended": rec,
+                            "walkers": bo.model.p0.cpu().numpy(),
+                            "hypers": np.asarray(bo.model.hypers)})
+        torch.cuda.synchronize()
+        return {"optimizer": bo, "stages": stages, "replays": replays,
+                "capture_seconds": {
+                    _program_name(key): prog.capture_seconds
+                    for key, prog in bo.program_cache.programs().items()},
+                "launches": kernels.launch_counts(),
+                "chain_steps": bo.model.chain_steps,
+                "members_replaced": bo.model.members_replaced,
+                "memory_allocated_before": allocated,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "results": results}
+    finally:
+        programs.CAPTURE = "auto"
+
+
+def phase_programs(torch) -> None:
+    """The main path's programs per shape bucket: PROGRAM_ITERATIONS
+    iterations at full width (500 -> 504 -> 508 observations, all in
+    bucket 512) with programs (CUDA graphs: the chain's 64-step segment
+    and its 16-step burn-in remainder, the ensemble fit, the seeding
+    q-EI's GD step, the warm KG multistart's outer step with kernel A's
+    one-step launch, the recommendation's grid and its polish step) and
+    again with
+    ``programs.CAPTURE = "never"``.  The first iteration builds, the
+    second builds nothing and replays; the two runs agree bit for bit
+    (suggested points, VOI, recommendation, walkers, hypers, chain steps)
+    and launch the same kernels as often.  A third recommendation from
+    the programs' optimizer times the replayed polish alone."""
+    import numpy as np
+
+    from cornell_moe_tpu_torch.bayes_opt import DEFAULT_SGD_PARAMS_RECOMMEND
+
+    on = _program_run(torch, "auto")
+    bo = on.pop("optimizer")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    bo.recommend()
+    torch.cuda.synchronize()
+    on["recommend_wall_ms_per_polish_step"] = (time.time() - t0) * 1e3 / \
+        DEFAULT_SGD_PARAMS_RECOMMEND.max_num_steps
+    del bo
+    off = _program_run(torch, "never")
+    off.pop("optimizer")
+    bitwise = [{k: bool(np.array_equal(np.asarray(a[k]), np.asarray(b[k])))
+                for k in a} for a, b in zip(on["results"], off["results"])]
+    printable = {k: v for k, v in on.items() if k != "results"}
+    emit({"phase": "programs", "iterations": PROGRAM_ITERATIONS,
+          "programs": printable,
+          "never": {k: off[k] for k in ("stages", "launches", "chain_steps",
+                                        "memory_allocated_before",
+                                        "max_memory_allocated")},
+          "vois": [r["voi"] for r in on["results"]],
+          "bitwise_equal_to_never": bitwise,
+          "chain_steps_equal": on["chain_steps"] == off["chain_steps"],
+          "launches_equal": on["launches"] == off["launches"]})
+    builds = [sum(v["builds"] for v in it.values()) for it in on["stages"]]
+    check(builds[0] > 0 and builds[1] > 0,
+          f"the first main-path iteration built no program: {builds}")
+    check(all(b == 0 for b in builds[2:]),
+          f"an iteration inside bucket 512 built programs: {builds}")
+    check(sum(sum(v["builds"] for v in it.values())
+              for it in off["stages"]) == 0,
+          "CAPTURE = 'never' built programs")
+    last, first = on["replays"][-1], on["replays"][0]
+    for kind in ("chain_64", "fit", "qei_step", "kg_warm_step",
+                 "recommend_grid", "recommend_step"):
+        check(last.get(kind, 0) > first.get(kind, 0),
+              f"the {kind} program did not replay in the second iteration")
+    check(all(all(b.values()) for b in bitwise) and
+          on["chain_steps"] == off["chain_steps"],
+          f"programs and CAPTURE = 'never' disagree: {bitwise}")
+    check(on["launches"] == off["launches"],
+          f"launches with programs {on['launches']} and without "
+          f"{off['launches']} differ")
 
 
 def _scale_out_rank() -> dict:
@@ -1081,12 +1219,24 @@ def phase_descent_grad(torch, kernel_name, problems) -> list:
                        times["plain"], bound) for n in names]
 
 
+SEGMENTS_TIMED = 2
+
+
 def phase_chain_profile(torch, model, path="main_path") -> None:
-    """Where a stretch-move step of a path's chain spends its time: host
-    wall clock per step (32 steps after 8 warm-up steps) against the
-    device's busy time per step (the sum of its kernel and copy events in
-    32 more steps under torch.profiler, whose own host cost shows in the
-    profiled wall clock and not on the device)."""
+    """Where a stretch-move step of a path's chain spends its time, run
+    step by step (eager) and as the chain's captured segment program (one
+    CUDA graph of CHAIN_GATE_SEGMENT steps, its draws taken eagerly before
+    each replay).  Eager: host wall clock per step (32 steps after 8
+    warm-up steps) against the device's busy time per step (the sum of its
+    kernel and copy events in 32 more steps under torch.profiler, whose
+    own host cost shows in the profiled wall clock and not on the device).
+    Captured: host wall clock per step over SEGMENTS_TIMED segments after
+    one, against the device time of the replays (CUDA events around each
+    replay: the graph's kernels and the gaps between them, not the
+    draws).  Graph replays are not profiled: in the one run of this
+    script that profiled them (about 120,000 graph-node events on the d-KG
+    path), every later profile saw the device events of only 8 of its 21
+    calls on the H100."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1128,6 +1278,31 @@ def phase_chain_profile(torch, model, path="main_path") -> None:
               "path": path, "device_events": 0})
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+
+    segment_fn = model._segment_program(x, y, pn)
+    seg, w = mcmc.CHAIN_GATE_SEGMENT, int(model.p0.shape[0])
+    replay_ms = []
+
+    def run_segments(n):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(n):
+            draws = mcmc.draw_segment(gen, seg, w, model.device, model.dtype)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            pos, lp, _ = segment_fn(*state, *draws)
+            end.record()
+            replay_ms.append((start, end))
+            state[:] = [pos, lp]
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3 / (n * seg)
+
+    run_segments(1)
+    replay_ms.clear()
+    seg_wall = run_segments(SEGMENTS_TIMED)
+    seg_device = sum(a.elapsed_time(b) for a, b in replay_ms) / (
+        SEGMENTS_TIMED * seg)
     emit({"phase": "chain_profile", "path": path,
           "walkers": int(state[0].shape[0]),
           "steps": steps, "wall_ms_per_step": wall,
@@ -1135,7 +1310,12 @@ def phase_chain_profile(torch, model, path="main_path") -> None:
           "device_busy_ms_per_step": busy,
           "device_idle_share": 1.0 - busy / wall,
           "device_ops_per_step": launches / steps,
-          "top_device_ms_per_step": {k[:48]: v for k, v in top}})
+          "top_device_ms_per_step": {k[:48]: v for k, v in top},
+          "captured_segment": {
+              "steps_per_segment": seg, "steps": SEGMENTS_TIMED * seg,
+              "wall_ms_per_step": seg_wall,
+              "replay_device_ms_per_step": seg_device,
+              "device_idle_share": 1.0 - seg_device / seg_wall}})
     check(busy > 0.0, "the profiler saw no device time in the chain")
 
 
@@ -1974,14 +2154,17 @@ def phase_compat(torch) -> None:
     q = 4 and once with q = 3 and one point being sampled (A at union
     width 4) -> ``PosteriorMeanMCMC`` polished by
     ``GradientDescentOptimizer`` (the recommendation).  Then the
-    single-GP surface on member 0: ``GaussianProcess`` (C at S1 n500)
-    against its float64 CPU refit at COMPAT_POINTS points, analytic EI and
-    its multistart (q = 1), and ``KnowledgeGradient``'s value and gradient
-    at a q = 4 union (no kernel).  Last it records what float32 makes of
-    duplicate points with zero noise (the CPU tests' SingularMatrixError
-    case; C at S1 n2 d1).  Every launch counter is set to 0 at the start
-    and read at the end (each stage's launches too, the core comparisons'
-    kept apart)."""
+    single-GP surface on the first member whose float32 factorization
+    succeeds with no jitter (the JAX class raises where it fails; the
+    singular members are recorded), or on member 0 in float64 on the card
+    when none does: ``GaussianProcess`` (C at S1 n500 in float32) against
+    its float64 CPU refit at COMPAT_POINTS points, analytic EI and its
+    multistart (q = 1), and ``KnowledgeGradient``'s value and gradient at a
+    q = 4 union (no kernel).  Last it checks that float32 raises
+    ``SingularMatrixError`` on duplicate points with zero noise, as the JAX
+    class does (the CPU tests' case; C at S1 n2 d1).  Every launch counter
+    is set to 0 at the start and read at the end (each stage's launches
+    too, the core comparisons' kept apart)."""
     import dataclasses
 
     import numpy as np
@@ -2100,21 +2283,37 @@ def phase_compat(torch) -> None:
             domain, ps, DEFAULT_SGD_PARAMS_RECOMMEND).optimize)
         rec_value = ps.compute_objective_function()
 
-        member = {}
-        for where, kw in (("card", f32),
-                          ("cpu64", dict(device="cpu",
-                                         dtype=torch.float64))):
-            member[where] = stage("gaussian_process_" + where,
-                                  lambda: gp_c.GaussianProcess(
-                                      cov_c.MaternNu2p5(hypers[0], **kw),
-                                      noises[0], scaled))
+        # the single GP on the first member that float32 factors with no
+        # jitter (as the JAX class fits it), the ones before it recorded;
+        # when none does, member 0 in float64 on the card
+        member, singular_members, card_kw = {}, [], f32
+        for index in range(len(hypers)):
+            try:
+                member["card"] = stage(
+                    "gaussian_process_card", lambda: gp_c.GaussianProcess(
+                        cov_c.MaternNu2p5(hypers[index], **f32),
+                        noises[index], scaled))
+                break
+            except SingularMatrixError:
+                singular_members.append(index)
+        if "card" not in member:
+            index, card_kw = 0, dict(device=DEVICE, dtype=torch.float64)
+            member["card"] = stage(
+                "gaussian_process_card", lambda: gp_c.GaussianProcess(
+                    cov_c.MaternNu2p5(hypers[0], **card_kw), noises[0],
+                    scaled))
+        member["cpu64"] = stage(
+            "gaussian_process_cpu64", lambda: gp_c.GaussianProcess(
+                cov_c.MaternNu2p5(hypers[index], device="cpu",
+                                  dtype=torch.float64),
+                noises[index], scaled))
         pts = bounds[:, 0] + r.random((COMPAT_POINTS, 2)) * (
             bounds[:, 1] - bounds[:, 0])
         mu, mu64 = (member[k].compute_mean_of_points(pts)
                     for k in ("card", "cpu64"))
         var, var64 = (member[k].compute_variance_of_points(pts)
                       for k in ("card", "cpu64"))
-        alpha = float(hypers[0][0])
+        alpha = float(hypers[index][0])
         errs = {"posterior_mean": float(np.max(np.abs(mu - mu64))) / max(
                     1.0, float(np.max(np.abs(mu64)))),
                 "posterior_variance": float(np.max(np.abs(var - var64))) /
@@ -2136,8 +2335,8 @@ def phase_compat(torch) -> None:
                          kg_one.compute_knowledge_gradient)
         kg_grad = stage("knowledge_gradient_grad",
                         kg_one.compute_grad_knowledge_gradient)
-        # what float32 (with its relative Cholesky jitter) makes of the
-        # CPU tests' singular case: duplicate points, zero noise
+        # the CPU tests' singular case, duplicate points with zero noise:
+        # float32 raises, as the JAX class does (no jitter)
         duplicate = HistoricalData(1)
         duplicate.append_historical_data(np.array([[0.5], [0.5]]),
                                          np.array([1.0, 1.0]))
@@ -2176,6 +2375,9 @@ def phase_compat(torch) -> None:
           "ei_at_pick": ei_value, "single_gp_kg": kg_value,
           "single_gp_kg_grad": kg_grad.tolist(),
           "duplicate_points_zero_noise_float32": singular,
+          "single_gp_member": index,
+          "single_gp_dtype": str(card_kw["dtype"]),
+          "members_singular_in_float32": singular_members,
           "launches": launches,
           "launches_of_the_core_comparisons": comparisons,
           "launches_by_stage": stage_launches, "seconds": stages})
@@ -2201,6 +2403,9 @@ def phase_compat(torch) -> None:
           ei_value >= 0.0, f"compat EI pick {ei_pick} ({ei_value}) invalid")
     check(math.isfinite(kg_value) and bool(np.isfinite(kg_grad).all()),
           f"single-GP KG not finite: {kg_value}, {kg_grad}")
+    check(singular == "raised SingularMatrixError",
+          "float32 factored the duplicate-point, zero-noise matrix: the "
+          "JAX class raises SingularMatrixError there")
     check(stage_launches["knowledge_gradient"]["A"] == 0 and
           stage_launches["knowledge_gradient_grad"]["A"] == 0,
           "the single-GP KG launched kernel A")
@@ -2320,6 +2525,7 @@ def main() -> int:
     provenance(torch)
     phase_build()
     bo, rec, counts = phase_main(torch)
+    phase_programs(torch)
     phase_scale_out(torch, bo, rec)
     phase_dkg(torch)
     summary, problems = phase_equivalence(torch, bo.model, counts)

@@ -25,8 +25,9 @@ import torch
 from cornell_moe_tpu_torch import config
 from cornell_moe_tpu_torch.models import covariance as cov_mod
 from cornell_moe_tpu_torch.models import gp
-from cornell_moe_tpu_torch.ops import linalg, optimizers
-from cornell_moe_tpu_torch.ops.domains import RepeatedDomain
+from cornell_moe_tpu_torch.ops import linalg, optimizers, programs
+from cornell_moe_tpu_torch.ops.domains import (RepeatedDomain,
+                                               TensorProductDomain)
 from cornell_moe_tpu_torch.parallel import sharding
 
 
@@ -244,11 +245,15 @@ def multistart_expected_improvement_mcmc_optimization(
         params: optimizers.GradientDescentParameters,
         points_being_sampled=None, best_so_far=None,
         num_mc_iterations: int = 1000, conv_tol: Optional[float] = None,
-        chunk_size: Optional[int] = None, group=None) -> torch.Tensor:
+        chunk_size: Optional[int] = None, group=None,
+        program_cache=None) -> torch.Tensor:
     """q points maximizing ensemble-averaged q,p-EI by the lockstep-batched
     multistart; ``conv_tol`` gates each chunk on its max step norm.  A
     ``group`` shards the restart axis over its ranks
-    (``parallel.sharding``).  Returns (num_to_sample, dim)."""
+    (``parallel.sharding``).  With a ``program_cache`` each GD step of a
+    chunk (its value and gradient by autograd and the step) is one program
+    per chunk shape (``ops.programs``); the domain must then be a
+    ``TensorProductDomain``.  Returns (num_to_sample, dim)."""
     if best_so_far is None:
         best_so_far = states.best_observed_value
     p = 0 if points_being_sampled is None else points_being_sampled.shape[0]
@@ -262,9 +267,42 @@ def multistart_expected_improvement_mcmc_optimization(
         return expected_improvement_mcmc_batch_value_and_grad(
             states, pts_batch, points_being_sampled, best_so_far, normals)
 
+    step_fn = None
+    if program_cache is not None and programs.enabled():
+        step_fn = _qei_step_program(program_cache, states, domain,
+                                    num_to_sample, points_being_sampled,
+                                    best_so_far, normals, params)
     return sharding.sharded_multistart_optimize_batched_gated(
         bvg, rep, starts, params, group, chunk_size=chunk_size,
-        conv_tol=conv_tol).best_point
+        conv_tol=conv_tol, step_fn=step_fn).best_point
+
+
+def _qei_step_program(program_cache, states, domain, num_to_sample: int,
+                      points_being_sampled, best_so_far, normals, params):
+    """The ensemble q-EI multistart's GD step as a program: ``(x, rate) ->
+    (x_new, dx)``, x a chunk of starts (B, q, dim)."""
+    if not isinstance(domain, TensorProductDomain):
+        raise TypeError("the q-EI step's program takes a TensorProductDomain"
+                        f", got {type(domain).__name__}")
+    tensors, layout = gp.state_tensors(states)
+    being = () if points_being_sampled is None else (points_being_sampled,)
+
+    def step(x, rate, bounds, best, nrm, *rest):
+        st = gp.state_from_tensors(layout, rest[:len(tensors)])
+        _, g = expected_improvement_mcmc_batch_value_and_grad(
+            st, x, rest[len(tensors)] if being else None, best, nrm)
+        rep = RepeatedDomain(domain=TensorProductDomain(bounds=bounds),
+                             num_repeats=num_to_sample)
+        return optimizers.ascent_step(rep, params.max_relative_change, x, g,
+                                      rate)
+
+    key = ("qei_step", tuple(t.shape for t in tensors), layout,
+           tuple(normals.shape), tuple(t.shape for t in being),
+           num_to_sample, params.max_relative_change, normals.dtype,
+           str(normals.device))
+    return program_cache.stepper(key, step, domain.bounds,
+                                 torch.as_tensor(best_so_far), normals,
+                                 *tensors, *being)
 
 
 def multistart_expected_improvement_optimization(

@@ -53,12 +53,13 @@ from typing import Optional, Sequence
 
 import torch
 
+from cornell_moe_tpu_torch import config
 from cornell_moe_tpu_torch.acquisition.expected_improvement import (
     _batch_unions, _union, _with_member_axes, draw_antithetic_normals)
 from cornell_moe_tpu_torch.models import covariance as cov_mod
 from cornell_moe_tpu_torch.models import gp as gp_mod
 from cornell_moe_tpu_torch.models.gp import GaussianProcessState
-from cornell_moe_tpu_torch.ops import kernels, linalg, optimizers
+from cornell_moe_tpu_torch.ops import kernels, linalg, optimizers, programs
 from cornell_moe_tpu_torch.ops.domains import (RepeatedDomain,
                                                TensorProductDomain)
 from cornell_moe_tpu_torch.parallel import sharding
@@ -265,6 +266,11 @@ def _fantasy_mean_batch(state: GaussianProcessState, x: torch.Tensor,
 # Inner descent: kernel path and plain path
 # ---------------------------------------------------------------------------
 
+# Kernel A's switch, as the JAX package's: "auto" takes the descent kernel
+# where :func:`descent_kernel_for` allows it, "never" the plain route.
+DESCENT_PALLAS = "auto"
+
+
 def descent_kernel_for(device_type: str, dtype: torch.dtype,
                        kernel_name: str, derivatives: Sequence[int],
                        derivatives_to_sample: Sequence[int], d: int, q: int,
@@ -272,9 +278,11 @@ def descent_kernel_for(device_type: str, dtype: torch.dtype,
     """Kernel A's gate: the kernel's name when the inner descent goes
     through ``kernels.descent_run`` (CUDA, float32, a covariance it knows,
     no derivative channel observed or sampled, no fidelity dim, d
-    dimensions and q union points it takes), else None for the plain
-    route."""
-    if device_type != "cuda" or dtype != torch.float32 or \
+    dimensions and q union points it takes, ``DESCENT_PALLAS`` "auto"),
+    else None for the plain route."""
+    if not config.switch_on("knowledge_gradient.DESCENT_PALLAS",
+                            DESCENT_PALLAS) or \
+            device_type != "cuda" or dtype != torch.float32 or \
             kernel_name not in cov_mod.COVARIANCE_TYPES or \
             cov_mod.channels(derivatives) or \
             cov_mod.channels(derivatives_to_sample) or num_fidelity or \
@@ -642,6 +650,19 @@ def knowledge_gradient_mcmc_batch(states, unions, discrete_pts, normals,
     return torch.mean(kg, dim=0) / costs, x_star
 
 
+def knowledge_gradient_mcmc_batch_value_and_grad(
+        states, unions, discrete_pts, normals, domain, inner_params,
+        best_so_far, num_to_sample, num_fidelity: int = 0,
+        derivatives_to_sample: Sequence[int] = ()):
+    """((B,) values, (B, q, d) per-union gradients): the cold delegate of
+    :func:`knowledge_gradient_mcmc_batch_vg_carry`, its carry dropped."""
+    vals, grads, _ = knowledge_gradient_mcmc_batch_vg_carry(
+        states, unions, discrete_pts, normals, domain, inner_params,
+        best_so_far, derivatives_to_sample=derivatives_to_sample,
+        num_fidelity=num_fidelity, num_to_sample=num_to_sample)
+    return vals, grads
+
+
 def knowledge_gradient_mcmc_batch_vg_carry(states, unions, discrete_pts,
                                            normals, domain, inner_params,
                                            best_so_far, inner_x0=None,
@@ -678,7 +699,8 @@ def multistart_knowledge_gradient_mcmc_optimization(
         chunk_size: Optional[int] = None, conv_tol: Optional[float] = None,
         derivatives_to_sample: Sequence[int] = (),
         num_fidelity: int = 0, use_batched: bool = True,
-        warm_start: bool = True, group=None) -> torch.Tensor:
+        warm_start: bool = True, group=None,
+        program_cache=None) -> torch.Tensor:
     """MCMC-averaged q-KG (d-KG with ``derivatives_to_sample``, cf-KG with
     ``num_fidelity``) suggestion; returns (num_to_sample, d).  The outer
     domain is all d coordinates (fidelity coordinates included), the inner
@@ -696,7 +718,11 @@ def multistart_knowledge_gradient_mcmc_optimization(
     ``group`` (``torch.distributed``) shards the restart axis over its
     ranks (``parallel.sharding``); ``chunk_size`` equal to the per-rank
     shard makes the batched routes equal to an unsharded run with that
-    chunking (the per-start route takes no chunking)."""
+    chunking (the per-start route takes no chunking).  With a
+    ``program_cache`` each warm outer step (the warm estimator, kernel A's
+    one-step launch among it, its gradient and the step) is one program
+    per chunk shape (``ops.programs``) where :func:`warm_step_runs_program`
+    allows it; the domain must then be a ``TensorProductDomain``."""
     ds = cov_mod.channels(derivatives_to_sample)
     if best_so_far is None:
         best_so_far = states.best_observed_value
@@ -734,9 +760,15 @@ def multistart_knowledge_gradient_mcmc_optimization(
                 num_to_sample=q)
             return vals, grads[:, :q], xs
 
+        warm_step = None
+        if program_cache is not None and \
+                warm_step_runs_program(num_fidelity):
+            warm_step = _warm_step_program(
+                program_cache, states, domain, q, being, discrete_pts,
+                normals, inner_warm, best_so_far, ds, num_fidelity, params)
         res = sharding.sharded_multistart_optimize_batched_warm(
             bvg_cold, bvg_warm, rep, starts, params, group,
-            chunk_size=chunk_size, conv_tol=conv_tol)
+            chunk_size=chunk_size, conv_tol=conv_tol, warm_step=warm_step)
     elif use_batched:
         res = sharding.sharded_multistart_optimize_batched_gated(
             lambda u: bvg_cold(u)[:2], rep, starts, params, group,
@@ -754,6 +786,49 @@ def multistart_knowledge_gradient_mcmc_optimization(
         res = sharding.sharded_multistart_optimize(vg, rep, starts, params,
                                                    group)
     return res.best_point
+
+
+def warm_step_runs_program(num_fidelity: int) -> bool:
+    """Whether the warm multistart's outer step runs as a program: while
+    ``programs.CAPTURE`` is "auto" and without fidelity dims.  With them
+    the step's gradient goes through the fidelity cost's ``torch.prod``,
+    whose backward reads the host (``nonzero`` of its zero entries),
+    which a CUDA graph cannot capture; cf-KG's outer steps run eagerly."""
+    return programs.enabled() and num_fidelity == 0
+
+
+def _warm_step_program(program_cache, states, domain, q: int, being,
+                       discrete_pts, normals, inner_warm, best_so_far, ds,
+                       num_fidelity: int, params):
+    """The warm multistart's outer step as a program: ``(x, carry, rate) ->
+    (x_new, dx, carry)``, x a chunk of starts (B, q, d) and carry its inner
+    endpoints (S, B, M, dim_opt)."""
+    if not isinstance(domain, TensorProductDomain):
+        raise TypeError("the KG step's program takes a TensorProductDomain, "
+                        f"got {type(domain).__name__}")
+    tensors, layout = gp_mod.state_tensors(states)
+    extra = () if being is None else (being,)
+
+    def step(x, carry, rate, bounds, disc, nrm, best, *rest):
+        outer = TensorProductDomain(bounds=bounds)
+        _, grads, xs = knowledge_gradient_mcmc_batch_vg_carry(
+            gp_mod.state_from_tensors(layout, rest[:len(tensors)]),
+            _batch_unions(x, rest[len(tensors)] if extra else None), disc,
+            nrm, inner_domain(outer, num_fidelity), inner_warm, best,
+            inner_x0=carry, derivatives_to_sample=ds,
+            num_fidelity=num_fidelity, num_to_sample=q)
+        x_new, dx = optimizers.ascent_step(
+            RepeatedDomain(domain=outer, num_repeats=q),
+            params.max_relative_change, x, grads[:, :q], rate)
+        return x_new, dx, xs
+
+    key = ("kg_warm_step", tuple(t.shape for t in tensors), layout,
+           tuple(discrete_pts.shape), tuple(normals.shape),
+           tuple(t.shape for t in extra), q, ds, num_fidelity, inner_warm,
+           params.max_relative_change, normals.dtype, str(normals.device))
+    return program_cache.stepper(key, step, domain.bounds, discrete_pts,
+                                 normals, torch.as_tensor(best_so_far),
+                                 *tensors, *extra)
 
 
 # ---------------------------------------------------------------------------

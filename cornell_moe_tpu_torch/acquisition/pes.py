@@ -20,7 +20,7 @@ non-finite values, which :func:`pes_acquisition_multi` drops by a NaN-mean.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -48,6 +48,17 @@ def derivative_tensor(kernel, order_u: int, order_v: int):
         f = torch.func.jacfwd(f, argnums=1)
     for _ in range(order_u):
         f = torch.func.jacfwd(f, argnums=0)
+    return f
+
+
+def cov_deriv(kernel, du: Sequence[int], dv: Sequence[int]):
+    """(u, v) -> d^{du}_u d^{dv}_v k(u, v) for partial-index tuples: the
+    entry ``dv + du`` of :func:`derivative_tensor`."""
+    tensor = derivative_tensor(kernel, len(du), len(dv))
+    index = tuple(int(i) for i in dv) + tuple(int(i) for i in du)
+
+    def f(u, v):
+        return tensor(u, v)[index]
     return f
 
 

@@ -11,8 +11,16 @@ KG fantasizes those channels too (d-KG).  An objective with fidelity dims
 KG is divided by each union's cost, the inner problem, the seeding and the
 recommendation work on the other coordinates with the fidelity ones pinned
 to 1, and ``capital_so_far`` adds up the largest fidelity product of each
-observed batch.  Method "EI" maximizes q,p-EI on ensemble member 0.  The
-port runs eagerly; there is no cache of compiled programs.
+observed batch.  Method "EI" maximizes q,p-EI on ensemble member 0.
+
+Programs per shape bucket (``ops.programs``, CUDA graphs on the card), the
+counterpart of ``BayesianOptimizer._programs``: the chain's segments and
+the ensemble fit (``models.mcmc``), method "KG"'s outer GD steps (the
+seeding q-EI's and the warm KG multistart's) and the recommendation's grid
+and polish step (:func:`recommend_from_guesses`) each run as one program
+per key, built in the first iteration of a bucket and replayed in the
+next, in one ``ProgramCache`` per driver.  ``programs.CAPTURE = "never"``
+runs them eagerly, with the same results bit for bit.
 
 Scale-out (``n_devices`` or ``process_group``): every rank of a
 ``torch.distributed`` group runs this loop from the same seed, and the
@@ -37,7 +45,7 @@ from cornell_moe_tpu_torch.acquisition import expected_improvement as ei_mod
 from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg_mod
 from cornell_moe_tpu_torch.models import gp as gp_mod
 from cornell_moe_tpu_torch.models import mcmc as mcmc_mod
-from cornell_moe_tpu_torch.ops import optimizers
+from cornell_moe_tpu_torch.ops import optimizers, programs
 from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
 from cornell_moe_tpu_torch.parallel import sharding
 from cornell_moe_tpu_torch.utils import checkpoint as ckpt
@@ -103,18 +111,19 @@ def seed_kg_discretization(generator, states, domain, qei_params=None,
                            num_qei_pts: int = 10, num_eval_pts: int = 1000,
                            num_mc: int = 2**10, conv_tol=None,
                            chunk_size=None, num_fidelity: int = 0,
-                           group=None) -> torch.Tensor:
+                           group=None, program_cache=None) -> torch.Tensor:
     """Per-member inner-optimization seeds for KG, (S, num_qei_pts + 1,
     dim_opt): num_qei_pts points from ensemble q-EI plus each member's
     posterior-mean argmin (uniform eval points + its sampled points,
     GD-polished), on the inner domain with fidelity coordinates pinned.
-    A ``group`` shards the q-EI's restart axis."""
+    A ``group`` shards the q-EI's restart axis; a ``program_cache`` runs
+    its GD steps as programs."""
     if qei_params is None:
         qei_params = DEFAULT_SGD_PARAMS_KG
     discrete = ei_mod.multistart_expected_improvement_mcmc_optimization(
         generator, states, domain, num_qei_pts, qei_params,
         num_mc_iterations=num_mc, conv_tol=conv_tol, chunk_size=chunk_size,
-        group=group)
+        group=group, program_cache=program_cache)
     s = states.points_sampled.shape[0]
     inner = kg_mod.inner_domain(domain, num_fidelity)
     dim_opt = inner.dim
@@ -141,11 +150,13 @@ def best_so_far_from_discretization(states, discrete_pts,
 def _qkg_suggest_arrays(generator, states, domain, discrete_pts, params,
                         inner_params, num_to_sample, num_mc, conv_tol=None,
                         chunk_size=None, derivatives_to_sample=(),
-                        num_fidelity: int = 0, group=None):
+                        num_fidelity: int = 0, group=None,
+                        program_cache=None):
     """Suggested points (q, d) and their VOI (ensemble KG divided by the
     fidelity cost, model units).  The fantasy observations at the
     suggested points include the ``derivatives_to_sample`` channels
-    (d-KG)."""
+    (d-KG).  A ``program_cache`` runs the multistart's warm outer steps
+    as programs."""
     ds = tuple(int(i) for i in derivatives_to_sample)
     best_so_far = best_so_far_from_discretization(states, discrete_pts,
                                                   num_fidelity)
@@ -153,7 +164,7 @@ def _qkg_suggest_arrays(generator, states, domain, discrete_pts, params,
         generator, states, domain, num_to_sample, params, inner_params,
         discrete_pts, best_so_far=best_so_far, num_mc_iterations=num_mc,
         chunk_size=chunk_size, conv_tol=conv_tol, derivatives_to_sample=ds,
-        num_fidelity=num_fidelity, group=group)
+        num_fidelity=num_fidelity, group=group, program_cache=program_cache)
     normals = ei_mod.draw_antithetic_normals(
         generator, num_mc, num_to_sample * (1 + len(ds)), device=pts.device,
         dtype=pts.dtype)
@@ -177,35 +188,105 @@ def gen_sample_from_qkg_mcmc(generator, states, domain, discrete_pts,
     return pts, float(voi)
 
 
-def recommend_from_guesses(states, domain, guesses: torch.Tensor,
-                           params=DEFAULT_SGD_PARAMS_RECOMMEND,
-                           num_fidelity: int = 0, group=None
-                           ) -> torch.Tensor:
-    """Best guess (G, dim_opt) under the ensemble-mean posterior mean
-    (fidelity coordinates pinned to 1), then one GD polish over the inner
-    ``domain``; the polish is kept only if it improves.  A ``group`` shards
-    the guesses' evaluation over its ranks."""
-    dim = guesses.shape[-1]
+def recommend_runs_program(process_group) -> bool:
+    """Whether the recommendation runs as a program: while
+    ``programs.CAPTURE`` is "auto" and outside a process group.  Under a
+    group the guesses' evaluation is sharded and gathered across the
+    ranks, a collective the programs do not capture."""
+    return programs.enabled() and process_group is None
 
-    def ensemble_neg_mean(x):                     # (..., dim_opt) -> (...)
-        mu = gp_mod.posterior_mean(
-            states, kg_mod._pin_fidelity(x.reshape(-1, dim), num_fidelity))
+
+def _ensemble_neg_mean(states, num_fidelity: int):
+    """x (..., dim_opt) -> minus the ensemble-mean posterior mean (...),
+    fidelity coordinates pinned to 1."""
+    def neg_mean(x):
+        mu = gp_mod.posterior_mean(states, kg_mod._pin_fidelity(
+            x.reshape(-1, x.shape[-1]), num_fidelity))
         return -torch.mean(mu[..., 0], dim=0).reshape(x.shape[:-1])
+    return neg_mean
 
-    vals = sharding.sharded_point_evaluation(ensemble_neg_mean, guesses,
-                                             group)
+
+def _best_guess(states, guesses: torch.Tensor, num_fidelity: int,
+                group=None):
+    """(the best guess, its value): the argmax of minus the ensemble-mean
+    posterior mean over the guesses (non-finite values lose)."""
+    vals = sharding.sharded_point_evaluation(
+        _ensemble_neg_mean(states, num_fidelity), guesses, group)
     vals = torch.where(torch.isfinite(vals), vals, float("-inf"))
-    x0 = guesses[torch.argmax(vals)]
+    x0 = torch.index_select(guesses, 0, torch.argmax(vals).reshape(1))[0]
+    return x0, vals.max()
+
+
+def _neg_mean_value_and_grad(states, num_fidelity: int):
+    neg_mean = _ensemble_neg_mean(states, num_fidelity)
 
     def vg(x):
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
-            v = ensemble_neg_mean(xx)
+            v = neg_mean(xx)
             (g,) = torch.autograd.grad(v, xx)
         return v.detach(), g
+    return vg
 
-    x = optimizers.gradient_ascent(vg, domain, x0, params)
-    return x if bool(ensemble_neg_mean(x) > vals.max()) else x0
+
+# the state fields the posterior mean reads: a recommendation program's
+# inputs (gp.state_tensors)
+_MEAN_FIELDS = ("points_sampled", "K_inv_y", "mean")
+
+
+def _recommend_programs(states, domain, guesses, params, num_fidelity,
+                        program_cache):
+    """The best guess and its GD polish through two programs: the grid's
+    evaluation and argmax, and one step (its gradient by autograd, the step
+    size an input), replayed once per step of ``params``' schedule."""
+    tensors, layout = gp_mod.state_tensors(states, _MEAN_FIELDS)
+    key = (tuple(guesses.shape), guesses.dtype, str(guesses.device),
+           tuple(t.shape for t in tensors), layout, num_fidelity)
+
+    def grid(g, *ts):
+        return _best_guess(gp_mod.state_from_tensors(layout, ts), g,
+                           num_fidelity)
+
+    def step(x, rate, bounds, *ts):
+        _, g = _neg_mean_value_and_grad(
+            gp_mod.state_from_tensors(layout, ts), num_fidelity)(x)
+        return optimizers.ascent_step(
+            TensorProductDomain(bounds=bounds), params.max_relative_change,
+            x, g, rate)
+
+    x0, best = program_cache.get(("recommend_grid",) + key, grid)(
+        guesses, *tensors)
+    step_fn = program_cache.stepper(
+        ("recommend_step", params.max_relative_change) + key, step,
+        domain.bounds, *tensors)
+    x = optimizers.gradient_ascent(None, domain, x0, params,
+                                   step_fn=step_fn)
+    return x, x0, best
+
+
+def recommend_from_guesses(states, domain, guesses: torch.Tensor,
+                           params=DEFAULT_SGD_PARAMS_RECOMMEND,
+                           num_fidelity: int = 0, group=None,
+                           program_cache=None) -> torch.Tensor:
+    """Best guess (G, dim_opt) under the ensemble-mean posterior mean
+    (fidelity coordinates pinned to 1), then one GD polish over the inner
+    ``domain``; the polish is kept only if it improves.  A ``group`` shards
+    the guesses' evaluation over its ranks.  With a ``program_cache`` the
+    grid's evaluation and argmax is one program and a polish step another,
+    replayed for each of the schedule's steps (its step size an input),
+    the counterpart of the JAX package's ``_recommend_program``, unless
+    :func:`recommend_runs_program` says otherwise; the final choice reads
+    the host outside them."""
+    if program_cache is None or not recommend_runs_program(group):
+        x0, best = _best_guess(states, guesses, num_fidelity, group)
+        x = optimizers.gradient_ascent(
+            _neg_mean_value_and_grad(states, num_fidelity), domain, x0,
+            params)
+    else:
+        x, x0, best = _recommend_programs(states, domain, guesses, params,
+                                          num_fidelity, program_cache)
+    better = _ensemble_neg_mean(states, num_fidelity)(x) > best
+    return x if bool(better) else x0
 
 
 @dataclass
@@ -283,6 +364,8 @@ class BayesianOptimizer:
         self.capital_so_far = 0.0
         self.history = []
         self.timer = PhaseTimer()
+        # the driver's programs, its model's among them (ops.programs)
+        self.program_cache = programs.ProgramCache()
 
     @property
     def is_rank0(self) -> bool:
@@ -323,7 +406,8 @@ class BayesianOptimizer:
             standardize=self.standardize,
             chain_gate_tol=self.chain_gate_tol, device=self.device,
             dtype=self.dtype, derivatives=self.derivatives,
-            process_group=self.process_group)
+            process_group=self.process_group,
+            program_cache=self.program_cache)
         t0 = time.time()
         self.model.train()
         self._log(f"initial training took {time.time() - t0:.2f}s on "
@@ -345,7 +429,8 @@ class BayesianOptimizer:
                 qei_params=self.sgd_params, ps_params=self.inner_sgd_params,
                 conv_tol=self.seed_conv_tol,
                 chunk_size=self.suggest_chunk_size,
-                num_fidelity=self.num_fidelity, group=self.process_group)
+                num_fidelity=self.num_fidelity, group=self.process_group,
+                program_cache=self.program_cache)
             pts, voi = _qkg_suggest_arrays(
                 self.generator, states, self.domain, discrete,
                 self.sgd_params, self.inner_sgd_params, self.num_to_sample,
@@ -353,7 +438,8 @@ class BayesianOptimizer:
                 chunk_size=self.suggest_chunk_size,
                 derivatives_to_sample=self.derivatives
                 if self.kg_sample_derivatives else (),
-                num_fidelity=self.num_fidelity, group=self.process_group)
+                num_fidelity=self.num_fidelity, group=self.process_group,
+                program_cache=self.program_cache)
         else:
             # q,p-EI on a single GP, member 0 of the ensemble
             pts, voi = _qei_suggest_arrays(
@@ -396,7 +482,8 @@ class BayesianOptimizer:
                              states.points_sampled[0][:, :inner.dim]], dim=0)
         best = recommend_from_guesses(states, inner, guesses,
                                       num_fidelity=self.num_fidelity,
-                                      group=self.process_group)
+                                      group=self.process_group,
+                                      program_cache=self.program_cache)
         self._log(f"recommendation took {time.time() - t0:.2f}s")
         return np.concatenate([best.cpu().numpy(),
                                np.ones(self.num_fidelity)])
@@ -427,6 +514,7 @@ class BayesianOptimizer:
             path or self.checkpoint_path, generator=self.generator,
             seed=self.seed, device=self.device, dtype=self.dtype)
         self.model.process_group = self.process_group
+        self.model.program_cache = self.program_cache
         self.capital_so_far = manifest["metadata"].get("capital", 0.0)
         return manifest["metadata"]
 

@@ -5,11 +5,10 @@ reference's ``cpp_wrappers/gaussian_process.py``): the same constructor
 ``(covariance_function, noise_variance, historical_data, derivatives)`` and
 method surface; variance matrices are ``(q*(1+m), q*(1+m))`` over (value +
 derivative) channels, gradient tensors carry the reduced winner-diagonal
-form.  The GP is fitted on the covariance's device in its dtype; in
-float32 the training Cholesky gets the port's relative jitter
-(``config.F32_CHOLESKY_JITTER`` times the amplitude), as the ensemble fit
-does, and in float64 none.  A failed factorization raises
-``SingularMatrixError``.
+form.  The GP is fitted on the covariance's device in its dtype with no
+jitter at any precision, as the JAX class fits it (the float32 jitter
+belongs to the ensemble fit, ``models.mcmc.fit_gp_ensemble``).  A failed
+factorization raises ``SingularMatrixError``.
 """
 
 from __future__ import annotations
@@ -20,7 +19,6 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from cornell_moe_tpu_torch import config
 from cornell_moe_tpu_torch.compat._boundary import to_numpy, to_tensor
 from cornell_moe_tpu_torch.compat.interfaces import GaussianProcessInterface
 from cornell_moe_tpu_torch.exceptions import (SingularMatrixError,
@@ -57,15 +55,13 @@ class GaussianProcess(GaussianProcessInterface):
         return torch.atleast_2d(self._tensor(points_to_sample))
 
     def _refit(self):
-        kern = self._covariance.to_kernel()
-        jitter = config.F32_CHOLESKY_JITTER * kern.alpha \
-            if self.dtype == torch.float32 else 0.0
         try:
             self._state = gp_mod.fit_gp(
-                kern, self._tensor(self._noise_variance),
+                self._covariance.to_kernel(),
+                self._tensor(self._noise_variance),
                 self._tensor(self._historical_data.points_sampled),
                 self._tensor(self._historical_data.points_sampled_value),
-                derivatives=self._derivatives, jitter=jitter)
+                derivatives=self._derivatives)
         except torch.linalg.LinAlgError as err:
             raise SingularMatrixError(
                 f"GaussianProcess: covariance matrix singular ({err})") \

@@ -47,3 +47,17 @@ def placement(device=None, dtype=None):
     :func:`default_dtype` of that device."""
     device = default_device() if device is None else torch.device(device)
     return device, default_dtype(device) if dtype is None else dtype
+
+
+SWITCH_VALUES = ("auto", "never")
+
+
+def switch_on(name: str, value: str) -> bool:
+    """A kernel or program switch (``LML_PALLAS``, ``DESCENT_PALLAS``,
+    ``USE_PALLAS``, ``CAPTURE``): True for "auto", False for "never";
+    any other value raises ``ValueError``.  "always" does not carry over
+    from the JAX package: no CUDA kernel runs on a CPU tensor."""
+    if value not in SWITCH_VALUES:
+        raise ValueError(f"{name} must be one of {SWITCH_VALUES}, got "
+                         f"{value!r}")
+    return value == "auto"

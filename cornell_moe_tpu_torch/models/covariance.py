@@ -32,6 +32,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from cornell_moe_tpu_torch import config
 from cornell_moe_tpu_torch.ops import kernels
 
 _SQRT5 = math.sqrt(5.0)
@@ -238,12 +239,19 @@ def noise_diagonal(noise_variance, point_noise, batch, n: int, c: int,
     return torch.broadcast_to(diag, batch + (n, c)).reshape(batch + (n * c,))
 
 
+# Kernel C's switch, the counterpart of the JAX package's ``use_pallas``
+# argument: "auto" takes the covariance kernel where
+# :func:`uses_covariance_kernel` allows it, "never" the plain build.
+USE_PALLAS = "auto"
+
+
 def uses_covariance_kernel(device_type: str, dtype: torch.dtype,
                            derivatives: Sequence[int],
                            kernel_name: str) -> bool:
     """Kernel C's gate: CUDA, float32, value channels only, a kernel it
-    knows."""
-    return device_type == "cuda" and dtype == torch.float32 and \
+    knows, ``USE_PALLAS`` "auto"."""
+    return config.switch_on("covariance.USE_PALLAS", USE_PALLAS) and \
+        device_type == "cuda" and dtype == torch.float32 and \
         not channels(derivatives) and kernel_name in COVARIANCE_TYPES
 
 

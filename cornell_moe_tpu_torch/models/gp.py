@@ -92,6 +92,50 @@ class GaussianProcessState:
             point_noise=lift(self.point_noise))
 
 
+STATE_TENSORS = ("noise_variance", "points_sampled", "points_sampled_value",
+                 "chol_K", "K_inv_y", "mean", "inv_chol_K", "point_noise")
+
+
+def state_tensors(state: GaussianProcessState,
+                  fields: Sequence[str] = STATE_TENSORS):
+    """The state's tensors as a flat list, for a program's inputs, and
+    their layout: per field of ``fields`` (after the covariance's
+    hyperparameters) None when absent, "expanded" for a tensor expanded
+    over the leading axis (the list holds its member 0, the shared data),
+    else "dense".  :func:`state_from_tensors` inverts it (the fields left
+    out are None); the layout is hashable, for a program's key."""
+    tensors, layout = [state.covariance.hyperparameters], []
+    for name in fields:
+        t = getattr(state, name)
+        if t is None:
+            layout.append(None)
+        elif t.dim() > 0 and t.shape[0] > 1 and t.stride(0) == 0:
+            layout.append("expanded")
+            tensors.append(t[0])
+        else:
+            layout.append("dense")
+            tensors.append(t)
+    return tensors, (type(state.covariance), tuple(fields), tuple(layout),
+                     state.derivatives)
+
+
+def state_from_tensors(layout, tensors) -> GaussianProcessState:
+    """The state of :func:`state_tensors`' list and layout, each expanded
+    field expanded again over the hyperparameters' batch axes."""
+    cov_type, fields, how_each, ds = layout
+    hypers, rest = tensors[0], list(tensors[1:])
+    batch = hypers.shape[:-1]
+    kw = dict.fromkeys(STATE_TENSORS)
+    for name, how in zip(fields, how_each):
+        if how is None:
+            kw[name] = None
+            continue
+        t = rest.pop(0)
+        kw[name] = t.expand(batch + t.shape) if how == "expanded" else t
+    return GaussianProcessState(covariance=cov_type(hyperparameters=hypers),
+                                derivatives=ds, **kw)
+
+
 def fit_gp(covariance: StationaryCovariance, noise_variance,
            points_sampled, points_sampled_value, derivatives=(),
            jitter=0.0, mean=None, precompute_inverse: bool = True,
@@ -106,6 +150,19 @@ def fit_gp(covariance: StationaryCovariance, noise_variance,
     top of the channel noise (the shape-bucketing mechanism).  ``mean``
     defaults to the empirical mean of the value channel.
     """
+    fit = fit_inputs(covariance, noise_variance, points_sampled,
+                     points_sampled_value, derivatives, point_noise)
+    factors = fit_factors(covariance, *fit, jitter=jitter, mean=mean,
+                          precompute_inverse=precompute_inverse)
+    return assemble_state(covariance, *fit, *factors)
+
+
+def fit_inputs(covariance: StationaryCovariance, noise_variance,
+               points_sampled, points_sampled_value, derivatives=(),
+               point_noise=None):
+    """:func:`fit_gp`'s inputs as tensors of the points' dtype and device,
+    checked: (noise (..., 1 + m), x (n, dim), y (n, 1 + m), point_noise
+    (n, 1 + m) or None, derivatives)."""
     ds = cov_mod.channels(derivatives)
     c = 1 + len(ds)
     x = torch.as_tensor(points_sampled)
@@ -129,9 +186,20 @@ def fit_gp(covariance: StationaryCovariance, noise_variance,
             f"have dim {x.shape[-1]}")
     if y.shape[-1] != c:
         raise ValueError(f"values have {y.shape[-1]} channels, expected {c}")
-    n = x.shape[0]
     if point_noise is not None:
-        point_noise = torch.as_tensor(point_noise, **kw).reshape(n, c)
+        point_noise = torch.as_tensor(point_noise, **kw).reshape(
+            x.shape[0], c)
+    return noise, x, y, point_noise, ds
+
+
+def fit_factors(covariance: StationaryCovariance, noise, x, y, point_noise,
+                ds, jitter=0.0, mean=None, precompute_inverse: bool = True):
+    """The device part of :func:`fit_gp` on :func:`fit_inputs`' tensors:
+    (chol_K, K_inv_y, inv_chol_K or None, mean (0-d)).  No host read: the
+    ensemble fit's program (``models.mcmc.fit_gp_ensemble``) captures it."""
+    kw = dict(dtype=x.dtype, device=x.device)
+    batch = covariance.hyperparameters.shape[:-1]
+    n, c = x.shape[0], 1 + len(ds)
     k = cov_mod.build_covariance_matrix_with_noise(covariance, x, ds, noise,
                                                    point_noise)
     chol = linalg.cholesky(k, jitter=jitter)
@@ -144,6 +212,15 @@ def fit_gp(covariance: StationaryCovariance, noise_variance,
     inv_chol = linalg.solve_triangular(
         chol, torch.eye(n * c, **kw).expand_as(chol),
         lower=True) if precompute_inverse else None
+    return chol, k_inv_y, inv_chol, mean
+
+
+def assemble_state(covariance: StationaryCovariance, noise, x, y,
+                   point_noise, ds, chol, k_inv_y, inv_chol, mean
+                   ) -> GaussianProcessState:
+    """The state of :func:`fit_inputs`' tensors and :func:`fit_factors`'
+    results, the shared data expanded over the batch axes."""
+    batch = covariance.hyperparameters.shape[:-1]
 
     def per_member(t):
         return t.expand(batch + t.shape)

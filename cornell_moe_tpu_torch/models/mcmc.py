@@ -3,14 +3,23 @@
 Counterpart of ``cornell_moe_tpu/models/mcmc.py``.  The
 affine-invariant stretch-move ensemble sampler (Goodman & Weare 2010) runs
 with the walkers as a batch axis; each half-step evaluates the proposals'
-log-posteriors in one call.  ``lax.scan`` becomes a Python loop over steps;
-the gated chain reads its convergence condition on the host once per
-64-step segment.
+log-posteriors in one call.  The chain runs in segments of
+``CHAIN_GATE_SEGMENT`` steps, the counterpart of the JAX package's
+``lax.scan`` under ``lax.while_loop``: each segment is one program
+(``ops.programs``, a CUDA graph on the card) whose stretch moves are drawn
+eagerly from the model's generator, step by step in the order the
+step-by-step chain draws them, so both chains take the same steps bit for
+bit.  The gated chain reads its convergence condition on the host once per
+segment.  Under a ``process_group`` the chain stays eager, step by step
+(:func:`chain_runs_programs`): its log-posteriors are gathered across the
+ranks at every half-step.  The ensemble fit is one program per (S, Np, d,
+kernel), the counterpart of ``_ensemble_fit_program``.
 
 Dispatch rule of the log-posterior (:func:`uses_lml_kernel`): CUDA,
 float32 and value channels only go through the fused LML kernel
 (``ops.kernels.lml_fused``); float64, CPU tensors and derivative channels
 take the plain LML (``models.likelihood``), as in the JAX package.
+``LML_PALLAS`` "never" sends every walker to the plain LML.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from cornell_moe_tpu_torch.models import covariance as cov_mod
 from cornell_moe_tpu_torch.models import gp as gp_mod
 from cornell_moe_tpu_torch.models import likelihood as lik_mod
 from cornell_moe_tpu_torch.models.priors import DefaultPrior
-from cornell_moe_tpu_torch.ops import kernels
+from cornell_moe_tpu_torch.ops import kernels, programs
 from cornell_moe_tpu_torch.parallel import sharding
 
 # Hard bounds on log-hyperparameters.
@@ -40,15 +49,33 @@ NOISELESS_VALUE = 1.0e-8
 # information, small enough to keep a float32 Cholesky well-scaled.
 PAD_NOISE = 1.0e8
 
-# Stretch-move steps per convergence check of the gated chain.
+# Kernel B's switch, as the JAX package's: "auto" takes the fused LML
+# kernel where :func:`uses_lml_kernel` allows it, "never" the plain LML.
+LML_PALLAS = "auto"
+
+# Stretch-move steps per convergence check of the gated chain, and the
+# segments before the gate may stop it (as the JAX package's; the two-lag
+# drift first exists at the third segment, so the chain runs at least 3)
 CHAIN_GATE_SEGMENT = 64
+CHAIN_GATE_MIN_SEGMENTS = 2
 
 
 def uses_lml_kernel(device_type: str, dtype: torch.dtype,
                     derivatives: Sequence[int]) -> bool:
-    """Kernel B's gate: CUDA, float32 and value channels only."""
-    return device_type == "cuda" and dtype == torch.float32 and \
+    """Kernel B's gate: CUDA, float32 and value channels only, while
+    ``LML_PALLAS`` is "auto"."""
+    return config.switch_on("mcmc.LML_PALLAS", LML_PALLAS) and \
+        device_type == "cuda" and dtype == torch.float32 and \
         not cov_mod.channels(derivatives)
+
+
+def chain_runs_programs(process_group) -> bool:
+    """Whether the chain runs as segment programs: while
+    ``programs.CAPTURE`` is "auto" and outside a process group.  Under a
+    group the log-posteriors of every half-step are gathered across the
+    ranks (``parallel.sharding``), a collective the programs do not
+    capture, so the chain runs eagerly, step by step."""
+    return programs.enabled() and process_group is None
 
 
 def bucket_size(n: int, bucket: int) -> int:
@@ -98,6 +125,56 @@ def draw_stretch_moves(generator: torch.Generator, num_walkers: int,
     return tuple(draws)
 
 
+def draw_segment(generator: torch.Generator, steps: int, num_walkers: int,
+                 device=None, dtype=torch.float64):
+    """The draws of ``steps`` stretch-move steps, one
+    :func:`draw_stretch_moves` per step in the step-by-step chain's order:
+    (u_z, partner_idx, u_accept), each (steps, 2, num_walkers / 2), axis 1
+    the half-ensemble."""
+    draws = [draw_stretch_moves(generator, num_walkers, device, dtype)
+             for _ in range(int(steps))]
+    return tuple(torch.stack([torch.stack([half[j] for half in step])
+                              for step in draws]) for j in range(3))
+
+
+def _segment_draws(u, idx, acc):
+    """Per step, the draws of :func:`draw_segment`'s tensors."""
+    for k in range(u.shape[0]):
+        yield ((u[k, 0], idx[k, 0], acc[k, 0]),
+               (u[k, 1], idx[k, 1], acc[k, 1]))
+
+
+def _chain_steps(pos, lp, log_prob_fn, step_draws, a: float,
+                 statistic: bool = True):
+    """Stretch-move steps, one per entry of ``step_draws``; returns
+    (positions, log_probs, stat), stat the segment's block-averaged
+    ensemble-mean log-posterior and coordinates (1 + D,) (None without
+    ``statistic``)."""
+    lp_means, pos_means = [], []
+    for draws in step_draws:
+        pos, lp = stretch_move_step_with_draws(pos, lp, log_prob_fn, draws,
+                                               a)
+        if statistic:
+            lp_means.append(torch.mean(lp))
+            pos_means.append(torch.mean(pos, dim=0))
+    if not statistic:
+        return pos, lp, None
+    stat = torch.cat([torch.mean(torch.stack(lp_means))[None],
+                      torch.mean(torch.stack(pos_means), dim=0)])
+    return pos, lp, stat
+
+
+def chain_segment(log_prob_fn: Callable, pos: torch.Tensor,
+                  lp: torch.Tensor, u: torch.Tensor, idx: torch.Tensor,
+                  acc: torch.Tensor, a: float = 2.0):
+    """``u.shape[0]`` stretch-move steps from :func:`draw_segment`'s
+    draws; returns (positions, log_probs, stat) as the gated chain's
+    segment computes them.  This is what a chain segment's program
+    captures."""
+    return _chain_steps(pos, lp, log_prob_fn, _segment_draws(u, idx, acc),
+                        a)
+
+
 def stretch_move_step_with_draws(positions: torch.Tensor,
                                  log_probs: torch.Tensor,
                                  log_prob_fn: Callable, draws,
@@ -138,12 +215,31 @@ def stretch_move_step(generator: torch.Generator, positions: torch.Tensor,
 
 def run_ensemble_mcmc(generator: torch.Generator, log_prob_fn: Callable,
                       initial_positions: torch.Tensor, num_steps: int,
-                      a: float = 2.0):
-    """Fixed-length stretch-move chain; returns (positions, log_probs)."""
+                      a: float = 2.0, segment_fn: Optional[Callable] = None,
+                      segment: int = CHAIN_GATE_SEGMENT):
+    """Fixed-length stretch-move chain; returns (positions, log_probs).
+
+    With ``segment_fn`` ((positions, log_probs, u, idx, acc) ->
+    (positions, log_probs, stat), :func:`chain_segment` of ``log_prob_fn``
+    or its program) the steps run in ``segment``-step blocks and a
+    remainder block, each from :func:`draw_segment`'s draws; without it
+    step by step.  Both take the same steps bit for bit."""
     pos = initial_positions
     lp = log_prob_fn(pos)
-    for _ in range(int(num_steps)):
-        pos, lp = stretch_move_step(generator, pos, lp, log_prob_fn, a)
+    w = pos.shape[0]
+    done = 0
+    while done < int(num_steps):
+        steps = int(num_steps) - done
+        if segment_fn is None:
+            pos, lp, _ = _chain_steps(
+                pos, lp, log_prob_fn,
+                (draw_stretch_moves(generator, w, pos.device, pos.dtype)
+                 for _ in range(steps)), a, statistic=False)
+        else:
+            steps = min(steps, segment)
+            pos, lp, _ = segment_fn(pos, lp, *draw_segment(
+                generator, steps, w, pos.device, pos.dtype))
+        done += steps
     return pos, lp
 
 
@@ -151,7 +247,9 @@ def run_ensemble_mcmc_gated(generator: torch.Generator,
                             log_prob_fn: Callable,
                             initial_positions: torch.Tensor, max_steps: int,
                             rel_tol: float = 1.0, a: float = 2.0,
-                            segment: int = CHAIN_GATE_SEGMENT):
+                            segment: int = CHAIN_GATE_SEGMENT,
+                            min_segments: int = CHAIN_GATE_MIN_SEGMENTS,
+                            segment_fn: Optional[Callable] = None):
     """Equilibration-gated stretch-move chain.
 
     Runs ``segment``-step blocks and stops once the block-averaged
@@ -160,10 +258,13 @@ def run_ensemble_mcmc_gated(generator: torch.Generator,
 
         |m_i - m_{i-1}|, |m_i - m_{i-2}| / 2  <=  rel_tol * std_walkers / sqrt(W)
 
-    The two-lag drift first exists at the third block, so the chain runs at
-    least 3 segments (192 steps), and at most ceil(max_steps / segment)
-    segments (the cap rounds up: 1024 steps for 1000).  Non-finite
-    statistics never pass.  Returns (positions, log_probs, steps_taken).
+    and at least ``min_segments`` blocks have run.  The two-lag drift first
+    exists at the third block, so the chain runs at least
+    max(3, ``min_segments``) segments (192 steps by default), and at most
+    ceil(max_steps / segment) segments (the cap rounds up: 1024 steps for
+    1000).  Non-finite statistics never pass.  ``segment_fn`` as in
+    :func:`run_ensemble_mcmc`: each block one call of it, else step by
+    step.  Returns (positions, log_probs, steps_taken).
     """
     w, d = initial_positions.shape
     max_segments = -(-int(max_steps) // segment)
@@ -175,13 +276,14 @@ def run_ensemble_mcmc_gated(generator: torch.Generator,
     prev1, prev2 = inf_stat, inf_stat
     seg = 0
     while seg < max_segments:
-        lp_means, pos_means = [], []
-        for _ in range(segment):
-            pos, lp = stretch_move_step(generator, pos, lp, log_prob_fn, a)
-            lp_means.append(torch.mean(lp))
-            pos_means.append(torch.mean(pos, dim=0))
-        stat = torch.cat([torch.mean(torch.stack(lp_means))[None],
-                          torch.mean(torch.stack(pos_means), dim=0)])
+        if segment_fn is None:
+            pos, lp, stat = _chain_steps(
+                pos, lp, log_prob_fn,
+                (draw_stretch_moves(generator, w, pos.device, pos.dtype)
+                 for _ in range(segment)), a)
+        else:
+            pos, lp, stat = segment_fn(pos, lp, *draw_segment(
+                generator, segment, w, pos.device, pos.dtype))
         scale = torch.cat([torch.std(lp, correction=0)[None],
                            torch.std(pos, dim=0, correction=0)]) * inv_sqrt_w
         drift1 = torch.abs(stat - prev1)
@@ -191,7 +293,7 @@ def run_ensemble_mcmc_gated(generator: torch.Generator,
             torch.isfinite(drift2) & (drift2 <= rel_tol * scale))
         seg += 1
         prev1, prev2 = stat, prev1
-        if settled.item():
+        if settled.item() and seg >= min_segments:
             break
     return pos, lp, seg * segment
 
@@ -203,7 +305,9 @@ def run_ensemble_mcmc_gated(generator: torch.Generator,
 def fit_gp_ensemble(kernel_name: str, hypers: torch.Tensor,
                     noises: torch.Tensor, points, values,
                     derivatives: Sequence[int] = (), jitter: float = 0.0,
-                    bucket: int = 0) -> gp_mod.GaussianProcessState:
+                    bucket: int = 0,
+                    program_cache: Optional[programs.ProgramCache] = None
+                    ) -> gp_mod.GaussianProcessState:
     """One GP per hyperparameter sample, as one ensemble state.
 
     ``hypers`` (S, 1+dim) linear-space covariance hyperparameters and
@@ -211,7 +315,12 @@ def fit_gp_ensemble(kernel_name: str, hypers: torch.Tensor,
     and values (n, 1+m) are numpy or tensors.  With ``bucket`` > 1 the data
     is padded to a multiple of it with PAD_NOISE rows.  In float32 the
     Cholesky gets a relative jitter of ``config.F32_CHOLESKY_JITTER`` times
-    each member's amplitude.
+    each member's amplitude.  With a ``program_cache`` (and
+    ``programs.CAPTURE`` "auto") the fit's device part
+    (``gp.fit_factors``, kernel C among it) is one program per (S, Np, d,
+    kernel), the counterpart of the JAX package's
+    ``_ensemble_fit_program``; the padding and the copy to the device stay
+    outside it.
     """
     dev, dt = hypers.device, hypers.dtype
     x = np.asarray(torch.as_tensor(points).cpu())
@@ -223,14 +332,36 @@ def fit_gp_ensemble(kernel_name: str, hypers: torch.Tensor,
         x, y, point_noise, mean = pad_training_data(
             x, y, bucket_size(x.shape[0], bucket))
         point_noise = torch.as_tensor(point_noise, dtype=dt, device=dev)
-    jit = jitter
-    if dt == torch.float32:
-        jit = jitter + config.F32_CHOLESKY_JITTER * hypers[:, 0]
     cov = cov_mod.COVARIANCE_TYPES[kernel_name](hyperparameters=hypers)
-    return gp_mod.fit_gp(
+    fit = gp_mod.fit_inputs(
         cov, noises, torch.as_tensor(x, dtype=dt, device=dev),
-        torch.as_tensor(y, dtype=dt, device=dev), derivatives, jitter=jit,
-        mean=mean, point_noise=point_noise)
+        torch.as_tensor(y, dtype=dt, device=dev), derivatives,
+        point_noise=point_noise)
+    noise, xt, yt, pn, ds = fit
+    inputs = [hypers.contiguous(), noise.contiguous(), xt, yt] + [
+        t for t in (pn, None if mean is None else
+                    torch.as_tensor(mean, dtype=dt, device=dev))
+        if t is not None]
+
+    def factors_of(h, nv, xx, yy, *rest):
+        rest = list(rest)
+        p = rest.pop(0) if pn is not None else None
+        m = rest.pop(0) if mean is not None else None
+        jit = jitter
+        if dt == torch.float32:
+            jit = jitter + config.F32_CHOLESKY_JITTER * h[:, 0]
+        return gp_mod.fit_factors(
+            cov_mod.COVARIANCE_TYPES[kernel_name](hyperparameters=h), nv, xx,
+            yy, p, ds, jitter=jit, mean=m)
+
+    if program_cache is None or not programs.enabled():
+        factors = factors_of(*inputs)
+    else:
+        key = ("fit", kernel_name, tuple(hypers.shape), tuple(xt.shape),
+               tuple(yt.shape), dt, str(dev), ds, float(jitter),
+               pn is not None, mean is not None)
+        factors = program_cache.get(key, factors_of)(*inputs)
+    return gp_mod.assemble_state(cov, *fit, *factors)
 
 
 def ensemble_size(states: gp_mod.GaussianProcessState) -> int:
@@ -257,7 +388,10 @@ class GaussianProcessLogLikelihoodMCMC:
     With a ``process_group`` the walkers' log-posteriors are computed in
     blocks, one per rank, and gathered (``parallel.sharding``): every rank
     holds every walker's value, so the gate stops every rank's chain at
-    the same step.
+    the same step.  The chain's segments and the ensemble fit run as
+    programs of ``program_cache`` (its own when None; ``ops.programs``),
+    one per shape bucket, while ``programs.CAPTURE`` is "auto" (the chain
+    only outside a process group, :func:`chain_runs_programs`).
     ``optimize()`` is the MAP alternative: one member at the best end of a
     multistart damped Newton.
     """
@@ -269,9 +403,12 @@ class GaussianProcessLogLikelihoodMCMC:
                  bucket: int = 0, standardize: bool = False,
                  chain_gate_tol: Optional[float] = None,
                  device=None, dtype=None, derivatives: Sequence[int] = (),
-                 process_group=None):
+                 process_group=None,
+                 program_cache: Optional[programs.ProgramCache] = None):
         self._data = historical_data
         self.process_group = process_group
+        self.program_cache = program_cache if program_cache is not None \
+            else programs.ProgramCache()
         self.device = torch.device(device) if device is not None \
             else config.default_device()
         self.dtype = dtype if dtype is not None else \
@@ -382,6 +519,29 @@ class GaussianProcessLogLikelihoodMCMC:
         return torch.where(in_bounds & torch.isfinite(val), val,
                            float("-inf"))
 
+    def _segment_program(self, x: torch.Tensor, y: torch.Tensor,
+                         point_noise: Optional[torch.Tensor]) -> Callable:
+        """The chain's ``segment_fn`` on this data: one program of
+        :func:`chain_segment` per (Np, W, D, steps) and the model's
+        settings; the data are the program's inputs, so a retrain inside
+        the bucket replays it."""
+        extra = () if point_noise is None else (point_noise,)
+
+        def segment(pos, lp, u, idx, acc, xx, yy, *pn):
+            return chain_segment(
+                lambda t: self.log_posterior(t, xx, yy, *pn), pos, lp, u,
+                idx, acc)
+
+        def run(pos, lp, u, idx, acc):
+            key = ("chain", tuple(x.shape), tuple(y.shape), tuple(pos.shape),
+                   int(u.shape[0]), self.dtype, str(self.device),
+                   self.kernel_name, self.noisy, self.derivatives,
+                   point_noise is not None)
+            return self.program_cache.get(key, segment)(
+                pos, lp, u, idx, acc, x, y, *extra)
+
+        return run
+
     def compute_log_likelihood(self, theta) -> torch.Tensor:
         """Log posterior at one log-hyperparameter vector (D,)."""
         t = torch.as_tensor(theta, dtype=self.dtype, device=self.device)
@@ -398,22 +558,26 @@ class GaussianProcessLogLikelihoodMCMC:
                     lambda tt: self.log_posterior(tt, x, y, point_noise), t,
                     self.process_group)
 
+            segment_fn = self._segment_program(x, y, point_noise) \
+                if chain_runs_programs(self.process_group) else None
             gen = self.generator
             if not self.burned:
                 p0 = self.prior.sample_from_prior(
                     gen, self.n_hypers, device=self.device, dtype=self.dtype)
                 p0 = torch.clamp(p0, -LOG_BOUND + 1e-3, LOG_BOUND - 1e-3)
                 self.p0, _ = run_ensemble_mcmc(gen, log_prob, p0,
-                                               self.burnin_steps)
+                                               self.burnin_steps,
+                                               segment_fn=segment_fn)
                 self.burned = True
             if self.chain_gate_tol is None:
                 pos, _ = run_ensemble_mcmc(gen, log_prob, self.p0,
-                                           self.chain_length)
+                                           self.chain_length,
+                                           segment_fn=segment_fn)
                 steps = self.chain_length
             else:
                 pos, _, steps = run_ensemble_mcmc_gated(
                     gen, log_prob, self.p0, self.chain_length,
-                    rel_tol=self.chain_gate_tol)
+                    rel_tol=self.chain_gate_tol, segment_fn=segment_fn)
             self.last_chain_steps = int(steps)
             self.chain_steps.append(self.last_chain_steps)
             self.p0 = pos
@@ -470,7 +634,8 @@ class GaussianProcessLogLikelihoodMCMC:
         return fit_gp_ensemble(
             self.kernel_name, torch.as_tensor(cov_hypers, **kw),
             torch.as_tensor(noises, **kw), self._data.points_sampled,
-            self._scaled_values(), self.derivatives, bucket=self.bucket)
+            self._scaled_values(), self.derivatives, bucket=self.bucket,
+            program_cache=self.program_cache)
 
     def _finalize_models(self) -> None:
         if self.hypers is None:

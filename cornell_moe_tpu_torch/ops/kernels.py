@@ -41,7 +41,9 @@ its kernel and nowhere else: ``lml_fused`` counts B's cluster instance,
 instance and ``descent_run_fma`` its FMA instance, ``descent_grad`` D's
 tensor-core instance and ``descent_grad_fma`` its FMA instance.
 ``chip_smoke.py`` reads the counters to prove each path went through its
-kernels.
+kernels.  A replayed CUDA graph (``ops.programs``) runs no wrapper: the
+program adds the launches it recorded at capture to the counters at each
+replay (:func:`add_launch_counts`).
 """
 
 from __future__ import annotations
@@ -83,6 +85,22 @@ def launch_counts() -> dict:
             "descent_run_fma": descent_run_fma_launches,
             "descent_grad": descent_grad_launches,
             "descent_grad_fma": descent_grad_fma_launches}
+
+
+def set_launch_counts(counts: dict) -> None:
+    """Set the counters named in ``counts`` (``launch_counts()``'s keys)."""
+    for name, value in counts.items():
+        if name not in launch_counts():
+            raise KeyError(f"no launch counter {name!r}")
+        globals()[name + "_launches"] = int(value)
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` to the counters it names: the launches of a replayed
+    CUDA graph (``ops.programs``), whose wrappers ran only at capture."""
+    now = launch_counts()
+    set_launch_counts({name: now[name] + int(v)
+                       for name, v in counts.items()})
 
 
 def _unit_fields(kernel_name: str):

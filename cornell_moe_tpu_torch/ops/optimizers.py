@@ -50,6 +50,15 @@ def _finite(g: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(g), g, 0.0)
 
 
+def ascent_step(domain, max_relative_change: float, x: torch.Tensor,
+                g: torch.Tensor, rate):
+    """(x_new, dx): one step of ``rate`` (a float or a 0-d tensor) along
+    the ascent direction g (non-finite entries zeroed), limited by the
+    domain."""
+    dx = domain.limit_update(max_relative_change, x, rate * _finite(g))
+    return x + dx, dx
+
+
 def _trailing_window_mean(buf: list, rows: int, width: int) -> torch.Tensor:
     """Mean of a circular trajectory buffer, summed oldest first (the
     order of ``mean(traj[-width:])`` on the fixed-depth path)."""
@@ -70,28 +79,38 @@ class _Schedule:
         self.width = max(self.avg_n, 1)
         self.min_rows = self.width if self.use_avg else 1
 
+    def rate(self, i) -> float:
+        """The step size at step index i."""
+        p = self.params
+        return p.pre_mult * (i + 1.0) ** (-p.gamma)
+
     def step(self, x, g, i):
         """(x_new, dx) for ascent direction g at step index i."""
-        p = self.params
-        alpha = p.pre_mult * (i + 1.0) ** (-p.gamma)
-        dx = self.domain.limit_update(p.max_relative_change, x,
-                                      alpha * _finite(g))
-        return x + dx, dx
+        return ascent_step(self.domain, self.params.max_relative_change, x,
+                           g, self.rate(i))
 
     def average(self, traj: list) -> torch.Tensor:
         return self.domain.clip(torch.mean(
             torch.stack(traj[-self.avg_n:]), dim=0))
 
-    def round(self, grad_fn, x, start_i: int, first_row=None):
+    def _take(self, grad_fn, step_fn, x, i):
+        """(x_new, dx) at step index i: :meth:`step` along ``grad_fn(x)``,
+        or ``step_fn(x, rate)`` (one step's program) when given."""
+        if step_fn is None:
+            return self.step(x, grad_fn(x), i)
+        return step_fn(x, self.rate(i))
+
+    def round(self, grad_fn, x, start_i: int, first_row=None,
+              step_fn=None):
         """One fixed-depth restart round; returns the round's endpoint."""
         traj = [] if first_row is None else [first_row]
         for i in range(start_i, self.num_steps):
-            x, _ = self.step(x, grad_fn(x), i)
+            x, _ = self._take(grad_fn, step_fn, x, i)
             traj.append(x)
         return self.average(traj) if self.use_avg else x
 
     def round_gated(self, grad_fn, x, conv_tol: float, start_i: int,
-                    first_row=None, batch_axes=None):
+                    first_row=None, batch_axes=None, step_fn=None):
         """One restart round with the step-norm early exit; returns the
         round's endpoint.  ``batch_axes`` None: one point, else the max step
         norm over the batch gates."""
@@ -104,7 +123,7 @@ class _Schedule:
         norm = float("inf")
         while i < self.num_steps and (norm >= conv_tol or
                                       rows < self.min_rows):
-            x, dx = self.step(x, grad_fn(x), i)
+            x, dx = self._take(grad_fn, step_fn, x, i)
             buf[rows % self.width] = x
             rows += 1
             if batch_axes is None:
@@ -121,7 +140,7 @@ class _Schedule:
 
 def _ascend(value_and_grad_fn: Callable, domain, x0: torch.Tensor,
             params: GradientDescentParameters, conv_tol: Optional[float],
-            batch_axes) -> torch.Tensor:
+            batch_axes, step_fn: Optional[Callable] = None) -> torch.Tensor:
     sch = _Schedule(params, domain)
 
     def grad_fn(x):
@@ -130,18 +149,23 @@ def _ascend(value_and_grad_fn: Callable, domain, x0: torch.Tensor,
     x = x0
     for _ in range(sch.num_rounds):
         if conv_tol is None:
-            x = sch.round(grad_fn, x, 0)
+            x = sch.round(grad_fn, x, 0, step_fn=step_fn)
         else:
             x = sch.round_gated(grad_fn, x, conv_tol, 0,
-                                batch_axes=batch_axes)
+                                batch_axes=batch_axes, step_fn=step_fn)
     return x
 
 
 def gradient_ascent(value_and_grad_fn: Callable, domain, x0: torch.Tensor,
                     params: GradientDescentParameters,
-                    conv_tol: Optional[float] = None) -> torch.Tensor:
-    """One restarted GD trajectory from x0; returns the final point."""
-    return _ascend(value_and_grad_fn, domain, x0, params, conv_tol, None)
+                    conv_tol: Optional[float] = None,
+                    step_fn: Optional[Callable] = None) -> torch.Tensor:
+    """One restarted GD trajectory from x0; returns the final point.
+    ``step_fn(x, rate) -> (x_new, dx)``, when given, takes each step
+    (:func:`ascent_step` along the gradient at x: a program of one step,
+    the recommendation's) in place of ``value_and_grad_fn``."""
+    return _ascend(value_and_grad_fn, domain, x0, params, conv_tol, None,
+                   step_fn)
 
 
 def gradient_ascent_line_search(value_and_grad_fn: Callable, domain,
@@ -176,11 +200,14 @@ def gradient_ascent_line_search(value_and_grad_fn: Callable, domain,
 def gradient_ascent_batch(batched_value_and_grad: Callable, domain,
                           x0: torch.Tensor,
                           params: GradientDescentParameters,
-                          conv_tol: Optional[float] = None) -> torch.Tensor:
+                          conv_tol: Optional[float] = None,
+                          step_fn: Optional[Callable] = None
+                          ) -> torch.Tensor:
     """Restarted GD on a whole batch of starts at once; ``conv_tol`` gates
-    on the max step norm over the batch."""
+    on the max step norm over the batch; ``step_fn`` as in
+    :func:`gradient_ascent`."""
     return _ascend(batched_value_and_grad, domain, x0, params, conv_tol,
-                   tuple(range(1, x0.dim())))
+                   tuple(range(1, x0.dim())), step_fn)
 
 
 def _chunked_multistart(run_batch: Callable, value_fn: Callable,
@@ -216,12 +243,16 @@ def multistart_optimize_batched(batched_value_and_grad: Callable, domain,
                                 initial_points: torch.Tensor,
                                 params: GradientDescentParameters,
                                 chunk_size: Optional[int] = None,
-                                conv_tol: Optional[float] = None
+                                conv_tol: Optional[float] = None,
+                                step_fn: Optional[Callable] = None
                                 ) -> MultistartResult:
-    """Multistart GD with a batched objective (see gradient_ascent_batch)."""
+    """Multistart GD with a batched objective (see gradient_ascent_batch);
+    ``step_fn(x, rate) -> (x_new, dx)`` takes the GD steps of every chunk
+    when given (the endpoints are scored by the objective)."""
     def run_batch(starts):
         return gradient_ascent_batch(batched_value_and_grad, domain, starts,
-                                     params, conv_tol=conv_tol)
+                                     params, conv_tol=conv_tol,
+                                     step_fn=step_fn)
 
     return _chunked_multistart(run_batch,
                                lambda c: batched_value_and_grad(c)[0],
@@ -232,16 +263,19 @@ def multistart_optimize_batched_warm(bvg_cold: Callable, bvg_warm: Callable,
                                      domain, initial_points: torch.Tensor,
                                      params: GradientDescentParameters,
                                      chunk_size: Optional[int] = None,
-                                     conv_tol: Optional[float] = None
+                                     conv_tol: Optional[float] = None,
+                                     warm_step: Optional[Callable] = None
                                      ) -> MultistartResult:
     """Multistart GD threading an inner-problem carry across outer steps.
 
     ``bvg_cold(x) -> (values, grads, carry)`` initializes the carry at the
     start of each chunk and scores the endpoints; ``bvg_warm(x, carry) ->
-    (values, grads, carry)`` drives every later step.  The first step of
-    the first round consumes the cold gradients, and that point is row 0 of
-    the round's trajectory.  ``conv_tol`` ends a chunk's round once every
-    point's step norm is below it, never before the Polyak window is full.
+    (values, grads, carry)`` drives every later step, or, when given,
+    ``warm_step(x, carry, rate) -> (x_new, dx, carry)`` takes each of those
+    steps whole (one step's program).  The first step of the first round
+    consumes the cold gradients, and that point is row 0 of the round's
+    trajectory.  ``conv_tol`` ends a chunk's round once every point's step
+    norm is below it, never before the Polyak window is full.
     """
     sch = _Schedule(params, domain)
     axes = tuple(range(1, initial_points.dim()))
@@ -257,15 +291,22 @@ def multistart_optimize_batched_warm(bvg_cold: Callable, bvg_warm: Callable,
             _, g, state["carry"] = bvg_warm(xx, state["carry"])
             return g
 
+        step_fn = None
+        if warm_step is not None:
+            def step_fn(xx, rate):
+                xx, dx, state["carry"] = warm_step(xx, state["carry"], rate)
+                return xx, dx
+
         for rnd in range(sch.num_rounds):
             first = rnd == 0
             start_i = 1 if first else 0
             first_row = x if first else None
             if conv_tol is None:
-                x = sch.round(grad_fn, x, start_i, first_row)
+                x = sch.round(grad_fn, x, start_i, first_row, step_fn)
             else:
                 x = sch.round_gated(grad_fn, x, conv_tol, start_i,
-                                    first_row, batch_axes=axes)
+                                    first_row, batch_axes=axes,
+                                    step_fn=step_fn)
         return x
 
     return _chunked_multistart(run_batch, lambda c: bvg_cold(c)[0],

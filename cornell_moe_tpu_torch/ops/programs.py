@@ -1,0 +1,233 @@
+"""Programs built once per shape bucket: CUDA graphs on the card.
+
+Counterpart of the JAX package's cache of compiled programs: the
+``BayesianOptimizer._programs`` dict of jitted suggest and recommend
+programs and ``models/mcmc._ensemble_fit_program`` (a ``functools.lru_cache``
+of jitted ensemble fits).  The shape bucket keeps their input shapes fixed
+across iterations, so a campaign builds its programs again only when the
+number of observations crosses a bucket.
+
+A :class:`Program` wraps a function of tensors and is built once per key of
+its :class:`ProgramCache`: (stage, shape bucket, walker or start count, d,
+dtype, kernel name, ...).  On a CUDA device its first call warms the
+function up on a side stream, then captures one ``torch.cuda.CUDAGraph``
+over static input buffers; every call copies its inputs in, replays the
+graph and hands back clones of the outputs, because the next replay
+overwrites the graph's own.  The graphs of one cache share one memory pool.
+On the CPU a program calls the function directly.  On both devices the
+first call of a key is one build (:func:`build_count`: CPU builds on the
+CPU, graph captures on the card), and each program counts its calls in
+``replays``.
+
+:data:`CAPTURE` is the switch, in the style of the JAX package's
+``LML_PALLAS``: ``"auto"`` runs the stages through programs, ``"never"``
+runs every stage eagerly, step by step.  A failed capture raises: nothing
+catches it and runs the stage eagerly instead.
+
+Launch accounting: the kernel wrappers (``ops.kernels``) count their
+launches in Python, which a replay does not run.  A capture records how far
+each counter grew while the function was captured, puts every counter back
+where it stood before the warm-up, and adds that growth at each replay.
+The counters are ``kernels.launch_counts()`` and every dict (str -> int)
+registered with :func:`tally` while the program is captured, such as a
+recorder of launches by shape.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable, Dict, Hashable, Optional
+
+import torch
+
+from cornell_moe_tpu_torch import config
+from cornell_moe_tpu_torch.ops import kernels
+
+CAPTURE = "auto"
+
+# warm-up calls before a capture (first-call set-up of the libraries and
+# kernel attributes happens there, outside the graph)
+WARMUP_CALLS = 1
+
+builds = 0
+_tallies: Dict[str, dict] = {}
+
+
+def enabled() -> bool:
+    """Whether the stages run through programs (``CAPTURE`` "auto")."""
+    return config.switch_on("programs.CAPTURE", CAPTURE)
+
+
+def reset_builds() -> None:
+    global builds
+    builds = 0
+
+
+def build_count() -> int:
+    return builds
+
+
+@contextlib.contextmanager
+def tally(name: str, counts: dict):
+    """Register ``counts`` (str -> int, counted by Python code that a replay
+    does not run) under ``name`` for the block: programs captured inside it
+    add their growth of ``counts`` at each replay while it is registered."""
+    _tallies[name] = counts
+    try:
+        yield counts
+    finally:
+        if _tallies.get(name) is counts:
+            del _tallies[name]
+
+
+def _read_counters() -> dict:
+    return {"kernels": kernels.launch_counts(),
+            **{name: dict(c) for name, c in _tallies.items()}}
+
+
+def _restore_counters(snapshot: dict) -> None:
+    kernels.set_launch_counts(snapshot["kernels"])
+    for name, counts in _tallies.items():
+        counts.clear()
+        counts.update(snapshot.get(name, {}))
+
+
+def _growth(before: dict, after: dict) -> dict:
+    out = {}
+    for name, counts in after.items():
+        old = before.get(name, {})
+        grew = {k: v - old.get(k, 0) for k, v in counts.items()
+                if v != old.get(k, 0)}
+        if grew:
+            out[name] = grew
+    return out
+
+
+def _add_counters(growth: dict) -> None:
+    kernels.add_launch_counts(growth.get("kernels", {}))
+    for name, grew in growth.items():
+        counts = _tallies.get(name) if name != "kernels" else None
+        if counts is not None:
+            for k, v in grew.items():
+                counts[k] = counts.get(k, 0) + v
+
+
+def _clone(out):
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    return tuple(None if t is None else t.clone() for t in out)
+
+
+class Program:
+    """One stage's function of tensors, built on its first call (see the
+    module docstring).  ``fn`` takes tensors and returns a tensor or a
+    tuple of tensors (None allowed); it must not read the host."""
+
+    def __init__(self, key: Hashable, fn: Callable, cache: "ProgramCache"):
+        self.key = key
+        self.fn = fn
+        self._cache = cache
+        self.replays = 0
+        self.capture_seconds: Optional[float] = None
+        self.launch_growth: dict = {}
+        self._built = False
+        self._graph = None
+        self._static_in = None
+        self._static_out = None
+
+    def __call__(self, *inputs: torch.Tensor):
+        global builds
+        device = inputs[0].device
+        if device.type != "cuda":
+            if not self._built:
+                self._built = True
+                builds += 1
+            self.replays += 1
+            return self.fn(*inputs)
+        with torch.cuda.device(device):
+            if self._graph is None:
+                self._capture(inputs)
+                builds += 1
+            for static, x in zip(self._static_in, inputs):
+                if static.shape != x.shape or static.dtype != x.dtype or \
+                        static.device != x.device:
+                    raise ValueError(
+                        f"program {self.key}: input of shape "
+                        f"{tuple(x.shape)} {x.dtype} on {x.device}, captured "
+                        f"at {tuple(static.shape)} {static.dtype}")
+                static.copy_(x)
+            self._graph.replay()
+            _add_counters(self.launch_growth)
+            self.replays += 1
+            return _clone(self._static_out)
+
+    def _capture(self, inputs) -> None:
+        t0 = time.perf_counter()
+        device = inputs[0].device
+        self._static_in = [x.clone() for x in inputs]
+        before = _read_counters()
+        side = self._cache.side_stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_CALLS):
+                self.fn(*self._static_in)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        start = _read_counters()
+        with torch.cuda.graph(graph, pool=self._cache.pool(), stream=side):
+            out = self.fn(*self._static_in)
+        self.launch_growth = _growth(start, _read_counters())
+        _restore_counters(before)
+        self._graph, self._static_out = graph, out
+        self.capture_seconds = time.perf_counter() - t0
+
+
+class ProgramCache:
+    """The programs of one model (or driver), by key; their CUDA graphs
+    share one memory pool and one side stream per device."""
+
+    def __init__(self):
+        self._programs: Dict[Hashable, Program] = {}
+        self._pool = None
+        self._streams: dict = {}
+
+    def get(self, key: Hashable, fn: Callable) -> Program:
+        """The program of ``key``, made from ``fn`` on first use (``fn`` of
+        a later call with the same key is not used)."""
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = Program(key, fn, self)
+        return prog
+
+    def stepper(self, key: Hashable, step: Callable, *inputs) -> Callable:
+        """``(*tensors, rate) -> step(*tensors, rate, *inputs)`` through one
+        program per ``key`` and the tensors' shapes: the GD steps of a
+        multistart or a polish, the step size (a float) passed as a 0-d
+        tensor of the first tensor's dtype, so that every step replays the
+        same graph."""
+        def call(*args):
+            *tensors, rate = args
+            prog = self.get(key + tuple(tuple(t.shape) for t in tensors),
+                            step)
+            rate = torch.full((), rate, dtype=tensors[0].dtype,
+                              device=tensors[0].device)
+            return prog(*tensors, rate, *inputs)
+        return call
+
+    def programs(self) -> Dict[Hashable, Program]:
+        return dict(self._programs)
+
+    def pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def side_stream(self, device) -> "torch.cuda.Stream":
+        device = torch.device(device)
+        if device not in self._streams:
+            self._streams[device] = torch.cuda.Stream(device)
+        return self._streams[device]
+
+    def __len__(self) -> int:
+        return len(self._programs)

@@ -160,8 +160,10 @@ def sharded_multistart_optimize_batched_gated(
         initial_points: torch.Tensor,
         params: optimizers.GradientDescentParameters, group,
         chunk_size: Optional[int] = None,
-        conv_tol: Optional[float] = None) -> optimizers.MultistartResult:
-    """Batched multistart, sharded, with the per-chunk convergence gate.
+        conv_tol: Optional[float] = None,
+        step_fn: Optional[Callable] = None) -> optimizers.MultistartResult:
+    """Batched multistart, sharded, with the per-chunk convergence gate
+    (``step_fn`` as in :func:`optimizers.multistart_optimize_batched`).
 
     Each rank runs :func:`optimizers.multistart_optimize_batched`
     (chunking + the step-norm conv_tol gate, gpp_optimization.hpp:667-671
@@ -179,7 +181,7 @@ def sharded_multistart_optimize_batched_gated(
     return _sharded_multistart(
         lambda b: optimizers.multistart_optimize_batched(
             batched_value_and_grad, domain, b, params,
-            chunk_size=chunk_size, conv_tol=conv_tol),
+            chunk_size=chunk_size, conv_tol=conv_tol, step_fn=step_fn),
         initial_points, group)
 
 
@@ -188,9 +190,11 @@ def sharded_multistart_optimize_batched_warm(
         initial_points: torch.Tensor,
         params: optimizers.GradientDescentParameters, group,
         chunk_size: Optional[int] = None,
-        conv_tol: Optional[float] = None) -> optimizers.MultistartResult:
+        conv_tol: Optional[float] = None,
+        warm_step: Optional[Callable] = None) -> optimizers.MultistartResult:
     """Sharded counterpart of
-    :func:`optimizers.multistart_optimize_batched_warm`.
+    :func:`optimizers.multistart_optimize_batched_warm` (``warm_step`` as
+    there).
 
     The PRODUCTION suggest program (warm-started inner descents +
     optional convergence gate) scaled out over the restart axis: each
@@ -213,7 +217,7 @@ def sharded_multistart_optimize_batched_warm(
     return _sharded_multistart(
         lambda b: optimizers.multistart_optimize_batched_warm(
             bvg_cold, bvg_warm, domain, b, params, chunk_size=chunk_size,
-            conv_tol=conv_tol),
+            conv_tol=conv_tol, warm_step=warm_step),
         initial_points, group)
 
 

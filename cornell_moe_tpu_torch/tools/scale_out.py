@@ -49,9 +49,10 @@ def iteration(device, descent=None, num_obs: int = NUM_OBS, **bo_kwargs):
     None) and every launch counter set to 0 just before and read just
     after.  Returns the optimizer, the iteration's record, its wall time,
     the counts, A's launches by shape and schedule (S, B, M, steps x
-    restarts) and B's calls by shape (W walkers, Np)."""
+    restarts) and B's calls by shape (W walkers, Np); the two recorders
+    count the launches of replayed programs too (``programs.tally``)."""
     from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
-    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.ops import kernels, programs
     from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
 
     bo = BayesianOptimizer(**dict(MAIN_PATH, objective_func=Branin(),
@@ -76,10 +77,12 @@ def iteration(device, descent=None, num_obs: int = NUM_OBS, **bo_kwargs):
     kernels.descent_run = recording_descent
     kernels.lml_fused = recording_lml
     try:
-        t0 = time.time()
-        history = bo.run(num_iterations=1, num_init_pts=num_obs)
-        _sync(device)
-        wall = time.time() - t0
+        with programs.tally("descent_run_launches_by_shape", shapes), \
+                programs.tally("lml_fused_calls_by_shape", lml_shapes):
+            t0 = time.time()
+            history = bo.run(num_iterations=1, num_init_pts=num_obs)
+            _sync(device)
+            wall = time.time() - t0
     finally:
         kernels.descent_run = descent_run
         kernels.lml_fused = lml_fused

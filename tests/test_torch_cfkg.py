@@ -523,3 +523,27 @@ def test_lcb_repeats_a_pick_as_the_reference_does(rng):
     pts, _ = tlcb(t, _t(cand), 3)
     np.testing.assert_allclose(pts.numpy(), np.asarray(ref), rtol=1e-12)
     assert len({tuple(p) for p in pts.tolist()}) == 1
+
+
+def test_cfkg_batch_value_and_grad_matches_jax(problem):
+    """knowledge_gradient_mcmc_batch_value_and_grad, the cold delegate of
+    the carry estimator: its values and union gradients equal the carry
+    estimator's and the JAX package's delegate on the same inputs."""
+    jdom, tdom = _doms(BOX[:1])
+    params = topt.GradientDescentParameters(**INNER)
+    v_t, g_t = tkg.knowledge_gradient_mcmc_batch_value_and_grad(
+        problem["t"], _t(problem["unions"]), _t(problem["discrete"]),
+        _t(problem["normals"]), tdom, params, _t(problem["best"]), Q,
+        num_fidelity=NF)
+    v_c, g_c, _ = tkg.knowledge_gradient_mcmc_batch_vg_carry(
+        problem["t"], _t(problem["unions"]), _t(problem["discrete"]),
+        _t(problem["normals"]), tdom, params, _t(problem["best"]),
+        num_fidelity=NF, num_to_sample=Q)
+    assert torch.equal(v_t, v_c) and torch.equal(g_t, g_c)
+    v_j, g_j = jkg.knowledge_gradient_mcmc_batch_value_and_grad(
+        problem["j"], jnp.asarray(problem["unions"]),
+        jnp.asarray(problem["discrete"]), jnp.asarray(problem["normals"]),
+        jdom, jopt.GradientDescentParameters(**INNER),
+        jnp.asarray(problem["best"]), Q, num_fidelity=NF)
+    np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j), **TOL)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), **GRAD)

@@ -286,6 +286,26 @@ def test_singular_matrix_error(monkeypatch, case):
     assert issubclass(texc.SingularMatrixError, texc.OptimalLearningError)
 
 
+def test_singular_matrix_error_in_float32():
+    """Duplicate points with zero noise in float32: the JAX class (x64
+    off) fits with no jitter and raises SingularMatrixError, and so does
+    the port, whose fit adds no jitter in float32 either."""
+    x, y = np.array([[0.5], [0.5]]), np.array([1.0, 1.0])
+    jdata = JData(dim=1)
+    jdata.append_historical_data(x, y)
+    with jax.enable_x64(False):
+        with pytest.raises(Exception) as ref:
+            jgp_c.GaussianProcess(jcov_c.SquareExponential([1.0, 1.0]),
+                                  [0.0], jdata)
+    assert type(ref.value).__name__ == "SingularMatrixError"
+    data = TData(dim=1)
+    data.append_historical_data(x, y)
+    cov = tcov_c.SquareExponential([1.0, 1.0], device="cpu",
+                                   dtype=torch.float32)
+    with pytest.raises(texc.SingularMatrixError):
+        tgp_c.GaussianProcess(cov, [0.0], data)
+
+
 def test_exception_payloads():
     err = texc.BoundsError("out", value=3.0, min_bound=0.0, max_bound=1.0)
     assert (err.value, err.min_bound, err.max_bound) == (3.0, 0.0, 1.0)

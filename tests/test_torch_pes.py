@@ -452,3 +452,35 @@ def test_run_pes_smoke(tmp_path):
     for h in history:
         assert 0.0 <= float(h["suggested"][0]) <= 1.0
         assert 0.0 <= float(h["recommended"][0]) <= 1.0
+
+
+@pytest.mark.parametrize("du,dv", [((0,), ()), ((0,), (1,)),
+                                   ((0, 1), (0, 1)), ((1, 0), (1, 0)),
+                                   ((), (1, 1))])
+def test_cov_deriv_matches_fd_and_jax(du, dv):
+    """cov_deriv indexes the derivative tensor: equal to the JAX package's
+    nested-jacfwd cov_deriv at rtol 1e-12, and held to central
+    differences as in tests/test_pes.py:15 (first and mixed second
+    derivatives at rtol 1e-6 and 1e-4); the fourth derivative is
+    symmetric in the order of its indices."""
+    from reference_impl import central_difference, se_kernel
+
+    sigma, lengths = 1.3, np.array([0.8, 1.2])
+    rng = np.random.default_rng(0)
+    u, v = rng.standard_normal(2), rng.standard_normal(2)
+    k_t = tpes._se_kernel(torch.tensor(sigma, dtype=torch.float64),
+                          _t(lengths))
+    k_j = jpes._se_kernel(jnp.asarray(sigma), jnp.asarray(lengths))
+    got = float(tpes.cov_deriv(k_t, du, dv)(_t(u), _t(v)))
+    ref = float(jpes.cov_deriv(k_j, du, dv)(jnp.asarray(u), jnp.asarray(v)))
+    np.testing.assert_allclose(got, ref, rtol=1e-12)
+    if (du, dv) == ((0,), ()):
+        fd = central_difference(lambda a: se_kernel(sigma, lengths, a, v), u)
+        np.testing.assert_allclose(got, fd[0], rtol=1e-6)
+    elif (du, dv) == ((0,), (1,)):
+        fd2 = central_difference(lambda vv: central_difference(
+            lambda a: se_kernel(sigma, lengths, a, vv), u)[0], v, eps=1e-5)
+        np.testing.assert_allclose(got, fd2[1], rtol=1e-4)
+    elif len(du) == 2:
+        swapped = tpes.cov_deriv(k_t, du[::-1], dv[::-1])(_t(u), _t(v))
+        np.testing.assert_allclose(got, float(swapped), rtol=1e-10)
