@@ -15,11 +15,14 @@ two iterations with those programs and again with ``programs.CAPTURE =
 "never"`` (the second iteration builds nothing, and both runs agree bit for
 bit), drives the same iteration sharded over
 ``torch.distributed`` (``BayesianOptimizer(n_devices=)``): a world of one
-over NCCL on ``cuda:0``, equal bit for bit to the unsharded iteration, and
-a world of two ranks over gloo, both on ``cuda:0`` (one card; NCCL refuses
-two ranks on one GPU), each rank counting its own launches of A, B and C,
-held to an unsharded iteration with the same chunking, with the latency of
-the chain's per-half-step ``all_gather``; then it holds each kernel
+over NCCL on ``cuda:0``, equal bit for bit to the unsharded iteration, its
+chain and recommendation replayed as CUDA graphs with the NCCL gather
+inside, and a world of two ranks over gloo, both on ``cuda:0`` (one card;
+NCCL refuses two ranks on one GPU), each rank counting its own launches of
+A, B and C, those two stages eager there by their rule, held to an
+unsharded iteration with the same chunking, with the latency of the
+chain's per-half-step ``all_gather``, eager and replayed; then it holds
+each kernel
 against its plain PyTorch version at the main path's shapes (the
 covariance also against its own transpose, bit for bit; the fused LML
 also against its large-Np instance,
@@ -46,7 +49,10 @@ iteration of ``pes_driver.run_PES`` on Hartmann6 at the reference scale
 drives one ``BayesianOptimizer(method="EI")`` iteration at the main path's
 size (kernels B and C, not A or D), heuristic q-EI on its member 0 under
 both estimation policies (C at the refit's ragged n 516, held against its
-plain version there), the MAP fit on its model (no launch of B), a
+plain version there), the MAP fit on its model (no launch of B); the
+cf-KG, EI, heuristic q-EI and MAP runs each take their stages through
+programs and are held bit for bit to a second run with ``programs.CAPTURE
+= "never"``; a
 checkpoint and resume at a reduced depth (the resumed iteration equal bit
 for bit to an uninterrupted one) and the command line
 (``cornell_moe_tpu_torch.main``) on Branin, on Hartmann6 through HeSBO and
@@ -151,6 +157,15 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def release(torch, bo) -> None:
+    """Free a driver's programs (their CUDA graphs and pool) and what the
+    allocator caches: the programs' closures hold the driver's model in a
+    reference cycle, which only the garbage collector would break."""
+    bo.program_cache.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def provenance(torch) -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -161,6 +176,7 @@ def provenance(torch) -> None:
                           capture_output=True, text=True, check=True)
     emit({"phase": "versions", "python": sys.version.split()[0],
           "torch": torch.__version__, "torch_cuda": torch.version.cuda,
+          "nccl": ".".join(map(str, torch.cuda.nccl.version())),
           "nvcc": nvcc.stdout.strip().splitlines()[-1],
           "device": torch.cuda.get_device_name(0)})
 
@@ -246,16 +262,19 @@ def phase_main(torch):
           "the witness run did not send every A launch to the FMA instance")
     check(wbo.model.chain_steps[0] == bo.model.chain_steps[0],
           "the chain before any A launch moved in the witness")
+    release(torch, wbo)
     del wbo
     return bo, rec, counts
 
 
 PROGRAM_ITERATIONS = 2
-
-
-def _program_name(key) -> str:
-    """A program's stage, and a chain segment's steps: "chain_64"."""
-    return f"chain_{key[4]}" if key[0] == "chain" else key[0]
+# the programs the EI path replays (the cf-KG path: the main path's)
+EI_PROGRAM_KINDS = ("chain_64", "fit", "ei_step", "ei_score",
+                    "recommend_grid", "recommend_step")
+# the main path's programs, each replayed in every iteration (and cf-KG's)
+PROGRAM_KINDS = ("chain_64", "fit", "qei_step", "posterior_mean_step",
+                 "kg_cold", "kg_warm_step", "kg_score", "recommend_grid",
+                 "recommend_step")
 
 
 def _program_run(torch, capture: str) -> dict:
@@ -300,8 +319,9 @@ def _program_run(torch, capture: str) -> dict:
             pts, voi = timed("suggest", bo.suggest)
             timed("observe_retrain", bo.observe, pts)
             rec = timed("recommend", bo.recommend)
-            replays.append({_program_name(key): prog.replays for key, prog
-                            in bo.program_cache.programs().items()})
+            replays.append({k: v["replays"] for k, v in
+                            scale_out.programs_by_kind(
+                                bo.program_cache).items()})
             results.append({"suggested": pts, "voi": voi,
                             "recommended": rec,
                             "walkers": bo.model.p0.cpu().numpy(),
@@ -309,7 +329,7 @@ def _program_run(torch, capture: str) -> dict:
         torch.cuda.synchronize()
         return {"optimizer": bo, "stages": stages, "replays": replays,
                 "capture_seconds": {
-                    _program_name(key): prog.capture_seconds
+                    scale_out.program_kind(key): prog.capture_seconds
                     for key, prog in bo.program_cache.programs().items()},
                 "launches": kernels.launch_counts(),
                 "chain_steps": bo.model.chain_steps,
@@ -326,9 +346,10 @@ def phase_programs(torch) -> None:
     iterations at full width (500 -> 504 -> 508 observations, all in
     bucket 512) with programs (CUDA graphs: the chain's 64-step segment
     and its 16-step burn-in remainder, the ensemble fit, the seeding
-    q-EI's GD step, the warm KG multistart's outer step with kernel A's
-    one-step launch, the recommendation's grid and its polish step) and
-    again with
+    q-EI's GD step and posterior-mean polish step, the KG multistart's
+    cold evaluation with kernel A's 6-step launch and its warm outer step
+    with A's one-step launch, the VOI's scoring, the recommendation's grid
+    and its polish step) and again with
     ``programs.CAPTURE = "never"``.  The first iteration builds, the
     second builds nothing and replays; the two runs agree bit for bit
     (suggested points, VOI, recommendation, walkers, hypers, chain steps)
@@ -346,9 +367,10 @@ def phase_programs(torch) -> None:
     torch.cuda.synchronize()
     on["recommend_wall_ms_per_polish_step"] = (time.time() - t0) * 1e3 / \
         DEFAULT_SGD_PARAMS_RECOMMEND.max_num_steps
+    release(torch, bo)
     del bo
     off = _program_run(torch, "never")
-    off.pop("optimizer")
+    release(torch, off.pop("optimizer"))
     bitwise = [{k: bool(np.array_equal(np.asarray(a[k]), np.asarray(b[k])))
                 for k in a} for a, b in zip(on["results"], off["results"])]
     printable = {k: v for k, v in on.items() if k != "results"}
@@ -370,8 +392,7 @@ def phase_programs(torch) -> None:
               for it in off["stages"]) == 0,
           "CAPTURE = 'never' built programs")
     last, first = on["replays"][-1], on["replays"][0]
-    for kind in ("chain_64", "fit", "qei_step", "kg_warm_step",
-                 "recommend_grid", "recommend_step"):
+    for kind in PROGRAM_KINDS:
         check(last.get(kind, 0) > first.get(kind, 0),
               f"the {kind} program did not replay in the second iteration")
     check(all(all(b.values()) for b in bitwise) and
@@ -390,12 +411,18 @@ def _scale_out_rank() -> dict:
     import torch
     from cornell_moe_tpu_torch.ops import kernels
     from cornell_moe_tpu_torch.tools import scale_out
-    out = scale_out.summary(*_iteration(torch, kernels.descent_run,
-                                        n_devices=SCALE_OUT_WORLD))
+    from cornell_moe_tpu_torch.bayes_opt import recommend_runs_program
+    from cornell_moe_tpu_torch.models.mcmc import chain_runs_programs
+    group = torch.distributed.group.WORLD
+    run = _iteration(torch, kernels.descent_run, n_devices=SCALE_OUT_WORLD)
+    out = scale_out.summary(*run)
+    release(torch, run[0])
+    del run
     out["rank"] = torch.distributed.get_rank()
     out["backend"] = str(torch.distributed.get_backend())
-    out["all_gather_ms"] = scale_out.gather_ms(
-        torch.distributed.group.WORLD, DEVICE, N_HYPERS // 2)
+    out["chain_runs_programs"] = chain_runs_programs(group, DEVICE)
+    out["recommend_runs_program"] = recommend_runs_program(group, DEVICE)
+    out["all_gather_ms"] = scale_out.gather_ms(group, DEVICE, N_HYPERS // 2)
     return out
 
 
@@ -403,13 +430,19 @@ def phase_scale_out(torch, main_bo, main_rec) -> None:
     """The main path's iteration sharded (``BayesianOptimizer(n_devices=)``,
     ``parallel.sharding``), twice.  (a) A world of one over NCCL on cuda:0,
     the group made by ``n_devices=1`` itself: equal bit for bit to the
-    main path's unsharded iteration (its chunk, 200 / 1, is one chunk).
+    main path's unsharded iteration (its chunk, 200 / 1, is one chunk),
+    its chain's segments and its recommendation's grid run as replayed
+    CUDA graphs with their NCCL gathers inside; the gather's host time is
+    read eagerly and replayed inside a graph, and the graphs are freed
+    before the group is destroyed.
     (b) A world of SCALE_OUT_WORLD ranks over gloo, spawned here, every
     rank on cuda:0 (the machine has one card, and NCCL refuses two ranks on
     one GPU): each rank counts its own launches of A, B and C, the ranks
     must agree bit for bit, and each is held to an unsharded iteration
     with the same chunking (suggest_chunk_size 200 / SCALE_OUT_WORLD)
-    within SCALE_OUT_RTOL of each quantity's scale."""
+    within SCALE_OUT_RTOL of each quantity's scale; the chain and the
+    recommendation stay eager there by their rule (a gloo gather runs on
+    the host)."""
     import tempfile
 
     import numpy as np
@@ -429,10 +462,13 @@ def phase_scale_out(torch, main_bo, main_rec) -> None:
     one = {"backend": str(dist.get_backend(group)),
            "world": dist.get_world_size(group),
            "all_gather_ms": scale_out.gather_ms(group, DEVICE,
-                                                N_HYPERS // 2)}
-    dist.destroy_process_group()
+                                                N_HYPERS // 2),
+           "all_gather_replayed_ms": scale_out.replayed_gather_ms(
+               group, DEVICE, N_HYPERS // 2)}
     one.update(scale_out.summary(*run))
+    release(torch, run[0])
     del run
+    dist.destroy_process_group()
     one["bitwise_equal_to_main_path"] = scale_out.bitwise(one, main)
 
     chunk = MULTISTARTS // SCALE_OUT_WORLD
@@ -468,6 +504,12 @@ def phase_scale_out(torch, main_bo, main_rec) -> None:
     check(all(one["bitwise_equal_to_main_path"].values()),
           "the NCCL world of one differs from the main path: "
           f"{one['bitwise_equal_to_main_path']}")
+    for kind in ("chain_64", "recommend_grid"):
+        check(one["programs"].get(kind, {}).get("replays", 0) > 0,
+              f"the NCCL world of one did not replay {kind}: "
+              f"{one['programs']}")
+    check(one["all_gather_replayed_ms"] is not None,
+          "the NCCL gather was not replayed inside a graph")
     for r in [one] + ranks:
         for name in MAIN_PATH_KERNELS:
             check(r["launches"][name] > 0,
@@ -481,6 +523,12 @@ def phase_scale_out(torch, main_bo, main_rec) -> None:
                f"W{N_HYPERS // SCALE_OUT_WORLD}_Np{np_}"} ==
               set(r["lml_fused_calls_by_shape"]),
               f"rank {r['rank']} did not run its shard's shapes")
+    for r in ranks:
+        check(not r["chain_runs_programs"] and
+              not r["recommend_runs_program"] and
+              not any(k.startswith("chain") or k == "recommend_grid"
+                      for k in r["programs"]),
+              f"rank {r['rank']} captured a gloo stage: {r['programs']}")
     check(all(ranks_agree.values()), f"the ranks disagree: {ranks_agree}")
     check(all(e <= SCALE_OUT_RTOL for e in errors.values()),
           f"the gloo world differs from the unsharded run: {errors}")
@@ -547,8 +595,8 @@ def phase_dkg(torch) -> None:
         check(counts[name] == 0, f"the d-KG path launched {name}")
     del states
     phase_chain_profile(torch, bo.model, "dkg_path")
+    release(torch, bo)
     del bo
-    torch.cuda.empty_cache()
 
 
 def kernel_row(name, launches, err, times, plain, bound) -> dict:
@@ -1222,7 +1270,69 @@ def phase_descent_grad(torch, kernel_name, problems) -> list:
 SEGMENTS_TIMED = 2
 
 
-def phase_chain_profile(torch, model, path="main_path") -> None:
+def _segment_times(torch, segment_fn, state, gen, model):
+    """(host wall ms, replay device ms) per step of the chain's captured
+    segment ``segment_fn``, over SEGMENTS_TIMED segments after one, its
+    draws taken eagerly before each replay; ``state`` [positions,
+    log-posteriors] moves along."""
+    from cornell_moe_tpu_torch.models import mcmc
+
+    seg, w = mcmc.CHAIN_GATE_SEGMENT, int(state[0].shape[0])
+    replay_ms = []
+
+    def run_segments(n):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(n):
+            draws = mcmc.draw_segment(gen, seg, w, model.device, model.dtype)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            pos, lp, _ = segment_fn(*state, *draws)
+            end.record()
+            replay_ms.append((start, end))
+            state[:] = [pos, lp]
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3 / (n * seg)
+
+    run_segments(1)
+    replay_ms.clear()
+    wall = run_segments(SEGMENTS_TIMED)
+    return wall, sum(a.elapsed_time(b) for a, b in replay_ms) / (
+        SEGMENTS_TIMED * seg)
+
+
+def _nccl_segment_times(torch, model, state, gen) -> dict:
+    """The captured segment of ``model``'s chain under an NCCL world of one
+    (its walkers' log-posteriors gathered inside the graph at every
+    half-step), timed as :func:`_segment_times` does, in a program cache of
+    its own that is freed before the group is destroyed."""
+    import torch.distributed as dist
+    from cornell_moe_tpu_torch.ops import programs
+    from cornell_moe_tpu_torch.parallel import sharding
+
+    group = sharding.default_process_group(1)
+    saved = model.process_group, model.program_cache
+    model.process_group, model.program_cache = group, programs.ProgramCache()
+    cache = model.program_cache
+    try:
+        x, y, pn = model._padded_data()
+        wall, device = _segment_times(
+            torch, model._segment_program(x, y, pn), state, gen, model)
+        replays = sum(p.replays for p in cache.programs().values())
+    finally:
+        model.process_group, model.program_cache = saved
+        cache.release()
+        dist.destroy_process_group()
+    check(replays == 1 + SEGMENTS_TIMED,
+          f"the NCCL segment replayed {replays} times")
+    return {"backend": "nccl", "world": 1, "wall_ms_per_step": wall,
+            "replay_device_ms_per_step": device,
+            "device_idle_share": 1.0 - device / wall}
+
+
+def phase_chain_profile(torch, model, path="main_path",
+                        nccl_world_of_one=False) -> None:
     """Where a stretch-move step of a path's chain spends its time, run
     step by step (eager) and as the chain's captured segment program (one
     CUDA graph of CHAIN_GATE_SEGMENT steps, its draws taken eagerly before
@@ -1233,7 +1343,9 @@ def phase_chain_profile(torch, model, path="main_path") -> None:
     Captured: host wall clock per step over SEGMENTS_TIMED segments after
     one, against the device time of the replays (CUDA events around each
     replay: the graph's kernels and the gaps between them, not the
-    draws).  Graph replays are not profiled: in the one run of this
+    draws); with ``nccl_world_of_one`` also the captured segment under an
+    NCCL world of one, its gathers inside the graph.  Graph replays are
+    not profiled: in the one run of this
     script that profiled them (about 120,000 graph-node events on the d-KG
     path), every later profile saw the device events of only 8 of its 21
     calls on the H100."""
@@ -1279,43 +1391,26 @@ def phase_chain_profile(torch, model, path="main_path") -> None:
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
 
-    segment_fn = model._segment_program(x, y, pn)
-    seg, w = mcmc.CHAIN_GATE_SEGMENT, int(model.p0.shape[0])
-    replay_ms = []
-
-    def run_segments(n):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for _ in range(n):
-            draws = mcmc.draw_segment(gen, seg, w, model.device, model.dtype)
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            pos, lp, _ = segment_fn(*state, *draws)
-            end.record()
-            replay_ms.append((start, end))
-            state[:] = [pos, lp]
-        torch.cuda.synchronize()
-        return (time.time() - t0) * 1e3 / (n * seg)
-
-    run_segments(1)
-    replay_ms.clear()
-    seg_wall = run_segments(SEGMENTS_TIMED)
-    seg_device = sum(a.elapsed_time(b) for a, b in replay_ms) / (
-        SEGMENTS_TIMED * seg)
-    emit({"phase": "chain_profile", "path": path,
-          "walkers": int(state[0].shape[0]),
-          "steps": steps, "wall_ms_per_step": wall,
-          "profiled_wall_ms_per_step": profiled_wall,
-          "device_busy_ms_per_step": busy,
-          "device_idle_share": 1.0 - busy / wall,
-          "device_ops_per_step": launches / steps,
-          "top_device_ms_per_step": {k[:48]: v for k, v in top},
-          "captured_segment": {
-              "steps_per_segment": seg, "steps": SEGMENTS_TIMED * seg,
-              "wall_ms_per_step": seg_wall,
-              "replay_device_ms_per_step": seg_device,
-              "device_idle_share": 1.0 - seg_device / seg_wall}})
+    seg_wall, seg_device = _segment_times(
+        torch, model._segment_program(x, y, pn), state, gen, model)
+    line = {"phase": "chain_profile", "path": path,
+            "walkers": int(state[0].shape[0]),
+            "steps": steps, "wall_ms_per_step": wall,
+            "profiled_wall_ms_per_step": profiled_wall,
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "device_ops_per_step": launches / steps,
+            "top_device_ms_per_step": {k[:48]: v for k, v in top},
+            "captured_segment": {
+                "steps_per_segment": mcmc.CHAIN_GATE_SEGMENT,
+                "steps": SEGMENTS_TIMED * mcmc.CHAIN_GATE_SEGMENT,
+                "wall_ms_per_step": seg_wall,
+                "replay_device_ms_per_step": seg_device,
+                "device_idle_share": 1.0 - seg_device / seg_wall}}
+    if nccl_world_of_one:
+        line["captured_segment_nccl_world_of_one"] = _nccl_segment_times(
+            torch, model, state, gen)
+    emit(line)
     check(busy > 0.0, "the profiler saw no device time in the chain")
 
 
@@ -1374,6 +1469,61 @@ def kg_domain(dev, dtype):
         np.asarray(Branin()._search_domain), device=dev, dtype=dtype)
 
 
+def _twin_never(torch, make_bo) -> dict:
+    """The iteration of a path's driver (``make_bo()``) again with
+    ``programs.CAPTURE = "never"``, every stage eager: what the comparison
+    with the programs' run reads."""
+    from cornell_moe_tpu_torch.ops import programs
+    programs.CAPTURE = "never"
+    try:
+        bo = make_bo()
+        rec = bo.run(num_iterations=1, num_init_pts=NUM_OBS)[-1]
+        torch.cuda.synchronize()
+    finally:
+        programs.CAPTURE = "auto"
+    check(len(bo.program_cache) == 0, "CAPTURE = 'never' built programs")
+    out = {k: rec[k] for k in ("suggested", "voi", "recommended")}
+    out["chain_steps"] = list(bo.model.chain_steps)
+    out["stages"] = {r["phase"]: r["seconds"] for r in bo.timer.records}
+    release(torch, bo)
+    return out
+
+
+def _programs_vs_never(torch, bo, rec, make_bo) -> dict:
+    """A path's programs by kind and whether its results equal bit for bit
+    those of its CAPTURE = "never" twin (:func:`_twin_never`)."""
+    import numpy as np
+    from cornell_moe_tpu_torch.tools import scale_out
+    by_kind = scale_out.programs_by_kind(bo.program_cache)
+    never = _twin_never(torch, make_bo)
+    got = {k: rec[k] for k in ("suggested", "voi", "recommended")}
+    got["chain_steps"] = list(bo.model.chain_steps)
+    # one more suggest, replayed, its draws given back to the generator
+    state = bo.generator.get_state()
+    t0 = time.time()
+    bo.suggest()
+    torch.cuda.synchronize()
+    replayed = time.time() - t0
+    bo.generator.set_state(state)
+    return {"programs": by_kind, "suggest_replayed_seconds": replayed,
+            "never_stages": never["stages"], "bitwise_equal_to_never": {
+                k: bool(np.array_equal(np.asarray(got[k]),
+                                       np.asarray(never[k])))
+                for k in got}}
+
+
+def _check_programs(path, line, kinds) -> None:
+    """Each of ``kinds`` replayed on the path, and its results equal to
+    CAPTURE = "never" (:func:`_programs_vs_never`'s ``line``)."""
+    for kind in kinds:
+        check(line["programs"].get(kind, {}).get("replays", 0) > 0,
+              f"the {path} did not replay its {kind} program: "
+              f"{line['programs']}")
+    check(all(line["bitwise_equal_to_never"].values()),
+          f"the {path} with programs and CAPTURE = 'never' differ: "
+          f"{line['bitwise_equal_to_never']}")
+
+
 def phase_cfkg(torch):
     """One cf-KG iteration through the driver at the main path's size:
     BraninFidelity (d = 3, the last coordinate a fidelity in [0.05, 1]),
@@ -1382,17 +1532,23 @@ def phase_cfkg(torch):
     benchmarks/sample_efficiency_r04.py:117-121).  Every launch counter is
     set to 0 just before and read just after: kernel A's gate takes no
     fidelity dim, as the JAX package's does, so A may not launch, while B
-    (the chain) and C (the fits) must.  Returns the optimizer."""
+    (the chain) and C (the fits) must.  Every stage runs as a program (the
+    warm KG step too: the fidelity cost's backward reads nothing from the
+    host), each replayed, and the iteration equals its CAPTURE = "never"
+    twin bit for bit.  Returns the optimizer."""
     import numpy as np
     from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
     from cornell_moe_tpu_torch.ops import kernels
     from cornell_moe_tpu_torch.utils.synthetic_functions import \
         BraninFidelity
 
-    bo = BayesianOptimizer(objective_func=BraninFidelity(), method="KG",
-                           num_to_sample=Q, n_hypers=N_HYPERS, noisy=True,
-                           standardize=True, device=DEVICE,
-                           dtype=torch.float32, verbose=False)
+    def make_bo():
+        return BayesianOptimizer(
+            objective_func=BraninFidelity(), method="KG", num_to_sample=Q,
+            n_hypers=N_HYPERS, noisy=True, standardize=True, device=DEVICE,
+            dtype=torch.float32, verbose=False)
+
+    bo = make_bo()
     check(bo.num_fidelity == 1 and bo.dim == 3 and
           bo.sgd_params.num_multistarts == MULTISTARTS and
           bo.num_mc == NUM_MC, "cf-KG size changed")
@@ -1404,6 +1560,8 @@ def phase_cfkg(torch):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    twin = _programs_vs_never(torch, bo, rec, make_bo)
     states = bo.model.models
     sugg, r = rec["suggested"], rec["recommended"]
     capital = float(np.max(np.prod(sugg[:, 2:], axis=1)))
@@ -1417,9 +1575,9 @@ def phase_cfkg(torch):
           "members_replaced": bo.model.members_replaced,
           "voi": rec["voi"], "suggested": sugg.tolist(),
           "recommended": r.tolist(), "true_value": rec["true_value"],
-          "capital": rec["capital"],
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": counts})
+          "capital": rec["capital"], "max_memory_allocated": peak,
+          "launches": counts, **twin})
+    _check_programs("cf-KG path", twin, PROGRAM_KINDS)
     check(counts["descent_run"] == 0 and counts["descent_run_fma"] == 0,
           "the cf-KG path launched kernel A")
     check(counts["lml_fused"] > 0 and counts["covariance_with_noise"] > 0,
@@ -1896,16 +2054,22 @@ def phase_ei(torch):
     standardized, seed 0): q,p-EI on ensemble member 0.  Every launch
     counter is set to 0 just before and read just after: the chain
     launches B and the ensemble fits C, while the EI suggest and the
-    recommendation launch neither A nor D.  Returns the optimizer."""
+    recommendation launch neither A nor D.  The EI suggest's GD step and
+    scoring run as programs with the other stages, each replayed, and the
+    iteration equals its CAPTURE = "never" twin bit for bit.  Returns the
+    optimizer."""
     import numpy as np
     from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
     from cornell_moe_tpu_torch.ops import kernels
     from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
 
-    bo = BayesianOptimizer(objective_func=Branin(), method="EI",
-                           num_to_sample=Q, n_hypers=N_HYPERS, noisy=True,
-                           standardize=True, device=DEVICE,
-                           dtype=torch.float32, verbose=False)
+    def make_bo():
+        return BayesianOptimizer(
+            objective_func=Branin(), method="EI", num_to_sample=Q,
+            n_hypers=N_HYPERS, noisy=True, standardize=True, device=DEVICE,
+            dtype=torch.float32, verbose=False)
+
+    bo = make_bo()
     check(bo.sgd_params.num_multistarts == MULTISTARTS and
           bo.num_mc == EI_NUM_MC, "EI path size changed")
     torch.cuda.synchronize()
@@ -1916,6 +2080,8 @@ def phase_ei(torch):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    twin = _programs_vs_never(torch, bo, rec, make_bo)
     states = bo.model.models
     bounds = bo.objective_func._search_domain
     sugg, r = rec["suggested"], rec["recommended"]
@@ -1929,8 +2095,8 @@ def phase_ei(torch):
           "voi": rec["voi"], "suggested": sugg.tolist(),
           "distinct_suggested": int(len(np.unique(sugg, axis=0))),
           "recommended": r.tolist(), "true_value": rec["true_value"],
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": counts})
+          "max_memory_allocated": peak, "launches": counts, **twin})
+    _check_programs("EI path", twin, EI_PROGRAM_KINDS)
     check(math.isfinite(rec["voi"]) and rec["voi"] >= 0.0,
           f"EI VOI {rec['voi']} not finite and >= 0")
     check(sugg.shape == (Q, 2) and _domain_check(sugg, bounds),
@@ -1950,14 +2116,20 @@ def phase_ei(torch):
 def phase_heuristic_ei(torch, bo) -> None:
     """Heuristic q-EI (q = 4) on member 0 of the EI path's ensemble, under
     the kriging believer and under the constant liar (the lie: the best
-    observed value), with the driver's multistart parameters.  Each
-    policy refits one GP at n0 + q = 516 points five times (kernel C at
-    S 1, n 516, d 2); C's launches and their shapes are recorded.  Then C
-    against its plain version on the last refit's own inputs."""
+    observed value), with the driver's multistart parameters, through one
+    program cache: the refit at n0 + q = 516 points is one program (kernel
+    C at S 1, n 516, d 2), built once and replayed five times per policy,
+    and each round's multistart takes its GD steps through the EI step's
+    program; C's launches and their shapes are counted through the
+    replays.  Then both policies again from the same generator state with
+    ``programs.CAPTURE = "never"``, equal bit for bit, and C against its
+    plain version on that run's last refit's own inputs."""
     import functools
 
+    import numpy as np
     from cornell_moe_tpu_torch.acquisition import expected_improvement as ei
-    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.ops import kernels, programs
+    from cornell_moe_tpu_torch.tools import scale_out
 
     member = bo.model.models.member(0)
     bounds = bo.objective_func._search_domain
@@ -1975,34 +2147,65 @@ def phase_heuristic_ei(torch, bo) -> None:
         "constant_liar": functools.partial(
             ei.constant_liar_estimate,
             lie_value=float(member.best_observed_value))}
-    picks, seconds = {}, {}
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    kernels.covariance_with_noise = recording_covariance
-    try:
+
+    def run_policies(cache):
+        picks, seconds = {}, {}
         for name, policy in policies.items():
             t0 = time.time()
             pts = ei.heuristic_expected_improvement_optimization(
                 bo.generator, member, bo.domain, Q, bo.sgd_params,
-                estimation_policy=policy, num_mc_iterations=bo.num_mc)
+                estimation_policy=policy, num_mc_iterations=bo.num_mc,
+                program_cache=cache)
             torch.cuda.synchronize()
             seconds[name] = time.time() - t0
             picks[name] = pts.cpu().numpy()
+        return picks, seconds
+
+    cache = programs.ProgramCache()
+    gen_state = bo.generator.get_state()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    kernels.covariance_with_noise = recording_covariance
+    try:
+        with programs.tally("covariance_launches_by_shape", shapes):
+            picks, seconds = run_policies(cache)
+        counts = kernels.launch_counts()
+        by_kind = scale_out.programs_by_kind(cache)
+        cache.release()
+        shapes_with_programs = dict(shapes)
+        bo.generator.set_state(gen_state)
+        programs.CAPTURE = "never"
+        try:
+            never, never_seconds = run_policies(None)
+        finally:
+            programs.CAPTURE = "auto"
     finally:
         kernels.covariance_with_noise = covariance
-    counts = kernels.launch_counts()
     n_refit = member.num_sampled + Q
+    equal = {k: bool(np.array_equal(picks[k], never[k])) for k in picks}
     emit({"phase": "heuristic_ei", "q": Q, "seconds": seconds,
+          "never_seconds": never_seconds,
           "picks": {k: v.tolist() for k, v in picks.items()},
-          "refit_n": n_refit, "covariance_launches_by_shape": shapes,
-          "launches": counts})
+          "refit_n": n_refit,
+          "covariance_launches_by_shape": shapes_with_programs,
+          "launches": counts, "programs": by_kind,
+          "bitwise_equal_to_never": equal})
     for name, pts in picks.items():
         check(pts.shape == (Q, 2) and _domain_check(pts, bounds),
               f"heuristic q-EI ({name}) picks {pts} outside the domain")
-    check(n_refit == 516 and shapes == {f"S1_n{n_refit}_d2": 2 * (1 + Q)},
-          f"heuristic q-EI refits {shapes}, expected 10 at S1_n516_d2")
+    check(n_refit == 516 and
+          shapes_with_programs == {f"S1_n{n_refit}_d2": 2 * (1 + Q)},
+          f"heuristic q-EI refits {shapes_with_programs}, expected 10 at "
+          "S1_n516_d2")
     check(counts["covariance_with_noise"] == 2 * (1 + Q),
           "the heuristic refits did not launch kernel C")
+    check(by_kind.get("heuristic_refit") == {"builds": 1,
+                                             "replays": 2 * (1 + Q)} and
+          by_kind.get("ei_step", {}).get("replays", 0) > 0,
+          f"the heuristic programs did not replay: {by_kind}")
+    check(all(equal.values()),
+          f"heuristic q-EI with programs and CAPTURE = 'never' differ: "
+          f"{equal}")
     x, h, nv, kernel_name = last["args"]
     _covariance_line(torch, "heuristic_ei", x, h, nv, kernel_name)
 
@@ -2013,10 +2216,16 @@ def phase_map(torch, bo) -> None:
     posterior.  Kernel B has no backward, so the fit may not launch it;
     its counter is set to 0 just before and read just after.  The chosen
     point (the best finite end, else the best start) is held against the
-    best start."""
-    from cornell_moe_tpu_torch.ops import kernels
+    best start.  Each start's 40 Newton steps are one program of the
+    driver's cache, built once and replayed per start; the fit again from
+    the same generator state with ``programs.CAPTURE = "never"`` must give
+    the same ends and the same pick bit for bit."""
+    import numpy as np
+    from cornell_moe_tpu_torch.ops import kernels, programs
+    from cornell_moe_tpu_torch.tools import scale_out
 
     model = bo.model
+    gen_state = model.generator.get_state()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.time()
@@ -2024,6 +2233,21 @@ def phase_map(torch, bo) -> None:
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = kernels.launch_counts()
+    newton = scale_out.programs_by_kind(model.program_cache).get(
+        "map_newton")
+    got = (np.asarray(model.hypers), model.map_values.cpu().numpy())
+    model.generator.set_state(gen_state)
+    programs.CAPTURE = "never"
+    try:
+        t1 = time.time()
+        model.optimize(num_restarts=MAP_RESTARTS)
+        torch.cuda.synchronize()
+        never_wall = time.time() - t1
+    finally:
+        programs.CAPTURE = "auto"
+    equal = {k: bool(np.array_equal(a, b, equal_nan=True)) for k, a, b in zip(
+        ("hypers", "end_log_posteriors"), got,
+        (np.asarray(model.hypers), model.map_values.cpu().numpy()))}
     x, y, pn = model._padded_data()
 
     def log_posterior(theta):                   # one row, as optimize()
@@ -2042,9 +2266,15 @@ def phase_map(torch, bo) -> None:
               [float(v) for v in start_lp], "chosen_log_posterior": chosen,
           "best_start_log_posterior": best_start,
           "chosen_from": "end" if bool(finite.any()) else "start",
-          "hypers": model.hypers.tolist(), "launches": counts})
+          "hypers": model.hypers.tolist(), "launches": counts,
+          "never_seconds": never_wall, "map_newton_program": newton,
+          "bitwise_equal_to_never": equal})
     check(counts["lml_fused"] == 0 and counts["lml_fused_global"] == 0,
           "the MAP fit launched kernel B")
+    check(newton == {"builds": 1, "replays": MAP_RESTARTS},
+          f"the Newton program did not replay once per start: {newton}")
+    check(all(equal.values()),
+          f"the MAP fit with programs and CAPTURE = 'never' differ: {equal}")
     check(chosen >= best_start,
           f"MAP point {chosen} below the best start {best_start}")
     check(model.num_mcmc == 1 and
@@ -2455,7 +2685,8 @@ def phase_small_reference_ei(torch) -> None:
                                               dtype=dt)
 
         def given_starts(generator, state, domain, q, params_,
-                         best_so_far=None, num_mc_iterations=None):
+                         best_so_far=None, num_mc_iterations=None,
+                         program_cache=None):
             def bvg(p):
                 with torch.enable_grad():
                     xx = p.detach().requires_grad_(True)
@@ -2530,19 +2761,19 @@ def main() -> int:
     phase_dkg(torch)
     summary, problems = phase_equivalence(torch, bo.model, counts)
     summary += phase_descent_grad(torch, bo.model.kernel_name, problems)
-    phase_chain_profile(torch, bo.model)
+    phase_chain_profile(torch, bo.model, nccl_world_of_one=True)
     phase_lcb(torch, bo.model.models)
     del problems
     cf = phase_cfkg(torch)
     phase_cfkg_equivalence(torch, cf)
+    release(torch, cf)
     del cf
-    torch.cuda.empty_cache()
     phase_pes(torch)
     ei_bo = phase_ei(torch)
     phase_heuristic_ei(torch, ei_bo)
     phase_map(torch, ei_bo)
+    release(torch, ei_bo)
     del ei_bo
-    torch.cuda.empty_cache()
     phase_checkpoint_resume(torch)
     phase_cli(torch)
     phase_compat(torch)

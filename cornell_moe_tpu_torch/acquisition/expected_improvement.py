@@ -85,11 +85,31 @@ def monte_carlo_expected_improvement(state: gp.GaussianProcessState,
     untouched.  The batched estimator, which the KG seeding's q-EI runs
     through, has none: there a union whose float32 factor fails loses the
     multistart, as in the JAX package."""
-    union = _union(points_to_sample, points_being_sampled)
-    mu = gp.posterior_mean(state, union)[..., 0]             # (..., u)
-    var = gp.posterior_variance(state, union)
-    least = torch.linalg.eigvalsh(
+    mu, var = _union_posterior(
+        state, _union(points_to_sample, points_being_sampled))
+    return _estimate_from_posterior(mu, var, _least_eigenvalue(var),
+                                    best_so_far, normals)
+
+
+def _union_posterior(state: gp.GaussianProcessState, union: torch.Tensor):
+    """(mean (..., u), covariance (..., u, u)) of the union's values."""
+    return gp.posterior_mean(state, union)[..., 0], \
+        gp.posterior_variance(state, union)
+
+
+def _least_eigenvalue(var: torch.Tensor) -> torch.Tensor:
+    """The union covariance's least eigenvalue, without gradient
+    (non-finite entries read as 0).  cuSOLVER's eigensolver reports its
+    status to the host, so a CUDA graph cannot hold this call."""
+    return torch.linalg.eigvalsh(
         torch.where(torch.isfinite(var), var, 0.0).detach())[..., 0]
+
+
+def _estimate_from_posterior(mu: torch.Tensor, var: torch.Tensor,
+                             least: torch.Tensor, best_so_far,
+                             normals: torch.Tensor) -> torch.Tensor:
+    """The q,p-EI estimate from the union's posterior, its diagonal lifted
+    by 1.5 |least| where ``least`` < 0."""
     chol = linalg.cholesky_small(linalg.add_jitter(
         var, config.EI_VARIANCE_JITTER + torch.clamp(-1.5 * least,
                                                      min=0.0)))
@@ -143,12 +163,16 @@ def evaluate_expected_improvement_at_point_list(
         generator: Optional[torch.Generator] = None,
         points_being_sampled=None, best_so_far=None,
         num_mc_iterations: int = 1000, use_analytic: Optional[bool] = None,
-        normals: Optional[torch.Tensor] = None) -> torch.Tensor:
+        normals: Optional[torch.Tensor] = None,
+        program_cache=None) -> torch.Tensor:
     """One GP's EI at each candidate block of ``points_list`` (P, q, d),
     or (P, d) for single points: (P,).  The closed form for q = 1, p = 0;
     otherwise the MC estimator on ``normals`` (num_mc, q + p), drawn from
     ``generator`` when not given, and from a generator seeded 0 when
-    neither is (common random numbers across calls)."""
+    neither is (common random numbers across calls).  With a
+    ``program_cache`` the closed form is one program; the MC estimator two,
+    the union's posterior and the estimate, around its least eigenvalue,
+    which a program cannot hold (:func:`_least_eigenvalue`)."""
     pts = points_list if points_list.dim() == 3 else points_list[:, None, :]
     if best_so_far is None:
         best_so_far = state.best_observed_value
@@ -156,8 +180,14 @@ def evaluate_expected_improvement_at_point_list(
     p = 0 if points_being_sampled is None else points_being_sampled.shape[0]
     if use_analytic is None:
         use_analytic = q == 1 and p == 0
+    tensors, layout = gp.state_tensors(state)
+    best = torch.as_tensor(best_so_far, dtype=pts.dtype, device=pts.device)
     if use_analytic:
-        return analytic_expected_improvement(state, pts, best_so_far)
+        return programs.run(
+            program_cache, ("ei_score", "analytic", layout),
+            lambda x, b, *ts: analytic_expected_improvement(
+                gp.state_from_tensors(layout, ts), x, b),
+            pts, best, *tensors)
     if normals is None:
         if generator is None:
             generator = torch.Generator(device=pts.device).manual_seed(0)
@@ -165,8 +195,14 @@ def evaluate_expected_improvement_at_point_list(
                                device=pts.device, dtype=pts.dtype)
     being = None if p == 0 else points_being_sampled.expand(
         (pts.shape[0],) + points_being_sampled.shape)
-    return monte_carlo_expected_improvement(state, pts, being, best_so_far,
-                                            normals)
+    mu, var = programs.run(
+        program_cache, ("ei_score", "posterior", layout),
+        lambda u, *ts: _union_posterior(gp.state_from_tensors(layout, ts),
+                                        u),
+        _union(pts, being), *tensors)
+    return programs.run(program_cache, ("ei_score", "estimate"),
+                        _estimate_from_posterior, mu, var,
+                        _least_eigenvalue(var), best, normals)
 
 
 def monte_carlo_expected_improvement_mcmc(states, points_to_sample,
@@ -263,46 +299,79 @@ def multistart_expected_improvement_mcmc_optimization(
     normals = draw_normals(generator, num_mc_iterations, num_to_sample + p,
                            device=starts.device, dtype=starts.dtype)
 
-    def bvg(pts_batch):
-        return expected_improvement_mcmc_batch_value_and_grad(
-            states, pts_batch, points_being_sampled, best_so_far, normals)
-
+    bvg = _mcmc_batch_value_and_grad(states, points_being_sampled,
+                                     best_so_far, normals)
     step_fn = None
     if program_cache is not None and programs.enabled():
-        step_fn = _qei_step_program(program_cache, states, domain,
-                                    num_to_sample, points_being_sampled,
-                                    best_so_far, normals, params)
+        step_fn = _ei_step_program(
+            program_cache, "qei_step", _mcmc_batch_value_and_grad, states,
+            domain, num_to_sample, points_being_sampled, best_so_far,
+            normals, params)
     return sharding.sharded_multistart_optimize_batched_gated(
         bvg, rep, starts, params, group, chunk_size=chunk_size,
         conv_tol=conv_tol, step_fn=step_fn).best_point
 
 
-def _qei_step_program(program_cache, states, domain, num_to_sample: int,
-                      points_being_sampled, best_so_far, normals, params):
-    """The ensemble q-EI multistart's GD step as a program: ``(x, rate) ->
-    (x_new, dx)``, x a chunk of starts (B, q, dim)."""
-    if not isinstance(domain, TensorProductDomain):
-        raise TypeError("the q-EI step's program takes a TensorProductDomain"
-                        f", got {type(domain).__name__}")
-    tensors, layout = gp.state_tensors(states)
-    being = () if points_being_sampled is None else (points_being_sampled,)
+def _batch_value_and_grad(state, points_being_sampled, best_so_far,
+                          normals: Optional[torch.Tensor]) -> Callable:
+    """One GP's batched EI value and gradient over start blocks (B, q, d):
+    the closed form when ``normals`` is None, else the batched MC
+    estimator on them."""
+    if normals is not None:
+        return lambda x: expected_improvement_batch_value_and_grad(
+            state, x, points_being_sampled, best_so_far, normals)
 
-    def step(x, rate, bounds, best, nrm, *rest):
+    def bvg(pts_batch):
+        with torch.enable_grad():
+            x = pts_batch.detach().requires_grad_(True)
+            vals = analytic_expected_improvement(state, x, best_so_far)
+            (grads,) = torch.autograd.grad(vals.sum(), x)
+        return vals.detach(), grads
+    return bvg
+
+
+def _mcmc_batch_value_and_grad(states, points_being_sampled, best_so_far,
+                               normals: torch.Tensor) -> Callable:
+    """The ensemble-averaged batched q,p-EI value and gradient over start
+    blocks (B, q, d)."""
+    return lambda x: expected_improvement_mcmc_batch_value_and_grad(
+        states, x, points_being_sampled, best_so_far, normals)
+
+
+def _ei_step_program(program_cache, kind: str, value_and_grad_of: Callable,
+                     state, domain, num_to_sample: int,
+                     points_being_sampled, best_so_far, normals, params):
+    """An EI multistart's GD step as a program: ``(x, rate) -> (x_new,
+    dx)``, x a chunk of starts (B, q, dim), the gradient that of
+    ``value_and_grad_of(state, points_being_sampled, best_so_far,
+    normals)`` (:func:`_batch_value_and_grad` for one GP,
+    :func:`_mcmc_batch_value_and_grad` for an ensemble); the state's
+    tensors are inputs, so a refit inside the bucket replays it."""
+    if not isinstance(domain, TensorProductDomain):
+        raise TypeError(f"the {kind} program takes a TensorProductDomain, "
+                        f"got {type(domain).__name__}")
+    tensors, layout = gp.state_tensors(state)
+    kw = dict(dtype=tensors[0].dtype, device=tensors[0].device)
+    extra = tuple(t for t in (normals, points_being_sampled)
+                  if t is not None)
+
+    def step(x, rate, bounds, best, *rest):
         st = gp.state_from_tensors(layout, rest[:len(tensors)])
-        _, g = expected_improvement_mcmc_batch_value_and_grad(
-            st, x, rest[len(tensors)] if being else None, best, nrm)
+        more = list(rest[len(tensors):])
+        nrm = None if normals is None else more.pop(0)
+        being = more.pop(0) if more else None
+        _, g = value_and_grad_of(st, being, best, nrm)(x)
         rep = RepeatedDomain(domain=TensorProductDomain(bounds=bounds),
                              num_repeats=num_to_sample)
         return optimizers.ascent_step(rep, params.max_relative_change, x, g,
                                       rate)
 
-    key = ("qei_step", tuple(t.shape for t in tensors), layout,
-           tuple(normals.shape), tuple(t.shape for t in being),
-           num_to_sample, params.max_relative_change, normals.dtype,
-           str(normals.device))
+    key = (kind, tuple(t.shape for t in tensors), layout, normals is None,
+           tuple(t.shape for t in extra), num_to_sample,
+           params.max_relative_change, kw["dtype"], str(kw["device"]))
     return program_cache.stepper(key, step, domain.bounds,
-                                 torch.as_tensor(best_so_far), normals,
-                                 *tensors, *being)
+                                 torch.as_tensor(best_so_far, **kw),
+                                 *tensors, *extra)
 
 
 def multistart_expected_improvement_optimization(
@@ -312,7 +381,8 @@ def multistart_expected_improvement_optimization(
         num_mc_iterations: int = 1000, num_random_search: int = 0,
         use_analytic: Optional[bool] = None,
         conv_tol: Optional[float] = None, use_batched: bool = True,
-        chunk_size: Optional[int] = None, group=None) -> torch.Tensor:
+        chunk_size: Optional[int] = None, group=None,
+        program_cache=None) -> torch.Tensor:
     """q points maximizing one GP's q,p-EI (the closed form for q = 1,
     p = 0).  ``use_batched``: the lockstep-batched multistart, each start's
     value and gradient its own and ``conv_tol`` gating each chunk on its
@@ -321,7 +391,10 @@ def multistart_expected_improvement_optimization(
     the brute-force fallback over that many Latin-hypercube blocks, drawn
     after the starts and the normals.  A ``group`` shards the batched
     route's restart axis over its ranks (``parallel.sharding``), as the JAX
-    package's mesh does.  Returns (num_to_sample, dim)."""
+    package's mesh does.  With a ``program_cache`` (and ``CAPTURE``
+    "auto") each GD step of the batched route is one program per chunk
+    shape; the domain must then be a ``TensorProductDomain``.  Returns
+    (num_to_sample, dim)."""
     p = 0 if points_being_sampled is None else points_being_sampled.shape[0]
     if best_so_far is None:
         best_so_far = state.best_observed_value
@@ -330,27 +403,16 @@ def multistart_expected_improvement_optimization(
     rep = RepeatedDomain(domain=domain, num_repeats=num_to_sample)
     starts = rep.generate_latin_hypercube_points(generator,
                                                  params.num_multistarts)
+    normals = None if use_analytic else draw_normals(
+        generator, num_mc_iterations, num_to_sample + p,
+        device=starts.device, dtype=starts.dtype)
+    bvg = _batch_value_and_grad(state, points_being_sampled, best_so_far,
+                                normals)
     if use_analytic:
-        def bvg(pts_batch):
-            with torch.enable_grad():
-                x = pts_batch.detach().requires_grad_(True)
-                vals = analytic_expected_improvement(state, x, best_so_far)
-                (grads,) = torch.autograd.grad(vals.sum(), x)
-            return vals.detach(), grads
-
         def vg(pts):
             v, g = bvg(pts[None])
             return v[0], g[0]
     else:
-        normals = draw_normals(generator, num_mc_iterations,
-                               num_to_sample + p, device=starts.device,
-                               dtype=starts.dtype)
-
-        def bvg(pts_batch):
-            return expected_improvement_batch_value_and_grad(
-                state, pts_batch, points_being_sampled, best_so_far,
-                normals)
-
         def vg(pts):
             return expected_improvement_value_and_grad(
                 state, pts, points_being_sampled, best_so_far, normals)
@@ -361,9 +423,15 @@ def multistart_expected_improvement_optimization(
         result = optimizers.multistart_optimize_with_dumb_search_fallback(
             vg, rep, starts, search, params)
     elif use_batched:
+        step_fn = None
+        if program_cache is not None and programs.enabled():
+            step_fn = _ei_step_program(
+                program_cache, "ei_step", _batch_value_and_grad, state,
+                domain, num_to_sample, points_being_sampled, best_so_far,
+                normals, params)
         result = sharding.sharded_multistart_optimize_batched_gated(
             bvg, rep, starts, params, group, chunk_size=chunk_size,
-            conv_tol=conv_tol)
+            conv_tol=conv_tol, step_fn=step_fn)
     else:
         result = optimizers.multistart_optimize(vg, rep, starts, params,
                                                 conv_tol=conv_tol)
@@ -397,7 +465,7 @@ def heuristic_expected_improvement_optimization(
         generator: torch.Generator, state: gp.GaussianProcessState, domain,
         num_to_sample: int, params: optimizers.GradientDescentParameters,
         estimation_policy: Optional[Callable] = None, best_so_far=None,
-        num_mc_iterations: int = 1000) -> torch.Tensor:
+        num_mc_iterations: int = 1000, program_cache=None) -> torch.Tensor:
     """q points picked one at a time (heuristic q-EI): each round maximizes
     one GP's 1,0-EI, fantasizes an observation there by
     ``estimation_policy(state, point) -> (value, noise)`` (the kriging
@@ -406,7 +474,11 @@ def heuristic_expected_improvement_optimization(
     The fantasy slots are shape-stable: the training set is padded once
     with q rows at the domain's centre carrying PAD_NOISE, which keep the
     state's own ``point_noise``; each round fills one slot and refits with
-    the prior mean fixed.  Returns (num_to_sample, dim)."""
+    the prior mean fixed.  With a ``program_cache`` (and ``CAPTURE``
+    "auto") the refit is one program over the padded data, built once and
+    replayed q + 1 times (the JAX package's jitted ``refit``), and each
+    round's multistart takes its GD steps through programs.  Returns
+    (num_to_sample, dim)."""
     from cornell_moe_tpu_torch.models.mcmc import PAD_NOISE
 
     if best_so_far is None:
@@ -426,17 +498,27 @@ def heuristic_expected_improvement_optimization(
     if state.point_noise is not None:
         pn[:n0] = state.point_noise
 
+    cov_type, ds = type(state.covariance), state.derivatives
+
+    def factors(hypers, noise, xx, yy, p, mean):
+        return gp.fit_factors(cov_type(hyperparameters=hypers), noise, xx, yy,
+                              p, ds, mean=mean)
+
     def refit():
-        return gp.fit_gp(state.covariance, state.noise_variance, x_pad,
-                         y_pad, state.derivatives, mean=state.mean,
-                         point_noise=pn)
+        fit = gp.fit_inputs(state.covariance, state.noise_variance, x_pad,
+                            y_pad, ds, point_noise=pn)
+        noise, xx, yy, p, _ = fit
+        return gp.assemble_state(state.covariance, *fit, *programs.run(
+            program_cache, ("heuristic_refit", cov_type, ds), factors,
+            state.covariance.hyperparameters, noise, xx, yy, p, state.mean))
 
     cur = refit()
     chosen = []
     for i in range(q):
         pt = multistart_expected_improvement_optimization(
             generator, cur, domain, 1, params, best_so_far=best_so_far,
-            num_mc_iterations=num_mc_iterations)
+            num_mc_iterations=num_mc_iterations,
+            program_cache=program_cache)
         value, fantasy_noise = estimation_policy(cur, pt)
         # the refitted state holds these tensors: fill copies
         x_pad, y_pad, pn = x_pad.clone(), y_pad.clone(), pn.clone()

@@ -82,12 +82,20 @@ def _pin_fidelity(x_opt: torch.Tensor, num_fidelity: int) -> torch.Tensor:
 def fidelity_cost(unions: torch.Tensor, num_to_sample: int,
                   num_fidelity: int) -> torch.Tensor:
     """cost = max_i prod(fidelity coords of point i), i over the first
-    num_to_sample points of each union (..., q, d): (...)."""
+    num_to_sample points of each union (..., q, d): (...).  The product is
+    a chain of multiplications over the fidelity columns (with one column,
+    the column itself), so its gradient is the product of the other
+    columns, as ``jnp.prod``'s, and reads nothing from the host (the
+    backward of ``torch.prod`` looks for zeros there), which lets a CUDA
+    graph hold cf-KG's outer step."""
     if num_fidelity == 0:
         return torch.ones(unions.shape[:-2], dtype=unions.dtype,
                           device=unions.device)
     fid = unions[..., :num_to_sample, unions.shape[-1] - num_fidelity:]
-    return torch.max(torch.prod(fid, dim=-1), dim=-1).values
+    prod = fid[..., 0]
+    for j in range(1, num_fidelity):
+        prod = prod * fid[..., j]
+    return torch.max(prod, dim=-1).values
 
 
 def inner_domain(domain: TensorProductDomain, num_fidelity: int
@@ -107,15 +115,30 @@ def posterior_mean_objective(state: GaussianProcessState,
     return -gp_mod.posterior_mean(state, x[..., None, :])[..., 0, 0]
 
 
+def _posterior_mean_bvg(state: GaussianProcessState, num_fidelity: int):
+    """x (..., dim_opt) -> (-mu (...), its gradient) by autograd."""
+    def bvg(x):
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            v = posterior_mean_objective(state, xx, num_fidelity)
+            (g,) = torch.autograd.grad(v.sum(), xx)
+        return v.detach(), g
+    return bvg
+
+
 def compute_optimal_posterior_mean(
         state: GaussianProcessState, domain, initial_guesses: torch.Tensor,
-        params: optimizers.GradientDescentParameters, num_fidelity: int = 0):
+        params: optimizers.GradientDescentParameters, num_fidelity: int = 0,
+        program_cache=None):
     """Per member, maximize -mu from the best of its guesses (..., G,
     dim_opt) over the inner ``domain``, fidelity coordinates pinned to 1.
 
     Returns (best_point (..., dim_opt), best_value = -mu there (...)).
     Each member's value depends only on its own point, so one batched GD
-    over the members equals one GD per member.
+    over the members equals one GD per member.  With a ``program_cache``
+    (and ``CAPTURE`` "auto") each GD step is one program (the step size an
+    input), replayed for every step of ``params``' schedule; the domain
+    must then be a ``TensorProductDomain``.
     """
     vals = -gp_mod.posterior_mean(
         state, _pin_fidelity(initial_guesses, num_fidelity))[..., 0]
@@ -124,15 +147,24 @@ def compute_optimal_posterior_mean(
         initial_guesses, -2,
         idx[..., None, None].expand(idx.shape + (1, initial_guesses.shape[-1]))
     )[..., 0, :]
+    bvg = _posterior_mean_bvg(state, num_fidelity)
+    step_fn = None
+    if program_cache is not None and programs.enabled():
+        tensors, layout = gp_mod.state_tensors(state, gp_mod.MEAN_FIELDS)
 
-    def bvg(x):
-        with torch.enable_grad():
-            xx = x.detach().requires_grad_(True)
-            v = posterior_mean_objective(state, xx, num_fidelity)
-            (g,) = torch.autograd.grad(v.sum(), xx)
-        return v.detach(), g
+        def step(x, rate, bounds, *ts):
+            _, g = _posterior_mean_bvg(gp_mod.state_from_tensors(layout, ts),
+                                       num_fidelity)(x)
+            return optimizers.ascent_step(
+                TensorProductDomain(bounds=bounds),
+                params.max_relative_change, x, g, rate)
 
-    x = optimizers.gradient_ascent_batch(bvg, domain, starts, params)
+        step_fn = program_cache.stepper(
+            ("posterior_mean_step", tuple(t.shape for t in tensors), layout,
+             num_fidelity, params.max_relative_change, starts.dtype,
+             str(starts.device)), step, domain.bounds, *tensors)
+    x = optimizers.gradient_ascent_batch(bvg, domain, starts, params,
+                                         step_fn=step_fn)
     return x, bvg(x)[0]
 
 
@@ -719,10 +751,11 @@ def multistart_knowledge_gradient_mcmc_optimization(
     ranks (``parallel.sharding``); ``chunk_size`` equal to the per-rank
     shard makes the batched routes equal to an unsharded run with that
     chunking (the per-start route takes no chunking).  With a
-    ``program_cache`` each warm outer step (the warm estimator, kernel A's
-    one-step launch among it, its gradient and the step) is one program
-    per chunk shape (``ops.programs``) where :func:`warm_step_runs_program`
-    allows it; the domain must then be a ``TensorProductDomain``."""
+    ``program_cache`` (and ``CAPTURE`` "auto") the batched routes' cold
+    evaluations (kernel A's full descent among them) and each warm outer
+    step (the warm estimator, A's one-step launch among it, its gradient
+    and the step) are one program each per chunk shape (``ops.programs``);
+    the domain must then be a ``TensorProductDomain``."""
     ds = cov_mod.channels(derivatives_to_sample)
     if best_so_far is None:
         best_so_far = states.best_observed_value
@@ -740,35 +773,29 @@ def multistart_knowledge_gradient_mcmc_optimization(
                                       device=starts.device,
                                       dtype=starts.dtype)
 
-    def bvg_cold(pts_batch):
+    inner_warm = dataclasses.replace(inner_params, max_num_steps=1,
+                                     max_num_restarts=1,
+                                     num_steps_averaged=0)
+
+    def vg_carry(pts_batch, carry=None, inner_p=inner_params):
         vals, grads, xs = knowledge_gradient_mcmc_batch_vg_carry(
             states, _batch_unions(pts_batch, being), discrete_pts, normals,
-            inner, inner_params, best_so_far, derivatives_to_sample=ds,
-            num_fidelity=num_fidelity, num_to_sample=q)
+            inner, inner_p, best_so_far, inner_x0=carry,
+            derivatives_to_sample=ds, num_fidelity=num_fidelity,
+            num_to_sample=q)
         return vals, grads[:, :q], xs
 
+    bvg_cold, warm_step = vg_carry, None
+    if program_cache is not None and programs.enabled():
+        bvg_cold, warm_step = _kg_step_programs(
+            program_cache, states, domain, q, being, discrete_pts, normals,
+            inner_params, inner_warm, best_so_far, ds, num_fidelity, params)
+
     if use_batched and warm_start:
-        inner_warm = dataclasses.replace(inner_params, max_num_steps=1,
-                                         max_num_restarts=1,
-                                         num_steps_averaged=0)
-
-        def bvg_warm(pts_batch, carry):
-            vals, grads, xs = knowledge_gradient_mcmc_batch_vg_carry(
-                states, _batch_unions(pts_batch, being), discrete_pts,
-                normals, inner, inner_warm, best_so_far, inner_x0=carry,
-                derivatives_to_sample=ds, num_fidelity=num_fidelity,
-                num_to_sample=q)
-            return vals, grads[:, :q], xs
-
-        warm_step = None
-        if program_cache is not None and \
-                warm_step_runs_program(num_fidelity):
-            warm_step = _warm_step_program(
-                program_cache, states, domain, q, being, discrete_pts,
-                normals, inner_warm, best_so_far, ds, num_fidelity, params)
         res = sharding.sharded_multistart_optimize_batched_warm(
-            bvg_cold, bvg_warm, rep, starts, params, group,
-            chunk_size=chunk_size, conv_tol=conv_tol, warm_step=warm_step)
+            bvg_cold, lambda x, carry: vg_carry(x, carry, inner_warm), rep,
+            starts, params, group, chunk_size=chunk_size, conv_tol=conv_tol,
+            warm_step=warm_step)
     elif use_batched:
         res = sharding.sharded_multistart_optimize_batched_gated(
             lambda u: bvg_cold(u)[:2], rep, starts, params, group,
@@ -788,47 +815,81 @@ def multistart_knowledge_gradient_mcmc_optimization(
     return res.best_point
 
 
-def warm_step_runs_program(num_fidelity: int) -> bool:
-    """Whether the warm multistart's outer step runs as a program: while
-    ``programs.CAPTURE`` is "auto" and without fidelity dims.  With them
-    the step's gradient goes through the fidelity cost's ``torch.prod``,
-    whose backward reads the host (``nonzero`` of its zero entries),
-    which a CUDA graph cannot capture; cf-KG's outer steps run eagerly."""
-    return programs.enabled() and num_fidelity == 0
-
-
-def _warm_step_program(program_cache, states, domain, q: int, being,
-                       discrete_pts, normals, inner_warm, best_so_far, ds,
-                       num_fidelity: int, params):
-    """The warm multistart's outer step as a program: ``(x, carry, rate) ->
-    (x_new, dx, carry)``, x a chunk of starts (B, q, d) and carry its inner
-    endpoints (S, B, M, dim_opt)."""
+def _kg_step_programs(program_cache, states, domain, q: int, being,
+                      discrete_pts, normals, inner_params, inner_warm,
+                      best_so_far, ds, num_fidelity: int, params):
+    """The batched KG multistart's evaluations as programs, one per chunk
+    shape: the cold ``bvg_cold(x) -> (values, gradients, carry)`` (kernel
+    A's full descent among it) and the warm outer step ``warm_step(x,
+    carry, rate) -> (x_new, dx, carry)`` (its one-step descent, the
+    gradient and the step); x is a chunk of starts (B, q, d) and carry its
+    inner endpoints (S, B, M, dim_opt)."""
     if not isinstance(domain, TensorProductDomain):
         raise TypeError("the KG step's program takes a TensorProductDomain, "
                         f"got {type(domain).__name__}")
     tensors, layout = gp_mod.state_tensors(states)
     extra = () if being is None else (being,)
+    inputs = (domain.bounds, discrete_pts, normals,
+              torch.as_tensor(best_so_far), *tensors, *extra)
+    key = (tuple(t.shape for t in tensors), layout,
+           tuple(discrete_pts.shape), tuple(normals.shape),
+           tuple(t.shape for t in extra), q, ds, num_fidelity, normals.dtype,
+           str(normals.device))
 
-    def step(x, carry, rate, bounds, disc, nrm, best, *rest):
-        outer = TensorProductDomain(bounds=bounds)
-        _, grads, xs = knowledge_gradient_mcmc_batch_vg_carry(
+    def vg_carry(x, carry, inner_p, bounds, disc, nrm, best, *rest):
+        vals, grads, xs = knowledge_gradient_mcmc_batch_vg_carry(
             gp_mod.state_from_tensors(layout, rest[:len(tensors)]),
             _batch_unions(x, rest[len(tensors)] if extra else None), disc,
-            nrm, inner_domain(outer, num_fidelity), inner_warm, best,
-            inner_x0=carry, derivatives_to_sample=ds,
-            num_fidelity=num_fidelity, num_to_sample=q)
+            nrm, inner_domain(TensorProductDomain(bounds=bounds),
+                              num_fidelity), inner_p, best, inner_x0=carry,
+            derivatives_to_sample=ds, num_fidelity=num_fidelity,
+            num_to_sample=q)
+        return vals, grads[:, :q], xs
+
+    def cold(x, *args):
+        return vg_carry(x, None, inner_params, *args)
+
+    def step(x, carry, rate, bounds, *args):
+        _, grads, xs = vg_carry(x, carry, inner_warm, bounds, *args)
         x_new, dx = optimizers.ascent_step(
-            RepeatedDomain(domain=outer, num_repeats=q),
-            params.max_relative_change, x, grads[:, :q], rate)
+            RepeatedDomain(domain=TensorProductDomain(bounds=bounds),
+                           num_repeats=q), params.max_relative_change, x,
+            grads, rate)
         return x_new, dx, xs
 
-    key = ("kg_warm_step", tuple(t.shape for t in tensors), layout,
-           tuple(discrete_pts.shape), tuple(normals.shape),
-           tuple(t.shape for t in extra), q, ds, num_fidelity, inner_warm,
-           params.max_relative_change, normals.dtype, str(normals.device))
-    return program_cache.stepper(key, step, domain.bounds, discrete_pts,
-                                 normals, torch.as_tensor(best_so_far),
-                                 *tensors, *extra)
+    def bvg_cold(x):
+        return program_cache.get(("kg_cold",) + key + (
+            inner_params, tuple(x.shape)), cold)(x, *inputs)
+
+    return bvg_cold, program_cache.stepper(
+        ("kg_warm_step",) + key + (inner_warm, params.max_relative_change),
+        step, *inputs)
+
+
+def score_knowledge_gradient_mcmc(states: GaussianProcessState, union,
+                                  discrete_pts, normals, domain,
+                                  inner_params, best_so_far,
+                                  derivatives_to_sample: Sequence[int] = (),
+                                  num_fidelity: int = 0,
+                                  program_cache=None) -> torch.Tensor:
+    """:func:`knowledge_gradient_mcmc` at one union (q, d), every point of
+    it to sample: the suggestion's VOI.  With a ``program_cache`` (and
+    ``CAPTURE`` "auto") one program per shapes, its inner descents
+    included; ``domain`` (the inner one) must then be a
+    ``TensorProductDomain``."""
+    ds = cov_mod.channels(derivatives_to_sample)
+    tensors, layout = gp_mod.state_tensors(states)
+
+    def score(u, bounds, disc, nrm, best, *ts):
+        return knowledge_gradient_mcmc(
+            gp_mod.state_from_tensors(layout, ts), u, disc, nrm,
+            TensorProductDomain(bounds=bounds), inner_params, best, ds,
+            num_fidelity)
+
+    return programs.run(
+        program_cache, ("kg_score", layout, inner_params, ds, num_fidelity),
+        score, union, domain.bounds, discrete_pts, normals,
+        torch.as_tensor(best_so_far), *tensors)
 
 
 # ---------------------------------------------------------------------------

@@ -15,12 +15,16 @@ observed batch.  Method "EI" maximizes q,p-EI on ensemble member 0.
 
 Programs per shape bucket (``ops.programs``, CUDA graphs on the card), the
 counterpart of ``BayesianOptimizer._programs``: the chain's segments and
-the ensemble fit (``models.mcmc``), method "KG"'s outer GD steps (the
-seeding q-EI's and the warm KG multistart's) and the recommendation's grid
-and polish step (:func:`recommend_from_guesses`) each run as one program
-per key, built in the first iteration of a bucket and replayed in the
-next, in one ``ProgramCache`` per driver.  ``programs.CAPTURE = "never"``
-runs them eagerly, with the same results bit for bit.
+the ensemble fit (``models.mcmc``); method "KG"'s seeding (the q-EI's GD
+step and the posterior-mean polish's), its multistart's cold evaluation
+and warm outer step, and the VOI's scoring; method "EI"'s GD step and
+scoring; the recommendation's grid and polish step
+(:func:`recommend_from_guesses`).  Each runs as one program per key, built
+in the first iteration of a bucket and replayed in the next, in one
+``ProgramCache`` per driver; under an NCCL group the chain's and the
+grid's gathers are captured with them, and a gloo group on a card keeps
+those two stages eager.  ``programs.CAPTURE = "never"`` runs every stage
+eagerly, with the same results bit for bit.
 
 Scale-out (``n_devices`` or ``process_group``): every rank of a
 ``torch.distributed`` group runs this loop from the same seed, and the
@@ -72,15 +76,18 @@ DEFAULT_SGD_PARAMS_RECOMMEND = optimizers.GradientDescentParameters(
 
 
 def _qei_suggest_arrays(generator, state, domain, params, num_to_sample,
-                        num_mc, conv_tol=None, chunk_size=None, group=None):
+                        num_mc, conv_tol=None, chunk_size=None, group=None,
+                        program_cache=None):
     """One GP's q-EI suggestion (q, d) and its EI on fresh draws (model
-    units)."""
+    units).  A ``program_cache`` runs the multistart's GD steps and the
+    scoring as programs."""
     pts = ei_mod.multistart_expected_improvement_optimization(
         generator, state, domain, num_to_sample, params,
         num_mc_iterations=num_mc, conv_tol=conv_tol, chunk_size=chunk_size,
-        group=group)
+        group=group, program_cache=program_cache)
     voi = ei_mod.evaluate_expected_improvement_at_point_list(
-        state, pts[None], generator=generator, num_mc_iterations=num_mc)[0]
+        state, pts[None], generator=generator, num_mc_iterations=num_mc,
+        program_cache=program_cache)[0]
     return pts, voi
 
 
@@ -117,7 +124,7 @@ def seed_kg_discretization(generator, states, domain, qei_params=None,
     posterior-mean argmin (uniform eval points + its sampled points,
     GD-polished), on the inner domain with fidelity coordinates pinned.
     A ``group`` shards the q-EI's restart axis; a ``program_cache`` runs
-    its GD steps as programs."""
+    its GD steps and the polish's as programs."""
     if qei_params is None:
         qei_params = DEFAULT_SGD_PARAMS_KG
     discrete = ei_mod.multistart_expected_improvement_mcmc_optimization(
@@ -131,8 +138,9 @@ def seed_kg_discretization(generator, states, domain, qei_params=None,
         generator, num_eval_pts)
     guesses = torch.cat([eval_pts.expand((s,) + eval_pts.shape),
                          states.points_sampled[..., :dim_opt]], dim=1)
-    pt, _ = kg_mod.compute_optimal_posterior_mean(states, inner, guesses,
-                                                  ps_params, num_fidelity)
+    pt, _ = kg_mod.compute_optimal_posterior_mean(
+        states, inner, guesses, ps_params, num_fidelity,
+        program_cache=program_cache)
     discrete = discrete[:, :dim_opt]
     return torch.cat([discrete.expand((s,) + discrete.shape), pt[:, None]],
                      dim=1)
@@ -155,8 +163,8 @@ def _qkg_suggest_arrays(generator, states, domain, discrete_pts, params,
     """Suggested points (q, d) and their VOI (ensemble KG divided by the
     fidelity cost, model units).  The fantasy observations at the
     suggested points include the ``derivatives_to_sample`` channels
-    (d-KG).  A ``program_cache`` runs the multistart's warm outer steps
-    as programs."""
+    (d-KG).  A ``program_cache`` runs the multistart's cold evaluations,
+    its warm outer steps and the VOI's scoring as programs."""
     ds = tuple(int(i) for i in derivatives_to_sample)
     best_so_far = best_so_far_from_discretization(states, discrete_pts,
                                                   num_fidelity)
@@ -168,10 +176,10 @@ def _qkg_suggest_arrays(generator, states, domain, discrete_pts, params,
     normals = ei_mod.draw_antithetic_normals(
         generator, num_mc, num_to_sample * (1 + len(ds)), device=pts.device,
         dtype=pts.dtype)
-    voi = kg_mod.knowledge_gradient_mcmc(
+    voi = kg_mod.score_knowledge_gradient_mcmc(
         states, pts, discrete_pts, normals,
         kg_mod.inner_domain(domain, num_fidelity), inner_params, best_so_far,
-        ds, num_fidelity)
+        ds, num_fidelity, program_cache=program_cache)
     return pts, voi
 
 
@@ -188,12 +196,14 @@ def gen_sample_from_qkg_mcmc(generator, states, domain, discrete_pts,
     return pts, float(voi)
 
 
-def recommend_runs_program(process_group) -> bool:
-    """Whether the recommendation runs as a program: while
-    ``programs.CAPTURE`` is "auto" and outside a process group.  Under a
-    group the guesses' evaluation is sharded and gathered across the
-    ranks, a collective the programs do not capture."""
-    return programs.enabled() and process_group is None
+def recommend_runs_program(process_group, device) -> bool:
+    """Whether the recommendation runs as programs: while
+    ``programs.CAPTURE`` is "auto" and the group's gather of the guesses'
+    values can be captured with the grid (``sharding.group_captures``: no
+    group, the CPU or NCCL); under a gloo group on a card it runs
+    eagerly."""
+    return programs.enabled() and sharding.group_captures(process_group,
+                                                          device)
 
 
 def _ensemble_neg_mean(states, num_fidelity: int):
@@ -229,23 +239,19 @@ def _neg_mean_value_and_grad(states, num_fidelity: int):
     return vg
 
 
-# the state fields the posterior mean reads: a recommendation program's
-# inputs (gp.state_tensors)
-_MEAN_FIELDS = ("points_sampled", "K_inv_y", "mean")
-
-
 def _recommend_programs(states, domain, guesses, params, num_fidelity,
-                        program_cache):
+                        program_cache, group=None):
     """The best guess and its GD polish through two programs: the grid's
-    evaluation and argmax, and one step (its gradient by autograd, the step
-    size an input), replayed once per step of ``params``' schedule."""
-    tensors, layout = gp_mod.state_tensors(states, _MEAN_FIELDS)
+    evaluation (sharded over ``group``, its gather inside) and argmax, and
+    one step (its gradient by autograd, the step size an input), replayed
+    once per step of ``params``' schedule."""
+    tensors, layout = gp_mod.state_tensors(states, gp_mod.MEAN_FIELDS)
     key = (tuple(guesses.shape), guesses.dtype, str(guesses.device),
            tuple(t.shape for t in tensors), layout, num_fidelity)
 
     def grid(g, *ts):
         return _best_guess(gp_mod.state_from_tensors(layout, ts), g,
-                           num_fidelity)
+                           num_fidelity, group)
 
     def step(x, rate, bounds, *ts):
         _, g = _neg_mean_value_and_grad(
@@ -254,7 +260,8 @@ def _recommend_programs(states, domain, guesses, params, num_fidelity,
             TensorProductDomain(bounds=bounds), params.max_relative_change,
             x, g, rate)
 
-    x0, best = program_cache.get(("recommend_grid",) + key, grid)(
+    x0, best = program_cache.get(
+        ("recommend_grid",) + key + (sharding.group_key(group),), grid)(
         guesses, *tensors)
     step_fn = program_cache.stepper(
         ("recommend_step", params.max_relative_change) + key, step,
@@ -277,14 +284,15 @@ def recommend_from_guesses(states, domain, guesses: torch.Tensor,
     the counterpart of the JAX package's ``_recommend_program``, unless
     :func:`recommend_runs_program` says otherwise; the final choice reads
     the host outside them."""
-    if program_cache is None or not recommend_runs_program(group):
+    if program_cache is None or \
+            not recommend_runs_program(group, guesses.device):
         x0, best = _best_guess(states, guesses, num_fidelity, group)
         x = optimizers.gradient_ascent(
             _neg_mean_value_and_grad(states, num_fidelity), domain, x0,
             params)
     else:
         x, x0, best = _recommend_programs(states, domain, guesses, params,
-                                          num_fidelity, program_cache)
+                                          num_fidelity, program_cache, group)
     better = _ensemble_neg_mean(states, num_fidelity)(x) > best
     return x if bool(better) else x0
 
@@ -446,7 +454,8 @@ class BayesianOptimizer:
                 self.generator, mcmc_mod.ensemble_member(states, 0),
                 self.domain, self.sgd_params, self.num_to_sample,
                 self.num_mc, conv_tol=self.suggest_conv_tol,
-                chunk_size=self.suggest_chunk_size, group=self.process_group)
+                chunk_size=self.suggest_chunk_size, group=self.process_group,
+                program_cache=self.program_cache)
         # VOI back to raw units (KG and EI are linear in the value scale)
         pts = pts.cpu().numpy()
         voi = float(voi) * self.model.value_scale

@@ -96,6 +96,11 @@ STATE_TENSORS = ("noise_variance", "points_sampled", "points_sampled_value",
                  "chol_K", "K_inv_y", "mean", "inv_chol_K", "point_noise")
 
 
+# the state fields the posterior mean reads: the inputs of a program that
+# evaluates it (the recommendation's, the seeding's polish)
+MEAN_FIELDS = ("points_sampled", "K_inv_y", "mean")
+
+
 def state_tensors(state: GaussianProcessState,
                   fields: Sequence[str] = STATE_TENSORS):
     """The state's tensors as a flat list, for a program's inputs, and

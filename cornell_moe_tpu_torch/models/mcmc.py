@@ -10,10 +10,13 @@ log-posteriors in one call.  The chain runs in segments of
 eagerly from the model's generator, step by step in the order the
 step-by-step chain draws them, so both chains take the same steps bit for
 bit.  The gated chain reads its convergence condition on the host once per
-segment.  Under a ``process_group`` the chain stays eager, step by step
-(:func:`chain_runs_programs`): its log-posteriors are gathered across the
-ranks at every half-step.  The ensemble fit is one program per (S, Np, d,
-kernel), the counterpart of ``_ensemble_fit_program``.
+segment.  Under a ``process_group`` each half-step's log-posteriors are
+computed in walker blocks, one per rank, and gathered inside the segment's
+program (an NCCL group's ``all_gather`` is captured with it); a gloo group
+on a card runs the chain eagerly, step by step (:func:`chain_runs_programs`).
+The ensemble fit is one program per (S, Np, d, kernel), the counterpart of
+``_ensemble_fit_program``, and the MAP fit's Newton run one per start
+shape.
 
 Dispatch rule of the log-posterior (:func:`uses_lml_kernel`): CUDA,
 float32 and value channels only go through the fused LML kernel
@@ -69,13 +72,14 @@ def uses_lml_kernel(device_type: str, dtype: torch.dtype,
         not cov_mod.channels(derivatives)
 
 
-def chain_runs_programs(process_group) -> bool:
+def chain_runs_programs(process_group, device) -> bool:
     """Whether the chain runs as segment programs: while
-    ``programs.CAPTURE`` is "auto" and outside a process group.  Under a
-    group the log-posteriors of every half-step are gathered across the
-    ranks (``parallel.sharding``), a collective the programs do not
-    capture, so the chain runs eagerly, step by step."""
-    return programs.enabled() and process_group is None
+    ``programs.CAPTURE`` is "auto" and the group's gather of every
+    half-step's log-posteriors can be captured with it
+    (``sharding.group_captures``: no group, the CPU or NCCL); under a gloo
+    group on a card the chain runs eagerly, step by step."""
+    return programs.enabled() and \
+        sharding.group_captures(process_group, device)
 
 
 def bucket_size(n: int, bucket: int) -> int:
@@ -391,9 +395,10 @@ class GaussianProcessLogLikelihoodMCMC:
     the same step.  The chain's segments and the ensemble fit run as
     programs of ``program_cache`` (its own when None; ``ops.programs``),
     one per shape bucket, while ``programs.CAPTURE`` is "auto" (the chain
-    only outside a process group, :func:`chain_runs_programs`).
+    under a process group only where its gather can be captured,
+    :func:`chain_runs_programs`).
     ``optimize()`` is the MAP alternative: one member at the best end of a
-    multistart damped Newton.
+    multistart damped Newton, each start's run one program.
     """
 
     def __init__(self, historical_data, prior=None, chain_length: int = 1000,
@@ -522,21 +527,24 @@ class GaussianProcessLogLikelihoodMCMC:
     def _segment_program(self, x: torch.Tensor, y: torch.Tensor,
                          point_noise: Optional[torch.Tensor]) -> Callable:
         """The chain's ``segment_fn`` on this data: one program of
-        :func:`chain_segment` per (Np, W, D, steps) and the model's
-        settings; the data are the program's inputs, so a retrain inside
-        the bucket replays it."""
+        :func:`chain_segment` per (Np, W, D, steps), the model's settings
+        and its process group (each rank evaluates its block of walkers and
+        gathers the log-posteriors inside the program); the data are the
+        program's inputs, so a retrain inside the bucket replays it."""
         extra = () if point_noise is None else (point_noise,)
+        group = self.process_group
 
         def segment(pos, lp, u, idx, acc, xx, yy, *pn):
             return chain_segment(
-                lambda t: self.log_posterior(t, xx, yy, *pn), pos, lp, u,
-                idx, acc)
+                lambda t: sharding.sharded_point_evaluation(
+                    lambda tt: self.log_posterior(tt, xx, yy, *pn), t, group),
+                pos, lp, u, idx, acc)
 
         def run(pos, lp, u, idx, acc):
             key = ("chain", tuple(x.shape), tuple(y.shape), tuple(pos.shape),
                    int(u.shape[0]), self.dtype, str(self.device),
                    self.kernel_name, self.noisy, self.derivatives,
-                   point_noise is not None)
+                   point_noise is not None, sharding.group_key(group))
             return self.program_cache.get(key, segment)(
                 pos, lp, u, idx, acc, x, y, *extra)
 
@@ -559,7 +567,8 @@ class GaussianProcessLogLikelihoodMCMC:
                     self.process_group)
 
             segment_fn = self._segment_program(x, y, point_noise) \
-                if chain_runs_programs(self.process_group) else None
+                if chain_runs_programs(self.process_group, self.device) \
+                else None
             gen = self.generator
             if not self.burned:
                 p0 = self.prior.sample_from_prior(
@@ -596,7 +605,10 @@ class GaussianProcessLogLikelihoodMCMC:
         where the log posterior is -inf and the step stops.  The log
         posterior is the plain one (``force_plain``): kernel B has no
         backward.  ``map_starts`` and ``map_values`` keep the starts and
-        the ends' log posteriors."""
+        the ends' log posteriors.  While ``programs.CAPTURE`` is "auto"
+        the 40 steps from a start are one program of the model's cache
+        over (start, data), replayed for every start; the pick of the best
+        end reads the host outside it, as in the JAX package."""
         from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
         from cornell_moe_tpu_torch.ops.optimizers import (NewtonParameters,
                                                           newton_optimize)
@@ -613,12 +625,22 @@ class GaussianProcessLogLikelihoodMCMC:
         starts = torch.clamp(self.prior.sample_from_prior(
             self.generator, max(num_restarts, 1), **kw), -bound, bound)
 
-        def value(t):
-            return self.log_posterior(t[None], x, y, point_noise,
+        def value_on(t, xx, yy, *pn):
+            return self.log_posterior(t[None], xx, yy, *pn,
                                       force_plain=True)[0]
 
-        finals = torch.stack([newton_optimize(value, dom, t0, nparams)
-                              for t0 in starts])
+        def value(t):
+            return value_on(t, x, y, point_noise)
+
+        def newton(t0, *data):
+            return newton_optimize(lambda t: value_on(t, *data), dom, t0,
+                                   nparams)
+
+        data = (x, y) + (() if point_noise is None else (point_noise,))
+        key = ("map_newton", self.kernel_name, self.noisy, self.derivatives,
+               nparams)
+        finals = torch.stack([programs.run(self.program_cache, key, newton,
+                                           t0, *data) for t0 in starts])
         vals = torch.stack([value(t) for t in finals])
         self.map_starts, self.map_values = starts, vals
         if not bool(torch.isfinite(vals).any()):

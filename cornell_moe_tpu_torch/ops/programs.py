@@ -14,7 +14,11 @@ function up on a side stream, then captures one ``torch.cuda.CUDAGraph``
 over static input buffers; every call copies its inputs in, replays the
 graph and hands back clones of the outputs, because the next replay
 overwrites the graph's own.  The graphs of one cache share one memory pool.
-On the CPU a program calls the function directly.  On both devices the
+On the CPU a program calls the function directly.  A function may hold an
+NCCL collective (``parallel.sharding.group_captures``): the warm-up runs
+it once outside the graph, where NCCL creates its communicator on first
+use, and :meth:`ProgramCache.release` frees the graphs before their
+process group is destroyed.  On both devices the
 first call of a key is one build (:func:`build_count`: CPU builds on the
 CPU, graph captures on the card), and each program counts its calls in
 ``replays``.
@@ -79,6 +83,17 @@ def tally(name: str, counts: dict):
     finally:
         if _tallies.get(name) is counts:
             del _tallies[name]
+
+
+def run(cache: Optional["ProgramCache"], key: tuple, fn: Callable,
+        *inputs: torch.Tensor):
+    """``fn(*inputs)``: through ``cache``'s program of ``key`` and the
+    inputs' shapes, dtypes and devices while ``CAPTURE`` is "auto", called
+    directly without a cache or under "never"."""
+    if cache is None or not enabled():
+        return fn(*inputs)
+    return cache.get(key + tuple((tuple(t.shape), t.dtype, str(t.device))
+                                 for t in inputs), fn)(*inputs)
 
 
 def _read_counters() -> dict:
@@ -217,6 +232,16 @@ class ProgramCache:
 
     def programs(self) -> Dict[Hashable, Program]:
         return dict(self._programs)
+
+    def release(self) -> None:
+        """Free every program and its graph (the next call of a key builds
+        again): before the process group whose collectives they captured
+        is destroyed."""
+        if self._pool is not None:
+            torch.cuda.synchronize()
+        self._programs.clear()
+        self._pool = None
+        self._streams.clear()
 
     def pool(self):
         if self._pool is None:

@@ -21,7 +21,11 @@ runs the unsharded function, so callers pass their optional group through.
 
 A gloo group gathers host tensors, so a CUDA block is copied to the host
 for the collective alone (:func:`all_gather_rows`); the computation stays
-on the card.  Under NCCL the gather stays on the card.
+on the card.  Under NCCL the gather stays on the card, into one
+preallocated tensor, so the programs of ``ops.programs`` capture it with
+the work around it (:func:`group_captures`): every rank builds the same
+programs in the same order, from the same schedule and seed, which keeps
+the captured collectives matched across the ranks.
 """
 
 from __future__ import annotations
@@ -90,16 +94,44 @@ def _local_block(x: torch.Tensor, group):
     return padded[r * s:(r + 1) * s].clone(), n_valid
 
 
+def group_captures(group, device) -> bool:
+    """Whether a program (``ops.programs``) may hold this group's
+    collectives on ``device``: True without a group, on the CPU (where a
+    program calls its function directly) and for an NCCL group, whose
+    collectives a CUDA graph captures; False for a gloo group on a CUDA
+    device, whose collectives run on the host."""
+    if group is None or torch.device(device).type != "cuda":
+        return True
+    return dist.get_backend(group) == dist.Backend.NCCL
+
+
 def all_gather_rows(block: torch.Tensor, group) -> torch.Tensor:
     """Every rank's block (equal shapes) concatenated along axis 0, in rank
-    order, on the block's device.  gloo takes host tensors: a CUDA block is
-    copied to the host for the collective and the result back."""
+    order, on the block's device.  NCCL gathers into one preallocated
+    tensor on the card (a CUDA graph can hold it); gloo takes host tensors:
+    a CUDA block is copied to the host for the collective and the result
+    back."""
     staged = block.contiguous()
-    if staged.is_cuda and dist.get_backend(group) == dist.Backend.GLOO:
+    world = dist.get_world_size(group)
+    if dist.get_backend(group) == dist.Backend.NCCL:
+        out = torch.empty((world * staged.shape[0],) + staged.shape[1:],
+                          dtype=staged.dtype, device=staged.device)
+        dist.all_gather_into_tensor(out, staged, group=group)
+        return out
+    if staged.is_cuda:
         staged = staged.cpu()
-    parts = [torch.empty_like(staged) for _ in range(dist.get_world_size(group))]
+    parts = [torch.empty_like(staged) for _ in range(world)]
     dist.all_gather(parts, staged, group=group)
     return torch.cat(parts).to(block.device)
+
+
+def group_key(group):
+    """The part of a program's key that tells groups apart: (world size,
+    rank), or None without a group, so that two groups never share a
+    captured collective."""
+    if group is None:
+        return None
+    return dist.get_world_size(group), dist.get_rank(group)
 
 
 def broadcast_from_rank0(obj, group):

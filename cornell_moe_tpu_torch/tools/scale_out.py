@@ -7,12 +7,14 @@ Every rank (NCCL, rank r on ``cuda:r``) runs one iteration of
 ``BayesianOptimizer(n_devices=N)`` at the main path's size (Branin, 500
 observations, 16 members, q = 4, 200 multistarts, 128 MC draws, float32),
 its launch counters set to 0 just before and read just after, then times
-the collective of the chain's half-step.  Rank 0 then runs the unsharded
-iteration with the same chunking (``suggest_chunk_size`` 200 / N) and
-prints one JSON line: each rank's stage times, launches and kernel calls
-by shape, whether the ranks and the unsharded run agree bit for bit, and
-the largest differences.  Exits 1 when they do not agree, 2 without a card
-or outside ``torchrun``.
+the collective of the chain's half-step, eagerly and replayed inside a
+CUDA graph.  Rank 0 then runs the unsharded iteration with the same
+chunking (``suggest_chunk_size`` 200 / N) and prints one JSON line: each
+rank's stage times, launches, kernel calls by shape and builds and replays
+by program kind, whether the ranks and the unsharded run agree bit for
+bit, and the largest differences.  Exits 1 when they do not agree, 2
+without a card or outside ``torchrun``.  Each rank's graphs, which hold
+its NCCL gathers, are freed before the process group is destroyed.
 
 :func:`iteration` and the comparisons are also ``chip_smoke.py``'s, which
 drives the same iteration on one card.
@@ -90,10 +92,26 @@ def iteration(device, descent=None, num_obs: int = NUM_OBS, **bo_kwargs):
             lml_shapes)
 
 
+def program_kind(key) -> str:
+    """A program's stage, and a chain segment's steps: "chain_64"."""
+    return f"chain_{key[4]}" if key[0] == "chain" else key[0]
+
+
+def programs_by_kind(cache) -> dict:
+    """Per program kind of a ``ProgramCache``: its builds (the programs of
+    that kind) and their replays."""
+    out = {}
+    for key, prog in cache.programs().items():
+        entry = out.setdefault(program_kind(key), {"builds": 0, "replays": 0})
+        entry["builds"] += 1
+        entry["replays"] += prog.replays
+    return out
+
+
 def summary(bo, rec, wall, counts, shapes, lml_shapes) -> dict:
     """What a comparison keeps of one :func:`iteration`, as host data:
-    stage times, the walkers after the last chain, the samples and the
-    record."""
+    stage times, the walkers after the last chain, the samples, the record
+    and the driver's programs by kind."""
     return {"seconds": wall,
             "stages": {r["phase"]: r["seconds"] for r in bo.timer.records},
             "suggest_chunk_size": bo.suggest_chunk_size,
@@ -104,7 +122,8 @@ def summary(bo, rec, wall, counts, shapes, lml_shapes) -> dict:
             "recommended": rec["recommended"],
             "true_value": rec["true_value"], "launches": counts,
             "descent_run_launches_by_shape": shapes,
-            "lml_fused_calls_by_shape": lml_shapes}
+            "lml_fused_calls_by_shape": lml_shapes,
+            "programs": programs_by_kind(bo.program_cache)}
 
 
 def bitwise(a: dict, b: dict) -> dict:
@@ -155,6 +174,36 @@ def gather_ms(group, device, walkers: int, reps: int = 200) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def replayed_gather_ms(group, device, walkers: int, reps: int = 200):
+    """Host wall time of one replay of a program that holds one
+    ``all_gather_rows`` of a half-step's log-posteriors (the input copied
+    in, the graph replayed, the output copied out), as :func:`gather_ms`
+    measures the eager call; None where the group's collectives cannot be
+    captured (``sharding.group_captures``)."""
+    import torch.distributed as dist
+
+    from cornell_moe_tpu_torch.ops import programs
+    from cornell_moe_tpu_torch.parallel import sharding
+    if not sharding.group_captures(group, device):
+        return None
+    block = torch.zeros(walkers // dist.get_world_size(group), device=device,
+                        dtype=torch.float32)
+    cache = programs.ProgramCache()
+    prog = cache.get(("gather",),
+                     lambda b: sharding.all_gather_rows(b, group))
+    try:
+        for _ in range(10):
+            prog(block)
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            prog(block)
+        _sync(device)
+        return (time.perf_counter() - t0) / reps * 1e3
+    finally:
+        cache.release()
+
+
 def main() -> int:
     import torch.distributed as dist
 
@@ -170,12 +219,19 @@ def main() -> int:
     world = int(os.environ["WORLD_SIZE"])
     group = sharding.default_process_group(world)
     device = config.default_device()
-    mine = summary(*iteration(device, n_devices=world))
+    run = iteration(device, n_devices=world)
+    mine = summary(*run)
+    run[0].program_cache.release()
+    del run
+    walkers = MAIN_PATH["n_hypers"] // 2
     mine.update(rank=dist.get_rank(), device=str(device),
                 card=torch.cuda.get_device_name(device),
                 backend=str(dist.get_backend(group)),
-                all_gather_ms=gather_ms(group, device,
-                                        MAIN_PATH["n_hypers"] // 2))
+                torch=torch.__version__,
+                nccl=".".join(map(str, torch.cuda.nccl.version())),
+                all_gather_ms=gather_ms(group, device, walkers),
+                all_gather_replayed_ms=replayed_gather_ms(group, device,
+                                                          walkers))
     ranks = [None] * world
     dist.all_gather_object(ranks, mine, group=group)
     ok = True

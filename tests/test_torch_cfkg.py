@@ -95,6 +95,41 @@ def test_fidelity_cost_and_pinning():
         tkg._pin_fidelity(_t([0.3]), 2).numpy())
 
 
+@pytest.mark.parametrize("num_fidelity", [1, 2])
+def test_fidelity_cost_value_and_gradient_match_jax(num_fidelity):
+    """The cost and its gradient with respect to the unions, against
+    ``jax.grad`` of the JAX package's ``jnp.max(jnp.prod(...))``, float64,
+    to 1e-12: unions of q = 3 points to sample and one being sampled, with
+    a fidelity coordinate exactly 0 off the max (union 0) and at the max
+    (union 1, whose other points' products are negative), where the
+    product's gradient is the product of the other columns."""
+    q, d = 3, 4
+    rng = np.random.default_rng(11)
+    unions = rng.uniform(0.05, 1.0, (5, q + 1, d))
+    first = d - num_fidelity
+    unions[0, 1, first] = 0.0
+    unions[1, 0, first] = 0.0
+    unions[1, 1:q, d - 1] = -rng.uniform(0.1, 1.0, q - 1)
+    with torch.enable_grad():
+        u = _t(unions).requires_grad_(True)
+        cost = tkg.fidelity_cost(u, q, num_fidelity)
+        (grad,) = torch.autograd.grad(cost.sum(), u)
+    cost = cost.detach()
+    assert float(cost[1]) == 0.0
+
+    def jcost(x):
+        return jkg.fidelity_cost(x, q, num_fidelity)
+
+    want = np.array([float(jcost(jnp.asarray(x))) for x in unions])
+    want_grad = np.stack([np.asarray(jax.grad(jcost)(jnp.asarray(x)))
+                          for x in unions])
+    np.testing.assert_allclose(cost.numpy(), want, rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(grad.numpy(), want_grad, rtol=1e-12,
+                               atol=1e-12)
+    assert grad[1, 0, first] != 0.0
+
+
 @pytest.mark.parametrize("case, expected", [
     (dict(), "matern_2.5"), (dict(num_fidelity=1), None),
     (dict(num_fidelity=2, d=3), None)])

@@ -300,7 +300,7 @@ def test_heuristic_qei_matches_jax(monkeypatch, policy, bucket):
         return _jax_round(state, jnp.asarray(starts[i]), best_so_far)
 
     def torch_ms(generator, state, domain, q, params, best_so_far=None,
-                 num_mc_iterations=None):
+                 num_mc_iterations=None, program_cache=None):
         i = rounds["torch"]
         rounds["torch"] += 1
         return _torch_round(state, _t(starts[i]), best_so_far)

@@ -371,6 +371,58 @@ def test_unsharded_kg_multistarts_match_jax(kg_data):
 
 
 # ---------------------------------------------------------------------------
+# the chain's segment programs with their gather inside
+# ---------------------------------------------------------------------------
+
+def _group_chain(group, capture):
+    """A gated chain (8 walkers: a 70-step burn-in, one 64-step segment and
+    a 6-step remainder, then segments of 64 to the gate) on 20 points,
+    float64, under ``group`` (None: unsharded) with ``programs.CAPTURE`` =
+    ``capture``: the walkers, the chain's steps and the program kinds."""
+    from cornell_moe_tpu_torch.ops import programs
+    from cornell_moe_tpu_torch.utils.data_containers import HistoricalData
+
+    rng = np.random.default_rng(0)
+    x = rng.random((20, 2))
+    data = HistoricalData(2)
+    data.append_historical_data(x, np.sin(3 * x[:, 0]) + x[:, 1] ** 2)
+    model = tmcmc.GaussianProcessLogLikelihoodMCMC(
+        data, n_hypers=8, noisy=True, bucket=16, chain_gate_tol=1.0,
+        burnin_steps=70, chain_length=200, device="cpu",
+        generator=torch.Generator().manual_seed(3), process_group=group)
+    saved, programs.CAPTURE = programs.CAPTURE, capture
+    try:
+        model.train()
+    finally:
+        programs.CAPTURE = saved
+    return {"walkers": model.p0.numpy(), "chain_steps": model.chain_steps,
+            "kinds": sorted({k[0] for k in model.program_cache.programs()})}
+
+
+def _chain_rank():
+    torch.set_num_threads(1)
+    group = torch.distributed.group.WORLD
+    return {c: _group_chain(group, c) for c in ("auto", "never")}
+
+
+def test_chain_segments_on_a_group_equal_unsharded(tmp_path):
+    """On 2 ranks the chain runs as segment programs, each half-step's
+    walker blocks gathered inside the program (on the CPU a program calls
+    its function; on a card an NCCL gather is captured with it): the
+    walkers and the chain's steps equal the step-by-step sharded chain
+    (``CAPTURE = "never"``) and the unsharded run bit for bit, on both
+    ranks."""
+    single = _group_chain(None, "auto")
+    assert single["kinds"] == ["chain", "fit"]
+    for got in _run_group(tmp_path, 2, _chain_rank):
+        assert got["auto"]["kinds"] == ["chain", "fit"]
+        assert got["never"]["kinds"] == []
+        for run in (got["auto"], got["never"]):
+            np.testing.assert_array_equal(run["walkers"], single["walkers"])
+            assert run["chain_steps"] == single["chain_steps"]
+
+
+# ---------------------------------------------------------------------------
 # the driver: one iteration, and checkpoint and resume
 # ---------------------------------------------------------------------------
 

@@ -29,6 +29,7 @@ from cornell_moe_tpu_torch.acquisition import knowledge_gradient as tkg
 from cornell_moe_tpu_torch.models import covariance as tcov
 from cornell_moe_tpu_torch.models import mcmc as tmcmc
 from cornell_moe_tpu_torch.ops import kernels, optimizers, programs
+from cornell_moe_tpu_torch.parallel import sharding
 from cornell_moe_tpu_torch.utils import synthetic_functions as tsf
 from cornell_moe_tpu_torch.utils.data_containers import (HistoricalData,
                                                          SamplePoint)
@@ -39,7 +40,8 @@ F64 = torch.float64
 def _loop(capture, monkeypatch, iterations=4, device="cpu"):
     """tests/test_compile_stability.py's loop: Branin, KG, q = 1, bucket 4,
     3 initial points, 4 members (8 walkers), chain 20; builds of
-    initialize and of each iteration, and each iteration's results."""
+    initialize and of each iteration, each iteration's results, and the
+    replays by program kind after each iteration."""
     monkeypatch.setattr(programs, "CAPTURE", capture)
     fast = optimizers.GradientDescentParameters(
         num_multistarts=4, max_num_steps=5, max_num_restarts=1,
@@ -53,7 +55,7 @@ def _loop(capture, monkeypatch, iterations=4, device="cpu"):
     programs.reset_builds()
     bo.initialize(num_init_pts=3)
     builds = [programs.build_count()]
-    results = []
+    results, replays = [], []
     for _ in range(iterations):
         start = programs.build_count()
         pts, voi = bo.suggest()
@@ -61,31 +63,69 @@ def _loop(capture, monkeypatch, iterations=4, device="cpu"):
         rec = bo.recommend(num_eval_pts=64)
         builds.append(programs.build_count() - start)
         results.append((pts, voi, rec, bo.model.p0.cpu().numpy()))
-    return bo, builds, results
+        replays.append(_replays_by_kind(bo.program_cache))
+    return bo, builds, results, replays
+
+
+def _replays_by_kind(cache) -> dict:
+    out = {}
+    for key, prog in cache.programs().items():
+        out[key[0]] = out.get(key[0], 0) + prog.replays
+    return out
+
+
+SUGGEST_KG = {"qei_step", "posterior_mean_step", "kg_cold", "kg_warm_step",
+              "kg_score"}
 
 
 def test_bo_loop_builds_once_per_bucket(monkeypatch):
     """As tests/test_compile_stability.py counts: initialize builds the
     chain (64-step segment and the 20-step burn-in) and the fit at n = 3
-    -> 4; iteration 0 builds the suggest's two steps (the seeding q-EI's
-    and the warm KG's) and the recommendation's grid and step; iteration 1
-    retrains at n = 5 -> 8 (chain, fit and recommendation again),
-    iteration 2 suggests at 8 (the last of the wave), and iteration 3
-    builds nothing.  The same loop with CAPTURE = "never" builds nothing
-    and gives the same points, VOIs, recommendations and walkers bit for
+    -> 4; iteration 0 builds the suggest's five programs (the seeding
+    q-EI's step and posterior-mean polish step, the KG multistart's cold
+    evaluation and warm step, the VOI's scoring) and the recommendation's
+    grid and step; iteration 1 retrains at n = 5 -> 8 (chain, fit and
+    recommendation again), iteration 2 suggests at 8 (the last of the
+    wave), and iteration 3 builds nothing and replays every suggest
+    program.  The same loop with CAPTURE = "never" builds nothing and
+    gives the same points, VOIs, recommendations and walkers bit for
     bit."""
-    bo, builds, results = _loop("auto", monkeypatch)
-    assert builds == [3, 4, 4, 2, 0], builds
+    bo, builds, results, replays = _loop("auto", monkeypatch)
+    assert builds == [3, 7, 4, 5, 0], builds
     kinds = sorted({key[0] for key in bo.program_cache.programs()})
-    assert kinds == ["chain", "fit", "kg_warm_step", "qei_step",
-                     "recommend_grid", "recommend_step"]
+    assert kinds == sorted(SUGGEST_KG | {"chain", "fit", "recommend_grid",
+                                         "recommend_step"})
     assert all(p.replays > 0
                for p in bo.program_cache.programs().values())
-    _, eager_builds, eager = _loop("never", monkeypatch)
+    assert all(replays[3][k] > replays[2][k] for k in kinds), replays[2:]
+    _, eager_builds, eager, _ = _loop("never", monkeypatch)
     assert eager_builds == [0] * 5
     for got, ref in zip(results, eager):
         for a, b in zip(got, ref):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def _driver_runs(capture, monkeypatch, **kw):
+    """Two iterations of a small driver inside one bucket (5 -> 7 -> 9
+    observations, bucket 16) with ``CAPTURE`` = ``capture``: the history,
+    the builds of each iteration (the first's initialize included) and the
+    replays by kind after each."""
+    monkeypatch.setattr(programs, "CAPTURE", capture)
+    fast = optimizers.GradientDescentParameters(
+        num_multistarts=4, max_num_steps=8, max_num_restarts=1,
+        num_steps_averaged=2, gamma=0.7, pre_mult=1.0,
+        max_relative_change=0.5)
+    bo = tbo.BayesianOptimizer(**dict(dict(
+        num_to_sample=2, num_mc=8, n_hypers=8, chain_length=25,
+        burnin_steps=25, noisy=True, standardize=True, chain_gate_tol=None,
+        sgd_params=fast, device="cpu", verbose=False), **kw))
+    builds, replays = [], []
+    for it in range(2):
+        start = programs.build_count()
+        bo.run(it + 1, num_init_pts=5, start_iteration=it)
+        builds.append(programs.build_count() - start)
+        replays.append(_replays_by_kind(bo.program_cache))
+    return bo.history, builds, replays
 
 
 def _chain_model(rng, n=20, bucket=16):
@@ -174,61 +214,137 @@ def test_model_train_programs_equal_eager(monkeypatch):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_chain_stays_eager_under_a_process_group(tmp_path):
-    """Under a process group (a gloo world of one) the chain runs step by
-    step and the recommendation eagerly, each by its named rule; the fit
-    (no collective) still runs as a program."""
-    assert tmcmc.chain_runs_programs(None)
-    assert tbo.recommend_runs_program(None)
+def test_chain_stays_eager_under_a_process_group(tmp_path, monkeypatch):
+    """The rule (``sharding.group_captures``): the chain and the
+    recommendation stay eager only under a gloo group on a card; no group,
+    an NCCL group and the CPU run them as programs.  On a gloo world of one
+    on the CPU the chain's segments (the gather inside each program) and
+    the recommendation's grid run through their programs, and the walkers,
+    the ensemble and the recommendation equal the step-by-step eager run's
+    (``CAPTURE = "never"``) bit for bit."""
+    for rule in (tmcmc.chain_runs_programs, tbo.recommend_runs_program):
+        assert rule(None, "cpu") and rule(None, "cuda:0")
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
                             rank=0, world_size=1)
     try:
         group = dist.group.WORLD
-        assert not tmcmc.chain_runs_programs(group)
-        assert not tbo.recommend_runs_program(group)
-        model = _chain_model(np.random.default_rng(0))
-        model.process_group = group
-        model.burnin_steps, model.chain_length = 10, 10
-        model.train()
-        assert {k[0] for k in model.program_cache.programs()} == {"fit"}
-        rec = tbo.recommend_from_guesses(
-            model.models, tkg.inner_domain(
-                tbo.TensorProductDomain.from_bounds([[0, 1], [0, 1]]), 0),
-            torch.rand(16, 2, dtype=F64), params=tbo.DEFAULT_SGD_PARAMS_PS,
-            group=group, program_cache=model.program_cache)
-        assert rec.shape == (2,)
-        assert {k[0] for k in model.program_cache.programs()} == {"fit"}
+        for rule in (tmcmc.chain_runs_programs, tbo.recommend_runs_program):
+            assert rule(group, "cpu") and not rule(group, "cuda:0")
+        with monkeypatch.context() as m:
+            m.setattr(sharding.dist, "get_backend",
+                      lambda g=None: dist.Backend.NCCL)
+            assert tmcmc.chain_runs_programs(group, "cuda:0")
+            assert tbo.recommend_runs_program(group, "cuda:0")
+        out = []
+        for capture in ("auto", "never"):
+            monkeypatch.setattr(programs, "CAPTURE", capture)
+            model = _chain_model(np.random.default_rng(0))
+            model.process_group = group
+            model.burnin_steps, model.chain_length = 70, 10
+            model.train()
+            rec = tbo.recommend_from_guesses(
+                model.models, tkg.inner_domain(
+                    tbo.TensorProductDomain.from_bounds([[0, 1], [0, 1]]),
+                    0), torch.rand(16, 2, dtype=F64,
+                                   generator=torch.Generator().manual_seed(1)),
+                params=tbo.DEFAULT_SGD_PARAMS_PS, group=group,
+                program_cache=model.program_cache)
+            kinds = {k[0] for k in model.program_cache.programs()}
+            assert kinds == ({"chain", "fit", "recommend_grid",
+                              "recommend_step"} if capture == "auto"
+                             else set())
+            out.append((model.p0.numpy(), model.models.chol_K.numpy(),
+                        rec.numpy()))
+        for a, b in zip(*out):
+            np.testing.assert_array_equal(a, b)
     finally:
         dist.destroy_process_group()
 
 
 def test_cfkg_outer_steps_stay_eager(monkeypatch):
-    """With a fidelity dim the warm KG step stays eager by its named rule
-    (the fidelity cost's torch.prod backward reads the host); the seeding
-    q-EI's step and the other stages still run as programs, and the
-    iteration equals its CAPTURE = "never" twin bit for bit."""
-    assert tkg.warm_step_runs_program(0)
-    assert not tkg.warm_step_runs_program(1)
-    fast = optimizers.GradientDescentParameters(
-        num_multistarts=4, max_num_steps=8, max_num_restarts=1,
+    """cf-KG's outer steps, named for the rule that once kept them eager,
+    now run as programs: the fidelity cost's product is a chain of
+    multiplications whose backward reads nothing from the host.  Over two
+    iterations inside one bucket every suggest program (the warm step
+    among them) is built in the first and replayed in the second, which
+    builds nothing, and both iterations equal their CAPTURE = "never"
+    twins bit for bit."""
+    kw = dict(objective_func=tsf.BraninFidelity(), method="KG")
+    got, builds, replays = _driver_runs("auto", monkeypatch, **kw)
+    assert builds[0] > 0 and builds[1] == 0, builds
+    assert SUGGEST_KG <= set(replays[1])
+    assert all(replays[1][k] > replays[0][k] for k in SUGGEST_KG), replays
+    ref, never_builds, _ = _driver_runs("never", monkeypatch, **kw)
+    assert never_builds == [0, 0]
+    for h, r in zip(got, ref):
+        for k in ("suggested", "voi", "recommended"):
+            np.testing.assert_array_equal(np.asarray(h[k]), np.asarray(r[k]))
+
+
+def test_ei_suggest_programs_equal_never(monkeypatch):
+    """Method "EI" (q = 2, the MC estimator) over two iterations inside one
+    bucket: the single-GP multistart's GD step and the scoring (the
+    union's posterior and the estimate, around the eager least
+    eigenvalue) are built in the first iteration and replayed in the
+    second, which builds nothing; both equal CAPTURE = "never" bit for
+    bit."""
+    kw = dict(objective_func=tsf.Branin(), method="EI")
+    got, builds, replays = _driver_runs("auto", monkeypatch, **kw)
+    assert builds[0] > 0 and builds[1] == 0, builds
+    for kind in ("ei_step", "ei_score"):
+        assert replays[1][kind] > replays[0][kind] > 0, replays
+    ref, _, _ = _driver_runs("never", monkeypatch, **kw)
+    for h, r in zip(got, ref):
+        for k in ("suggested", "voi", "recommended"):
+            np.testing.assert_array_equal(np.asarray(h[k]), np.asarray(r[k]))
+
+
+def _heuristic_and_map(capture, monkeypatch):
+    """Heuristic q-EI (q = 3, kriging believer) twice on member 0 of a
+    trained model, then its MAP fit from 3 starts twice, through one
+    program cache; results, builds of each call and replays by kind."""
+    from cornell_moe_tpu_torch.acquisition import expected_improvement as tei
+    monkeypatch.setattr(programs, "CAPTURE", capture)
+    model = _chain_model(np.random.default_rng(0))
+    model.burnin_steps, model.chain_length = 20, 20
+    model.train()
+    member = model.models.member(0)
+    dom = tbo.TensorProductDomain.from_bounds([[0, 1], [0, 1]])
+    params = optimizers.GradientDescentParameters(
+        num_multistarts=4, max_num_steps=6, max_num_restarts=1,
         num_steps_averaged=2, gamma=0.7, pre_mult=1.0,
         max_relative_change=0.5)
-    out = []
-    for capture in ("auto", "never"):
-        monkeypatch.setattr(programs, "CAPTURE", capture)
-        bo = tbo.BayesianOptimizer(
-            objective_func=tsf.BraninFidelity(), method="KG",
-            num_to_sample=2, num_mc=8, n_hypers=8, chain_length=25,
-            burnin_steps=25, noisy=True, standardize=True,
-            chain_gate_tol=None, sgd_params=fast, device="cpu",
-            verbose=False)
-        h = bo.run(num_iterations=1)[0]
-        out.append((h["suggested"], h["voi"], h["recommended"]))
-        kinds = {key[0] for key in bo.program_cache.programs()}
-        assert kinds == ({"chain", "fit", "qei_step", "recommend_grid",
-                          "recommend_step"} if capture == "auto" else set())
-    for a, b in zip(*out):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    cache = model.program_cache
+    results, builds = [], []
+    for _ in range(2):
+        start = programs.build_count()
+        results.append(tei.heuristic_expected_improvement_optimization(
+            model.generator, member, dom, 3, params,
+            program_cache=cache).numpy())
+        builds.append(programs.build_count() - start)
+    for _ in range(2):
+        start = programs.build_count()
+        model.optimize(num_restarts=3)
+        builds.append(programs.build_count() - start)
+        results += [np.asarray(model.hypers), model.map_values.numpy()]
+    return results, builds, _replays_by_kind(cache)
+
+
+def test_heuristic_refit_and_map_fit_programs_equal_never(monkeypatch):
+    """Heuristic q-EI's refit (one program over the padded data, q + 1 = 4
+    calls per run) and each round's analytic-EI GD step, and the MAP fit's
+    Newton run (one program over (start, data), one call per start): built
+    in the first call, none in the second, and every result equal to
+    CAPTURE = "never" bit for bit."""
+    got, builds, replays = _heuristic_and_map("auto", monkeypatch)
+    assert builds[1] == 0 and builds[3] == 0, builds
+    assert builds[0] >= 2 and builds[2] == 2, builds
+    assert replays["heuristic_refit"] == 8 and replays["map_newton"] == 6
+    assert replays["ei_step"] > 0
+    ref, never_builds, _ = _heuristic_and_map("never", monkeypatch)
+    assert never_builds == [0] * 4
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_program_cache_counts_builds_and_replays():
@@ -415,8 +531,9 @@ def test_captured_recommend_equals_eager(dev, monkeypatch):
 @pytest.mark.cuda
 def test_captured_suggest_equals_eager(dev, monkeypatch):
     """Method "KG"'s suggest at a reduced width (40 starts, q = 2, 32
-    draws) with its steps as programs (the seeding q-EI's and the warm KG
-    multistart's, kernel A inside) and with CAPTURE = "never": the same
+    draws) with its programs (the seeding q-EI's step and polish step, the
+    KG multistart's cold evaluation and warm step with kernel A inside,
+    the VOI's scoring) and with CAPTURE = "never": the same
     discretization, points and VOI bit for bit, and the same launches of
     kernel A."""
     model = _card_model(dev)
@@ -445,7 +562,7 @@ def test_captured_suggest_equals_eager(dev, monkeypatch):
                     voi.cpu().numpy(), kernels.launch_counts()))
         kinds = {k[0]: p.replays for k, p in cache.programs().items()}
         if capture == "auto":
-            assert set(kinds) == {"qei_step", "kg_warm_step"}
+            assert set(kinds) == SUGGEST_KG
             assert all(v > 0 for v in kinds.values())
         else:
             assert not kinds
@@ -456,10 +573,124 @@ def test_captured_suggest_equals_eager(dev, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("method, objective", [
+    ("EI", "Branin"), ("KG", "BraninFidelity")])
+def test_captured_driver_iteration_equals_eager(dev, monkeypatch, method,
+                                                objective):
+    """Two iterations of method "EI" (its GD step and scoring programs) and
+    of cf-KG (its warm step a program since the fidelity cost reads nothing
+    from the host) at a reduced width on the card, float32, with programs
+    and with CAPTURE = "never": points, VOIs, recommendations and
+    launches bit for bit; the second iteration builds nothing."""
+    fast = optimizers.GradientDescentParameters(
+        num_multistarts=40, max_num_steps=20, max_num_restarts=2,
+        num_steps_averaged=4, gamma=0.7, pre_mult=1.0,
+        max_relative_change=0.5, tolerance=1e-10)
+    out = []
+    for capture in ("auto", "never"):
+        monkeypatch.setattr(programs, "CAPTURE", capture)
+        bo = tbo.BayesianOptimizer(
+            objective_func=getattr(tsf, objective)(), method=method,
+            num_to_sample=2, num_mc=32, n_hypers=8, chain_length=128,
+            burnin_steps=128, noisy=True, standardize=True, sgd_params=fast,
+            device=dev, dtype=torch.float32, verbose=False)
+        kernels.reset_launch_counts()
+        builds = []
+        for it in range(2):
+            start = programs.build_count()
+            bo.run(it + 1, num_init_pts=100, start_iteration=it)
+            builds.append(programs.build_count() - start)
+        torch.cuda.synchronize()
+        out.append(([(h["suggested"], h["voi"], h["recommended"])
+                     for h in bo.history], kernels.launch_counts()))
+        if capture == "auto":
+            assert builds[0] > 0 and builds[1] == 0, builds
+            assert all(p.replays > 1
+                       for k, p in bo.program_cache.programs().items()
+                       if k[0] != "chain"), bo.program_cache.programs()
+    (got, counts), (ref, ref_counts) = out
+    assert counts == ref_counts
+    for g, r in zip(got, ref):
+        for a, b in zip(g, r):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.cuda
+def test_captured_heuristic_and_map_equal_eager(dev, monkeypatch):
+    """Heuristic q-EI (q = 3; its refit and each round's GD step as
+    programs) on member 0 and the MAP fit (each start's Newton run one
+    program) of a trained float32 model on the card, against CAPTURE =
+    "never" from the same generator state: picks, ends and the chosen
+    hyperparameters bit for bit."""
+    from cornell_moe_tpu_torch.acquisition import expected_improvement as tei
+    model = _card_model(dev)
+    model.train()
+    dom = tbo.TensorProductDomain.from_bounds([[0, 1], [0, 1]], device=dev,
+                                              dtype=torch.float32)
+    member = model.models.member(0)
+    state = model.generator.get_state()
+    out = []
+    for capture in ("auto", "never"):
+        monkeypatch.setattr(programs, "CAPTURE", capture)
+        model.generator.set_state(state)
+        picks = tei.heuristic_expected_improvement_optimization(
+            model.generator, member, dom, 3, tbo.DEFAULT_SGD_PARAMS_KG,
+            program_cache=model.program_cache)
+        model.optimize(num_restarts=3)
+        torch.cuda.synchronize()
+        out.append((picks.cpu().numpy(), np.asarray(model.hypers),
+                    model.map_values.cpu().numpy()))
+    replays = _replays_by_kind(model.program_cache)
+    assert replays["heuristic_refit"] == 4 and replays["map_newton"] == 3
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_captures_chain_and_recommend(dev, monkeypatch):
+    """Under an NCCL world of one the chain's segments and the
+    recommendation's grid run as CUDA graphs with their all_gather
+    captured inside: the walkers, the ensemble and the recommendation
+    equal the unsharded eager run (CAPTURE = "never") bit for bit.  The
+    graphs are freed before the group is destroyed."""
+    from cornell_moe_tpu_torch.parallel import sharding
+    guesses = torch.rand(500, 2, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    dom = tbo.TensorProductDomain.from_bounds([[0, 1], [0, 1]], device=dev,
+                                              dtype=torch.float32)
+    out = []
+    for capture, sharded in (("auto", True), ("never", False)):
+        monkeypatch.setattr(programs, "CAPTURE", capture)
+        group = sharding.default_process_group(1) if sharded else None
+        try:
+            model = _card_model(dev)
+            model.process_group = group
+            model.train()
+            rec = tbo.recommend_from_guesses(
+                model.models, dom, guesses, group=group,
+                program_cache=model.program_cache)
+            torch.cuda.synchronize()
+            out.append((model.p0.cpu().numpy(),
+                        model.models.chol_K.cpu().numpy(), rec.cpu().numpy(),
+                        model.chain_steps))
+            if sharded:
+                replays = _replays_by_kind(model.program_cache)
+                assert replays["chain"] > 0 and \
+                    replays["recommend_grid"] == 1, replays
+        finally:
+            model.program_cache.release()
+            if sharded:
+                dist.destroy_process_group()
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.cuda
 def test_replay_keeps_earlier_outputs(dev):
     """A fitted ensemble handed back by the fit's program stays as it was
     when the program replays for other hyperparameters, and each replay
-    adds the capture's launches of kernel C."""
+    adds the capture's launches of kernel C; so do the factors of heuristic
+    q-EI's refit program when it replays for other hyperparameters."""
     cache = programs.ProgramCache()
     rng = np.random.default_rng(0)
     x, y = rng.random((64, 2)), rng.standard_normal(64)
@@ -481,3 +712,22 @@ def test_replay_keeps_earlier_outputs(dev):
     assert kernels.launch_counts()["covariance_with_noise"] == 2
     prog, = cache.programs().values()
     assert prog.launch_growth == {"kernels": {"covariance_with_noise": 1}}
+
+    from cornell_moe_tpu_torch.models import gp as tgp
+    matern = tcov.COVARIANCE_TYPES["matern_2.5"]
+
+    def refit(hypers):
+        return programs.run(
+            cache, ("heuristic_refit",),
+            lambda h, nv, xx, yy: tgp.fit_factors(
+                matern(hyperparameters=h), nv, xx, yy, None, ()),
+            hypers, torch.full((1,), 1e-2, **kw), torch.as_tensor(x, **kw),
+            torch.as_tensor(y[:, None], **kw))
+
+    chol, k_inv_y, _, _ = refit(torch.tensor([1.0, 0.3, 0.4], **kw))
+    kept = chol.clone(), k_inv_y.clone()
+    again = refit(torch.tensor([2.0, 0.5, 0.2], **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(chol, kept[0]) and torch.equal(k_inv_y, kept[1])
+    assert not torch.equal(chol, again[0])
+    assert _replays_by_kind(cache)["heuristic_refit"] == 2
