@@ -320,7 +320,7 @@ def _program_run(torch, capture: str) -> dict:
             timed("observe_retrain", bo.observe, pts)
             rec = timed("recommend", bo.recommend)
             replays.append({k: v["replays"] for k, v in
-                            scale_out.programs_by_kind(
+                            programs.by_kind(
                                 bo.program_cache).items()})
             results.append({"suggested": pts, "voi": voi,
                             "recommended": rec,
@@ -329,7 +329,7 @@ def _program_run(torch, capture: str) -> dict:
         torch.cuda.synchronize()
         return {"optimizer": bo, "stages": stages, "replays": replays,
                 "capture_seconds": {
-                    scale_out.program_kind(key): prog.capture_seconds
+                    programs.kind(key): prog.capture_seconds
                     for key, prog in bo.program_cache.programs().items()},
                 "launches": kernels.launch_counts(),
                 "chain_steps": bo.model.chain_steps,
@@ -1493,8 +1493,8 @@ def _programs_vs_never(torch, bo, rec, make_bo) -> dict:
     """A path's programs by kind and whether its results equal bit for bit
     those of its CAPTURE = "never" twin (:func:`_twin_never`)."""
     import numpy as np
-    from cornell_moe_tpu_torch.tools import scale_out
-    by_kind = scale_out.programs_by_kind(bo.program_cache)
+    from cornell_moe_tpu_torch.ops import programs
+    by_kind = programs.by_kind(bo.program_cache)
     never = _twin_never(torch, make_bo)
     got = {k: rec[k] for k in ("suggested", "voi", "recommended")}
     got["chain_steps"] = list(bo.model.chain_steps)
@@ -1790,70 +1790,166 @@ def phase_lcb(torch, states) -> None:
                      member.covariance.name)
 
 
-def phase_pes(torch) -> None:
-    """One iteration of ``pes_driver.run_PES`` on Hartmann6 at the
-    reference scale of benchmarks/bench_suite.py:246-336: 60 initial
-    points, M = 100 hyperparameter sets, burn-in 50, 1000 random features,
-    grid 500, float32 on the card, artifacts in a temporary directory.  Each
-    part is timed by the driver's PhaseTimer; C's launches are counted (the
-    port's gate has no size window, so the M-set SE fits at n = 60 and 61,
-    d = 6 launch it).  Then C against its plain version on those fits' own
-    inputs: the artifacts' first 60 and all 61 points, and the sets the
-    driver's ``sample_hypers`` draws there from the run's seed (the run's
-    draws replayed: its initial design, then the chain)."""
+PES_ITERATIONS = 2
+
+
+def _pes_run(torch, capture: str) -> dict:
+    """PES_ITERATIONS iterations of ``pes_driver.run_PES`` from seed 0 with
+    ``programs.CAPTURE`` = ``capture``: the history, the artifacts, the
+    timer's parts, and per iteration C's launches, the memory allocated
+    at its start and its peak (read between iterations by a wrapper of
+    ``sample_hypers``, the first thing an iteration does after releasing
+    its programs)."""
     import tempfile
 
     import numpy as np
     from cornell_moe_tpu_torch.acquisition import pes_driver
-    from cornell_moe_tpu_torch.models.covariance import SquareExponential
-    from cornell_moe_tpu_torch.ops import kernels
-    from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+    from cornell_moe_tpu_torch.ops import kernels, programs
     from cornell_moe_tpu_torch.utils.logging_utils import PhaseTimer
     from cornell_moe_tpu_torch.utils.synthetic_functions import Hartmann6
 
     f = Hartmann6()
     timer = PhaseTimer()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    with tempfile.TemporaryDirectory() as out_dir:
-        t0 = time.time()
-        hist = pes_driver.run_PES(
-            lambda p: float(f.evaluate_true(p)[0]), [0.0] * 6, [1.0] * 6, 6,
-            number_of_hyperparameter_sets=PES_SETS,
-            number_of_burnin=PES_BURNIN, number_of_initial_points=PES_INIT,
-            number_of_iterations=1, gridsize=PES_GRID, seed=0,
-            output_dir=out_dir, verbose=False, device=DEVICE,
-            dtype=torch.float32, timer=timer)
+    marks = []
+    sample_hypers = pes_driver.sample_hypers
+
+    def mark():
         torch.cuda.synchronize()
-        wall = time.time() - t0
-        counts = kernels.launch_counts()
-        art = {name: np.loadtxt(os.path.join(out_dir, name), ndmin=2)
-               for name in ("Xsamples.txt", "Ysamples.txt", "guesses.txt")}
+        marks.append({"launches_c": kernels.launch_counts()[
+                          "covariance_with_noise"],
+                      "allocated": torch.cuda.memory_allocated(),
+                      "peak": torch.cuda.max_memory_allocated()})
+        torch.cuda.reset_peak_memory_stats()
+
+    def marked(*args, **kw):
+        mark()
+        return sample_hypers(*args, **kw)
+
+    programs.CAPTURE = capture
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    pes_driver.sample_hypers = marked
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            t0 = time.time()
+            hist = pes_driver.run_PES(
+                lambda p: float(f.evaluate_true(p)[0]), [0.0] * 6,
+                [1.0] * 6, 6, number_of_hyperparameter_sets=PES_SETS,
+                number_of_burnin=PES_BURNIN,
+                number_of_initial_points=PES_INIT,
+                number_of_iterations=PES_ITERATIONS, gridsize=PES_GRID,
+                seed=0, output_dir=out_dir, verbose=False, device=DEVICE,
+                dtype=torch.float32, timer=timer)
+            mark()
+            wall = time.time() - t0
+            art = {name: np.loadtxt(os.path.join(out_dir, name), ndmin=2)
+                   for name in ("Xsamples.txt", "Ysamples.txt",
+                                "guesses.txt")}
+    finally:
+        pes_driver.sample_hypers = sample_hypers
+        programs.CAPTURE = "auto"
+    per_part = len(timer.records) // PES_ITERATIONS
+    iterations = []
+    for i, h in enumerate(hist):
+        recs = timer.records[i * per_part:(i + 1) * per_part]
+        iterations.append({
+            "parts": {r["phase"]: r["seconds"] for r in recs},
+            "finite_sets": [r["finite_sets"] for r in recs
+                            if r["phase"] == "x_star_draws_and_ep"][0],
+            "programs": h["programs"],
+            "capture_seconds": h["capture_seconds"],
+            "allocated_at_start": marks[i]["allocated"],
+            "max_memory_allocated": marks[i + 1]["peak"],
+            "launches_c": marks[i + 1]["launches_c"] -
+            marks[i]["launches_c"]})
+    return {"seconds": wall, "history": hist, "artifacts": art,
+            "iterations": iterations,
+            "allocated_after_run": marks[-1]["allocated"]}
+
+
+def phase_pes(torch) -> None:
+    """PES_ITERATIONS iterations of ``pes_driver.run_PES`` on Hartmann6 at
+    the reference scale of benchmarks/bench_suite.py:246-336: 60 initial
+    points, M = 100 hyperparameter sets, burn-in 50, 1000 random features,
+    grid 500, float32 on the card, artifacts in a temporary directory,
+    first with programs (the chain's segments, the x* polish step, EP's
+    sweep, the two grids and the two polish steps, captured anew in each
+    iteration after the release of the last one's), then from the same
+    seed with ``CAPTURE = "never"``: history and artifacts equal bit for
+    bit.  Per iteration the parts (the driver's PhaseTimer), builds and
+    replays by kind, capture seconds, peak memory and C's launches (the
+    port's gate has no size window, so the M-set SE fits at n = 60 and 61
+    in the first iteration, 61 and 62 in the second, launch it).  Then C
+    against its plain version on the first iteration's fits' own inputs:
+    the artifacts' first 60 and 61 points, and the sets the driver's
+    ``sample_hypers`` draws there from the run's seed (the run's draws
+    replayed: its initial design, then the chain)."""
+    import numpy as np
+    from cornell_moe_tpu_torch.acquisition import pes_driver
+    from cornell_moe_tpu_torch.models.covariance import SquareExponential
+    from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+
+    got = _pes_run(torch, "auto")
+    never = _pes_run(torch, "never")
+    hist, art = got["history"], got["artifacts"]
     rows = {name: a.shape[0] for name, a in art.items()}
-    finite_sets = [r["finite_sets"] for r in timer.records
-                   if r["phase"] == "x_star_draws_and_ep"][0]
+    bitwise = {k: all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+                      for a, b in zip(hist, never["history"]))
+               for k in ("suggested", "value", "recommended", "best_so_far")}
+    bitwise["artifacts"] = all(np.array_equal(art[k], never["artifacts"][k])
+                               for k in art)
     h = hist[-1]
-    emit({"phase": "pes_path", "seconds": wall,
-          "parts": {r["phase"]: r["seconds"] for r in timer.records},
-          "initial_points": PES_INIT, "sets": PES_SETS,
-          "finite_sets": finite_sets,
-          "suggested": h["suggested"].tolist(),
+    its = got["iterations"]
+    emit({"phase": "pes_path", "seconds": got["seconds"],
+          "parts": its[0]["parts"], "initial_points": PES_INIT,
+          "sets": PES_SETS, "finite_sets": its[0]["finite_sets"],
+          "iterations": its, "suggested": h["suggested"].tolist(),
           "value": h["value"], "recommended": h["recommended"].tolist(),
           "best_so_far": h["best_so_far"], "artifact_rows": rows,
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": counts})
-    check(finite_sets >= 1, "no PES hyperparameter set came out finite")
-    check(counts["covariance_with_noise"] > 0,
-          "the PES path's fits did not launch kernel C")
-    for name in ("suggested", "recommended"):
-        v = np.asarray(h[name])
-        check(bool(np.isfinite(v).all() and (v >= 0.0).all() and
-                   (v <= 1.0).all()), f"PES {name} point {v} not finite in "
-                                      "[0, 1]^6")
-    check(rows == {"Xsamples.txt": PES_INIT + 1,
-                   "Ysamples.txt": PES_INIT + 1,
-                   "guesses.txt": PES_INIT + 1},
+          "max_memory_allocated": max(i["max_memory_allocated"]
+                                      for i in its),
+          "launches": {"covariance_with_noise": sum(i["launches_c"]
+                                                   for i in its)},
+          "allocated_after_run": got["allocated_after_run"],
+          "never": {"seconds": never["seconds"],
+                    "iterations": [{k: i[k] for k in (
+                        "parts", "max_memory_allocated", "launches_c")}
+                        for i in never["iterations"]]},
+          "bitwise_equal_to_never": bitwise})
+    kinds = set(its[0]["programs"])
+    check(all(i["finite_sets"] >= 1 for i in its),
+          "no PES hyperparameter set came out finite")
+    check(all(i["launches_c"] == 2 for i in its + never["iterations"]),
+          "the PES path's fits did not launch kernel C twice per iteration")
+    check(all(bitwise.values()),
+          f"PES with programs and CAPTURE = 'never' differ: {bitwise}")
+    check(len(kinds) >= 7 and all(
+        set(i["programs"]) == kinds and
+        all(v["builds"] == 1 for v in i["programs"].values())
+        for i in its), f"PES programs by iteration: "
+                       f"{[i['programs'] for i in its]}")
+    # the released programs leave nothing behind: iteration 2's peak
+    # exceeds iteration 1's (one more observation) by no more than the
+    # eager run's does, and the run ends holding no more than iteration 2
+    # started with, each within 8 MiB (a quarter of one cuBLAS workspace)
+    peaks = [i["max_memory_allocated"] for i in its]
+    eager_peaks = [i["max_memory_allocated"] for i in never["iterations"]]
+    check(peaks[1] - peaks[0] <= eager_peaks[1] - eager_peaks[0] + 2**23 and
+          got["allocated_after_run"] <= its[1]["allocated_at_start"] + 2**23,
+          f"PES memory grew from iteration 1 to 2: peaks {peaks} (eager: "
+          f"{eager_peaks}), {its[1]['allocated_at_start']} allocated at "
+          f"iteration 2's start, {got['allocated_after_run']} after the run")
+    for h in hist:
+        for name in ("suggested", "recommended"):
+            v = np.asarray(h[name])
+            check(bool(np.isfinite(v).all() and (v >= 0.0).all() and
+                       (v <= 1.0).all()),
+                  f"PES {name} point {v} not finite in [0, 1]^6")
+    n_rows = PES_INIT + PES_ITERATIONS
+    check(rows == {"Xsamples.txt": n_rows, "Ysamples.txt": n_rows,
+                   "guesses.txt": n_rows},
           f"PES artifacts have {rows} rows")
 
     f32 = dict(device=DEVICE, dtype=torch.float32)
@@ -2129,7 +2225,6 @@ def phase_heuristic_ei(torch, bo) -> None:
     import numpy as np
     from cornell_moe_tpu_torch.acquisition import expected_improvement as ei
     from cornell_moe_tpu_torch.ops import kernels, programs
-    from cornell_moe_tpu_torch.tools import scale_out
 
     member = bo.model.models.member(0)
     bounds = bo.objective_func._search_domain
@@ -2170,7 +2265,7 @@ def phase_heuristic_ei(torch, bo) -> None:
         with programs.tally("covariance_launches_by_shape", shapes):
             picks, seconds = run_policies(cache)
         counts = kernels.launch_counts()
-        by_kind = scale_out.programs_by_kind(cache)
+        by_kind = programs.by_kind(cache)
         cache.release()
         shapes_with_programs = dict(shapes)
         bo.generator.set_state(gen_state)
@@ -2222,7 +2317,6 @@ def phase_map(torch, bo) -> None:
     the same ends and the same pick bit for bit."""
     import numpy as np
     from cornell_moe_tpu_torch.ops import kernels, programs
-    from cornell_moe_tpu_torch.tools import scale_out
 
     model = bo.model
     gen_state = model.generator.get_state()
@@ -2233,7 +2327,7 @@ def phase_map(torch, bo) -> None:
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = kernels.launch_counts()
-    newton = scale_out.programs_by_kind(model.program_cache).get(
+    newton = programs.by_kind(model.program_cache).get(
         "map_newton")
     got = (np.asarray(model.hypers), model.map_values.cpu().numpy())
     model.generator.set_state(gen_state)
@@ -2368,6 +2462,7 @@ def phase_cli(torch) -> None:
 # (BayesianOptimizer's defaults); the single GP's float32 posterior is held
 # to the float64 refit as the LCB phase holds member 0 (LCB_*_RTOL)
 COMPAT_POINTS, COMPAT_BURNIN, COMPAT_CHAIN = 100, 2000, 1000
+COMPAT_BLOCKS = 8
 
 
 def phase_compat(torch) -> None:
@@ -2394,7 +2489,13 @@ def phase_compat(torch) -> None:
     ``SingularMatrixError`` on duplicate points with zero noise, as the JAX
     class does (the CPU tests' case; C at S1 n2 d1).  Every launch counter
     is set to 0 at the start and read at the end (each stage's launches
-    too, the core comparisons' kept apart)."""
+    too, the core comparisons' kept apart).  The ensemble's program cache
+    runs its fit, the KG point lists' blocks (COMPAT_BLOCKS blocks of q
+    points after each suggest, ``kg_score``) and the recommendation's GD
+    steps (``compat_step``) as CUDA graphs; the KG multistart and the VOIs
+    run eagerly by their rule.  Last, the suggests, VOIs, point lists and
+    the recommendation run again on a refit of the same ensemble with
+    ``programs.CAPTURE = "never"``, timed, and equal bit for bit."""
     import dataclasses
 
     import numpy as np
@@ -2412,7 +2513,7 @@ def phase_compat(torch) -> None:
     from cornell_moe_tpu_torch.compat.log_likelihood_mcmc import \
         GaussianProcessLogLikelihoodMCMC
     from cornell_moe_tpu_torch.exceptions import SingularMatrixError
-    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.ops import kernels, programs
     from cornell_moe_tpu_torch.utils.data_containers import HistoricalData
     from cornell_moe_tpu_torch.utils.geometry import ClosedInterval
     from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
@@ -2497,8 +2598,16 @@ def phase_compat(torch) -> None:
                              num_mc_iterations=NUM_MC)).cpu().numpy()
             kg_obj.set_current_point(picks)
             voi = stage("voi_" + tag, kg_obj.compute_knowledge_gradient_mcmc)
+            point_lists[tag] = stage(
+                "point_list_" + tag,
+                lambda: kg_obj.evaluate_at_point_list(
+                    blocks[:, :num_to_sample]))
             return picks, core, voi
 
+        # COMPAT_BLOCKS candidate blocks of q points for the point lists
+        blocks = bounds[:, 0] + np.random.default_rng(1).random(
+            (COMPAT_BLOCKS, Q, 2)) * (bounds[:, 1] - bounds[:, 0])
+        point_lists = {}
         width_start = len(widths)
         picks, core, voi = suggest(Q, None)
         widths_q = sorted(set(widths[width_start:]))
@@ -2583,6 +2692,57 @@ def phase_compat(torch) -> None:
                           if s_.startswith("core_")) for k in names}
     bitwise = {"q4": bool(np.array_equal(picks, core)),
                "q3_p1": bool(np.array_equal(picks_b, core_b))}
+    by_kind = programs.by_kind(gp_mcmc.program_cache)
+
+    # the same stages with CAPTURE = "never" on the same ensemble, refitted
+    programs.CAPTURE = "never"
+    seconds_never = {}
+    try:
+        def eager(name, fn):
+            t0 = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            seconds_never[name] = time.time() - t0
+            return out
+
+        gp_never = eager("gaussian_process_mcmc",
+                         lambda: kgm_c.GaussianProcessMCMC(
+                             hypers, noises, scaled, **f32))
+        never = {}
+        for num_to_sample, being in ((Q, None), (Q - 1, picks[:1])):
+            kg_obj = kgm_c.KnowledgeGradientMCMC(
+                gp_never, inner_optimizer=DEFAULT_SGD_PARAMS_PS,
+                discrete_pts_list=list(discrete),
+                num_to_sample=num_to_sample, num_mc_iterations=NUM_MC,
+                points_being_sampled=being, generator=3)
+            tag = f"q{num_to_sample}_p{0 if being is None else len(being)}"
+            never["picks_" + tag] = eager("suggest_" + tag, lambda: kgm_c.
+                multistart_knowledge_gradient_mcmc_optimization(
+                    opt_c.GradientDescentOptimizer(domain, kg_obj, params),
+                    generator=torch.Generator(device=DEVICE).manual_seed(1)))
+            kg_obj.set_current_point(never["picks_" + tag])
+            never["voi_" + tag] = eager(
+                "voi_" + tag, kg_obj.compute_knowledge_gradient_mcmc)
+            never["point_list_" + tag] = eager(
+                "point_list_" + tag,
+                lambda: kg_obj.evaluate_at_point_list(
+                    blocks[:, :num_to_sample]))
+        ps_never = kgm_c.PosteriorMeanMCMC(gp_never)
+        ps_never.set_current_point(data.best_point)
+        never["recommended"] = eager(
+            "recommend", opt_c.GradientDescentOptimizer(
+                domain, ps_never, DEFAULT_SGD_PARAMS_RECOMMEND).optimize)
+    finally:
+        programs.CAPTURE = "auto"
+    check(len(gp_never.program_cache) == 0,
+          "the compat flow built programs under CAPTURE = 'never'")
+    with_programs = {"picks_q4_p0": picks, "voi_q4_p0": voi,
+                     "picks_q3_p1": picks_b, "voi_q3_p1": voi_b,
+                     "recommended": recommended,
+                     **{"point_list_" + k: v for k, v in point_lists.items()}}
+    bitwise_never = {k: bool(np.array_equal(np.asarray(v),
+                                            np.asarray(never[k])))
+                     for k, v in with_programs.items()}
     emit({"phase": "compat_path", "num_sampled": NUM_OBS,
           "ensemble": int(gp_mcmc.num_mcmc), "q": Q,
           "multistarts": MULTISTARTS, "num_mc": NUM_MC,
@@ -2610,7 +2770,19 @@ def phase_compat(torch) -> None:
           "members_singular_in_float32": singular_members,
           "launches": launches,
           "launches_of_the_core_comparisons": comparisons,
-          "launches_by_stage": stage_launches, "seconds": stages})
+          "launches_by_stage": stage_launches, "seconds": stages,
+          "programs": by_kind, "seconds_never": seconds_never,
+          "bitwise_equal_to_never": bitwise_never})
+    for kind in ("fit", "kg_score", "compat_step"):
+        check(by_kind.get(kind, {}).get("replays", 0) > 0,
+              f"the compat path did not replay its {kind} program: "
+              f"{by_kind}")
+    check(not {"kg_cold", "kg_warm_step"} & set(by_kind),
+          f"the compat KG multistart built programs against its rule: "
+          f"{by_kind}")
+    check(all(bitwise_never.values()),
+          f"the compat path with programs and CAPTURE = 'never' differ: "
+          f"{bitwise_never}")
     for k in names:
         check(launches[k] - comparisons[k] > 0,
               f"the compat path did not launch kernel {k}")
@@ -2639,6 +2811,75 @@ def phase_compat(torch) -> None:
     check(stage_launches["knowledge_gradient"]["A"] == 0 and
           stage_launches["knowledge_gradient_grad"]["A"] == 0,
           "the single-GP KG launched kernel A")
+
+
+def phase_f32_robustness(torch) -> None:
+    """The float32 robustness grid of tests/test_f32_robustness.py on the
+    card (``tools/f32_robustness.py``: its cases, data generator and
+    bounds, n = 2000 included): per case the float32 fit against a float64
+    fit of the same data on the card, max |dmu| and max |dvar| at 64
+    points, the fantasy model's diagonal repair at 16 unions of q = 4, and
+    for the KG case the batched KG values in both precisions at 8 unions
+    of q = 2 (64 antithetic normals drawn from seed 3).  A non-finite
+    float32 Cholesky or a broken bound of the reference fails the run."""
+    import numpy as np
+    from cornell_moe_tpu_torch.acquisition.expected_improvement import \
+        draw_antithetic_normals
+    from cornell_moe_tpu_torch.tools import f32_robustness as f32
+
+    cases = []
+    for n, ls, dup in f32.CASES:
+        rng = np.random.default_rng(0)
+        x, y = f32.make_data(rng, n, dup)
+        pts = rng.random((64, 2))
+        mu32, var32, finite = f32.posterior(x, y, ls, pts, torch.float32,
+                                            DEVICE)
+        mu64, var64, _ = f32.posterior(x, y, ls, pts, torch.float64, DEVICE)
+        rng = np.random.default_rng(0)
+        x, y = f32.make_data(rng, n, dup)
+        repair, fantasy_finite = f32.fantasy_repair(
+            x, y, ls, rng.random((16, 4, 2)), torch.float32, DEVICE)
+        cases.append({"n": n, "length_scale": ls, "near_duplicates": dup,
+                      "cholesky_finite": finite,
+                      "max_abs_mean_error": float(np.max(np.abs(
+                          mu32 - mu64))),
+                      "max_abs_variance_error": float(np.max(np.abs(
+                          var32 - var64))),
+                      "repair": repair,
+                      "fantasy_cholesky_finite": fantasy_finite})
+    n, _, dup = f32.KG_CASE
+    rng = np.random.default_rng(0)
+    x, y = f32.make_data(rng, n, dup)
+    discrete, unions = rng.random((7, 2)), rng.random((8, 2, 2))
+    normals = draw_antithetic_normals(
+        torch.Generator().manual_seed(3), 64, 2).numpy()
+    kg = {str(dt): f32.kg_values(x, y, discrete, unions, normals, dt,
+                                 DEVICE)
+          for dt in (torch.float32, torch.float64)}
+    kg_dev = float(np.max(np.abs(kg["torch.float32"] -
+                                 kg["torch.float64"])))
+    kg_bound = f32.kg_bound(kg["torch.float64"])
+    emit({"phase": "f32_robustness", "cases": cases,
+          "bounds": {"mean": f32.MEAN_BOUND, "variance": f32.VARIANCE_BOUND,
+                     "repair": f32.REPAIR_BOUND, "kg": kg_bound},
+          "kg": {"case": list(f32.KG_CASE),
+                 "float32": kg["torch.float32"].tolist(),
+                 "float64": kg["torch.float64"].tolist(),
+                 "max_abs_error": kg_dev}})
+    for c in cases:
+        where = f"n={c['n']} ls={c['length_scale']} " \
+                f"dup={c['near_duplicates']}"
+        check(c["cholesky_finite"] and c["fantasy_cholesky_finite"],
+              f"a float32 Cholesky is non-finite at {where}")
+        check(c["max_abs_mean_error"] < f32.MEAN_BOUND and
+              c["max_abs_variance_error"] < f32.VARIANCE_BOUND,
+              f"the float32 posterior breaks the reference's bound at "
+              f"{where}: {c}")
+        check(c["repair"] < f32.REPAIR_BOUND,
+              f"the float32 fantasy repair {c['repair']} breaks the "
+              f"reference's bound at {where}")
+    check(kg_dev < kg_bound,
+          f"float32 KG is {kg_dev} from float64 (bound {kg_bound})")
 
 
 def phase_small_reference_ei(torch) -> None:
@@ -2777,6 +3018,7 @@ def main() -> int:
     phase_checkpoint_resume(torch)
     phase_cli(torch)
     phase_compat(torch)
+    phase_f32_robustness(torch)
     phase_small_reference(torch)
     phase_small_reference_ei(torch)
     check("jax" not in sys.modules and "cornell_moe_tpu" not in sys.modules,

@@ -13,18 +13,20 @@ averaged over hyperparameter sets.
 Every function is batched over leading axes of the hyperparameter sets
 (sigma (M,), lengths (M, d), noise (M,), x* (M, d)), where the JAX package
 vmaps; the observations x_samples (n, d) and y (n,) are shared.  EP runs a
-fixed 60-step damped schedule.  Sets whose EP or factorizations fail give
-non-finite values, which :func:`pes_acquisition_multi` drops by a NaN-mean.
+fixed 60-step damped schedule, one program per sweep (``ops.programs``).
+Sets whose EP or factorizations fail give non-finite values, which
+:func:`pes_acquisition_multi` drops by a NaN-mean.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Sequence
 
 import torch
 
-from cornell_moe_tpu_torch.ops import linalg
+from cornell_moe_tpu_torch.ops import linalg, programs
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +122,13 @@ def _build_pes_covariance_autodiff(x_samples: torch.Tensor,
     return PESChannels(K=big_k, n=n, d=d, n_off=len(off))
 
 
+def _columns(t: torch.Tensor, index) -> torch.Tensor:
+    """``t[..., index]`` for a list of last-axis indices, as one
+    concatenation of slices: indexing by a list copies the index to the
+    device, which a CUDA graph's capture refuses."""
+    return torch.cat([t[..., i:i + 1] for i in index], dim=-1)
+
+
 def _se_blocks(xs: torch.Tensor, x_min: torch.Tensor, sigma: torch.Tensor,
                inv_l: torch.Tensor, off):
     """Covariances of f at points xs (..., P, d) with [grad*, offdiagH*,
@@ -133,8 +142,8 @@ def _se_blocks(xs: torch.Tensor, x_min: torch.Tensor, sigma: torch.Tensor,
     if off:
         oi = [i for (i, j) in off]
         oj = [j for (i, j) in off]
-        offd = gk[..., None] * w[..., oi] * w[..., oj] * \
-            (inv_l[..., oi] * inv_l[..., oj])[..., None, :]
+        offd = gk[..., None] * _columns(w, oi) * _columns(w, oj) * \
+            (_columns(inv_l, oi) * _columns(inv_l, oj))[..., None, :]
     else:
         offd = w[..., :0]
     diag = gk[..., None] * (w * w - 1.0) * inv_l2[..., None, :]
@@ -255,13 +264,70 @@ def _vmv(u: torch.Tensor, a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return ((u[..., None, :] @ a) @ v[..., :, None])[..., 0, 0]
 
 
+def _ep_step(d: int, m, v_inv, m_tilde, v_tilde_inv, damp, v_0_inv,
+             v0_inv_m0, min_y, noise):
+    """One damped EP sweep over the d diag-Hessian positivity sites and the
+    soft f(x*) <= min y site: (m, v_inv, m_tilde, v_tilde_inv) after it.
+    Reads nothing from the host (the inverse is ``inv_ex``'s), so it can be
+    one program, ``damp`` a 0-d tensor."""
+    v_bar = 1.0 / (v_inv - v_tilde_inv)
+    m_bar = v_bar * (m * v_inv - m_tilde * v_tilde_inv)
+
+    # diag-Hessian positivity factors (first d z-channels)
+    mb_d, vb_d = m_bar[..., :d], v_bar[..., :d]
+    alpha = mb_d / torch.sqrt(vb_d)
+    ratio = _phi_over_ndtr(alpha)
+    beta = ratio * (ratio + alpha) / vb_d
+    kappa = (ratio + alpha) / torch.sqrt(vb_d)
+    m_new_d = mb_d + 1.0 / kappa
+    v_new_d_inv = beta / (1.0 - beta * vb_d)
+
+    # soft "f(x*) <= min y" factor (last z-channel)
+    mb_l = min_y - m_bar[..., -1]
+    vb_l = v_bar[..., -1] + noise
+    alpha_l = mb_l / torch.sqrt(vb_l)
+    ratio_l = _phi_over_ndtr(alpha_l)
+    beta_l = ratio_l * (ratio_l + alpha_l) / vb_l
+    kappa_l = -(ratio_l + alpha_l) / torch.sqrt(vb_l)
+    m_new_l = mb_l + 1.0 / kappa_l
+    v_new_l_inv = beta_l / (1.0 - beta_l * vb_l)
+
+    m_tilde_new = torch.cat([m_new_d, m_new_l[..., None]], dim=-1)
+    v_tilde_new_inv = torch.cat([v_new_d_inv, v_new_l_inv[..., None]],
+                                dim=-1)
+    # stability guards as in the reference; 1e-300 is 0 in float32
+    v_tilde_new_inv = torch.where(v_tilde_new_inv.abs() < 1e-300, 1e-300,
+                                  v_tilde_new_inv)
+    neg_cavity = v_inv < 0
+    m_tilde_new = torch.where(neg_cavity, m_tilde, m_tilde_new)
+    v_tilde_new_inv = torch.where(neg_cavity, v_tilde_inv, v_tilde_new_inv)
+    # a failed site update keeps the old site
+    bad = ~torch.isfinite(m_tilde_new) | ~torch.isfinite(v_tilde_new_inv)
+    m_tilde_new = torch.where(bad, m_tilde, m_tilde_new)
+    v_tilde_new_inv = torch.where(bad, v_tilde_inv, v_tilde_new_inv)
+
+    m_tilde = damp * m_tilde_new + (1 - damp) * m_tilde
+    v_tilde_inv = damp * v_tilde_new_inv + (1 - damp) * v_tilde_inv
+
+    v_new = torch.linalg.inv_ex(linalg.symmetrize(
+        torch.diag_embed(v_tilde_inv) + v_0_inv))[0]
+    m = _mv(v_new, v_tilde_inv * m_tilde + v0_inv_m0)
+    v_inv = 1.0 / torch.diagonal(v_new, dim1=-2, dim2=-1)
+    return m, v_inv, m_tilde, v_tilde_inv
+
+
 def expectation_propagation(channels: PESChannels, y: torch.Tensor,
                             hess_offdiag: torch.Tensor, noise,
                             num_iterations: int = 60,
-                            damping: float = 0.5) -> tuple:
+                            damping: float = 0.5,
+                            program_cache=None) -> tuple:
     """EP for the d positive-diagonal-Hessian factors and the soft
     f(x*) <= min(y) factor, a fixed damped schedule (damping 0.5 x 0.99^i).
-    Returns (k_plus_w_inv, c_and_m, (m_tilde, v_tilde_inv))."""
+    Returns (k_plus_w_inv, c_and_m, (m_tilde, v_tilde_inv)).  Each sweep is
+    :func:`_ep_step`: with a ``program_cache`` (and ``programs.CAPTURE``
+    "auto") one program per shapes, replayed ``num_iterations`` times with
+    the damping as its input, the counterpart of the JAX package's
+    ``lax.scan``."""
     kk, n, d, n_off = channels
     nc = n + d + n_off                 # c-channel count
     nz = d + 1                         # z-channel count
@@ -289,66 +355,27 @@ def expectation_propagation(channels: PESChannels, y: torch.Tensor,
     m_tilde = torch.zeros(batch + (nz,), **kw)
     v_tilde_inv = torch.zeros(batch + (nz,), **kw)
     damps = damping * 0.99 ** torch.arange(num_iterations, **kw)
+    step = functools.partial(_ep_step, d)
     for damp in damps:
-        v_bar = 1.0 / (v_inv - v_tilde_inv)
-        m_bar = v_bar * (m * v_inv - m_tilde * v_tilde_inv)
-
-        # diag-Hessian positivity factors (first d z-channels)
-        mb_d, vb_d = m_bar[..., :d], v_bar[..., :d]
-        alpha = mb_d / torch.sqrt(vb_d)
-        ratio = _phi_over_ndtr(alpha)
-        beta = ratio * (ratio + alpha) / vb_d
-        kappa = (ratio + alpha) / torch.sqrt(vb_d)
-        m_new_d = mb_d + 1.0 / kappa
-        v_new_d_inv = beta / (1.0 - beta * vb_d)
-
-        # soft "f(x*) <= min y" factor (last z-channel)
-        mb_l = min_y - m_bar[..., -1]
-        vb_l = v_bar[..., -1] + noise
-        alpha_l = mb_l / torch.sqrt(vb_l)
-        ratio_l = _phi_over_ndtr(alpha_l)
-        beta_l = ratio_l * (ratio_l + alpha_l) / vb_l
-        kappa_l = -(ratio_l + alpha_l) / torch.sqrt(vb_l)
-        m_new_l = mb_l + 1.0 / kappa_l
-        v_new_l_inv = beta_l / (1.0 - beta_l * vb_l)
-
-        m_tilde_new = torch.cat([m_new_d, m_new_l[..., None]], dim=-1)
-        v_tilde_new_inv = torch.cat([v_new_d_inv, v_new_l_inv[..., None]],
-                                    dim=-1)
-        # stability guards as in the reference; 1e-300 is 0 in float32
-        v_tilde_new_inv = torch.where(v_tilde_new_inv.abs() < 1e-300, 1e-300,
-                                      v_tilde_new_inv)
-        neg_cavity = v_inv < 0
-        m_tilde_new = torch.where(neg_cavity, m_tilde, m_tilde_new)
-        v_tilde_new_inv = torch.where(neg_cavity, v_tilde_inv,
-                                      v_tilde_new_inv)
-        # a failed site update keeps the old site
-        bad = ~torch.isfinite(m_tilde_new) | ~torch.isfinite(v_tilde_new_inv)
-        m_tilde_new = torch.where(bad, m_tilde, m_tilde_new)
-        v_tilde_new_inv = torch.where(bad, v_tilde_inv, v_tilde_new_inv)
-
-        m_tilde = damp * m_tilde_new + (1 - damp) * m_tilde
-        v_tilde_inv = damp * v_tilde_new_inv + (1 - damp) * v_tilde_inv
-
-        v_new = torch.linalg.inv(linalg.symmetrize(
-            torch.diag_embed(v_tilde_inv) + v_0_inv))
-        m = _mv(v_new, v_tilde_inv * m_tilde + v0_inv_m0)
-        v_inv = 1.0 / torch.diagonal(v_new, dim1=-2, dim2=-1)
+        m, v_inv, m_tilde, v_tilde_inv = programs.run(
+            program_cache, ("ep_step", d), step, m, v_inv, m_tilde,
+            v_tilde_inv, damp, v_0_inv, v0_inv_m0, min_y, noise)
 
     w_diag = torch.cat([torch.zeros(batch + (nc,), **kw), 1.0 / v_tilde_inv],
                        dim=-1)
-    k_plus_w_inv = torch.linalg.inv(linalg.symmetrize(
-        kk + torch.diag_embed(w_diag)))
+    k_plus_w_inv = torch.linalg.inv_ex(linalg.symmetrize(
+        kk + torch.diag_embed(w_diag)))[0]
     return k_plus_w_inv, torch.cat([c, m_tilde], dim=-1), \
         (m_tilde, v_tilde_inv)
 
 
 def make_pes_state(x_samples: torch.Tensor, y: torch.Tensor,
                    x_min: torch.Tensor, hess_at_min: torch.Tensor, sigma,
-                   lengths, noise, num_ep_iterations: int = 60) -> PESState:
+                   lengths, noise, num_ep_iterations: int = 60,
+                   program_cache=None) -> PESState:
     """The per-set precompute (EP and the cross terms at x*): x_min (...,
     d), hess_at_min (..., d, d), sigma (...), lengths (..., d), noise
-    (...)."""
+    (...); EP's sweeps through ``program_cache``'s programs when given."""
     kw = dict(dtype=y.dtype, device=y.device)
     sigma = torch.as_tensor(sigma, **kw)
     lengths = torch.as_tensor(lengths, **kw)
@@ -357,7 +384,8 @@ def make_pes_state(x_samples: torch.Tensor, y: torch.Tensor,
     off = _offdiag_indices(channels.d)
     hess_off = hess_at_min[..., [i for (i, j) in off], [j for (i, j) in off]]
     k_plus_w_inv, c_and_m, _ = expectation_propagation(
-        channels, y, hess_off, noise, num_ep_iterations)
+        channels, y, hess_off, noise, num_ep_iterations,
+        program_cache=program_cache)
     k_star_min = pes_cross_vector(x_min, x_samples, x_min, sigma, lengths)
     return PESState(
         k_plus_w_inv=k_plus_w_inv, c_and_m=c_and_m, k_star_min=k_star_min,

@@ -1,12 +1,15 @@
-"""The numpy/tensor boundary of the compatibility layer and its autograd
-hook."""
+"""The numpy/tensor boundary of the compatibility layer, its autograd
+hook, and the program form of its objectives."""
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from cornell_moe_tpu_torch.ops import programs
 
 
 def to_tensor(array, device, dtype) -> torch.Tensor:
@@ -27,6 +30,52 @@ def value_and_grad_by_autograd(fn: Callable, x: torch.Tensor):
         value = fn(xx)
         (grad,) = torch.autograd.grad(value, xx)
     return value.detach(), grad
+
+
+class ProgramForm(NamedTuple):
+    """An objective as a function of tensors, the form a program captures:
+    ``objective(x, *inputs)`` is its value at x (differentiable), reading
+    no tensor but ``inputs`` and no setting but those in ``key`` (the
+    objective's kind and settings, hashable)."""
+    key: tuple
+    inputs: tuple
+    objective: Callable
+
+
+def ensemble_cache(gp_mcmc) -> programs.ProgramCache:
+    """The program cache of the ensemble an objective is built on: a
+    ``GaussianProcessMCMC``'s own, or a new one for a functional state."""
+    cache = getattr(gp_mcmc, "program_cache", None)
+    return programs.ProgramCache() if cache is None else cache
+
+
+def domain_bounds(core) -> torch.Tensor:
+    """The bounds tensor under a core domain (repeated, simplex or box)."""
+    while not hasattr(core, "bounds"):
+        core = getattr(core, "domain", None) or core.tensor_product_domain
+    return core.bounds
+
+
+def _inner_field(core) -> str:
+    return "domain" if hasattr(core, "domain") else "tensor_product_domain"
+
+
+def with_bounds(core, bounds: torch.Tensor):
+    """``core`` with its box's bounds replaced by ``bounds``: the domain a
+    program rebuilds from its bounds input."""
+    if hasattr(core, "bounds"):
+        return dataclasses.replace(core, bounds=bounds)
+    name = _inner_field(core)
+    return dataclasses.replace(
+        core, **{name: with_bounds(getattr(core, name), bounds)})
+
+
+def domain_key(core) -> tuple:
+    """A core domain's structure without its bounds, for a program's key."""
+    if hasattr(core, "bounds"):
+        return (type(core).__name__,)
+    return (type(core).__name__, getattr(core, "num_repeats", None)) + \
+        domain_key(getattr(core, _inner_field(core)))
 
 
 def rows(points):

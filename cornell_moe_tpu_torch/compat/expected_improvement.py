@@ -16,14 +16,17 @@ import functools
 from typing import Optional
 
 import numpy as np
+import torch
 
 from cornell_moe_tpu_torch.acquisition import expected_improvement as ei_core
 from cornell_moe_tpu_torch.compat._boundary import (
-    UnionPoints, rows, to_numpy, value_and_grad_by_autograd)
+    ProgramForm, UnionPoints, rows, to_numpy, value_and_grad_by_autograd)
 from cornell_moe_tpu_torch.compat.interfaces import (
     ExpectedImprovementInterface)
 from cornell_moe_tpu_torch.compat.optimization import (
     core_domain, multistart_parameters)
+from cornell_moe_tpu_torch.models import gp as gp_mod
+from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
 from cornell_moe_tpu_torch.utils.constant import (
     DEFAULT_EXPECTED_IMPROVEMENT_MC_ITERATIONS)
 from cornell_moe_tpu_torch.utils.rng import as_generator
@@ -39,6 +42,7 @@ class ExpectedImprovement(UnionPoints, ExpectedImprovementInterface):
                  num_mc_iterations=DEFAULT_EXPECTED_IMPROVEMENT_MC_ITERATIONS,
                  generator=None):
         self._gaussian_process = gaussian_process
+        self.program_cache = getattr(gaussian_process, "program_cache", None)
         self.device = gaussian_process.device
         self.dtype = gaussian_process.dtype
         self._num_mc_iterations = num_mc_iterations
@@ -63,16 +67,32 @@ class ExpectedImprovement(UnionPoints, ExpectedImprovementInterface):
             self._points_being_sampled is None
 
     # -- evaluation --------------------------------------------------------
+    def program_form(self):
+        """The closed form's inputs (the best value and the GP); None for
+        the MC estimator, whose union lift reads the host."""
+        if not self._use_analytic:
+            return None
+        tensors, layout = gp_mod.state_tensors(self._gaussian_process.state)
+
+        def objective(points_to_sample, best, *ts):
+            return ei_core.analytic_expected_improvement(
+                gp_mod.state_from_tensors(layout, ts), points_to_sample,
+                best)
+
+        best = torch.as_tensor(self._best_so_far, dtype=self.dtype,
+                               device=self.device)
+        return ProgramForm(("expected_improvement", layout),
+                           (best, *tensors), objective)
+
     def objective_torch(self, points_to_sample, force_monte_carlo=False):
         """EI at points (q, d), differentiable: the closed form for q = 1,
         p = 0, else the MC estimator on the object's normals."""
-        state = self._gaussian_process.state
-        if self._use_analytic and not force_monte_carlo:
-            return ei_core.analytic_expected_improvement(
-                state, points_to_sample, self._best_so_far)
+        form = None if force_monte_carlo else self.program_form()
+        if form is not None:
+            return form.objective(points_to_sample, *form.inputs)
         return ei_core.monte_carlo_expected_improvement(
-            state, points_to_sample, self._being(), self._best_so_far,
-            self._normals)
+            self._gaussian_process.state, points_to_sample, self._being(),
+            self._best_so_far, self._normals)
 
     def value_and_grad_torch(self, points_to_sample):
         return value_and_grad_by_autograd(self.objective_torch,
@@ -109,18 +129,22 @@ def multistart_expected_improvement_optimization(
 
     ``ei_optimizer`` pairs an ExpectedImprovement objective with a domain
     and GradientDescentParameters; the starts (and the MC normals) come
-    from ``generator`` (seed 1 when None).
+    from ``generator`` (seed 1 when None).  On a box domain its GD steps
+    run as programs of the GP's cache.
     """
     del randomness, max_num_threads
     obj = ei_optimizer.objective_function
     if num_to_sample is None:
         num_to_sample = obj.num_to_sample
+    domain = core_domain(ei_optimizer.domain)
     best = ei_core.multistart_expected_improvement_optimization(
         as_generator(generator, obj.device, 1), obj._gaussian_process.state,
-        core_domain(ei_optimizer.domain), num_to_sample,
+        domain, num_to_sample,
         multistart_parameters(ei_optimizer, num_multistarts),
         points_being_sampled=obj._being(), best_so_far=obj._best_so_far,
-        num_mc_iterations=obj._num_mc_iterations)
+        num_mc_iterations=obj._num_mc_iterations,
+        program_cache=obj.program_cache
+        if isinstance(domain, TensorProductDomain) else None)
     if status is not None:
         status["gradient_descent_found_update"] = True
     return to_numpy(best)

@@ -4,7 +4,7 @@ Counterpart of ``cornell_moe_tpu/compat/expected_improvement_mcmc.py``
 (the reference's ``cpp_wrappers/expected_improvement_mcmc.py``):
 ExpectedImprovementMCMC and
 multistart_expected_improvement_mcmc_optimization, on the ensemble's
-device.
+device, with the ensemble's program cache (``ops.programs``).
 """
 
 from __future__ import annotations
@@ -14,23 +14,29 @@ import torch
 
 from cornell_moe_tpu_torch.acquisition import expected_improvement as ei_core
 from cornell_moe_tpu_torch.compat._boundary import (
-    UnionPoints, rows, to_numpy, value_and_grad_by_autograd)
+    UnionPoints, ensemble_cache, rows, to_numpy, value_and_grad_by_autograd)
 from cornell_moe_tpu_torch.compat.interfaces import OptimizableInterface
 from cornell_moe_tpu_torch.compat.optimization import (
     core_domain, multistart_parameters)
+from cornell_moe_tpu_torch.models import gp as gp_mod
+from cornell_moe_tpu_torch.ops import programs
+from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
 from cornell_moe_tpu_torch.utils.rng import as_generator
 
 
 class ExpectedImprovementMCMC(UnionPoints, OptimizableInterface):
     """Mean EI over a hyperparameter ensemble; the MC normals are drawn
     from ``generator`` (a ``torch.Generator`` or a seed, 0 when None) when
-    the union's width is first set."""
+    the union's width is first set.  It has no program form: the MC
+    estimator's union lift reads its least eigenvalue on the host
+    (``compat.optimization.runs_programs``)."""
 
     def __init__(self, gaussian_process_mcmc, num_to_sample: int = 1,
                  points_to_sample=None, points_being_sampled=None,
                  num_mc_iterations: int = 10000, generator=None):
         self._gp_mcmc = gaussian_process_mcmc
         self._states = gaussian_process_mcmc.states
+        self.program_cache = ensemble_cache(gaussian_process_mcmc)
         self.device = gaussian_process_mcmc.device
         self.dtype = gaussian_process_mcmc.dtype
         self._num_mc_iterations = num_mc_iterations
@@ -73,11 +79,34 @@ class ExpectedImprovementMCMC(UnionPoints, OptimizableInterface):
     def evaluate_at_point_list(self, points_to_evaluate):
         """Ensemble-averaged EI at each candidate block
         (``evaluate_EI_mcmc_at_point_list`` counterpart): (n, dim)
-        single-point candidates or (n, q, dim) blocks; returns (n,)."""
+        single-point candidates or (n, q, dim) blocks; returns (n,).  While
+        ``programs.CAPTURE`` is "auto" each block replays two programs per
+        block shape, the union's posterior and the estimate, around the
+        eager least eigenvalue (the blocks are not batched: a batch could
+        reorder the reductions)."""
         pts = self._tensor(points_to_evaluate)
         if pts.dim() == 2:
             pts = pts[:, None, :]
-        return to_numpy(torch.stack([self.objective_torch(b) for b in pts]))
+        tensors, layout = gp_mod.state_tensors(self._states)
+        being, best = self._being(), self._best_so_far
+
+        def posterior(union, *ts):
+            return ei_core._union_posterior(
+                gp_mod.state_from_tensors(layout, ts), union)
+
+        def estimate(mu, var, least, b, normals):
+            return torch.mean(ei_core._estimate_from_posterior(
+                mu, var, least, b, normals))
+
+        values = []
+        for block in pts:
+            mu, var = programs.run(
+                self.program_cache, ("ei_mcmc_point", "posterior", layout),
+                posterior, ei_core._union(block, being), *tensors)
+            values.append(programs.run(
+                self.program_cache, ("ei_mcmc_point", "estimate"), estimate,
+                mu, var, ei_core._least_eigenvalue(var), best, self._normals))
+        return to_numpy(torch.stack(values))
 
 
 def multistart_expected_improvement_mcmc_optimization(
@@ -85,17 +114,21 @@ def multistart_expected_improvement_mcmc_optimization(
         max_num_threads=None, status=None, generator=None):
     """Solve ensemble q-EI (cpp_wrappers/expected_improvement_mcmc.py
     multistart_expected_improvement_mcmc_optimization counterpart); the
-    starts and normals come from ``generator`` (seed 1 when None)."""
+    starts and normals come from ``generator`` (seed 1 when None).  On a
+    box domain its GD steps run as programs of the objective's cache."""
     del max_num_threads
     obj = ei_optimizer.objective_function
     if num_to_sample is None:
         num_to_sample = obj.num_to_sample
+    domain = core_domain(ei_optimizer.domain)
     best = ei_core.multistart_expected_improvement_mcmc_optimization(
-        as_generator(generator, obj.device, 1), obj._states,
-        core_domain(ei_optimizer.domain), num_to_sample,
+        as_generator(generator, obj.device, 1), obj._states, domain,
+        num_to_sample,
         multistart_parameters(ei_optimizer, num_multistarts),
         points_being_sampled=obj._being(), best_so_far=obj._best_so_far,
-        num_mc_iterations=obj._num_mc_iterations)
+        num_mc_iterations=obj._num_mc_iterations,
+        program_cache=obj.program_cache
+        if isinstance(domain, TensorProductDomain) else None)
     if status is not None:
         status["gradient_descent_found_update"] = True
     return to_numpy(best)

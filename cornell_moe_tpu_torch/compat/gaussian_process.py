@@ -8,7 +8,9 @@ derivative) channels, gradient tensors carry the reduced winner-diagonal
 form.  The GP is fitted on the covariance's device in its dtype with no
 jitter at any precision, as the JAX class fits it (the float32 jitter
 belongs to the ensemble fit, ``models.mcmc.fit_gp_ensemble``).  A failed
-factorization raises ``SingularMatrixError``.
+factorization raises ``SingularMatrixError``, so the fit reads the host and
+runs eagerly; the GP's ``program_cache`` (``ops.programs``) serves the
+objectives built on it.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from cornell_moe_tpu_torch.compat.interfaces import GaussianProcessInterface
 from cornell_moe_tpu_torch.exceptions import (SingularMatrixError,
                                               check_finite_cholesky)
 from cornell_moe_tpu_torch.models import gp as gp_mod
-from cornell_moe_tpu_torch.ops import random_features
+from cornell_moe_tpu_torch.ops import programs, random_features
 from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
 from cornell_moe_tpu_torch.utils.data_containers import HistoricalData
 from cornell_moe_tpu_torch.utils.rng import as_generator
@@ -46,6 +48,7 @@ class GaussianProcess(GaussianProcessInterface):
         self._derivatives = tuple(int(i) for i in derivatives)
         self._num_derivatives = len(self._derivatives)
         self._generator = as_generator(generator, self.device)
+        self.program_cache = programs.ProgramCache()
         self._refit()
 
     def _tensor(self, array) -> torch.Tensor:

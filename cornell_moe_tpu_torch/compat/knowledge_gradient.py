@@ -4,7 +4,9 @@ Counterpart of ``cornell_moe_tpu/compat/knowledge_gradient.py`` (the
 reference's ``cpp_wrappers/knowledge_gradient.py``): PosteriorMean,
 KnowledgeGradient, posterior_mean_optimization and
 multistart_knowledge_gradient_optimization, on one GP, through the core's
-single-GP surface (the per-union route, no kernel).
+single-GP surface (the per-union route, no kernel).  The objectives share
+their GP's program cache (``ops.programs``; their program forms,
+``compat._boundary.ProgramForm``).
 """
 
 from __future__ import annotations
@@ -15,10 +17,12 @@ import torch
 from cornell_moe_tpu_torch.acquisition import expected_improvement as ei_core
 from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg_core
 from cornell_moe_tpu_torch.compat._boundary import (
-    UnionPoints, rows, to_numpy, to_tensor, value_and_grad_by_autograd)
+    ProgramForm, UnionPoints, domain_bounds, domain_key, rows, to_numpy,
+    to_tensor, value_and_grad_by_autograd, with_bounds)
 from cornell_moe_tpu_torch.compat.interfaces import OptimizableInterface
 from cornell_moe_tpu_torch.compat.optimization import (
     core_domain, multistart_parameters)
+from cornell_moe_tpu_torch.models import gp as gp_mod
 from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
 from cornell_moe_tpu_torch.utils.rng import as_generator
 
@@ -41,6 +45,7 @@ class PosteriorMean(OptimizableInterface):
     def __init__(self, gaussian_process, num_fidelity: int = 0,
                  point_to_sample=None):
         self._gaussian_process = gaussian_process
+        self.program_cache = getattr(gaussian_process, "program_cache", None)
         self.device = gaussian_process.device
         self.dtype = gaussian_process.dtype
         self._num_fidelity = num_fidelity
@@ -67,10 +72,23 @@ class PosteriorMean(OptimizableInterface):
         self._point = np.asarray(point, dtype=float).reshape(-1)[
             :self.problem_size]
 
+    def program_form(self) -> ProgramForm:
+        """The GP's mean fields as the inputs."""
+        tensors, layout = gp_mod.state_tensors(self._gaussian_process.state,
+                                               gp_mod.MEAN_FIELDS)
+        nf = self._num_fidelity
+
+        def objective(point, *ts):
+            return kg_core.posterior_mean_objective(
+                gp_mod.state_from_tensors(layout, ts), point, nf)
+
+        return ProgramForm(("posterior_mean", layout, nf), tuple(tensors),
+                           objective)
+
     def objective_torch(self, point):
         """-mu at the fidelity-pinned point (dim_opt,), differentiable."""
-        return kg_core.posterior_mean_objective(
-            self._gaussian_process.state, point, self._num_fidelity)
+        form = self.program_form()
+        return form.objective(point, *form.inputs)
 
     def value_and_grad_torch(self, point):
         return value_and_grad_by_autograd(self.objective_torch, point)
@@ -101,6 +119,7 @@ class KnowledgeGradient(UnionPoints, OptimizableInterface):
                  points_being_sampled=None, num_mc_iterations: int = 2**7,
                  best_so_far=None, generator=None):
         self._gaussian_process = gaussian_process
+        self.program_cache = getattr(gaussian_process, "program_cache", None)
         self.device = gaussian_process.device
         self.dtype = gaussian_process.dtype
         self._num_fidelity = num_fidelity
@@ -145,14 +164,38 @@ class KnowledgeGradient(UnionPoints, OptimizableInterface):
                 self._tensor(self._discrete_pts)[None],
                 self._tensor([self._best_so_far]))
 
+    def program_form(self) -> ProgramForm:
+        """The GP, the discretization, the normals, the best value, the
+        inner domain's bounds and the points being sampled as the inputs;
+        the value is the per-union estimator's."""
+        tensors, layout = gp_mod.state_tensors(self._gaussian_process.state)
+        being = self._being()
+        inputs = (*tensors, self._tensor(self._discrete_pts), self._normals,
+                  self._tensor([self._best_so_far]),
+                  domain_bounds(self._inner_domain)) + \
+            (() if being is None else (torch.atleast_2d(being),))
+        k, inner, nf = len(tensors), self._inner_domain, self._num_fidelity
+        inner_params = self._inner_params
+
+        def objective(points_to_sample, *ins):
+            disc, nrm, best, bounds, *rest = ins[k:]
+            return kg_core.knowledge_gradient(
+                gp_mod.state_from_tensors(layout, ins[:k]).as_ensemble(),
+                ei_core._union(torch.atleast_2d(points_to_sample),
+                               rest[0] if rest else None),
+                disc[None], nrm, with_bounds(inner, bounds), inner_params,
+                best, num_fidelity=nf)[0]
+
+        return ProgramForm(("knowledge_gradient", layout, domain_key(inner),
+                            inner_params, nf, being is not None), inputs,
+                           objective)
+
     def value_and_grad_torch(self, points_to_sample):
         """(KG, dKG/dpoints_to_sample) at points (q, d): the envelope
-        gradient of the per-union estimator."""
-        return kg_core.knowledge_gradient_value_and_grad(
-            self._gaussian_process.state, points_to_sample, self._being(),
-            self._tensor(self._discrete_pts), self._normals,
-            self._inner_domain, self._inner_params, self._best_so_far,
-            self._num_fidelity)
+        gradient of the per-union estimator, by autograd."""
+        form = self.program_form()
+        return value_and_grad_by_autograd(
+            lambda x: form.objective(x, *form.inputs), points_to_sample)
 
     def compute_knowledge_gradient(self):
         state, discrete, best = self._as_ensemble()
@@ -182,16 +225,20 @@ def posterior_mean_optimization(ps_optimizer, initial_guess=None,
                                 max_num_threads=None, status=None):
     """Find argmin of the posterior mean
     (cpp_wrappers/knowledge_gradient.py posterior_mean_optimization
-    counterpart): a GD polish from the best of the guesses."""
+    counterpart): a GD polish from the best of the guesses, its steps
+    programs of the GP's cache on a box domain."""
     del max_num_threads
     obj = ps_optimizer.objective_function
     if initial_guess is None:
         initial_guess = obj.get_current_point()
     guesses = torch.atleast_2d(to_tensor(initial_guess, obj.device,
                                          obj.dtype))
+    domain = core_domain(ps_optimizer.domain)
     pt, _ = kg_core.compute_optimal_posterior_mean(
-        obj._gaussian_process.state, core_domain(ps_optimizer.domain),
-        guesses, ps_optimizer.optimizer_parameters, obj.num_fidelity)
+        obj._gaussian_process.state, domain, guesses,
+        ps_optimizer.optimizer_parameters, obj.num_fidelity,
+        program_cache=obj.program_cache
+        if isinstance(domain, TensorProductDomain) else None)
     if status is not None:
         status["gradient_descent_found_update"] = True
     pt = to_numpy(pt)

@@ -8,7 +8,9 @@ multistart_hyperparameter_optimization,
 restarted_hyperparameter_optimization and
 evaluate_log_likelihood_at_hyperparameter_list.
 
-The measures are computed on the covariance's device in its dtype.
+The measures are computed on the covariance's device in its dtype; each
+objective owns a program cache (``ops.programs``) for the compat
+optimizers' steps.
 Hyperparameter optimization runs over LOG-hyperparameters (as the
 reference's C++ does internally) with the port's multistart machinery.
 """
@@ -22,13 +24,14 @@ import numpy as np
 import torch
 
 from cornell_moe_tpu_torch.compat._boundary import (
-    to_numpy, to_tensor, value_and_grad_by_autograd)
+    ProgramForm, to_numpy, to_tensor, value_and_grad_by_autograd)
 from cornell_moe_tpu_torch.compat.interfaces import (
     GaussianProcessLogLikelihoodInterface)
 from cornell_moe_tpu_torch.compat.optimization import (
     core_domain, multistart_parameters)
 from cornell_moe_tpu_torch.models import likelihood as lik_mod
 from cornell_moe_tpu_torch.ops import optimizers as opt_mod
+from cornell_moe_tpu_torch.ops import programs
 from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
 from cornell_moe_tpu_torch.utils.rng import as_generator
 
@@ -49,6 +52,7 @@ class GaussianProcessLogLikelihood(GaussianProcessLogLikelihoodInterface):
         if noise_variance is None:
             noise_variance = np.full((1 + len(self._derivatives),), 1e-8)
         self._noise_variance = np.asarray(noise_variance, dtype=float)
+        self.program_cache = programs.ProgramCache()
 
     # -- hyperparameter access -------------------------------------------
     @property
@@ -86,16 +90,28 @@ class GaussianProcessLogLikelihood(GaussianProcessLogLikelihoodInterface):
     def _tensor(self, array) -> torch.Tensor:
         return to_tensor(array, self.device, self.dtype)
 
+    def program_form(self) -> ProgramForm:
+        """The noise variance and the data as the inputs."""
+        data = self._historical_data
+        measure, to_kernel = self._measure, self._covariance.to_kernel
+        ds = self._derivatives
+
+        def objective(hyperparameters, noise, points, values):
+            return measure(to_kernel(hyperparameters), noise, points, values,
+                           ds)
+
+        return ProgramForm(
+            (self.objective_type, type(self._covariance).__name__, ds),
+            (self._tensor(self._noise_variance),
+             self._tensor(data.points_sampled),
+             self._tensor(data.points_sampled_value)), objective)
+
     def objective_torch(self, hyperparameters: torch.Tensor) -> torch.Tensor:
         """The measure at hyperparameters (..., 1 + dim), differentiable
         (``torch.func`` transforms included); batch axes give a batch of
         values."""
-        data = self._historical_data
-        return self._measure(
-            self._covariance.to_kernel(hyperparameters),
-            self._tensor(self._noise_variance),
-            self._tensor(data.points_sampled),
-            self._tensor(data.points_sampled_value), self._derivatives)
+        form = self.program_form()
+        return form.objective(hyperparameters, *form.inputs)
 
     def value_and_grad_torch(self, hyperparameters: torch.Tensor):
         return value_and_grad_by_autograd(self.objective_torch,

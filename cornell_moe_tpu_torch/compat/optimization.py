@@ -14,7 +14,11 @@ The optimizer classes pair an OptimizableInterface objective with a
 domain and parameters.  ``optimize()`` runs the port's optimizers on the
 objective's torch hook (``value_and_grad_torch``; Newton:
 ``objective_torch``) where it has one, else on its numpy methods; the
-scipy optimizers take float64 numpy, converted at their boundary.
+scipy optimizers take float64 numpy, converted at their boundary.  Where
+:func:`runs_programs` holds, gradient descent takes each step through one
+program of the objective's cache and Newton runs each start as one
+program (``ops.programs``), the counterparts of the JAX package's scanned
+optimizers.
 """
 
 from __future__ import annotations
@@ -26,9 +30,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cornell_moe_tpu_torch.compat._boundary import to_numpy
+from cornell_moe_tpu_torch.compat._boundary import (
+    domain_bounds, domain_key, to_numpy, value_and_grad_by_autograd,
+    with_bounds)
 from cornell_moe_tpu_torch.compat.interfaces import OptimizerInterface
 from cornell_moe_tpu_torch.ops import optimizers as opt_mod
+from cornell_moe_tpu_torch.ops import programs
 from cornell_moe_tpu_torch.ops.optimizers import (  # noqa: F401 (re-exported)
     GradientDescentParameters, NewtonParameters)
 
@@ -65,11 +72,20 @@ def multistart_parameters(optimizer, num_multistarts: Optional[int] = None):
     return params
 
 
-def _bounds(core) -> torch.Tensor:
-    """The bounds tensor under a core domain (repeated, simplex or box)."""
-    while not hasattr(core, "bounds"):
-        core = getattr(core, "domain", None) or core.tensor_product_domain
-    return core.bounds
+def runs_programs(objective) -> bool:
+    """The rule for an objective's optimizer steps: programs while
+    ``programs.CAPTURE`` is "auto" and the objective has a
+    ``program_cache`` and a program form (``program_form()`` not None).
+    An objective with only numpy methods reads the host at every step and
+    runs eagerly, as the JAX package calls back into the host there
+    (``pure_callback``); so do the MC EI estimators, whose union lift
+    reads the least eigenvalue (``torch.linalg.eigvalsh``, which a CUDA
+    graph cannot hold): their ``program_form()`` is None."""
+    if not programs.enabled() or \
+            getattr(objective, "program_cache", None) is None or \
+            not hasattr(objective, "program_form"):
+        return False
+    return objective.program_form() is not None
 
 
 class _OptimizerBase(OptimizerInterface):
@@ -85,7 +101,7 @@ class _OptimizerBase(OptimizerInterface):
         """(the domain's core, the objective's current point as a tensor on
         the domain's device and dtype)."""
         core = core_domain(self.domain)
-        b = _bounds(core)
+        b = domain_bounds(core)
         x0 = torch.as_tensor(np.asarray(
             self.objective_function.get_current_point(), dtype=float),
             device=b.device, dtype=b.dtype)
@@ -125,19 +141,44 @@ class GradientDescentOptimizer(_OptimizerBase):
     (python_version/optimization.py GradientDescentOptimizer).
 
     optimize() polishes the objective's current point; use
-    :func:`multistart_optimize` for the multistart wrapper.
+    :func:`multistart_optimize` for the multistart wrapper.  Where
+    :func:`runs_programs` holds, each step is one program of the
+    objective's cache over (x, the objective's tensors, the domain's
+    bounds), keyed by the objective's kind and shapes, its step size an
+    input.
     """
 
     def optimize(self, **kwargs):
         core, x0 = self._start()
         return self._finish(opt_mod.gradient_ascent(
-            self._value_and_grad(), core, x0, self.optimizer_parameters))
+            self._value_and_grad(), core, x0, self.optimizer_parameters,
+            step_fn=self._step_program(core)))
+
+    def _step_program(self, core):
+        obj = self.objective_function
+        if not runs_programs(obj):
+            return None
+        form = obj.program_form()
+        mrc = self.optimizer_parameters.max_relative_change
+
+        def step(x, rate, bounds, *inputs):
+            _, g = value_and_grad_by_autograd(
+                lambda xx: form.objective(xx, *inputs), x)
+            return opt_mod.ascent_step(with_bounds(core, bounds), mrc, x, g,
+                                       rate)
+
+        return obj.program_cache.stepper(
+            ("compat_step", form.key, domain_key(core), mrc) +
+            programs.signature(form.inputs), step, domain_bounds(core),
+            *form.inputs)
 
 
 class NewtonOptimizer(_OptimizerBase):
     """Damped-Newton polish (gpp_optimization.hpp Newton counterpart) of an
     objective with a differentiable ``objective_torch``; its Hessian is
-    ``torch.func``'s."""
+    ``torch.func``'s.  Where :func:`runs_programs` holds, the whole run
+    from the start is one program of the objective's cache, as the MAP
+    fit's Newton run is."""
 
     def optimize(self, **kwargs):
         obj = self.objective_function
@@ -146,8 +187,21 @@ class NewtonOptimizer(_OptimizerBase):
                 f"NewtonOptimizer needs an objective with objective_torch; "
                 f"{type(obj).__name__} has none")
         core, x0 = self._start()
-        return self._finish(opt_mod.newton_optimize(
-            obj.objective_torch, core, x0, self.optimizer_parameters))
+        params = self.optimizer_parameters
+        if not runs_programs(obj):
+            return self._finish(opt_mod.newton_optimize(
+                obj.objective_torch, core, x0, params))
+        form = obj.program_form()
+
+        def newton(start, bounds, *inputs):
+            return opt_mod.newton_optimize(
+                lambda t: form.objective(t, *inputs),
+                with_bounds(core, bounds), start, params)
+
+        return self._finish(programs.run(
+            obj.program_cache, ("compat_newton", form.key, domain_key(core),
+                                params), newton, x0, domain_bounds(core),
+            *form.inputs))
 
 
 class _ScipyOptimizer(_OptimizerBase):

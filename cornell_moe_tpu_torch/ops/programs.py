@@ -56,6 +56,11 @@ WARMUP_CALLS = 1
 
 builds = 0
 _tallies: Dict[str, dict] = {}
+# the side stream of every warm-up and capture, one per device for the
+# process: cuBLAS keeps a workspace (32 MiB on the card) for each stream it
+# runs on, for the life of the process, so a stream per cache would leave
+# one more behind with every cache
+_side_streams: dict = {}
 
 
 def enabled() -> bool:
@@ -92,8 +97,13 @@ def run(cache: Optional["ProgramCache"], key: tuple, fn: Callable,
     directly without a cache or under "never"."""
     if cache is None or not enabled():
         return fn(*inputs)
-    return cache.get(key + tuple((tuple(t.shape), t.dtype, str(t.device))
-                                 for t in inputs), fn)(*inputs)
+    return cache.get(key + signature(inputs), fn)(*inputs)
+
+
+def signature(tensors) -> tuple:
+    """The shapes, dtypes and devices of ``tensors``, for a program's
+    key."""
+    return tuple((tuple(t.shape), t.dtype, str(t.device)) for t in tensors)
 
 
 def _read_counters() -> dict:
@@ -132,6 +142,22 @@ def _clone(out):
     if isinstance(out, torch.Tensor):
         return out.clone()
     return tuple(None if t is None else t.clone() for t in out)
+
+
+def kind(key) -> str:
+    """A program's stage, and a chain segment's steps: "chain_64"."""
+    return f"chain_{key[4]}" if key[0] == "chain" else key[0]
+
+
+def by_kind(cache: "ProgramCache") -> dict:
+    """Per program kind of ``cache``: its builds (the programs of that
+    kind) and their replays."""
+    out = {}
+    for key, prog in cache.programs().items():
+        entry = out.setdefault(kind(key), {"builds": 0, "replays": 0})
+        entry["builds"] += 1
+        entry["replays"] += prog.replays
+    return out
 
 
 class Program:
@@ -182,7 +208,7 @@ class Program:
         device = inputs[0].device
         self._static_in = [x.clone() for x in inputs]
         before = _read_counters()
-        side = self._cache.side_stream(device)
+        side = side_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_CALLS):
@@ -198,14 +224,22 @@ class Program:
         self.capture_seconds = time.perf_counter() - t0
 
 
+def side_stream(device) -> "torch.cuda.Stream":
+    """The device's side stream for warm-ups and captures (one per device
+    for the process, :data:`_side_streams`)."""
+    device = torch.device(device)
+    if device not in _side_streams:
+        _side_streams[device] = torch.cuda.Stream(device)
+    return _side_streams[device]
+
+
 class ProgramCache:
     """The programs of one model (or driver), by key; their CUDA graphs
-    share one memory pool and one side stream per device."""
+    share one memory pool, and every cache the device's side stream."""
 
     def __init__(self):
         self._programs: Dict[Hashable, Program] = {}
         self._pool = None
-        self._streams: dict = {}
 
     def get(self, key: Hashable, fn: Callable) -> Program:
         """The program of ``key``, made from ``fn`` on first use (``fn`` of
@@ -236,23 +270,16 @@ class ProgramCache:
     def release(self) -> None:
         """Free every program and its graph (the next call of a key builds
         again): before the process group whose collectives they captured
-        is destroyed."""
+        is destroyed, or when a loop moves on to new shapes."""
         if self._pool is not None:
             torch.cuda.synchronize()
         self._programs.clear()
         self._pool = None
-        self._streams.clear()
 
     def pool(self):
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
-
-    def side_stream(self, device) -> "torch.cuda.Stream":
-        device = torch.device(device)
-        if device not in self._streams:
-            self._streams[device] = torch.cuda.Stream(device)
-        return self._streams[device]
 
     def __len__(self) -> int:
         return len(self._programs)

@@ -25,7 +25,8 @@ import torch
 
 from cornell_moe_tpu_torch.models.covariance import MaternNu2p5
 from cornell_moe_tpu_torch.models.gp import GaussianProcessState
-from cornell_moe_tpu_torch.ops import linalg, optimizers
+from cornell_moe_tpu_torch.ops import linalg, optimizers, programs
+from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
 
 _MATERN_DOF = 5          # 2 nu for Matern nu = 5/2
 
@@ -170,9 +171,13 @@ def random_feature_hessian(sample: RandomFeatureSample, x: torch.Tensor
 def global_optimization_of_gp_approximation(
         sample: RandomFeatureSample, domain, grid: torch.Tensor,
         params: optimizers.GradientDescentParameters = None,
-        minimize: bool = True) -> torch.Tensor:
+        minimize: bool = True, program_cache=None) -> torch.Tensor:
     """Grid seed + gradient polish of each sampled function: (..., d).  The
-    polish is kept only where it beats the best grid point."""
+    polish is kept only where it beats the best grid point.  With a
+    ``program_cache`` (and ``programs.CAPTURE`` "auto") each GD step of the
+    batch is one program over (x, the sample's tensors), replayed for
+    every step of ``params``' schedule, the step size an input; ``domain``
+    must then be a ``TensorProductDomain``."""
     if params is None:
         params = optimizers.GradientDescentParameters(
             num_multistarts=1, max_num_steps=80, max_num_restarts=2,
@@ -189,7 +194,20 @@ def global_optimization_of_gp_approximation(
     vals = sign * evaluate_random_feature_sample(sample, grid)   # (..., G)
     best = torch.max(vals, dim=-1)
     x0 = grid[best.indices]
-    x_opt = optimizers.gradient_ascent_batch(vg, domain, x0, params)
+    step_fn = None
+    if program_cache is not None and programs.enabled():
+        def step(x, rate, bounds, *fields):
+            return optimizers.ascent_step(
+                TensorProductDomain(bounds=bounds), params.max_relative_change,
+                x, sign * random_feature_gradient(
+                    RandomFeatureSample(*fields), x), rate)
+
+        step_fn = program_cache.stepper(
+            ("x_star_step", sign, params.max_relative_change) +
+            programs.signature(sample), step, domain.bounds,
+            *sample)
+    x_opt = optimizers.gradient_ascent_batch(vg, domain, x0, params,
+                                             step_fn=step_fn)
     take = (value(x_opt) > best.values)[..., None]
     return torch.where(take, x_opt, x0)
 

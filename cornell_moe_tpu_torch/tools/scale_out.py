@@ -92,26 +92,11 @@ def iteration(device, descent=None, num_obs: int = NUM_OBS, **bo_kwargs):
             lml_shapes)
 
 
-def program_kind(key) -> str:
-    """A program's stage, and a chain segment's steps: "chain_64"."""
-    return f"chain_{key[4]}" if key[0] == "chain" else key[0]
-
-
-def programs_by_kind(cache) -> dict:
-    """Per program kind of a ``ProgramCache``: its builds (the programs of
-    that kind) and their replays."""
-    out = {}
-    for key, prog in cache.programs().items():
-        entry = out.setdefault(program_kind(key), {"builds": 0, "replays": 0})
-        entry["builds"] += 1
-        entry["replays"] += prog.replays
-    return out
-
-
 def summary(bo, rec, wall, counts, shapes, lml_shapes) -> dict:
     """What a comparison keeps of one :func:`iteration`, as host data:
     stage times, the walkers after the last chain, the samples, the record
     and the driver's programs by kind."""
+    from cornell_moe_tpu_torch.ops import programs
     return {"seconds": wall,
             "stages": {r["phase"]: r["seconds"] for r in bo.timer.records},
             "suggest_chunk_size": bo.suggest_chunk_size,
@@ -123,7 +108,7 @@ def summary(bo, rec, wall, counts, shapes, lml_shapes) -> dict:
             "true_value": rec["true_value"], "launches": counts,
             "descent_run_launches_by_shape": shapes,
             "lml_fused_calls_by_shape": lml_shapes,
-            "programs": programs_by_kind(bo.program_cache)}
+            "programs": programs.by_kind(bo.program_cache)}
 
 
 def bitwise(a: dict, b: dict) -> dict:

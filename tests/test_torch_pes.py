@@ -42,6 +42,7 @@ from cornell_moe_tpu_torch.models import covariance as tcov
 from cornell_moe_tpu_torch.models import gp as tgp
 from cornell_moe_tpu_torch.models import mcmc as tmcmc
 from cornell_moe_tpu_torch.models import priors as tpriors
+from cornell_moe_tpu_torch.ops import linalg, programs
 from cornell_moe_tpu_torch.ops import random_features as trf
 from cornell_moe_tpu_torch.ops.domains import TensorProductDomain as TDom
 from cornell_moe_tpu_torch.utils.logging_utils import PhaseTimer
@@ -297,7 +298,11 @@ def _torch_state(p):
 
 def test_ep_and_pes_state_match_jax(rng):
     """EP's sites and conditioned operator, and every field of the PES
-    state, for 3 sets at once against the JAX package set by set."""
+    state, for 3 sets at once against the JAX package set by set, through
+    both routes of the sweeps: called directly and as one program of a
+    ``ProgramCache`` (one build, 60 replays with the damping an input),
+    equal bit for bit.  The sweep's inverse is ``torch.linalg.inv_ex``
+    (no host read); it equals ``torch.linalg.inv`` bit for bit here."""
     p = _pes_problem(rng)
     ch = tpes.build_pes_covariance(_t(p["x"]), _t(p["x_min"]),
                                    _t(p["sigma"]), _t(p["lengths"]),
@@ -305,7 +310,24 @@ def test_ep_and_pes_state_match_jax(rng):
     hess_off = _t(p["hess"][:, 0, 1:2])
     kw, cm, (mt, vti) = tpes.expectation_propagation(ch, _t(p["y"]),
                                                      hess_off, _t(p["noise"]))
+    cache = programs.ProgramCache()
+    routes = tpes.expectation_propagation(ch, _t(p["y"]), hess_off,
+                                          _t(p["noise"]),
+                                          program_cache=cache)
+    (key, prog), = cache.programs().items()
+    assert key[0] == "ep_step" and prog.replays == 60
+    for a, b in zip((kw, cm, mt, vti), (routes[0], routes[1], *routes[2])):
+        assert torch.equal(a, b)
+    site = linalg.symmetrize(torch.diag_embed(vti) + ch.K[..., -3:, -3:])
+    assert torch.equal(torch.linalg.inv_ex(site)[0], torch.linalg.inv(site))
+    assert torch.equal(torch.linalg.inv_ex(ch.K)[0], torch.linalg.inv(ch.K))
     state = _torch_state(p)
+    stepped = tpes.make_pes_state(
+        _t(p["x"]), _t(p["y"]), _t(p["x_min"]), _t(p["hess"]),
+        _t(p["sigma"]), _t(p["lengths"]), _t(p["noise"]),
+        program_cache=programs.ProgramCache())
+    for name in tpes.PESState._fields:
+        assert torch.equal(getattr(state, name), getattr(stepped, name))
 
     @jax.jit
     def jax_ep(x_min, sigma, lengths, noise, hess_off):

@@ -453,6 +453,229 @@ def test_min_segments_matches_jax(min_segments):
     assert int(j_steps) == t_steps == expected
 
 
+PES_KINDS = {"chain_5", "x_star_step", "ep_step", "pes_acquisition_grid",
+             "pes_acquisition_step", "pes_recommend_grid",
+             "pes_recommend_step"}
+
+
+def _pes_runs(capture, monkeypatch, tmp_path, device="cpu",
+              dtype=torch.float64, **kw):
+    """Two ``run_PES`` iterations (d 2, 6 sets, burn-in 9: three 5-step
+    chain segments) with ``CAPTURE`` = ``capture``: the history, the builds
+    of the run, and the artifacts."""
+    from cornell_moe_tpu_torch.acquisition import pes_driver
+    monkeypatch.setattr(programs, "CAPTURE", capture)
+    out = tmp_path / capture
+    out.mkdir()
+    start = programs.build_count()
+    history = pes_driver.run_PES(
+        lambda p: float(np.sum((np.asarray(p) - 0.3) ** 2)), [0.0] * 2,
+        [1.0] * 2, 2, **dict(dict(
+            number_of_hyperparameter_sets=6, number_of_burnin=9,
+            number_of_initial_points=4, number_of_iterations=2,
+            gridsize=30, seed=0, verbose=False), **kw),
+        output_dir=str(out), device=device, dtype=dtype)
+    artifacts = [np.loadtxt(out / name) for name in
+                 ("Xsamples.txt", "Ysamples.txt", "guesses.txt")]
+    return history, programs.build_count() - start, artifacts
+
+
+def _assert_pes_equal(got, ref):
+    for h, r in zip(got[0], ref[0]):
+        for k in ("suggested", "value", "recommended", "best_so_far"):
+            np.testing.assert_array_equal(np.asarray(h[k]), np.asarray(r[k]))
+    for a, b in zip(got[2], ref[2]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_pes_iteration_builds_its_programs_after_each_release(
+        monkeypatch, tmp_path):
+    """``run_PES`` owns one program cache and releases it at the start of
+    every iteration (one more observation each): both iterations build
+    the same seven kinds, one program each (the chain's 5-step segment,
+    replayed three times, the x*
+    polish step, EP's sweep, the acquisition's grid and step, the
+    recommendation's grid and step), and replay the steps as often as
+    their schedules run (x*: 80 steps x 2 rounds; EP: 60 sweeps; each
+    polish: 60 steps x 2 rounds).  The run equals its CAPTURE = "never"
+    twin bit for bit (history and artifacts), which builds nothing."""
+    got = _pes_runs("auto", monkeypatch, tmp_path)
+    expected = {k: {"builds": 1, "replays": 1} for k in PES_KINDS}
+    expected.update({"chain_5": {"builds": 1, "replays": 3},
+                     "x_star_step": {"builds": 1, "replays": 160},
+                     "ep_step": {"builds": 1, "replays": 60},
+                     "pes_acquisition_step": {"builds": 1, "replays": 120},
+                     "pes_recommend_step": {"builds": 1, "replays": 120}})
+    assert [h["programs"] for h in got[0]] == [expected, expected]
+    assert got[1] == 2 * len(PES_KINDS)
+    ref = _pes_runs("never", monkeypatch, tmp_path)
+    assert ref[1] == 0 and all(h["programs"] == {} for h in ref[0])
+    _assert_pes_equal(got, ref)
+
+
+def _compat_flow(capture, monkeypatch, device="cpu", dtype=F64, n=12):
+    """The compat class flow at a small size: a two-member
+    ``GaussianProcessMCMC``, the KG multistart (q = 2) and its VOI, KG and
+    EI point lists, the posterior-mean polish by ``GradientDescentOptimizer``
+    and a Newton polish, each twice; the results, the builds of each pass
+    and the replays by kind."""
+    from cornell_moe_tpu_torch.compat import domain as dom_c
+    from cornell_moe_tpu_torch.compat import expected_improvement_mcmc as eim
+    from cornell_moe_tpu_torch.compat import knowledge_gradient_mcmc as kgm
+    from cornell_moe_tpu_torch.compat import optimization as opt_c
+    from cornell_moe_tpu_torch.utils.geometry import ClosedInterval
+    monkeypatch.setattr(programs, "CAPTURE", capture)
+    rng = np.random.default_rng(0)
+    x = rng.random((n, 2))
+    data = HistoricalData(2)
+    data.append_historical_data(x, np.sin(3 * x[:, 0]) + x[:, 1] ** 2)
+    kw = dict(device=device, dtype=dtype)
+    gp_mcmc = kgm.GaussianProcessMCMC([[1.0, 0.3, 0.4], [0.8, 0.5, 0.2]],
+                                      [[1e-2], [2e-2]], data, **kw)
+    domain = dom_c.TensorProductDomain([ClosedInterval(0.0, 1.0)] * 2, **kw)
+    params = optimizers.GradientDescentParameters(
+        num_multistarts=6, max_num_steps=5, max_num_restarts=1,
+        num_steps_averaged=2, gamma=0.7, pre_mult=1.0,
+        max_relative_change=0.5)
+    inner = optimizers.GradientDescentParameters(
+        num_multistarts=1, max_num_steps=4, max_num_restarts=1,
+        num_steps_averaged=0, gamma=0.0, pre_mult=1.0,
+        max_relative_change=0.1)
+    newton = optimizers.NewtonParameters(max_num_steps=5)
+    blocks = rng.random((3, 2, 2))
+    results, builds = [], []
+    for _ in range(2):
+        start = programs.build_count()
+        kg_obj = kgm.KnowledgeGradientMCMC(
+            gp_mcmc, inner_optimizer=inner,
+            discrete_pts_list=[x[:4], x[4:8]], num_to_sample=2,
+            num_mc_iterations=8, generator=3)
+        picks = kgm.multistart_knowledge_gradient_mcmc_optimization(
+            opt_c.GradientDescentOptimizer(domain, kg_obj, params),
+            generator=torch.Generator(device=device).manual_seed(1))
+        kg_obj.set_current_point(picks)
+        ei_obj = eim.ExpectedImprovementMCMC(gp_mcmc, num_to_sample=2,
+                                             num_mc_iterations=16)
+        ps = kgm.PosteriorMeanMCMC(gp_mcmc)
+        ps.set_current_point(x[0])
+        rec = opt_c.GradientDescentOptimizer(domain, ps, params).optimize()
+        ps.set_current_point(x[1])
+        polished = opt_c.NewtonOptimizer(domain, ps, newton).optimize()
+        results += [picks, kg_obj.compute_knowledge_gradient_mcmc(),
+                    kg_obj.evaluate_at_point_list(blocks),
+                    ei_obj.evaluate_at_point_list(blocks), rec, polished]
+        builds.append(programs.build_count() - start)
+    return results, builds, _replays_by_kind(gp_mcmc.program_cache)
+
+
+COMPAT_KINDS = {"fit", "kg_score", "ei_mcmc_point", "compat_step",
+                "compat_newton"}
+
+
+def test_compat_flow_programs_equal_never(monkeypatch):
+    """``GaussianProcessMCMC`` owns the cache its objectives share: its
+    fit, the KG point list's scoring (``kg_score``, one program per block
+    shape), EI's point list (two programs around the eager least
+    eigenvalue), the posterior-mean polish's GD step and the Newton run
+    are built in the first pass and only replayed in the second, and every
+    result equals CAPTURE = "never" bit for bit.  The KG multistart and
+    the single VOI stay eager by their rule (no ``kg_cold`` or
+    ``kg_warm_step`` program): ungated, the multistart is bound by the
+    card's work, and one evaluation cannot repay a build."""
+    got, builds, replays = _compat_flow("auto", monkeypatch)
+    assert set(replays) == COMPAT_KINDS, replays
+    assert replays["kg_score"] == 2 * 3
+    assert builds[0] > 0 and builds[1] == 0, builds
+    assert replays["compat_step"] == 2 * 5 and replays["compat_newton"] == 2
+    assert replays["ei_mcmc_point"] == 2 * 2 * 3
+    ref, never_builds, never_replays = _compat_flow("never", monkeypatch)
+    assert never_builds == [0, 0] and never_replays == {}
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_compat_eager_rules(monkeypatch):
+    """``compat.optimization.runs_programs``: an objective with only numpy
+    methods reads the host at every step and polishes eagerly, as does the
+    MC EI estimator (its union lift's least eigenvalue), whose program
+    form is None; the closed-form EI and every torch objective with a
+    cache take their steps as programs; under CAPTURE = "never" none
+    does.  Each polish equals its eager twin bit for bit."""
+    from cornell_moe_tpu_torch.compat import covariance as cov_c
+    from cornell_moe_tpu_torch.compat import domain as dom_c
+    from cornell_moe_tpu_torch.compat import expected_improvement as ei_c
+    from cornell_moe_tpu_torch.compat import gaussian_process as gp_c
+    from cornell_moe_tpu_torch.compat import knowledge_gradient as kg_c
+    from cornell_moe_tpu_torch.compat import optimization as opt_c
+    from cornell_moe_tpu_torch.compat.log_likelihood import \
+        GaussianProcessLogMarginalLikelihood
+    from cornell_moe_tpu_torch.utils.geometry import ClosedInterval
+
+    rng = np.random.default_rng(0)
+    x = rng.random((10, 2))
+    data = HistoricalData(2)
+    data.append_historical_data(x, np.cos(3 * x[:, 0]) + x[:, 1])
+    kw = dict(device="cpu", dtype=F64)
+    gp = gp_c.GaussianProcess(cov_c.MaternNu2p5([1.0, 0.3, 0.4], **kw),
+                              [1e-2], data)
+    domain = dom_c.TensorProductDomain([ClosedInterval(0.0, 1.0)] * 2, **kw)
+
+    class NumpyPosteriorMean:
+        """A posterior-mean objective with numpy methods only."""
+
+        def __init__(self):
+            self._pm = kg_c.PosteriorMean(gp)
+            self.program_cache = programs.ProgramCache()
+
+        def get_current_point(self):
+            return self._pm.get_current_point()
+
+        def set_current_point(self, p):
+            self._pm.set_current_point(p)
+
+        def compute_objective_function(self):
+            return self._pm.compute_objective_function()
+
+        def compute_grad_objective_function(self):
+            return self._pm.compute_grad_objective_function()
+
+    objectives = {
+        "numpy": NumpyPosteriorMean(),
+        "mc_ei": ei_c.ExpectedImprovement(gp, points_to_sample=x[:2],
+                                          num_mc_iterations=16),
+        "analytic_ei": ei_c.ExpectedImprovement(gp, points_to_sample=x[:1]),
+        "posterior_mean": kg_c.PosteriorMean(gp, point_to_sample=x[0]),
+        "lml": GaussianProcessLogMarginalLikelihood(
+            cov_c.MaternNu2p5([1.0, 0.3, 0.4], **kw), data,
+            noise_variance=[1e-2]),
+    }
+    expected = {"numpy": False, "mc_ei": False, "analytic_ei": True,
+                "posterior_mean": True, "lml": True}
+    params = optimizers.GradientDescentParameters(
+        num_multistarts=1, max_num_steps=4, max_num_restarts=1,
+        num_steps_averaged=0, gamma=0.7, pre_mult=0.1,
+        max_relative_change=0.5)
+    for name, obj in objectives.items():
+        monkeypatch.setattr(programs, "CAPTURE", "auto")
+        assert opt_c.runs_programs(obj) == expected[name], name
+        dom = dom_c.TensorProductDomain(
+            [ClosedInterval(0.1, 5.0)] * 3, **kw) if name == "lml" else \
+            domain
+        start = obj.get_current_point()
+        out = []
+        for capture in ("auto", "never"):
+            monkeypatch.setattr(programs, "CAPTURE", capture)
+            obj.set_current_point(start)
+            before = programs.build_count()
+            out.append(opt_c.GradientDescentOptimizer(dom, obj,
+                                                      params).optimize())
+            built = programs.build_count() - before
+            assert built == int(expected[name] and capture == "auto"), name
+            if capture == "never":
+                assert not opt_c.runs_programs(obj)
+        np.testing.assert_array_equal(out[0], out[1])
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -731,3 +954,31 @@ def test_replay_keeps_earlier_outputs(dev):
     assert torch.equal(chol, kept[0]) and torch.equal(k_inv_y, kept[1])
     assert not torch.equal(chol, again[0])
     assert _replays_by_kind(cache)["heuristic_refit"] == 2
+
+
+@pytest.mark.cuda
+def test_captured_pes_iterations_equal_never(dev, monkeypatch, tmp_path):
+    """Two ``run_PES`` iterations in float32 on the card (d 2, 6 sets) with
+    their programs captured as CUDA graphs, against CAPTURE = "never":
+    history and artifacts bit for bit, and every kind built in both
+    iterations."""
+    got = _pes_runs("auto", monkeypatch, tmp_path, device=dev,
+                    dtype=torch.float32)
+    assert all(set(h["programs"]) == PES_KINDS for h in got[0])
+    ref = _pes_runs("never", monkeypatch, tmp_path, device=dev,
+                    dtype=torch.float32)
+    _assert_pes_equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_captured_compat_flow_equals_never(dev, monkeypatch):
+    """The compat flow of :func:`_compat_flow` in float32 on the card
+    (n 64) with its programs captured, against CAPTURE = "never": every
+    result bit for bit, nothing built in the second pass."""
+    got, builds, replays = _compat_flow("auto", monkeypatch, device=dev,
+                                        dtype=torch.float32, n=64)
+    assert set(replays) == COMPAT_KINDS and builds[1] == 0
+    ref, _, _ = _compat_flow("never", monkeypatch, device=dev,
+                             dtype=torch.float32, n=64)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
