@@ -26,7 +26,8 @@ each kernel
 against its plain PyTorch version at the main path's shapes (the
 covariance also against its own transpose, bit for bit; the fused LML
 also against its large-Np instance,
-the three timed side by side, with its cluster occupancy; the KG inner
+the three timed side by side, with its cluster occupancy, and that
+instance alone at Np 672, above the cluster's capacity; the KG inner
 descent in both its instances, tensor-core and FMA, timed in turns).
 It drives one d-KG iteration (Branin with both partials observed, the
 same size, 3 observation channels per point) and checks that it launched
@@ -40,6 +41,12 @@ path's shapes, checks that it went through its kernel, and holds it
 against the float64 descent.  It profiles a window of the main path's MCMC
 chain (host wall clock per stretch-move step against the device's busy
 time, step by step and as the chain's captured 64-step segment).  It
+runs the bfloat16 fantasy solve (``config.KG_FANTASY_LOWP`` "always") on
+the main path's ensemble: its error against float32 and float64, held to
+the JAX package's bounds on that package's own test problems, and one
+suggest and retrain through the driver under it, whose KG programs are
+keyed by the switch (back under "never", the next suggest replays the
+"never" programs).  It
 drives one continuous-fidelity KG iteration (``BraninFidelity``, the main
 path's size, d = 3 with one fidelity dim: kernels B and C, no
 kernel A) and holds B and C against their plain versions at that path's
@@ -77,6 +84,7 @@ non-zero and prints no result.  Any failed check raises.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -100,6 +108,8 @@ KERNELS = {
     "descent_grad_fma": ("cornell_moe_tpu_torch/csrc/descent_grad.cu",
                          f"{PALLAS}:538"),
     "lml_fused": ("cornell_moe_tpu_torch/csrc/lml_fused.cu", f"{PALLAS}:271"),
+    "lml_fused_global": ("cornell_moe_tpu_torch/csrc/lml_fused.cu",
+                         f"{PALLAS}:271"),
     "covariance_with_noise": (
         "cornell_moe_tpu_torch/csrc/covariance_with_noise.cu",
         f"{PALLAS}:88"),
@@ -140,6 +150,9 @@ SCALE_OUT_WORLD, SCALE_OUT_RTOL, SCALE_OUT_TIMEOUT_S = 2, 1e-4, 600.0
 CKPT_OBS, CKPT_HYPERS, CKPT_BURNIN, CKPT_CHAIN, CKPT_Q = 64, 8, 200, 128, 2
 # the MAP fit's starts
 MAP_RESTARTS = 4
+# kernel B's large-Np instance is timed where it serves alone: above the
+# cluster instance's capacity (640)
+LML_LARGE_NP = 672
 
 # Peaks of one H100 SXM at 700 W (data sheet, dense): float32 outside the
 # tensor cores, TF32 on the tensor cores, HBM, and the special-function
@@ -874,6 +887,37 @@ def phase_equivalence(torch, model, counts):
                         torch, lambda: kernels.lml_fused_plain(*largs), 20)}
                 emit({"phase": "lml_fused_timing", "W": nw, "Np": np_,
                       **times[nw], "timing": TIMING.format(20)})
+    # B's large-Np instance where it serves alone (above the cluster
+    # capacity): W = 8 at Np = LML_LARGE_NP, points drawn in the domain
+    nw, np_ = w // 2, LML_LARGE_NP
+    check(kernels.lml_fused_instance(np_) == "global",
+          f"Np={np_} does not take the large-Np instance")
+    xs = dom.lower + torch.rand((np_, d), generator=g, **f32) * width
+    us = (xs.T[None] / lengths[:nw, :, None]).contiguous()
+    noise = noises[:nw].expand(nw, np_).contiguous()
+    yb = torch.randn((np_,), generator=g, **f32)[None].expand(
+        nw, np_).contiguous()
+    largs = (us, alphas[:nw].contiguous(), noise, yb, np_,
+             model.kernel_name)
+    quad_g, logdet_g = kernels.lml_fused_global(*largs)
+    quad_p, logdet_p = kernels.lml_fused_plain(*largs)
+    abs_err = max((quad_g - quad_p).abs().max().item(),
+                  (logdet_g - logdet_p).abs().max().item())
+    errs = {"quad": rel(quad_g, quad_p), "logdet": rel(logdet_g, logdet_p)}
+    ok = errs["quad"] < 5e-4 and errs["logdet"] < 5e-4
+    emit({"phase": "equivalence", "kernel": "lml_fused",
+          "instance": "large_np", "W": nw, "Np": np_,
+          "max_abs_err": abs_err, "max_rel_err": errs,
+          "tolerance": "rtol 5e-4 vs plain", "ok": ok})
+    check(ok, f"lml_fused_global disagrees at W={nw}, Np={np_}")
+    large = {"large_np_instance": _timed(
+                 torch, lambda: kernels.lml_fused_global(*largs), 20),
+             "plain": _timed(
+                 torch, lambda: kernels.lml_fused_plain(*largs), 20)}
+    emit({"phase": "lml_fused_timing", "W": nw, "Np": np_, **large,
+          "timing": TIMING.format(20)})
+    row("lml_fused_global", abs_err, large["large_np_instance"],
+        large["plain"], lml_bound(nw, np_, d, model.kernel_name))
     np_main = x.shape[0]
     smem = kernels._lib().cmoe_lml_fused_cluster_smem_bytes(np_main)
     occupancy = {f"W{nw}_C{c}": kernels.lml_cluster_occupancy(nw, np_main, c)
@@ -1695,6 +1739,314 @@ LCB_MEAN_RTOL = 1e-3      # of max(1, max |mu64|), as phase_small_reference
 LCB_VARIANCE_RTOL = 1e-4  # of the member's signal variance alpha
 
 
+# The bfloat16 fantasy solve's bounds on the JAX package's test problems,
+# each a fraction of the float32 ("never") output's scale, mu_u's absolute
+# (tests/test_linalg.py:139-175, tests/test_knowledge_gradient.py:258-350),
+# and the seeds of the CRN band
+LOWP_BOUNDS = {"va": 3e-4, "w": 2e-2, "rhs_grad": 2e-2, "mu_u": 1e-4,
+               "chol_u": 8e-3, "v": 2e-2}
+LOWP_CRN_SEEDS = (100, 101, 102)
+
+
+@contextlib.contextmanager
+def _fantasy_switch(value: str):
+    """``config.KG_FANTASY_LOWP`` set to ``value`` for the block, "never"
+    (the default) after it."""
+    from cornell_moe_tpu_torch import config
+    config.KG_FANTASY_LOWP = value
+    try:
+        yield
+    finally:
+        config.KG_FANTASY_LOWP = "never"
+
+
+def _fantasy_outputs(torch, states, unions, lowp: bool) -> dict:
+    """va and w of the solve pair on the unions' kernel columns, and the
+    batched fantasy model's var_u (chol_u chol_u^T less the noise), chol_u
+    and v, with ``config.KG_FANTASY_LOWP`` "always" (``lowp``) or "never"
+    (float64 states take the float64 path either way)."""
+    from cornell_moe_tpu_torch import config
+    from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
+    from cornell_moe_tpu_torch.models import gp as gp_mod
+    from cornell_moe_tpu_torch.ops import linalg
+
+    with _fantasy_switch("always" if lowp else "never"):
+        k_xu = gp_mod._mix_cov(states, unions.reshape(-1, unions.shape[-1]),
+                               ())
+        va, w = linalg.fantasy_solves_rhs_grad_only(
+            states.chol_K, states.inv_chol_K, k_xu,
+            inv_chol_lowp=states.inv_chol_K.to(torch.bfloat16)
+            if config.kg_fantasy_lowp_enabled(k_xu.dtype) else None)
+        _, chol_u, v, noise_eff = kg._build_fantasy_model_batch(states,
+                                                                unions)
+    var_u = chol_u @ chol_u.transpose(-1, -2) - torch.diag_embed(noise_eff)
+    return {"va": va, "w": w, "var_u": var_u, "chol_u": chol_u, "v": v}
+
+
+def _err_over_scale(torch, got, ref) -> float:
+    """max |got - ref| over max |ref|, where both are finite (None when no
+    entry is)."""
+    both = torch.isfinite(got) & torch.isfinite(ref)
+    if not bool(both.any()):
+        return None
+    g, r = got.double()[both], ref.double()[both]
+    return ((g - r).abs().max() / r.abs().max()).item()
+
+
+def _lowp_test_problems(torch) -> dict:
+    """The bfloat16 route against "never" on the card, in float32, on the
+    JAX package's own test problems, where its bounds are stated: the SPD
+    system of tests/test_linalg.py (K = A A^T + 40 I, 7 right-hand sides;
+    va, w and the gradient of sum(sin va) + sum(cos w)), and the GP of
+    tests/test_knowledge_gradient.py:258 (10 points in [-2, 2] from its
+    seed-0 stream, Matern 2.5 (1.0, 0.8), noise 1e-3, 5 unions of 2
+    points; values, then, on the stream's next 10 points, with the slope
+    observed and sampled).  Returns each output's error: mu_u's absolute,
+    the others over their scale."""
+    import numpy as np
+    from cornell_moe_tpu_torch import config
+    from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
+    from cornell_moe_tpu_torch.models import mcmc as mcmc_mod
+    from cornell_moe_tpu_torch.ops import linalg
+
+    f32 = dict(device=DEVICE, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((40, 40))
+    chol = np.linalg.cholesky(a @ a.T + 40 * np.eye(40))
+    sys_ = [torch.as_tensor(t, **f32) for t in
+            (chol, np.linalg.inv(chol), rng.standard_normal((40, 7)))]
+
+    def pair(lowp):
+        c, inv, rhs = sys_
+        r = rhs.clone().requires_grad_(True)
+        va, w = linalg.fantasy_solves_rhs_grad_only(
+            c, inv, r, inv_chol_lowp=inv.to(torch.bfloat16) if lowp
+            else None)
+        (torch.sum(torch.sin(va)) + torch.sum(torch.cos(w))).backward()
+        return {"va": va.detach(), "w": w.detach(), "rhs_grad": r.grad}
+
+    exact, lowp = pair(False), pair(True)
+    out = {"linalg": {k: _err_over_scale(torch, lowp[k], exact[k])
+                      for k in exact}}
+    r = np.random.default_rng(0)
+    for derivs in ((), (0,)):
+        x = r.uniform(-2, 2, (10, 1))
+        y = np.column_stack([np.sin(x[:, 0])] +
+                            ([np.cos(x[:, 0])] if derivs else []))
+        st = mcmc_mod.fit_gp_ensemble(
+            "matern_2.5", torch.tensor([[1.0, 0.8]], **f32),
+            torch.full((1, 1 + len(derivs)), 1e-3, **f32), x, y, derivs)
+        unions = torch.as_tensor(np.random.default_rng(3).uniform(
+            -2, 2, size=(5, 2, 1)), **f32)
+        builds = []
+        for value in ("never", "always"):
+            with _fantasy_switch(value):
+                builds.append(kg._build_fantasy_model_batch(st, unions,
+                                                            derivs))
+        (mu, chol_u, v, _), (mu_lp, chol_lp, v_lp, _) = builds
+        out["kg_" + ("values" if not derivs else "d0")] = {
+            "mu_u": (mu_lp - mu).abs().max().item(),
+            "chol_u": _err_over_scale(torch, chol_lp, chol_u),
+            "v": _err_over_scale(torch, v_lp, v)}
+    return out
+
+
+def _program_replays(cache, lowp: bool) -> dict:
+    """Replays of the KG programs that build a fantasy model, by kind, for
+    one setting of the switch (``knowledge_gradient.fantasy_key``)."""
+    out = {}
+    for key, prog in cache.programs().items():
+        if ("kg_fantasy_lowp", lowp) in key:
+            out[key[0]] = out.get(key[0], 0) + prog.replays
+    return out
+
+
+def phase_fantasy_lowp(torch, bo) -> None:
+    """The bfloat16 fantasy solve (``config.KG_FANTASY_LOWP`` "always") on
+    the main path's fitted ensemble (16 members, Np 512, float32).
+
+    (a) On the JAX package's test problems (:func:`_lowp_test_problems`)
+    the route must hold the JAX tests' bounds (``LOWP_BOUNDS``).  On the
+    unions of one suggest (its 200 Latin-hypercube start blocks of q = 4)
+    the fantasy model under "always" against "never" and both against a
+    float64 fit of the same hyperparameters: the largest error of va, w,
+    var_u, chol_u and v over its scale, read against the same bounds and
+    reported (the JAX package measured the route's error to grow with
+    the ensemble's conditioning, and rejected it as a default for that).
+    One bfloat16 product with float32 output (``linalg._bdot``) at these
+    shapes on random operands must be within 1e-5 of the float64 sum of
+    the same bfloat16 products (a bfloat16 output would be about 2e-3
+    off); both builds timed.
+    (b) From one generator state, the driver's suggest under "never" (the
+    reference pick) and under "always" (it builds its KG programs again;
+    a second call replays them), each pick's VOI under three more draws of
+    normals (the CRN band), then the observation of the "always" pick
+    under "always": wall times, builds, and the launches of A in the
+    suggest and of B and C in the retrain.  (c) Back under "never", the
+    next suggest builds nothing and replays the "never" KG programs, not
+    the "always" ones."""
+    import numpy as np
+    from cornell_moe_tpu_torch import config
+    from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
+    from cornell_moe_tpu_torch.acquisition.expected_improvement import (
+        draw_antithetic_normals)
+    from cornell_moe_tpu_torch.bayes_opt import (
+        best_so_far_from_discretization, seed_kg_discretization)
+    from cornell_moe_tpu_torch.models import mcmc as mcmc_mod
+    from cornell_moe_tpu_torch.ops import kernels, linalg, programs
+    from cornell_moe_tpu_torch.ops.domains import RepeatedDomain
+
+    check(config.KG_FANTASY_LOWP == "never", "the switch is not 'never'")
+    model, dev = bo.model, bo.device
+    states = model.models
+    g = torch.Generator(device=dev).manual_seed(4321)
+    unions = RepeatedDomain(domain=bo.domain, num_repeats=Q
+                            ).generate_latin_hypercube_points(g, MULTISTARTS)
+    f64 = mcmc_mod.fit_gp_ensemble(
+        model.kernel_name, torch.as_tensor(model._hypers, device=dev,
+                                           dtype=torch.float64),
+        torch.as_tensor(model._noises, device=dev, dtype=torch.float64),
+        model._data.points_sampled, model._scaled_values(),
+        model.derivatives, bucket=model.bucket)
+    never = _fantasy_outputs(torch, states, unions, False)
+    always = _fantasy_outputs(torch, states, unions, True)
+    exact = _fantasy_outputs(torch, f64, unions.double(), False)
+    errors = {name: {"always_vs_never": _err_over_scale(
+                         torch, always[name], never[name]),
+                     "always_vs_float64": _err_over_scale(
+                         torch, always[name], exact[name]),
+                     "never_vs_float64": _err_over_scale(
+                         torch, never[name], exact[name])}
+              for name in never}
+    nonfinite = {k: {"never": int((~torch.isfinite(never[k])).sum()),
+                     "always": int((~torch.isfinite(always[k])).sum())}
+                 for k in ("chol_u", "v")}
+    small = _lowp_test_problems(torch)
+    ga = torch.Generator(device=dev).manual_seed(99)
+    ra = torch.randn(states.inv_chol_K.shape, generator=ga,
+                     device=dev).to(torch.bfloat16)
+    rb = torch.randn(never["va"].shape, generator=ga, device=dev)
+    prod_r = linalg._bdot(ra, rb)
+    bdot_err = _err_over_scale(
+        torch, prod_r, ra.double() @ rb.to(torch.bfloat16).double())
+
+    def build(value):
+        def fn():
+            with _fantasy_switch(value):
+                kg._build_fantasy_model_batch(states, unions)
+        return fn
+
+    build_times = {v: _timed(torch, build(v), 10)
+                   for v in ("never", "always")}
+
+    # (b) the driver's suggest under each setting, from one generator state
+    gen = bo.generator
+    state0 = gen.get_state()
+    runs = {}
+    for label in ("never", "always", "always_replayed"):
+        gen.set_state(state0)
+        with _fantasy_switch("never" if label == "never" else "always"):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            b0, t0 = programs.build_count(), time.time()
+            pts, voi = bo.suggest()
+            torch.cuda.synchronize()
+        runs[label] = {"seconds": time.time() - t0,
+                       "builds": programs.build_count() - b0,
+                       "suggested": pts.tolist(), "voi": voi,
+                       "launches": kernels.launch_counts()}
+    gen.set_state(state0)
+    discrete = seed_kg_discretization(
+        gen, states, bo.domain, qei_params=bo.sgd_params,
+        ps_params=bo.inner_sgd_params, conv_tol=bo.seed_conv_tol,
+        chunk_size=bo.suggest_chunk_size, program_cache=bo.program_cache)
+    best = best_so_far_from_discretization(states, discrete)
+    crn = {}
+    for label in ("never", "always"):
+        pts = torch.as_tensor(runs[label]["suggested"], device=dev,
+                              dtype=bo.dtype)
+        crn[label] = [float(kg.score_knowledge_gradient_mcmc(
+            states, pts, discrete, draw_antithetic_normals(
+                torch.Generator(device=dev).manual_seed(seed), NUM_MC, Q,
+                device=dev, dtype=bo.dtype),
+            kg.inner_domain(bo.domain, 0), bo.inner_sgd_params, best,
+            program_cache=bo.program_cache)) * model.value_scale
+            for seed in LOWP_CRN_SEEDS]
+    band = max(abs(v - runs["never"]["voi"]) for v in crn["never"])
+    gen.set_state(state0)
+    with _fantasy_switch("always"):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        bo.observe(np.asarray(runs["always"]["suggested"]))
+        torch.cuda.synchronize()
+    observe = {"seconds": time.time() - t0,
+               "launches": kernels.launch_counts(),
+               "chain_steps": model.last_chain_steps}
+
+    # (c) back under "never": the "never" programs replay
+    before = {on: _program_replays(bo.program_cache, on)
+              for on in (False, True)}
+    b0, t0 = programs.build_count(), time.time()
+    pts_c, voi_c = bo.suggest()
+    torch.cuda.synchronize()
+    back = {"seconds": time.time() - t0, "voi": voi_c,
+            "builds": programs.build_count() - b0,
+            "replays_never": _program_replays(bo.program_cache, False),
+            "replays_always": _program_replays(bo.program_cache, True),
+            "replays_before": {"never": before[False],
+                               "always": before[True]}}
+
+    line = {"phase": "fantasy_lowp", "unions": list(unions.shape),
+            "ensemble": int(states.chol_K.shape[0]),
+            "padded_n": int(states.chol_K.shape[-1]),
+            "jax_test_problems": small, "bounds": LOWP_BOUNDS,
+            "errors_over_scale": errors,
+            "within_bounds": {k: errors[k]["always_vs_never"] is not None and
+                              errors[k]["always_vs_never"] <= LOWP_BOUNDS[k]
+                              for k in ("va", "w", "chol_u", "v")},
+            "nonfinite": nonfinite, "bdot_random_vs_float64": bdot_err,
+            "bdot_dtype": str(prod_r.dtype), "build_times": build_times,
+            "suggest": runs, "crn_seeds": list(LOWP_CRN_SEEDS),
+            "voi_under_crn_seeds": crn, "crn_band": band,
+            "voi_always_minus_never_over_band":
+                (runs["always"]["voi"] - runs["never"]["voi"]) / band
+                if band > 0 else None,
+            "observe_always": observe, "back_to_never": back,
+            "timing": TIMING.format(10)}
+    emit(line)
+    for problem, errs in small.items():
+        for name, err in errs.items():
+            check(err is not None and err <= LOWP_BOUNDS[name],
+                  f"the bf16 fantasy solve's {name} on the JAX test problem "
+                  f"{problem} is {err} from float32's, above "
+                  f"{LOWP_BOUNDS[name]}")
+    check(prod_r.dtype == torch.float32 and bdot_err is not None and
+          bdot_err <= 1e-5, f"the bf16 product with float32 output is "
+          f"{bdot_err} of its scale from the float64 sum")
+    check(errors["va"]["always_vs_never"] is not None and
+          errors["va"]["always_vs_never"] > 0, "the 'always' build did not "
+          "take the bf16 route")
+    a = runs["always"]
+    check(math.isfinite(a["voi"]) and np.isfinite(a["suggested"]).all(),
+          "the 'always' suggest is not finite")
+    check(a["launches"]["descent_run"] > 0, "the 'always' suggest did not "
+          "launch kernel A")
+    check(observe["launches"]["lml_fused"] > 0 and
+          observe["launches"]["covariance_with_noise"] > 0,
+          "the retrain under 'always' did not launch kernels B and C")
+    check(a["builds"] > 0 and runs["always_replayed"]["builds"] == 0 and
+          runs["always_replayed"]["suggested"] == a["suggested"],
+          "the 'always' suggest did not build its programs once and "
+          "replay them")
+    check(back["builds"] == 0 and back["replays_always"] ==
+          back["replays_before"]["always"] and all(
+              back["replays_never"][k] > back["replays_before"]["never"][k]
+              for k in ("kg_cold", "kg_warm_step")),
+          f"back under 'never' the suggest did not replay the 'never' "
+          f"programs: {back}")
+
+
 def phase_lcb(torch, states) -> None:
     """LCB batch selection (``lower_confidence_bound_optimization``) on
     member 0 of the main path's ensemble over 10,000 uniform candidates in
@@ -2310,8 +2662,9 @@ def phase_map(torch, bo) -> None:
     a damped Newton from each of 4 prior draws over the plain log
     posterior.  Kernel B has no backward, so the fit may not launch it;
     its counter is set to 0 just before and read just after.  The chosen
-    point (the best finite end, else the best start) is held against the
-    best start.  Each start's 40 Newton steps are one program of the
+    point must be the best finite end (its log posterior that end's, bit
+    for bit), or, when no end is finite, start 0 bit for bit, as the JAX
+    package keeps it.  Each start's 40 Newton steps are one program of the
     driver's cache, built once and replayed per start; the fit again from
     the same generator state with ``programs.CAPTURE = "never"`` must give
     the same ends and the same pick bit for bit."""
@@ -2359,7 +2712,7 @@ def phase_map(torch, bo) -> None:
               [float(v) for v in ends], "start_log_posteriors":
               [float(v) for v in start_lp], "chosen_log_posterior": chosen,
           "best_start_log_posterior": best_start,
-          "chosen_from": "end" if bool(finite.any()) else "start",
+          "chosen_from": "end" if bool(finite.any()) else "start_0",
           "hypers": model.hypers.tolist(), "launches": counts,
           "never_seconds": never_wall, "map_newton_program": newton,
           "bitwise_equal_to_never": equal})
@@ -2369,8 +2722,14 @@ def phase_map(torch, bo) -> None:
           f"the Newton program did not replay once per start: {newton}")
     check(all(equal.values()),
           f"the MAP fit with programs and CAPTURE = 'never' differ: {equal}")
-    check(chosen >= best_start,
-          f"MAP point {chosen} below the best start {best_start}")
+    if bool(finite.any()):
+        best_end = float(ends[finite].max())
+        check(chosen == best_end,
+              f"MAP point {chosen} is not the best finite end {best_end}")
+    else:
+        check(np.array_equal(model.hypers[0],
+                             model.map_starts[0].cpu().numpy()),
+              "no Newton end is finite, and the MAP point is not start 0")
     check(model.num_mcmc == 1 and
           bool(torch.isfinite(model.models.chol_K).all()),
           "the MAP member's fit is not finite")
@@ -3005,6 +3364,8 @@ def main() -> int:
     phase_chain_profile(torch, bo.model, nccl_world_of_one=True)
     phase_lcb(torch, bo.model.models)
     del problems
+    phase_fantasy_lowp(torch, bo)
+    release(torch, bo)
     cf = phase_cfkg(torch)
     phase_cfkg_equivalence(torch, cf)
     release(torch, cf)

@@ -213,6 +213,15 @@ def _build_fantasy_model(state: GaussianProcessState, union: torch.Tensor,
     return mu_u, chol_u, v
 
 
+def fantasy_key(dtype) -> tuple:
+    """The setting that a program building a batched fantasy model
+    (:func:`_build_fantasy_model_batch`) reads when it is captured, for the
+    program's key: ``config.kg_fantasy_lowp_enabled`` for inputs of
+    ``dtype``.  A program captured under one setting is not replayed under
+    the other."""
+    return ("kg_fantasy_lowp", config.kg_fantasy_lowp_enabled(dtype))
+
+
 def _build_fantasy_model_batch(state: GaussianProcessState,
                                unions: torch.Tensor,
                                derivatives_to_sample: Sequence[int] = ()):
@@ -220,7 +229,9 @@ def _build_fantasy_model_batch(state: GaussianProcessState,
 
     Returns (mu_u (S, B, q_ch), chol_u (S, B, q_ch, q_ch), v (S, B, N,
     q_ch), noise_eff (S, B, q_ch)), noise_eff being the diagonal shift
-    (channel noise + the float32 repair) inside chol_u.
+    (channel noise + the float32 repair) inside chol_u.  Its solve pair
+    takes the bfloat16 route where ``config.kg_fantasy_lowp_enabled``
+    says so (a program around it keys on :func:`fantasy_key`).
     """
     ds = cov_mod.channels(derivatives_to_sample)
     b, q, dim = unions.shape
@@ -231,8 +242,10 @@ def _build_fantasy_model_batch(state: GaussianProcessState,
     mu_u = mu_u.reshape(s, b, q, c)
     mu_u = torch.cat([mu_u[..., :1] + state.mean[:, None, None, None],
                       mu_u[..., 1:]], dim=-1).reshape(s, b, q * c)
-    va, w = linalg.fantasy_solves_rhs_grad_only(state.chol_K,
-                                                state.inv_chol_K, k_xu)
+    lowp = state.inv_chol_K.to(torch.bfloat16) \
+        if config.kg_fantasy_lowp_enabled(k_xu.dtype) else None
+    va, w = linalg.fantasy_solves_rhs_grad_only(
+        state.chol_K, state.inv_chol_K, k_xu, inv_chol_lowp=lowp)
     va = va.reshape(s, n, b, q * c)
     prior_u = cov_mod.build_block_covariance(
         _with_member_axes(state.covariance, 1), unions, ds, unions, ds)
@@ -834,7 +847,7 @@ def _kg_step_programs(program_cache, states, domain, q: int, being,
     key = (tuple(t.shape for t in tensors), layout,
            tuple(discrete_pts.shape), tuple(normals.shape),
            tuple(t.shape for t in extra), q, ds, num_fidelity, normals.dtype,
-           str(normals.device))
+           str(normals.device), fantasy_key(normals.dtype))
 
     def vg_carry(x, carry, inner_p, bounds, disc, nrm, best, *rest):
         vals, grads, xs = knowledge_gradient_mcmc_batch_vg_carry(

@@ -22,6 +22,26 @@ MINIMUM_STD_DEV = 1.0e-14
 # training-covariance Cholesky of the ensemble fit.
 F32_CHOLESKY_JITTER = 1.0e-6
 
+# The low-precision fantasy solve of the batched KG estimator
+# (``ops.linalg.fantasy_solves_rhs_grad_only(inv_chol_lowp=)``): L^-1 applied
+# as a bfloat16 copy with float32 products, refined once against the float32
+# factor.  The JAX package built it to halve the bytes of the fantasy
+# solves, evaluated it, and rejected it as a default: one bf16 correction
+# leaves va a small relative error, and the fantasy variance prior - va^T va,
+# a difference far smaller than |va|^2 on a converged model, inherits it
+# many times over, enough to move the KG pick.  "never" (the default) keeps
+# the float32 solve; "always" takes the bf16 route for float32 inputs, so the
+# route stays available and tested.  Any other value leaves it off: the JAX
+# package turns it on by itself only on a TPU, which the port never runs on.
+KG_FANTASY_LOWP = "never"
+
+
+def kg_fantasy_lowp_enabled(dtype) -> bool:
+    """Whether the batched KG's fantasy solve takes the bf16 route for
+    inputs of ``dtype``: only under ``KG_FANTASY_LOWP`` "always" and only
+    for float32."""
+    return KG_FANTASY_LOWP == "always" and dtype == torch.float32
+
 
 def default_device() -> torch.device:
     """``cuda:0``, or ``cuda:LOCAL_RANK`` on a rank of a ``torchrun``

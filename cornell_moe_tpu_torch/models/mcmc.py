@@ -220,16 +220,28 @@ def stretch_move_step(generator: torch.Generator, positions: torch.Tensor,
 def run_ensemble_mcmc(generator: torch.Generator, log_prob_fn: Callable,
                       initial_positions: torch.Tensor, num_steps: int,
                       a: float = 2.0, segment_fn: Optional[Callable] = None,
-                      segment: int = CHAIN_GATE_SEGMENT):
-    """Fixed-length stretch-move chain; returns (positions, log_probs).
+                      segment: int = CHAIN_GATE_SEGMENT,
+                      keep_chain: bool = False):
+    """Fixed-length stretch-move chain; returns (positions, log_probs), and
+    with ``keep_chain`` (positions, log_probs, chain), the chain
+    (num_steps, W, D) holding the positions after each step.
 
     With ``segment_fn`` ((positions, log_probs, u, idx, acc) ->
     (positions, log_probs, stat), :func:`chain_segment` of ``log_prob_fn``
     or its program) the steps run in ``segment``-step blocks and a
     remainder block, each from :func:`draw_segment`'s draws; without it
-    step by step.  Both take the same steps bit for bit."""
+    step by step.  Both take the same steps bit for bit.  A segment hands
+    back its last positions only, so ``keep_chain`` runs step by step
+    whether or not ``segment_fn`` is given: the same steps."""
     pos = initial_positions
     lp = log_prob_fn(pos)
+    if keep_chain:
+        chain = []
+        for _ in range(int(num_steps)):
+            pos, lp = stretch_move_step(generator, pos, lp, log_prob_fn, a)
+            chain.append(pos)
+        return pos, lp, (torch.stack(chain) if chain else
+                         pos.new_empty((0,) + tuple(pos.shape)))
     w = pos.shape[0]
     done = 0
     while done < int(num_steps):
@@ -599,8 +611,8 @@ class GaussianProcessLogLikelihoodMCMC:
         """MAP fit: a multistart damped Newton over the log posterior
         (``optimizers.newton_optimize``, 40 steps, gamma 1.05, time factor
         1e-2), from starts drawn from the prior and clipped inside the
-        bounds.  The best finite end wins; when no end is finite, the best
-        start stands (the JAX package keeps start 0 there).  A Newton step
+        bounds.  The best finite end wins; when no end is finite, start 0
+        stands as drawn, as in the JAX package.  A Newton step
         can leave the Tophat prior's support of the log length scales,
         where the log posterior is -inf and the step stops.  The log
         posterior is the plain one (``force_plain``): kernel B has no
@@ -643,11 +655,10 @@ class GaussianProcessLogLikelihoodMCMC:
                                            t0, *data) for t0 in starts])
         vals = torch.stack([value(t) for t in finals])
         self.map_starts, self.map_values = starts, vals
-        if not bool(torch.isfinite(vals).any()):
-            finals = starts
-            vals = torch.stack([value(t) for t in starts])
         pick = int(torch.argmax(torch.where(torch.isfinite(vals), vals,
                                             float("-inf"))))
+        if not bool(torch.isfinite(vals[pick])):
+            finals, pick = starts, 0
         self.hypers = finals[pick][None].cpu().numpy()
         self._finalize_models()
 

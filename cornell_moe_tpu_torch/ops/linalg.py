@@ -134,14 +134,77 @@ class _FantasySolves(torch.autograd.Function):
         return None, None, ct_rhs
 
 
+def _bdot(a_lowp: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a_lowp @ b with b rounded to a_lowp's dtype (bfloat16) and every
+    product and sum in float32, the result float32 (the JAX package's
+    ``preferred_element_type=jnp.float32``).  On the card one
+    ``torch.bmm(..., out_dtype=torch.float32)`` over the flattened batch
+    (a refusal raises); on the CPU, which has no such product, the rounded
+    operands multiply as float32, where each product of two bfloat16 values
+    is exact."""
+    b = b.to(a_lowp.dtype)
+    if a_lowp.device.type != "cuda":
+        return torch.matmul(a_lowp.float(), b.float())
+    lead = torch.broadcast_shapes(a_lowp.shape[:-2], b.shape[:-2])
+    a3 = a_lowp.expand(lead + a_lowp.shape[-2:]).reshape(
+        (-1,) + a_lowp.shape[-2:])
+    b3 = b.expand(lead + b.shape[-2:]).reshape((-1,) + b.shape[-2:])
+    out = torch.bmm(a3, b3, out_dtype=torch.float32)
+    return out.reshape(lead + out.shape[-2:])
+
+
+class _FantasySolvesMixed(torch.autograd.Function):
+    """:class:`_FantasySolves` with L^-1 applied as a bfloat16 copy
+    (:func:`_bdot`: float32 products and sums):
+
+        va0 = L^-1_bf16 rhs_bf16
+        r   = rhs - L va0                 (float32, full precision)
+        va  = va0 + L^-1_bf16 r_bf16
+        w   = L^-T_bf16 va_bf16
+
+    The float32 residual measures va0's rounding error and the correction
+    takes most of it out, so va keeps about the square of the bfloat16
+    product error; w carries that error once.  Backward, with the same
+    bfloat16 operators transposed:
+
+        ct_va_total = ct_va + L^-1_bf16 ct_w
+        ct_rhs      = L^-T_bf16 ct_va_total
+
+    and the factors get zero gradient by contract.
+    """
+
+    @staticmethod
+    def forward(ctx, chol, inv_chol_lowp, rhs):
+        va0 = _bdot(inv_chol_lowp, rhs)
+        r = rhs - chol @ va0
+        va = va0 + _bdot(inv_chol_lowp, r)
+        w = _bdot(inv_chol_lowp.transpose(-1, -2), va)
+        ctx.save_for_backward(inv_chol_lowp)
+        return va, w
+
+    @staticmethod
+    def backward(ctx, ct_va, ct_w):
+        (inv_chol_lowp,) = ctx.saved_tensors
+        ct_va_total = ct_va + _bdot(inv_chol_lowp, ct_w)
+        ct_rhs = _bdot(inv_chol_lowp.transpose(-1, -2), ct_va_total)
+        return None, None, ct_rhs
+
+
 def fantasy_solves_rhs_grad_only(chol: torch.Tensor, inv_chol: torch.Tensor,
-                                 rhs: torch.Tensor):
+                                 rhs: torch.Tensor,
+                                 inv_chol_lowp: torch.Tensor = None):
     """(va, w) = (refined L^-1 rhs, K^-1 rhs); gradients flow via rhs ONLY.
 
     ``chol`` and ``inv_chol`` are treated as constants (detached here), as
-    in the reference's ``fantasy_solves_rhs_grad_only``.
+    in the reference's ``fantasy_solves_rhs_grad_only``.  With
+    ``inv_chol_lowp`` (a bfloat16 copy of ``inv_chol``; float32 ``chol``
+    and ``rhs``) the pair takes the mixed-precision chain of
+    :class:`_FantasySolvesMixed`, and ``inv_chol`` is not read.
     """
-    return _FantasySolves.apply(chol.detach(), inv_chol.detach(), rhs)
+    if inv_chol_lowp is None:
+        return _FantasySolves.apply(chol.detach(), inv_chol.detach(), rhs)
+    return _FantasySolvesMixed.apply(chol.detach(), inv_chol_lowp.detach(),
+                                     rhs)
 
 
 def cholesky_small(a: torch.Tensor, max_unrolled: int = 16) -> torch.Tensor:

@@ -78,6 +78,7 @@ class _Schedule:
         self.num_rounds = max(int(params.max_num_restarts), 1)
         self.width = max(self.avg_n, 1)
         self.min_rows = self.width if self.use_avg else 1
+        self.steps_taken = 0      # steps taken by :meth:`_take`, in all
 
     def rate(self, i) -> float:
         """The step size at step index i."""
@@ -96,6 +97,7 @@ class _Schedule:
     def _take(self, grad_fn, step_fn, x, i):
         """(x_new, dx) at step index i: :meth:`step` along ``grad_fn(x)``,
         or ``step_fn(x, rate)`` (one step's program) when given."""
+        self.steps_taken += 1
         if step_fn is None:
             return self.step(x, grad_fn(x), i)
         return step_fn(x, self.rate(i))
@@ -264,7 +266,8 @@ def multistart_optimize_batched_warm(bvg_cold: Callable, bvg_warm: Callable,
                                      params: GradientDescentParameters,
                                      chunk_size: Optional[int] = None,
                                      conv_tol: Optional[float] = None,
-                                     warm_step: Optional[Callable] = None
+                                     warm_step: Optional[Callable] = None,
+                                     return_stats: bool = False
                                      ) -> MultistartResult:
     """Multistart GD threading an inner-problem carry across outer steps.
 
@@ -276,11 +279,23 @@ def multistart_optimize_batched_warm(bvg_cold: Callable, bvg_warm: Callable,
     consumes the cold gradients, and that point is row 0 of the round's
     trajectory.  ``conv_tol`` ends a chunk's round once every point's step
     norm is below it, never before the Polyak window is full.
+
+    ``return_stats``: the result is (MultistartResult, evaluations), the
+    warm steps each chunk took (int32, (n_chunks,) when the starts were
+    chunked, else 0-d), counted on the host by the step loop, which
+    already reads the gate there.
     """
     sch = _Schedule(params, domain)
     axes = tuple(range(1, initial_points.dim()))
+    evaluations = []
 
     def run_batch(starts):
+        taken = sch.steps_taken
+        x = run_chunk(starts)
+        evaluations.append(sch.steps_taken - taken)
+        return x
+
+    def run_chunk(starts):
         if sch.num_steps == 0:
             return starts
         _, g0, carry = bvg_cold(starts)
@@ -309,8 +324,12 @@ def multistart_optimize_batched_warm(bvg_cold: Callable, bvg_warm: Callable,
                                     step_fn=step_fn)
         return x
 
-    return _chunked_multistart(run_batch, lambda c: bvg_cold(c)[0],
-                               initial_points, chunk_size)
+    result = _chunked_multistart(run_batch, lambda c: bvg_cold(c)[0],
+                                 initial_points, chunk_size)
+    if not return_stats:
+        return result
+    evals = torch.tensor(evaluations, dtype=torch.int32)
+    return result, evals if len(evaluations) > 1 else evals[0]
 
 
 def multistart_optimize(value_and_grad_fn: Callable, domain,

@@ -44,3 +44,25 @@ def test_mcmc_model_needs_a_device_without_a_card(no_card):
     model = GaussianProcessLogLikelihoodMCMC(data, device="cpu")
     assert model.device == torch.device("cpu")
     assert model.dtype == torch.float64
+
+
+@pytest.mark.parametrize("value, dtype, on", [
+    ("never", torch.float32, False),
+    ("always", torch.float32, True),
+    ("always", torch.float64, False),
+    ("auto", torch.float32, False)])
+def test_kg_fantasy_lowp_gate(monkeypatch, value, dtype, on):
+    """The bfloat16 fantasy solve's gate: on only under "always" and only
+    for float32; off by default, and off for any other value (the JAX
+    package turns it on by itself only on a TPU backend; here, on the CPU,
+    its gate reads the same)."""
+    import jax.numpy as jnp
+
+    from cornell_moe_tpu import config as jconfig
+
+    assert config.KG_FANTASY_LOWP == jconfig.KG_FANTASY_LOWP == "never"
+    monkeypatch.setattr(config, "KG_FANTASY_LOWP", value)
+    monkeypatch.setattr(jconfig, "KG_FANTASY_LOWP", value)
+    assert config.kg_fantasy_lowp_enabled(dtype) is on
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.float64
+    assert jconfig.kg_fantasy_lowp_enabled(jdtype) is on

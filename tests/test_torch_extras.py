@@ -330,20 +330,45 @@ def test_map_fit_matches_jax_and_launches_no_lml_kernel(monkeypatch):
     assert kernels.launch_counts()["lml_fused"] == 1
 
 
-def test_map_fit_falls_back_to_the_best_start(monkeypatch):
-    """On 40 Branin values the log length scales climb past the Tophat
-    prior's bound (3) during the Newton steps, where the log posterior is
-    -inf: no end is finite, and the best start stands."""
+# 40 Branin values, on which the Newton steps from these starts leave the
+# Tophat prior's support; start 1's log posterior is above start 0's
+BRANIN_STARTS = np.array([[-0.29, -1.11, -0.24, -4.2],
+                          [1.54, 1.23, 1.96, -3.59]])
+
+
+def _branin_map_models():
     f = tsf.Branin()
     box = f._search_domain
     x = box[:, 0] + np.random.default_rng(0).random((40, 2)) * (
         box[:, 1] - box[:, 0])
-    data = HistoricalData(2)
-    data.append_historical_data(x, [f.evaluate_true(p)[0] for p in x])
-    tm = tmcmc.GaussianProcessLogLikelihoodMCMC(
-        data, bucket=16, n_hypers=8, standardize=True, device="cpu",
-        generator=torch.Generator().manual_seed(0))
-    starts = np.array([[-0.29, -1.11, -0.24, -4.2], [1.54, 1.23, 1.96, -3.59]])
+    y = [f.evaluate_true(p)[0] for p in x]
+    jdata, tdata = JData(2), HistoricalData(2)
+    jdata.append_historical_data(x, y)
+    tdata.append_historical_data(x, y)
+    kw = dict(bucket=16, n_hypers=8, standardize=True)
+    return (jmcmc.GaussianProcessLogLikelihoodMCMC(
+        jdata, rng_key=jax.random.PRNGKey(0), **kw),
+        tmcmc.GaussianProcessLogLikelihoodMCMC(
+            tdata, device="cpu", generator=torch.Generator().manual_seed(0),
+            **kw))
+
+
+def _given_starts(monkeypatch, jm, tm, starts):
+    """Each package's prior draw replaced by ``starts`` (this test only)."""
+    monkeypatch.setattr(type(jm.prior), "sample_from_prior",
+                        lambda self, key, n: jnp.asarray(starts[:n]))
+    monkeypatch.setattr(
+        type(tm.prior), "sample_from_prior",
+        lambda self, g, n, device=None, dtype=None: _t(starts[:n]))
+
+
+def test_map_fit_falls_back_to_start_0(monkeypatch):
+    """On 40 Branin values the log length scales climb past the Tophat
+    prior's bound (3) during the Newton steps, where the log posterior is
+    -inf: no end is finite, and start 0 stands as drawn, as in the JAX
+    package, though start 1's log posterior is higher."""
+    _, tm = _branin_map_models()
+    starts = BRANIN_STARTS
     monkeypatch.setattr(
         type(tm.prior), "sample_from_prior",
         lambda self, g, n, device=None, dtype=None: _t(starts[:n]))
@@ -351,7 +376,32 @@ def test_map_fit_falls_back_to_the_best_start(monkeypatch):
     assert not bool(torch.isfinite(tm.map_values).any())
     lp = [float(tm.compute_log_likelihood(s_)) for s_ in starts]
     assert np.isfinite(lp).all() and lp[1] > lp[0]
-    np.testing.assert_array_equal(tm.hypers[0], starts[1])
+    np.testing.assert_array_equal(tm.hypers[0], starts[0])
+
+
+@pytest.mark.parametrize("second_start, end_finite", [
+    (BRANIN_STARTS[1], False), ([0.5, -1.0, -1.0, -3.0], True)],
+    ids=["no_finite_end", "one_finite_end"])
+def test_map_fit_pick_matches_jax(monkeypatch, second_start, end_finite):
+    """optimize() on the 40 Branin values from the same two starts in both
+    packages, start 0 one whose Newton end leaves the Tophat support.
+    When start 1's end leaves it too, no end is finite and both keep start
+    0 bit for bit; when start 1's end is finite, both take that end, held
+    to each other at ``TOL``, the MAP tolerance of
+    :func:`test_map_fit_matches_jax_and_launches_no_lml_kernel`."""
+    jm, tm = _branin_map_models()
+    starts = np.array([BRANIN_STARTS[0], second_start])
+    _given_starts(monkeypatch, jm, tm, starts)
+    jm.optimize(num_restarts=2)
+    tm.optimize(num_restarts=2)
+    finite = torch.isfinite(tm.map_values).numpy()
+    assert not finite[0] and finite[1] == end_finite
+    if end_finite:
+        assert not np.allclose(tm.hypers[0], starts[1])
+        _close(tm.hypers, jm.hypers)
+    else:
+        np.testing.assert_array_equal(np.asarray(jm.hypers)[0], starts[0])
+        np.testing.assert_array_equal(tm.hypers[0], starts[0])
 
 
 def test_mcmc_model_surface():

@@ -1,7 +1,17 @@
 """Parity of the port's ops/linalg.py with the JAX package's, in float64.
 
 Tolerance: rtol 1e-9 / atol 1e-11, the JAX package's own bound for
-refined-solve identities (tests/test_linalg.py:70).
+refined-solve identities (tests/test_linalg.py:70).  The bfloat16 fantasy
+solve (``inv_chol_lowp``) runs in float32: against the JAX package's at
+``LOWP_TOL`` (1e-4) of each output's scale, and against the exact float32
+solve at the JAX package's own bounds (tests/test_linalg.py:139-175: va
+3e-4, w and the gradient 2e-2).  Both packages multiply the same bfloat16
+operands exactly and sum in float32, each in its own order; where the two
+float32 residuals (or va) straddle a bfloat16 rounding boundary, their
+bfloat16 copies differ by one unit in the last place (2^-8) of the
+correction, about 2^-16 of va times the conditioning of L: on these
+well-conditioned systems (K = A A^T + n I) up to 1e-5 of the scale,
+measured at n 24 to 200, so 1e-4 holds with room.
 """
 
 import jax
@@ -16,6 +26,7 @@ from cornell_moe_tpu_torch.ops import linalg as tl
 torch.set_num_threads(1)
 F64 = torch.float64
 TOL = dict(rtol=1e-9, atol=1e-11)
+LOWP_TOL = 1e-4
 
 
 def _spd(rng, n, batch=()):
@@ -114,3 +125,89 @@ def test_small_cholesky_and_solves(rng):
     np.testing.assert_allclose(tl.symmetrize(_t(a[0])).numpy(),
                                np.asarray(jl.symmetrize(jnp.asarray(a[0]))),
                                **TOL)
+
+
+def _spd_system_f32(rng, n=40, rhs_cols=7):
+    """tests/test_linalg.py's system (K = A A^T + n I), in float32."""
+    a = rng.standard_normal((n, n))
+    chol = np.linalg.cholesky(a @ a.T + n * np.eye(n))
+    inv = np.linalg.inv(chol)
+    rhs = rng.standard_normal((n, rhs_cols))
+    return tuple(x.astype(np.float32) for x in (chol, inv, rhs))
+
+
+def _lowp_pair_torch(chol, inv, rhs, ct_va, ct_w):
+    rhs_t = torch.as_tensor(rhs).requires_grad_(True)
+    inv_t = torch.as_tensor(inv)
+    va, w = tl.fantasy_solves_rhs_grad_only(
+        torch.as_tensor(chol), inv_t, rhs_t,
+        inv_chol_lowp=inv_t.to(torch.bfloat16))
+    torch.autograd.backward((va, w), (torch.as_tensor(ct_va),
+                                      torch.as_tensor(ct_w)))
+    return va.detach().numpy(), w.detach().numpy(), rhs_t.grad.numpy()
+
+
+def _close_to_scale(got, ref, frac, name):
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=frac * float(np.max(np.abs(ref))),
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_fantasy_solves_lowp_matches_jax(rng, batch):
+    """va, w and the VJP of the bfloat16 chain against JAX's
+    ``fantasy_solves_rhs_grad_only(..., inv_chol_lowp=inv_chol.astype(
+    jnp.bfloat16))``; every output is float32."""
+    systems = [_spd_system_f32(rng, n=24, rhs_cols=5)
+               for _ in range(int(np.prod(batch)))]
+    chol, inv, rhs = (np.stack(a).reshape(batch + a[0].shape)
+                      for a in zip(*systems))
+    ct_va = rng.standard_normal(rhs.shape).astype(np.float32)
+    ct_w = rng.standard_normal(rhs.shape).astype(np.float32)
+
+    def pair(r):
+        return jl.fantasy_solves_rhs_grad_only(
+            jnp.asarray(chol), jnp.asarray(inv), r,
+            inv_chol_lowp=jnp.asarray(inv).astype(jnp.bfloat16))
+
+    (va_j, w_j), vjp = jax.vjp(pair, jnp.asarray(rhs))
+    (g_j,) = vjp((jnp.asarray(ct_va), jnp.asarray(ct_w)))
+    got = _lowp_pair_torch(chol, inv, rhs, ct_va, ct_w)
+    for name, g, r in zip(("va", "w", "rhs_grad"), got, (va_j, w_j, g_j)):
+        assert g.dtype == np.float32 and np.asarray(r).dtype == np.float32
+        _close_to_scale(g, np.asarray(r), LOWP_TOL, name)
+
+
+def test_fantasy_solves_lowp_within_the_jax_bounds(rng):
+    """The port's own contract, tests/test_linalg.py:139-175: the bfloat16
+    chain's va within 3e-4 of the exact float32 solve's scale, w and the
+    gradient of sum(sin va) + sum(cos w) within 2e-2."""
+    chol, inv, rhs = _spd_system_f32(rng)
+
+    def grad(lowp):
+        rhs_t = torch.as_tensor(rhs).requires_grad_(True)
+        inv_t = torch.as_tensor(inv)
+        va, w = tl.fantasy_solves_rhs_grad_only(
+            torch.as_tensor(chol), inv_t, rhs_t,
+            inv_chol_lowp=inv_t.to(torch.bfloat16) if lowp else None)
+        (torch.sum(torch.sin(va)) + torch.sum(torch.cos(w))).backward()
+        return va.detach().numpy(), w.detach().numpy(), rhs_t.grad.numpy()
+
+    va_lp, w_lp, g_lp = grad(True)
+    va_ex, w_ex, g_ex = grad(False)
+    _close_to_scale(va_lp, va_ex, 3e-4, "va")
+    _close_to_scale(w_lp, w_ex, 2e-2, "w")
+    _close_to_scale(g_lp, g_ex, 2e-2, "rhs_grad")
+    assert not np.array_equal(va_lp, va_ex)
+
+
+def test_fantasy_solves_lowp_gives_the_factors_no_gradient(rng):
+    chol, inv, rhs = _spd_system_f32(rng, n=12, rhs_cols=3)
+    chol_t = torch.as_tensor(chol).requires_grad_(True)
+    lowp = torch.as_tensor(inv).to(torch.bfloat16).requires_grad_(True)
+    rhs_t = torch.as_tensor(rhs).requires_grad_(True)
+    va, w = tl.fantasy_solves_rhs_grad_only(
+        chol_t, torch.as_tensor(inv), rhs_t, inv_chol_lowp=lowp)
+    (va.sum() + w.sum()).backward()
+    assert chol_t.grad is None and lowp.grad is None
+    assert rhs_t.grad is not None and bool(torch.isfinite(rhs_t.grad).all())

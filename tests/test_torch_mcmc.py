@@ -7,7 +7,12 @@ float32 at rtol 5e-4 against the Pallas kernel in interpret mode at
 Np = 128 (tests/test_pallas_descent.py:168-171) and against JAX's vmapped
 LML at Np = 384, where the Pallas kernel cannot trace; the model
 log-posterior at 1e-4 (tests/test_pallas_descent.py:203-204); a stretch
-move fed JAX's random numbers bit for bit.
+move fed JAX's random numbers bit for bit.  The sampler's statistics
+(``run_ensemble_mcmc(keep_chain=True)`` from a seeded ``torch.Generator``)
+at the bounds of the JAX package's own statistical tests
+(tests/test_likelihood_mcmc.py:138, 292 and 371): a known Gaussian, a 1-d
+GP posterior known by quadrature, and an independent numpy stretch move on
+a 3-d GP posterior.
 """
 
 import math
@@ -222,3 +227,137 @@ def test_train_and_walker_transfer(rng):
     assert tm.burned and tm.last_chain_steps in (192, 256, 320)
     assert torch.isfinite(tm.models.chol_K).all()
     assert tm.models.chol_K.shape == (16, 24, 24)
+
+
+# ---------------------------------------------------------------------------
+# sampler statistics (run_ensemble_mcmc(keep_chain=True))
+# ---------------------------------------------------------------------------
+
+def test_keep_chain_takes_the_segment_chains_steps(rng):
+    """``keep_chain`` runs step by step even when a ``segment_fn`` is given
+    (a segment hands back its last positions only): the same steps, bit for
+    bit, as the segment chain, its last row the final positions."""
+    mean = _t([1.0, -2.0])
+
+    def log_prob(theta):
+        return -0.5 * torch.sum((theta - mean) ** 2, dim=-1)
+
+    def segment_fn(pos, lp, u, idx, acc):
+        return tmcmc.chain_segment(log_prob, pos, lp, u, idx, acc)
+
+    p0 = _t(rng.standard_normal((8, 2)))
+    pos_s, lp_s = tmcmc.run_ensemble_mcmc(
+        torch.Generator().manual_seed(5), log_prob, p0, 70,
+        segment_fn=segment_fn)
+    for seg in (None, segment_fn):
+        pos, lp, chain = tmcmc.run_ensemble_mcmc(
+            torch.Generator().manual_seed(5), log_prob, p0, 70,
+            segment_fn=seg, keep_chain=True)
+        assert chain.shape == (70, 8, 2)
+        assert torch.equal(pos, pos_s) and torch.equal(lp, lp_s)
+        assert torch.equal(chain[-1], pos)
+
+
+def test_stretch_move_sampler_recovers_gaussian():
+    """The moments of a known 2-d Gaussian (tests/test_likelihood_mcmc.py:
+    138): 32 walkers, 1500 steps, the first 500 dropped; mean within 0.1,
+    covariance within 0.25."""
+    mean = _t([1.0, -2.0])
+    cov = np.array([[1.0, 0.6], [0.6, 2.0]])
+    cov_inv = _t(np.linalg.inv(cov))
+
+    def log_prob(theta):
+        d = theta - mean
+        return -0.5 * torch.einsum("wi,ij,wj->w", d, cov_inv, d)
+
+    g = torch.Generator().manual_seed(3)
+    p0 = torch.randn((32, 2), generator=g, dtype=F64)
+    _, _, chain = tmcmc.run_ensemble_mcmc(
+        torch.Generator().manual_seed(4), log_prob, p0, 1500,
+        keep_chain=True)
+    samples = chain[500:].reshape(-1, 2).numpy()
+    np.testing.assert_allclose(samples.mean(0), [1.0, -2.0], atol=0.1)
+    np.testing.assert_allclose(np.cov(samples.T), cov, atol=0.25)
+
+
+def test_sampler_statistics_match_quadrature(rng):
+    """Posterior moments of a real 1-d GP-LML target against quadrature
+    (tests/test_likelihood_mcmc.py:292): K(theta) = e^theta C for a fixed
+    C, under a N(0, 1) prior, through the port's own LML; 10 walkers, 400
+    burn-in steps, 4000 kept; mean within 0.12 and std within 0.15 of the
+    exact std."""
+    n = 30
+    x = rng.uniform(-2, 2, (n, 1))
+    d2 = (x[:, None, 0] - x[None, :, 0]) ** 2
+    c = np.exp(-0.5 * d2 / 0.7**2) + 0.1 * np.eye(n)
+    y = np.linalg.cholesky(c) @ rng.standard_normal(n) * 1.3
+    s = float(y @ np.linalg.solve(c, y))
+
+    tg = np.linspace(-6.0, 6.0, 20001)
+    logp = -0.5 * s * np.exp(-tg) - 0.5 * n * tg - 0.5 * tg**2
+    p = np.exp(logp - logp.max())
+    p /= np.trapezoid(p, tg)
+    mean_q = np.trapezoid(tg * p, tg)
+    std_q = np.sqrt(np.trapezoid((tg - mean_q) ** 2 * p, tg))
+
+    xt, yt = _t(x), _t(y[:, None])
+
+    def log_prob(thetas):
+        th = thetas[:, 0]
+        cov = tcov.SquareExponential(hyperparameters=torch.stack(
+            [torch.exp(th), torch.full_like(th, 0.7)], dim=-1))
+        lml = tlik.log_marginal_likelihood(cov, 0.1 * torch.exp(th)[:, None],
+                                           xt, yt)
+        return lml - 0.5 * th**2
+
+    p0 = _t(rng.standard_normal((10, 1)))
+    pos, _ = tmcmc.run_ensemble_mcmc(torch.Generator().manual_seed(3),
+                                     log_prob, p0, 400)
+    _, _, chain = tmcmc.run_ensemble_mcmc(
+        torch.Generator().manual_seed(4), log_prob, pos, 4000,
+        keep_chain=True)
+    samples = chain.reshape(-1).numpy()
+    mean_c, std_c = samples.mean(), samples.std()
+    assert abs(mean_c - mean_q) < 0.12 * std_q, (mean_c, mean_q, std_q)
+    assert abs(std_c - std_q) < 0.15 * std_q, (std_c, std_q)
+
+
+def test_sampler_statistics_match_numpy_reference(rng):
+    """The port's chain against the JAX package's independent numpy
+    stretch move (tests/test_likelihood_mcmc.py:371) on the real 3-d GP
+    log-posterior (log amplitude, log length, log noise) under a N(0, 1.5)
+    prior, both through the port's LML: 12 walkers, 600 burn-in steps,
+    4000 kept; each coordinate's mean within 0.2 and std within 0.25 of
+    the reference's std."""
+    from test_likelihood_mcmc import _data, _numpy_stretch_move
+
+    x, y = _data(rng, n=25, dim=1)
+    xt, yt = _t(x), _t(y[:, None])
+    prior = tpriors.NormalPrior(mean=0.0, sigma=1.5)
+
+    def log_prob(thetas):
+        cov = tcov.SquareExponential(hyperparameters=torch.exp(thetas[:, :2]))
+        val = tlik.log_marginal_likelihood(
+            cov, torch.exp(thetas[:, 2:3]), xt, yt) + prior.lnprob(thetas)
+        return torch.where(torch.isfinite(val), val, float("-inf"))
+
+    def log_prob_np(thetas):
+        return log_prob(_t(thetas)).numpy()
+
+    walkers, burn, steps = 12, 600, 4000
+    p0 = 0.5 * rng.standard_normal((walkers, 3))
+    pos, _ = tmcmc.run_ensemble_mcmc(torch.Generator().manual_seed(11),
+                                     log_prob, _t(p0), burn)
+    _, _, chain = tmcmc.run_ensemble_mcmc(
+        torch.Generator().manual_seed(12), log_prob, pos, steps,
+        keep_chain=True)
+    dev = chain.reshape(-1, 3).numpy()
+
+    ref_rng = np.random.default_rng(7)
+    pos_np = _numpy_stretch_move(ref_rng, log_prob_np, p0.copy(), burn)
+    ref = _numpy_stretch_move(ref_rng, log_prob_np, pos_np[-1], steps)
+    ref = ref.reshape(-1, 3)
+    for k in range(3):
+        sd = ref[:, k].std()
+        assert abs(dev[:, k].mean() - ref[:, k].mean()) < 0.2 * sd, k
+        assert abs(dev[:, k].std() - sd) < 0.25 * sd, k

@@ -105,6 +105,47 @@ def test_bo_loop_builds_once_per_bucket(monkeypatch):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+def test_fantasy_switch_keys_the_kg_programs(monkeypatch):
+    """``config.KG_FANTASY_LOWP`` is read when a program that builds a
+    batched fantasy model is captured, so its resolved value is part of
+    the keys of the KG multistart's cold evaluation and warm step
+    (``knowledge_gradient.fantasy_key``).  In float32, from the same
+    generator state: a suggest under "never", then one under "always",
+    which builds those two programs again (the seeding and scoring
+    programs replay), then one under "never" again, which builds nothing
+    and gives the first suggest's points and VOI bit for bit."""
+    monkeypatch.setattr(programs, "CAPTURE", "auto")
+    fast = optimizers.GradientDescentParameters(
+        num_multistarts=4, max_num_steps=5, max_num_restarts=1,
+        num_steps_averaged=2, gamma=0.7, pre_mult=1.0,
+        max_relative_change=0.5)
+    bo = tbo.BayesianOptimizer(
+        objective_func=tsf.Branin(), method="KG", num_to_sample=2,
+        num_mc=8, n_hypers=4, chain_length=20, burnin_steps=20,
+        noisy=True, standardize=True, sgd_params=fast, verbose=False,
+        shape_bucket=8, device="cpu", dtype=torch.float32)
+    bo.initialize(num_init_pts=6)
+    state = bo.generator.get_state()
+    runs = []
+    for value in ("never", "always", "never"):
+        monkeypatch.setattr(config, "KG_FANTASY_LOWP", value)
+        bo.generator.set_state(state)
+        start = programs.build_count()
+        pts, voi = bo.suggest()
+        runs.append((pts, voi, programs.build_count() - start,
+                     sorted(k[0] for k in bo.program_cache.programs())))
+    assert runs[0][2] == 5
+    assert runs[1][2] == 2 and runs[2][2] == 0
+    assert runs[1][3] == sorted(runs[0][3] + ["kg_cold", "kg_warm_step"])
+    settings = sorted((k[0], ("kg_fantasy_lowp", True) in k)
+                      for k in bo.program_cache.programs()
+                      if k[0] in ("kg_cold", "kg_warm_step"))
+    assert settings == [(kind, on) for kind in ("kg_cold", "kg_warm_step")
+                        for on in (False, True)]
+    np.testing.assert_array_equal(runs[2][0], runs[0][0])
+    assert runs[2][1] == runs[0][1]
+
+
 def _driver_runs(capture, monkeypatch, **kw):
     """Two iterations of a small driver inside one bucket (5 -> 7 -> 9
     observations, bucket 16) with ``CAPTURE`` = ``capture``: the history,
