@@ -44,9 +44,12 @@ time, step by step and as the chain's captured 64-step segment).  It
 runs the bfloat16 fantasy solve (``config.KG_FANTASY_LOWP`` "always") on
 the main path's ensemble: its error against float32 and float64, held to
 the JAX package's bounds on that package's own test problems, and one
-suggest and retrain through the driver under it, whose KG programs are
+suggest and retrain through the driver under it, whose programs are
 keyed by the switch (back under "never", the next suggest replays the
-"never" programs).  It
+"never" programs); then it flips each kernel switch between two calls of
+one stage on the main path's driver (``switch_keys``: each switch is part
+of every program's key, so "never" builds its own program and launches
+nothing, and "auto" replays the first one bit for bit).  It
 drives one continuous-fidelity KG iteration (``BraninFidelity``, the main
 path's size, d = 3 with one fidelity dim: kernels B and C, no
 kernel A) and holds B and C against their plain versions at that path's
@@ -54,7 +57,9 @@ shapes; one LCB batch selection on the main path's ensemble; and one
 iteration of ``pes_driver.run_PES`` on Hartmann6 at the reference scale
 (60 points, 100 hyperparameter sets, 1000 features, grid 500).  It
 drives one ``BayesianOptimizer(method="EI")`` iteration at the main path's
-size (kernels B and C, not A or D), heuristic q-EI on its member 0 under
+size (kernels B and C, not A or D) with the ensemble q-EI multistart's
+batched and per-start routes on its ensemble, heuristic q-EI on its
+member 0 under
 both estimation policies (C at the refit's ragged n 516, held against its
 plain version there), the MAP fit on its model (no launch of B); the
 cf-KG, EI, heuristic q-EI and MAP runs each take their stages through
@@ -69,7 +74,8 @@ chain, the ensemble, the KG multistart held bit for bit to the core's with
 and without a point being sampled, the recommendation) and the single-GP
 surface against its float64 CPU refit.
 Last it checks the port against its own float64 CPU path on small inputs:
-value-only, with derivative channels, with a fidelity dim, PES and EI.
+value-only, with derivative channels, with a fidelity dim, PES and EI, and
+the covariance's dk/dx against autograd in float32.
 Every phase
 prints one JSON line; the kernels' summary is one JSON line, with each
 kernel's device time (its own CUDA events under ``torch.profiler``) and
@@ -1852,11 +1858,12 @@ def _lowp_test_problems(torch) -> dict:
 
 
 def _program_replays(cache, lowp: bool) -> dict:
-    """Replays of the KG programs that build a fantasy model, by kind, for
-    one setting of the switch (``knowledge_gradient.fantasy_key``)."""
+    """Replays of the programs by kind for one setting of the switch
+    (every program's key holds it, ``programs.keyed_switch``)."""
+    value = ("config.KG_FANTASY_LOWP", "always" if lowp else "never")
     out = {}
     for key, prog in cache.programs().items():
-        if ("kg_fantasy_lowp", lowp) in key:
+        if value in key:
             out[key[0]] = out.get(key[0], 0) + prog.replays
     return out
 
@@ -1878,13 +1885,13 @@ def phase_fantasy_lowp(torch, bo) -> None:
     the same bfloat16 products (a bfloat16 output would be about 2e-3
     off); both builds timed.
     (b) From one generator state, the driver's suggest under "never" (the
-    reference pick) and under "always" (it builds its KG programs again;
-    a second call replays them), each pick's VOI under three more draws of
-    normals (the CRN band), then the observation of the "always" pick
-    under "always": wall times, builds, and the launches of A in the
-    suggest and of B and C in the retrain.  (c) Back under "never", the
-    next suggest builds nothing and replays the "never" KG programs, not
-    the "always" ones."""
+    reference pick) and under "always" (it builds its programs again,
+    every key holding the switch; a second call replays them), each
+    pick's VOI under three more draws of normals (the CRN band), then the
+    observation of the "always" pick under "always": wall times, builds,
+    and the launches of A in the suggest and of B and C in the retrain.  (c) Back under "never", the
+    next suggest builds nothing and replays the "never" programs, not the
+    "always" ones."""
     import numpy as np
     from cornell_moe_tpu_torch import config
     from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
@@ -2045,6 +2052,221 @@ def phase_fantasy_lowp(torch, bo) -> None:
               for k in ("kg_cold", "kg_warm_step")),
           f"back under 'never' the suggest did not replay the 'never' "
           f"programs: {back}")
+
+
+SWITCH_KEY_BLOCKS = 8     # start blocks of A's cold step in switch_keys
+
+
+def _switch_runs(torch, cache, module, name, kind, kernel, run) -> tuple:
+    """``run()`` (a stage whose program is of ``kind``) under ``name`` of
+    ``module`` "auto", then "never", then "auto" again, on the same
+    inputs; every launch counter set to 0 just before each run and read
+    just after.  The switch is "auto" afterwards.  Returns (per run: wall
+    seconds, builds, ``kernel``'s launches, the programs of ``kind`` and
+    their replays per switch value; per run: the result)."""
+    from cornell_moe_tpu_torch.ops import kernels, programs
+    qual = f"{module.__name__.rsplit('.', 1)[-1]}.{name}"
+    line, results = {}, {}
+    for label, value in (("auto", "auto"), ("never", "never"),
+                         ("auto_again", "auto")):
+        setattr(module, name, value)
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            b0, t0 = programs.build_count(), time.time()
+            results[label] = run()
+            torch.cuda.synchronize()
+        finally:
+            setattr(module, name, "auto")
+        progs = {v: [p.replays for k, p in cache.programs().items()
+                     if programs.kind(k) == kind and (qual, v) in k]
+                 for v in ("auto", "never")}
+        line[label] = {"seconds": time.time() - t0,
+                       "builds": programs.build_count() - b0,
+                       "launches": kernels.launch_counts()[kernel],
+                       "programs": {v: len(r) for v, r in progs.items()},
+                       "replays": {v: sum(r) for v, r in progs.items()}}
+    return line, results
+
+
+def _check_switch(label, line, same) -> None:
+    """The switch_keys rule for one kernel: "never" builds one program of
+    its kind and launches the kernel 0 times; back under "auto" nothing is
+    built, the "auto" program replays, the kernel launches as in the first
+    run, and the result is the first run's bit for bit (``same``)."""
+    a, n, b = line["auto"], line["never"], line["auto_again"]
+    check(n["builds"] == 1 and n["launches"] == 0 and
+          n["programs"]["never"] == a["programs"]["never"] + 1,
+          f"{label} under 'never' did not build one program and launch "
+          f"nothing: {line}")
+    check(a["launches"] > 0 and b["builds"] == 0 and
+          b["launches"] == a["launches"] and
+          b["programs"] == n["programs"] and
+          b["replays"]["auto"] > n["replays"]["auto"] and
+          b["replays"]["never"] == n["replays"]["never"],
+          f"{label} back under 'auto' did not replay its first program: "
+          f"{line}")
+    check(same, f"{label} back under 'auto' differs from its first run")
+
+
+def _bitwise(torch, a, b) -> bool:
+    return all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+def phase_switch_keys(torch, bo) -> None:
+    """Each kernel switch is part of every program's key
+    (``programs.keyed_switch``), so flipping it between two calls of one
+    driver builds the stage again instead of replaying the graph captured
+    under the other value.  On the main path's driver after its iteration,
+    for each kernel, its stage under "auto", under "never" and under
+    "auto" again (:func:`_switch_runs`, :func:`_check_switch`), and the
+    "never" result held to the "auto" one by the kernel's rule of
+    phase_equivalence:
+
+    - B (``mcmc.LML_PALLAS``): one 64-step segment of the retrain's chain
+      (its ``chain_64`` program) from the model's walkers, every stretch
+      z = 1 (each proposal its own walker, to rounding) and every finite
+      proposal taken (u_accept = 0), so that both routes stay at the same
+      walkers; the log posteriors at the end within rel 5e-3 of each
+      other where both are finite, the kernel's finite wherever float64
+      is (their deviations from float64 reported: at converged walkers
+      float32 is about 1e-2 off either way).
+    - C (``covariance.USE_PALLAS``): the ensemble fit at the model's
+      hyperparameters (its ``fit`` program); L L^T of both fits, in
+      float64, within C's rtol 2e-4, atol 2e-5 of each other, over the
+      members whose float32 factor is finite in both.
+    - A (``knowledge_gradient.DESCENT_PALLAS``): the KG multistart's cold
+      step (its ``kg_cold`` program) at ``SWITCH_KEY_BLOCKS`` start blocks
+      of the main path's q, draws and inner parameters; the carried
+      descent endpoints against the same step in float64 on the same
+      state, per quantile in domain-width units: the kernel's within
+      max(5e-5, 1.5 x the plain float32 route's)."""
+    from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
+    from cornell_moe_tpu_torch.acquisition.expected_improvement import (
+        draw_antithetic_normals)
+    from cornell_moe_tpu_torch.bayes_opt import (
+        best_so_far_from_discretization)
+    from cornell_moe_tpu_torch.models import covariance as cov_mod
+    from cornell_moe_tpu_torch.models import gp as gp_mod
+    from cornell_moe_tpu_torch.models import mcmc as mcmc_mod
+    from cornell_moe_tpu_torch.ops.domains import RepeatedDomain
+
+    model, cache, dev = bo.model, bo.program_cache, bo.device
+    states = model.models
+    x, y, pn = model._padded_data()
+    g = torch.Generator(device=dev).manual_seed(77)
+    out = {}
+
+    # B: the retrain's chain segment
+    w, steps = model.n_hypers, mcmc_mod.CHAIN_GATE_SEGMENT
+    half = (steps, 2, w // 2)
+    u = torch.full(half, math.sqrt(2.0) - 1.0, device=dev, dtype=bo.dtype)
+    idx = torch.randint(0, w // 2, half, generator=g, device=dev)
+    acc = torch.zeros(half, device=dev, dtype=bo.dtype)
+    pos0 = model.p0
+    lp0 = model.log_posterior(pos0, x, y, pn)
+    segment = model._segment_program(x, y, pn)
+    line, res = _switch_runs(torch, cache, mcmc_mod, "LML_PALLAS",
+                             "chain_64", "lml_fused",
+                             lambda: segment(pos0, lp0, u, idx, acc))
+    (pa, la, _), (pv, lv, _) = res["auto"], res["never"]
+    data64 = [None if t is None else t.double() for t in (x, y, pn)]
+    lp64 = model.log_posterior(pa.double(), *data64, force_plain=True)
+    fin = torch.isfinite(lp64)
+    both = torch.isfinite(la) & torch.isfinite(lv)
+    rel = ((lv.double() - la.double()).abs() /
+           la.double().abs().clamp_min(1.0))[both]
+    ok_b = bool(both.any()) and bool(torch.isfinite(la)[fin].all()) and \
+        rel.max().item() <= 5e-3
+    line.update({
+        "stage": "chain_64 segment of the retrain (z = 1, u_accept = 0)",
+        "max_position_diff": (pa - pv).abs().max().item(),
+        "finite": {"auto": int(torch.isfinite(la).sum()),
+                   "never": int(torch.isfinite(lv).sum()),
+                   "float64": int(fin.sum())},
+        "max_rel_dev_never_vs_auto": rel.max().item()
+        if bool(both.any()) else None,
+        "max_rel_dev_vs_f64": {
+            k: _finite_or_none(((v.double() - lp64).abs() /
+                                lp64.abs().clamp_min(1.0))[fin & both])
+            for k, v in (("auto", la), ("never", lv))},
+        "tolerance": "never vs auto: max rel 5e-3 where both are finite; "
+                     "auto finite wherever float64 is", "ok": ok_b})
+    out["lml_fused"] = line
+    _check_switch("B (LML_PALLAS)", line,
+                  _bitwise(torch, res["auto"], res["auto_again"]))
+    check(ok_b, f"the chain segment's log posteriors under 'never' are "
+                f"off the 'auto' ones: {line}")
+
+    # C: the ensemble fit
+    def fit():
+        st = model._fit(model._hypers, model._noises)
+        return st.chol_K, st.K_inv_y, st.inv_chol_K
+
+    line, res = _switch_runs(torch, cache, cov_mod, "USE_PALLAS", "fit",
+                             "covariance_with_noise", fit)
+    finite = [torch.isfinite(r[0]).flatten(1).all(dim=1)
+              for r in (res["auto"], res["never"])]
+    members = finite[0] & finite[1]
+    ka, kv = (r[0][members].double() @ r[0][members].double().transpose(
+        -1, -2) for r in (res["auto"], res["never"]))
+    err = (ka - kv).abs()
+    ok_c = bool(members.any()) and bool((err <= 2e-5 + 2e-4 * kv.abs()).all())
+    line.update({"stage": "ensemble fit at the model's hyperparameters",
+                 "shape": list(res["auto"][0].shape),
+                 "finite_members": {"auto": int(finite[0].sum()),
+                                    "never": int(finite[1].sum())},
+                 "max_abs_err_llt": err.max().item(),
+                 "max_rel_err_llt": (err / kv.abs().clamp_min(1e-30)
+                                     ).max().item(),
+                 "tolerance": "L L^T (float64) of both fits: rtol 2e-4, "
+                              "atol 2e-5", "ok": ok_c})
+    out["covariance_with_noise"] = line
+    _check_switch("C (USE_PALLAS)", line,
+                  _bitwise(torch, res["auto"], res["auto_again"]))
+    check(ok_c, f"the fit under 'never' is off the 'auto' fit: {line}")
+
+    # A: the KG multistart's cold step
+    dom = bo.domain
+    starts = RepeatedDomain(domain=dom, num_repeats=Q
+                            ).generate_latin_hypercube_points(
+                                g, SWITCH_KEY_BLOCKS)
+    discrete = dom.generate_uniform_random_points_in_domain(
+        g, states.chol_K.shape[0] * 11).reshape(-1, 11, dom.dim)
+    normals = draw_antithetic_normals(g, NUM_MC, Q, device=dev,
+                                      dtype=bo.dtype)
+    best = best_so_far_from_discretization(states, discrete)
+    cold, _ = kg._kg_step_programs(
+        cache, states, dom, Q, None, discrete, normals, bo.inner_sgd_params,
+        bo.inner_sgd_params, best, (), 0, bo.sgd_params)
+    line, res = _switch_runs(torch, cache, kg, "DESCENT_PALLAS", "kg_cold",
+                             "descent_run", lambda: cold(starts))
+    tensors, layout = gp_mod.state_tensors(states)
+    s64 = gp_mod.state_from_tensors(layout, [t.double() for t in tensors])
+    inner64 = kg.inner_domain(type(dom)(bounds=dom.bounds.double()), 0)
+    _, _, x64 = kg.knowledge_gradient_mcmc_batch_vg_carry(
+        s64, starts.double(), discrete.double(), normals.double(), inner64,
+        bo.inner_sgd_params, best.double(), num_to_sample=Q)
+    width = (dom.upper - dom.lower).double()
+    q = {k: _quantiles(torch, (res[k][2].double() - x64).abs() / width)
+         for k in ("auto", "never")}
+    ok_a = all(q["auto"][k] <= max(5e-5, 1.5 * q["never"][k])
+               for k in q["auto"])
+    line.update({"stage": f"kg_cold at {SWITCH_KEY_BLOCKS} start blocks",
+                 "endpoints": list(x64.shape),
+                 "endpoints_vs_f64": q,
+                 "kg_max_abs_err": (res["auto"][0] - res["never"][0]
+                                    ).abs().max().item(),
+                 "tolerance": "per quantile, auto vs f64 <= max(5e-5, 1.5 "
+                              "x never vs f64), domain-width units",
+                 "ok": ok_a})
+    out["descent_run"] = line
+    _check_switch("A (DESCENT_PALLAS)", line,
+                  _bitwise(torch, res["auto"], res["auto_again"]))
+    check(ok_a, f"the KG cold step under 'auto' is off the float64 "
+                f"endpoints: {line}")
+    emit({"phase": "switch_keys", **out})
 
 
 def phase_lcb(torch, states) -> None:
@@ -2357,7 +2579,7 @@ def phase_small_reference(torch) -> None:
                                               dtype=dt)
         kg_best = torch.full((s,), float(y.min()), device=dev,
                                     dtype=dt)
-        vals, _ = kg.knowledge_gradient_batch(
+        vals = kg.knowledge_gradient_batch(
             states, t(unions), t(discrete), t(normals), dom,
             DEFAULT_SGD_PARAMS_PS, kg_best)
         from cornell_moe_tpu_torch.utils.data_containers import \
@@ -2401,7 +2623,7 @@ def phase_small_reference(torch) -> None:
                                       xd, yd, ds, bucket=16)
         dom = TensorProductDomain.from_bounds([[0.0, 1.0]] * 2, device=dev,
                                               dtype=dt)
-        vals, _ = kg.knowledge_gradient_batch(
+        vals = kg.knowledge_gradient_batch(
             states, t(unions), t(discrete), t(normals_d), dom,
             DEFAULT_SGD_PARAMS_PS,
             torch.full((s,), float(yd[:, 0].min()), device=dev, dtype=dt),
@@ -2440,7 +2662,7 @@ def phase_small_reference(torch) -> None:
                                       xf, yf[:, None], bucket=16)
         dom = TensorProductDomain.from_bounds([[0.0, 1.0]], device=dev,
                                               dtype=dt)
-        out[dev], _ = kg.knowledge_gradient_mcmc_batch(
+        out[dev] = kg.knowledge_gradient_mcmc_batch(
             states, t(unions_f), t(discrete_f), t(normals), dom,
             DEFAULT_SGD_PARAMS_PS,
             torch.full((s,), float(yf.min()), device=dev, dtype=dt),
@@ -2558,7 +2780,133 @@ def phase_ei(torch):
           "the EI path did not launch kernels B and C")
     check(bool(torch.isfinite(states.chol_K).all()),
           "an EI ensemble member's chol_K is non-finite")
+    _ei_routes(torch, bo)
     return bo
+
+
+# the JAX package's test of the two routes (tests/test_expected_improvement
+# .py:300-317): 8 starts, 6 steps, q = 2, 64 draws
+EI_ROUTE_PARAMS = dict(num_multistarts=8, max_num_steps=6,
+                       max_num_restarts=1, num_steps_averaged=3, gamma=0.7,
+                       pre_mult=0.3, max_relative_change=0.5)
+EI_ROUTE_Q, EI_ROUTE_MC = 2, 64
+
+
+def _ei_route_picks(torch, states, dom) -> dict:
+    """Both routes of ``multistart_expected_improvement_mcmc_optimization``
+    on ``states`` from one generator state (seed 5), both eager: their
+    picks, seconds and largest difference over the domain's width, and
+    each estimator at the starts the routes draw (the batched one, which
+    the batched route steps on, and the single-union one, which the
+    per-start route steps on and which lifts an indefinite union)."""
+    from cornell_moe_tpu_torch.acquisition import expected_improvement as ei
+    from cornell_moe_tpu_torch.ops import optimizers
+    from cornell_moe_tpu_torch.ops.domains import RepeatedDomain
+
+    params = optimizers.GradientDescentParameters(**EI_ROUTE_PARAMS)
+    dev = states.chol_K.device
+    picks, seconds = {}, {}
+    for label, batched in (("batched", True), ("per_start", False)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        picks[label] = ei.multistart_expected_improvement_mcmc_optimization(
+            torch.Generator(device=dev).manual_seed(5), states, dom,
+            EI_ROUTE_Q, params, num_mc_iterations=EI_ROUTE_MC,
+            use_batched=batched)
+        torch.cuda.synchronize()
+        seconds[label] = time.time() - t0
+    g = torch.Generator(device=dev).manual_seed(5)
+    starts = RepeatedDomain(domain=dom, num_repeats=EI_ROUTE_Q
+                            ).generate_latin_hypercube_points(
+                                g, EI_ROUTE_PARAMS["num_multistarts"])
+    normals = ei.draw_normals(g, EI_ROUTE_MC, EI_ROUTE_Q, device=dev,
+                              dtype=starts.dtype)
+    best = states.best_observed_value
+    width = dom.upper - dom.lower
+    batched = ei.monte_carlo_expected_improvement_mcmc_batch(
+        states, starts, None, best, normals)
+    return {"picks": {k: v.tolist() for k, v in picks.items()},
+            "seconds": seconds,
+            "max_abs_diff_over_width": (
+                (picks["batched"] - picks["per_start"]).abs() / width
+            ).max().item(),
+            "at_starts": {
+                "batched_estimator": batched.tolist(),
+                "single_union_estimator": [
+                    ei.monte_carlo_expected_improvement_mcmc(
+                        states, u, None, best, normals).item()
+                    for u in starts]}}
+
+
+def _ei_routes(torch, bo) -> None:
+    """``multistart_expected_improvement_mcmc_optimization``'s batched and
+    per-start routes (``use_batched``) at the JAX test's size
+    (:func:`_ei_route_picks`), in float32 on the card: on the JAX test's
+    own problem (tests/test_expected_improvement.py:247-256 and :300-317:
+    3 members, 12 points, noise 1e-3), where the two picks must be within
+    1e-3 of the domain's width of each other, and on the EI path's
+    ensemble (the main path's size: 16 members, Np 512), where they are
+    reported: there q-EI sits below float32's resolution and a union's
+    float32 variance can be indefinite, which the single-union estimator
+    lifts and the batched one leaves to fail, so the picks may differ."""
+    import numpy as np
+    from cornell_moe_tpu_torch.models import mcmc as mcmc_mod
+    from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+
+    r = np.random.default_rng(7)
+    x = r.random((12, 2))
+    y = np.sin(3 * x[:, 0]) + x[:, 1] ** 2
+    kw = dict(device=DEVICE, dtype=torch.float32)
+    small = mcmc_mod.fit_gp_ensemble(
+        "matern_2.5", torch.as_tensor(np.abs(r.standard_normal((3, 3))) +
+                                      0.7, **kw),
+        torch.full((3, 1), 1e-3, **kw), x, y[:, None])
+    line = {"phase": "ei_routes", "params": EI_ROUTE_PARAMS,
+            "num_to_sample": EI_ROUTE_Q, "num_mc": EI_ROUTE_MC,
+            "jax_test_problem": _ei_route_picks(
+                torch, small, TensorProductDomain.from_bounds(
+                    [[0.0, 1.0]] * 2, **kw)),
+            "ei_path_ensemble": _ei_route_picks(torch, bo.model.models,
+                                                bo.domain),
+            "tolerance": "jax_test_problem: 1e-3 of the domain's width "
+                         "(checked); ei_path_ensemble: reported"}
+    emit(line)
+    err = line["jax_test_problem"]["max_abs_diff_over_width"]
+    check(err <= 1e-3, f"the per-start EI-MCMC route's pick is off the "
+                       f"batched route's on the JAX test's problem: {line}")
+
+
+def phase_covariance_methods(torch) -> None:
+    """``StationaryCovariance.grad_covariance`` (dk/dx) in float32 on the
+    card against ``torch.autograd`` of ``covariance``, both kernels, 16
+    kernels of random hyperparameters at one point pair each (one pair
+    coincident): within 1e-5 of the gradient's largest entry."""
+    from cornell_moe_tpu_torch.models import covariance as cov_mod
+
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    kw = dict(device=DEVICE, dtype=torch.float32)
+    h = torch.cat([0.5 + torch.rand((16, 1), generator=g, **kw),
+                   0.3 + torch.rand((16, 2), generator=g, **kw)], dim=1)
+    x = torch.rand((16, 2), generator=g, **kw)
+    y = torch.rand((16, 2), generator=g, **kw)
+    y[0] = x[0]
+    line = {"phase": "covariance_methods", "kernels": {}}
+    for name, cls in cov_mod.COVARIANCE_TYPES.items():
+        cov = cls(hyperparameters=h)
+        got = cov.grad_covariance(x, y)
+        xx = x.clone().requires_grad_(True)
+        (ref,) = torch.autograd.grad(cov.covariance(xx, y).sum(), xx)
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        line["kernels"][name] = {
+            "max_abs_err": err, "scale": scale,
+            "num_hyperparameters": cov.num_hyperparameters,
+            "coincident_zero": bool((got[0] == 0).all()),
+            "ok": err <= 1e-5 * scale and bool((got[0] == 0).all())}
+    line["tolerance"] = "1e-5 of the largest |dk/dx|; 0 at coincident points"
+    emit(line)
+    check(all(v["ok"] for v in line["kernels"].values()),
+          f"grad_covariance disagrees with autograd: {line}")
 
 
 def phase_heuristic_ei(torch, bo) -> None:
@@ -2761,11 +3109,15 @@ def phase_checkpoint_resume(torch) -> None:
     ref = whole.run(2, num_init_pts=CKPT_OBS)[1]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "run.ckpt")
-        driver(path).run(1, num_init_pts=CKPT_OBS)
+        first = driver(path)
+        first.run(1, num_init_pts=CKPT_OBS)
+        release(torch, first)
         resumed = driver(path)
         meta = resumed.resume()
         got = resumed.run(2, start_iteration=1)[-1]
     torch.cuda.synchronize()
+    for bo in (whole, resumed):
+        release(torch, bo)
     same = {"suggested": bool(np.array_equal(got["suggested"],
                                              ref["suggested"])),
             "voi": got["voi"] == ref["voi"],
@@ -3365,6 +3717,7 @@ def main() -> int:
     phase_lcb(torch, bo.model.models)
     del problems
     phase_fantasy_lowp(torch, bo)
+    phase_switch_keys(torch, bo)
     release(torch, bo)
     cf = phase_cfkg(torch)
     phase_cfkg_equivalence(torch, cf)
@@ -3382,6 +3735,7 @@ def main() -> int:
     phase_f32_robustness(torch)
     phase_small_reference(torch)
     phase_small_reference_ei(torch)
+    phase_covariance_methods(torch)
     check("jax" not in sys.modules and "cornell_moe_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")
     emit({"kernels": summary})

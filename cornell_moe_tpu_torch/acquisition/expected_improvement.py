@@ -281,15 +281,19 @@ def multistart_expected_improvement_mcmc_optimization(
         params: optimizers.GradientDescentParameters,
         points_being_sampled=None, best_so_far=None,
         num_mc_iterations: int = 1000, conv_tol: Optional[float] = None,
-        chunk_size: Optional[int] = None, group=None,
-        program_cache=None) -> torch.Tensor:
-    """q points maximizing ensemble-averaged q,p-EI by the lockstep-batched
-    multistart; ``conv_tol`` gates each chunk on its max step norm.  A
-    ``group`` shards the restart axis over its ranks
-    (``parallel.sharding``).  With a ``program_cache`` each GD step of a
+        use_batched: bool = True, chunk_size: Optional[int] = None,
+        group=None, program_cache=None) -> torch.Tensor:
+    """q points maximizing ensemble-averaged q,p-EI.  ``use_batched`` (the
+    default): the lockstep-batched multistart, ``conv_tol`` gating each
+    chunk on its max step norm; with a ``program_cache`` each GD step of a
     chunk (its value and gradient by autograd and the step) is one program
-    per chunk shape (``ops.programs``); the domain must then be a
-    ``TensorProductDomain``.  Returns (num_to_sample, dim)."""
+    per chunk shape (``ops.programs``), and the domain must then be a
+    ``TensorProductDomain``.  Otherwise the per-start multistart over
+    :func:`monte_carlo_expected_improvement_mcmc`'s value and gradient,
+    eager, each start gated on its own.  A ``group`` shards the restart
+    axis of either route over its ranks (``parallel.sharding``; each
+    start's result is the unsharded run's).  Returns (num_to_sample,
+    dim)."""
     if best_so_far is None:
         best_so_far = states.best_observed_value
     p = 0 if points_being_sampled is None else points_being_sampled.shape[0]
@@ -298,6 +302,18 @@ def multistart_expected_improvement_mcmc_optimization(
                                                  params.num_multistarts)
     normals = draw_normals(generator, num_mc_iterations, num_to_sample + p,
                            device=starts.device, dtype=starts.dtype)
+
+    if not use_batched:
+        def vg(pts):
+            with torch.enable_grad():
+                x = pts.detach().requires_grad_(True)
+                val = monte_carlo_expected_improvement_mcmc(
+                    states, x, points_being_sampled, best_so_far, normals)
+                (g,) = torch.autograd.grad(val, x)
+            return val.detach(), g
+
+        return sharding.sharded_multistart_optimize(
+            vg, rep, starts, params, group, conv_tol=conv_tol).best_point
 
     bvg = _mcmc_batch_value_and_grad(states, points_being_sampled,
                                      best_so_far, normals)

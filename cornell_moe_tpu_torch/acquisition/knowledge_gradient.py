@@ -79,19 +79,20 @@ def _pin_fidelity(x_opt: torch.Tensor, num_fidelity: int) -> torch.Tensor:
     return torch.cat([x_opt, ones], dim=-1)
 
 
-def fidelity_cost(unions: torch.Tensor, num_to_sample: int,
+def fidelity_cost(union: torch.Tensor, num_to_sample: int,
                   num_fidelity: int) -> torch.Tensor:
     """cost = max_i prod(fidelity coords of point i), i over the first
-    num_to_sample points of each union (..., q, d): (...).  The product is
+    num_to_sample points of a union (q, d), or of each union of a batch
+    (..., q, d): (...).  The product is
     a chain of multiplications over the fidelity columns (with one column,
     the column itself), so its gradient is the product of the other
     columns, as ``jnp.prod``'s, and reads nothing from the host (the
     backward of ``torch.prod`` looks for zeros there), which lets a CUDA
     graph hold cf-KG's outer step."""
     if num_fidelity == 0:
-        return torch.ones(unions.shape[:-2], dtype=unions.dtype,
-                          device=unions.device)
-    fid = unions[..., :num_to_sample, unions.shape[-1] - num_fidelity:]
+        return torch.ones(union.shape[:-2], dtype=union.dtype,
+                          device=union.device)
+    fid = union[..., :num_to_sample, union.shape[-1] - num_fidelity:]
     prod = fid[..., 0]
     for j in range(1, num_fidelity):
         prod = prod * fid[..., j]
@@ -116,11 +117,13 @@ def posterior_mean_objective(state: GaussianProcessState,
 
 
 def _posterior_mean_bvg(state: GaussianProcessState, num_fidelity: int):
-    """x (..., dim_opt) -> (-mu (...), its gradient) by autograd."""
+    """x (..., k, dim_opt), k points per member -> (-mu (..., k), its
+    gradient) by autograd."""
     def bvg(x):
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
-            v = posterior_mean_objective(state, xx, num_fidelity)
+            v = -gp_mod.posterior_mean(
+                state, _pin_fidelity(xx, num_fidelity))[..., 0]
             (g,) = torch.autograd.grad(v.sum(), xx)
         return v.detach(), g
     return bvg
@@ -129,24 +132,25 @@ def _posterior_mean_bvg(state: GaussianProcessState, num_fidelity: int):
 def compute_optimal_posterior_mean(
         state: GaussianProcessState, domain, initial_guesses: torch.Tensor,
         params: optimizers.GradientDescentParameters, num_fidelity: int = 0,
-        program_cache=None):
-    """Per member, maximize -mu from the best of its guesses (..., G,
-    dim_opt) over the inner ``domain``, fidelity coordinates pinned to 1.
+        top_k: int = 1, program_cache=None):
+    """Per member, maximize -mu from the ``top_k`` best of its guesses
+    (..., G, dim_opt) over the inner ``domain``, fidelity coordinates
+    pinned to 1, and keep the best end (non-finite values lose).
 
     Returns (best_point (..., dim_opt), best_value = -mu there (...)).
-    Each member's value depends only on its own point, so one batched GD
-    over the members equals one GD per member.  With a ``program_cache``
-    (and ``CAPTURE`` "auto") each GD step is one program (the step size an
-    input), replayed for every step of ``params``' schedule; the domain
-    must then be a ``TensorProductDomain``.
+    Each start's value depends only on its own point, so one batched GD
+    over the members and their starts equals one GD per start, as the JAX
+    package's multistart.  With a ``program_cache`` (and ``CAPTURE``
+    "auto") each GD step is one program (the step size an input), replayed
+    for every step of ``params``' schedule; the domain must then be a
+    ``TensorProductDomain``.
     """
     vals = -gp_mod.posterior_mean(
         state, _pin_fidelity(initial_guesses, num_fidelity))[..., 0]
-    idx = torch.argmax(vals, dim=-1)
-    starts = torch.gather(
-        initial_guesses, -2,
-        idx[..., None, None].expand(idx.shape + (1, initial_guesses.shape[-1]))
-    )[..., 0, :]
+    idx = torch.topk(vals, min(top_k, initial_guesses.shape[-2]),
+                     dim=-1).indices
+    starts = torch.gather(initial_guesses, -2, idx[..., None].expand(
+        idx.shape + (initial_guesses.shape[-1],)))
     bvg = _posterior_mean_bvg(state, num_fidelity)
     step_fn = None
     if program_cache is not None and programs.enabled():
@@ -165,7 +169,12 @@ def compute_optimal_posterior_mean(
              str(starts.device)), step, domain.bounds, *tensors)
     x = optimizers.gradient_ascent_batch(bvg, domain, starts, params,
                                          step_fn=step_fn)
-    return x, bvg(x)[0]
+    vals = bvg(x)[0]
+    best = torch.argmax(torch.where(torch.isfinite(vals), vals,
+                                    float("-inf")), dim=-1)
+    return torch.gather(x, -2, best[..., None, None].expand(
+        best.shape + (1, x.shape[-1])))[..., 0, :], \
+        torch.gather(vals, -1, best[..., None])[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -213,15 +222,6 @@ def _build_fantasy_model(state: GaussianProcessState, union: torch.Tensor,
     return mu_u, chol_u, v
 
 
-def fantasy_key(dtype) -> tuple:
-    """The setting that a program building a batched fantasy model
-    (:func:`_build_fantasy_model_batch`) reads when it is captured, for the
-    program's key: ``config.kg_fantasy_lowp_enabled`` for inputs of
-    ``dtype``.  A program captured under one setting is not replayed under
-    the other."""
-    return ("kg_fantasy_lowp", config.kg_fantasy_lowp_enabled(dtype))
-
-
 def _build_fantasy_model_batch(state: GaussianProcessState,
                                unions: torch.Tensor,
                                derivatives_to_sample: Sequence[int] = ()):
@@ -231,7 +231,8 @@ def _build_fantasy_model_batch(state: GaussianProcessState,
     q_ch), noise_eff (S, B, q_ch)), noise_eff being the diagonal shift
     (channel noise + the float32 repair) inside chol_u.  Its solve pair
     takes the bfloat16 route where ``config.kg_fantasy_lowp_enabled``
-    says so (a program around it keys on :func:`fantasy_key`).
+    says so (every program's key holds ``config.KG_FANTASY_LOWP``,
+    ``programs.keyed_switch``).
     """
     ds = cov_mod.channels(derivatives_to_sample)
     b, q, dim = unions.shape
@@ -312,8 +313,12 @@ def _fantasy_mean_batch(state: GaussianProcessState, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # Kernel A's switch, as the JAX package's: "auto" takes the descent kernel
-# where :func:`descent_kernel_for` allows it, "never" the plain route.
+# where :func:`descent_kernel_for` allows it, "never" the plain route.  The
+# KG programs read it when they are captured, so its value is part of every
+# program's key (``programs.keyed_switch``).
 DESCENT_PALLAS = "auto"
+programs.keyed_switch("knowledge_gradient.DESCENT_PALLAS",
+                      lambda: DESCENT_PALLAS)
 
 
 def descent_kernel_for(device_type: str, dtype: torch.dtype,
@@ -574,11 +579,15 @@ def knowledge_gradient_batch(state: GaussianProcessState,
                              best_so_far, inner_x0=None,
                              derivatives_to_sample: Sequence[int] = (),
                              num_fidelity: int = 0,
-                             warm_mode: str = "reseed"):
-    """KG at B unions (B, q, d) for every member: returns (kg (S, B),
-    carried descent endpoints (S, B, M, dim_opt)).  ``normals`` is (M,
-    q_ch); ``discrete_pts`` (S, n_d, dim_opt); ``domain`` the inner
-    (dim_opt) domain.
+                             warm_mode: str = "reseed",
+                             return_x_star: bool = False):
+    """KG at B unions (B, q, d) for every member: kg (S, B), and with
+    ``return_x_star`` (kg, carried descent endpoints (S, B, M, dim_opt)).
+    ``normals`` is (M, q_ch); ``discrete_pts`` (S, n_d, dim_opt);
+    ``domain`` the inner (dim_opt) domain.  The one deliberate difference
+    from the JAX package's function, which takes a single state (and is
+    vmapped over an ensemble): the state here is an ensemble, and every
+    output carries its member axis S.
 
     Cold (``inner_x0`` None): the descents start from the seeded argmins.
     Warm starts, from ``inner_x0``, come in two modes:
@@ -671,6 +680,8 @@ def knowledge_gradient_batch(state: GaussianProcessState,
                                   ds, num_fidelity)
     kg = torch.mean(best_posterior[..., None] -
                     torch.minimum(mu_star, mu_x0), dim=-1)
+    if not return_x_star:
+        return kg
     won = (mu_star <= mu_x0).detach()[..., None]
     return kg, torch.where(won, x_star, x0_seed)
 
@@ -681,18 +692,20 @@ def knowledge_gradient_mcmc_batch(states, unions, discrete_pts, normals,
                                   derivatives_to_sample: Sequence[int] = (),
                                   num_fidelity: int = 0,
                                   warm_mode: str = "reseed",
-                                  num_to_sample: Optional[int] = None):
+                                  num_to_sample: Optional[int] = None,
+                                  return_x_star: bool = False):
     """Ensemble-averaged batched KG divided by the fidelity cost of each
-    union's first ``num_to_sample`` points (all when None): ((B,),
-    endpoints (S, B, M, dim_opt))."""
-    kg, x_star = knowledge_gradient_batch(states, unions, discrete_pts,
-                                          normals, domain, inner_params,
-                                          best_so_far, inner_x0,
-                                          derivatives_to_sample, num_fidelity,
-                                          warm_mode)
+    union's first ``num_to_sample`` points (all when None), (B,); with
+    ``return_x_star`` also the members' descent endpoints (S, B, M,
+    dim_opt), as the JAX package's vmapped endpoints."""
+    kg, x_star = knowledge_gradient_batch(
+        states, unions, discrete_pts, normals, domain, inner_params,
+        best_so_far, inner_x0, derivatives_to_sample, num_fidelity,
+        warm_mode, return_x_star=True)
     costs = fidelity_cost(unions, _num_to_sample(unions, num_to_sample),
                           num_fidelity)
-    return torch.mean(kg, dim=0) / costs, x_star
+    kg = torch.mean(kg, dim=0) / costs
+    return (kg, x_star) if return_x_star else kg
 
 
 def knowledge_gradient_mcmc_batch_value_and_grad(
@@ -730,7 +743,7 @@ def knowledge_gradient_mcmc_batch_vg_carry(states, unions, discrete_pts,
         vals, x_star = knowledge_gradient_mcmc_batch(
             states, u, discrete_pts, normals, domain, inner_params,
             best_so_far, inner_x0, derivatives_to_sample, num_fidelity,
-            warm_mode, num_to_sample)
+            warm_mode, num_to_sample, return_x_star=True)
         (grads,) = torch.autograd.grad(vals.sum(), u)
     return vals.detach(), grads, x_star
 
@@ -847,7 +860,7 @@ def _kg_step_programs(program_cache, states, domain, q: int, being,
     key = (tuple(t.shape for t in tensors), layout,
            tuple(discrete_pts.shape), tuple(normals.shape),
            tuple(t.shape for t in extra), q, ds, num_fidelity, normals.dtype,
-           str(normals.device), fantasy_key(normals.dtype))
+           str(normals.device))
 
     def vg_carry(x, carry, inner_p, bounds, disc, nrm, best, *rest):
         vals, grads, xs = knowledge_gradient_mcmc_batch_vg_carry(
@@ -977,21 +990,12 @@ def posterior_mean_optimization(
         params: optimizers.GradientDescentParameters,
         initial_guesses: torch.Tensor, num_fidelity: int = 0,
         top_k: int = 1):
-    """Argmin of one GP's posterior mean (the recommendation step): GD
-    polish of -mu over the inner (first dim - num_fidelity coordinates)
-    domain from the ``top_k`` best of ``initial_guesses`` (G, dim_opt).
+    """Argmin of one GP's posterior mean (the recommendation step):
+    :func:`compute_optimal_posterior_mean` over the inner (first dim -
+    num_fidelity coordinates) domain from the ``top_k`` best of
+    ``initial_guesses`` (G, dim_opt), the GP as an ensemble of one.
     Returns (point (dim_opt,), -mu there)."""
-    inner = inner_domain(domain, num_fidelity)
-    vals = posterior_mean_objective(state, initial_guesses, num_fidelity)
-    idx = torch.topk(vals, min(top_k, initial_guesses.shape[0])).indices
-
-    def vg(x):
-        with torch.enable_grad():
-            xx = x.detach().requires_grad_(True)
-            v = posterior_mean_objective(state, xx, num_fidelity)
-            (g,) = torch.autograd.grad(v, xx)
-        return v.detach(), g
-
-    res = optimizers.multistart_optimize(vg, inner, initial_guesses[idx],
-                                         params)
-    return res.best_point, res.best_value
+    pt, val = compute_optimal_posterior_mean(
+        state.as_ensemble(), inner_domain(domain, num_fidelity),
+        initial_guesses[None], params, num_fidelity, top_k)
+    return pt[0], val[0]

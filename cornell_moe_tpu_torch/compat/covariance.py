@@ -11,7 +11,6 @@ maps to the kernel it names.  A container computes, and builds its kernel
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from cornell_moe_tpu_torch import config
 from cornell_moe_tpu_torch.compat._boundary import to_numpy, to_tensor
@@ -30,7 +29,7 @@ class _CovarianceCompat(CovarianceInterface):
 
     @property
     def num_hyperparameters(self):
-        return self._hyperparameters.size
+        return self.to_kernel().num_hyperparameters
 
     def get_hyperparameters(self):
         return np.copy(self._hyperparameters)
@@ -59,11 +58,8 @@ class _CovarianceCompat(CovarianceInterface):
             *self._pair(point_one, point_two)))
 
     def grad_covariance(self, point_one, point_two):
-        """d k(x, y) / dx = -P(s) (x - y) / l^2."""
-        kern = self.to_kernel()
-        x, y = self._pair(point_one, point_two)
-        t = (x - y) / kern.lengths ** 2
-        return to_numpy(-kern.p(torch.sum((x - y) * t)) * t)
+        return to_numpy(self.to_kernel().grad_covariance(
+            *self._pair(point_one, point_two)))
 
     def hyperparameter_grad_covariance(self, point_one, point_two):
         return to_numpy(self.to_kernel().hyperparameter_grad_covariance(

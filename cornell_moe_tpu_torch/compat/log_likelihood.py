@@ -28,7 +28,7 @@ from cornell_moe_tpu_torch.compat._boundary import (
 from cornell_moe_tpu_torch.compat.interfaces import (
     GaussianProcessLogLikelihoodInterface)
 from cornell_moe_tpu_torch.compat.optimization import (
-    core_domain, multistart_parameters)
+    _newton, core_domain, multistart_parameters)
 from cornell_moe_tpu_torch.models import likelihood as lik_mod
 from cornell_moe_tpu_torch.ops import optimizers as opt_mod
 from cornell_moe_tpu_torch.ops import programs
@@ -204,8 +204,7 @@ def restarted_hyperparameter_optimization(
     newton = opt_mod.NewtonParameters(max_num_steps=30, time_factor=1.0,
                                       gamma=1.1)
     best_t = to_tensor(best, obj.device, obj.dtype)
-    x = opt_mod.newton_optimize(_log_objective(obj), domain,
-                                torch.log(best_t), newton)
+    x = _newton(_log_objective(obj), domain, torch.log(best_t), newton)
     polished = torch.exp(x)
     final = polished if float(obj.objective_torch(polished)) > \
         float(obj.objective_torch(best_t)) else best_t

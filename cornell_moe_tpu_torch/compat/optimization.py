@@ -173,6 +173,14 @@ class GradientDescentOptimizer(_OptimizerBase):
             *form.inputs)
 
 
+def _newton(value_fn, domain, x0, params):
+    """``opt_mod.newton_optimize`` of a scalar ``value_fn``: its value and
+    gradient and its Hessian by ``torch.func``."""
+    return opt_mod.newton_optimize(opt_mod.value_and_grad(value_fn), domain,
+                                   x0, params,
+                                   hessian_fn=torch.func.hessian(value_fn))
+
+
 class NewtonOptimizer(_OptimizerBase):
     """Damped-Newton polish (gpp_optimization.hpp Newton counterpart) of an
     objective with a differentiable ``objective_torch``; its Hessian is
@@ -189,14 +197,13 @@ class NewtonOptimizer(_OptimizerBase):
         core, x0 = self._start()
         params = self.optimizer_parameters
         if not runs_programs(obj):
-            return self._finish(opt_mod.newton_optimize(
-                obj.objective_torch, core, x0, params))
+            return self._finish(_newton(obj.objective_torch, core, x0,
+                                        params))
         form = obj.program_form()
 
         def newton(start, bounds, *inputs):
-            return opt_mod.newton_optimize(
-                lambda t: form.objective(t, *inputs),
-                with_bounds(core, bounds), start, params)
+            return _newton(lambda t: form.objective(t, *inputs),
+                           with_bounds(core, bounds), start, params)
 
         return self._finish(programs.run(
             obj.program_cache, ("compat_newton", form.key, domain_key(core),

@@ -33,6 +33,8 @@ F32_CHOLESKY_JITTER = 1.0e-6
 # the float32 solve; "always" takes the bf16 route for float32 inputs, so the
 # route stays available and tested.  Any other value leaves it off: the JAX
 # package turns it on by itself only on a TPU, which the port never runs on.
+# The KG programs read it when they are captured, so its value is part of
+# every program's key (``ops.programs.keyed_switch``).
 KG_FANTASY_LOWP = "never"
 
 

@@ -33,7 +33,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from cornell_moe_tpu_torch import config
-from cornell_moe_tpu_torch.ops import kernels
+from cornell_moe_tpu_torch.ops import kernels, programs
 
 _SQRT5 = math.sqrt(5.0)
 
@@ -73,6 +73,10 @@ class StationaryCovariance:
         return self.hyperparameters[..., 1:]
 
     @property
+    def num_hyperparameters(self) -> int:
+        return self.hyperparameters.shape[-1]
+
+    @property
     def dim(self) -> int:
         return self.hyperparameters.shape[-1] - 1
 
@@ -103,10 +107,25 @@ class StationaryCovariance:
     def q(self, s: torch.Tensor) -> torch.Tensor:
         return self._scaled(self.q_scale * self.unit_q(s))
 
-    def covariance(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """k(x, y) for single points (dim,) of an unbatched kernel."""
+    # The scalar methods take one point pair per kernel: x and y (...,
+    # dim), their leading axes those of the hyperparameters' batch (or
+    # broadcasting against them), as the JAX package's methods vmapped.
+
+    def scaled_square_dist(self, x: torch.Tensor,
+                           y: torch.Tensor) -> torch.Tensor:
+        """s = sum_i (x_i - y_i)^2 / l_i^2, (...)."""
         diff = x - y
-        return self.f0(torch.sum(diff * diff / self.lengths ** 2, dim=-1))
+        return torch.sum(diff * diff / self.lengths ** 2, dim=-1)
+
+    def covariance(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """k(x, y), (...)."""
+        return self.f0(self.scaled_square_dist(x, y))
+
+    def grad_covariance(self, x: torch.Tensor,
+                        y: torch.Tensor) -> torch.Tensor:
+        """dk(x, y) / dx = -P(s) (x - y) / l^2, (..., dim)."""
+        t = (x - y) / self.lengths ** 2
+        return -self.p(self.scaled_square_dist(x, y))[..., None] * t
 
     def hyperparameter_grad_covariance(self, x: torch.Tensor,
                                        y: torch.Tensor) -> torch.Tensor:
@@ -239,10 +258,13 @@ def noise_diagonal(noise_variance, point_noise, batch, n: int, c: int,
     return torch.broadcast_to(diag, batch + (n, c)).reshape(batch + (n * c,))
 
 
-# Kernel C's switch, the counterpart of the JAX package's ``use_pallas``
-# argument: "auto" takes the covariance kernel where
-# :func:`uses_covariance_kernel` allows it, "never" the plain build.
+# Kernel C's switch, the module-wide counterpart of the JAX package's
+# ``use_pallas`` argument: "auto" takes the covariance kernel where
+# :func:`uses_covariance_kernel` allows it, "never" the plain build.  The
+# fit's programs read it when they are captured, so its value is part of
+# every program's key (``programs.keyed_switch``).
 USE_PALLAS = "auto"
+programs.keyed_switch("covariance.USE_PALLAS", lambda: USE_PALLAS)
 
 
 def uses_covariance_kernel(device_type: str, dtype: torch.dtype,
@@ -258,15 +280,19 @@ def uses_covariance_kernel(device_type: str, dtype: torch.dtype,
 def build_covariance_matrix_with_noise(
         cov: StationaryCovariance, points: torch.Tensor,
         derivatives: Sequence[int], noise_variance,
-        point_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        point_noise: Optional[torch.Tensor] = None,
+        use_pallas: str = "auto") -> torch.Tensor:
     """K + diag(noise) over channels.
 
     ``points`` is (n, d), shared by every kernel of the batch;
     ``noise_variance`` is per channel, (..., 1 + m) with the
     hyperparameters' batch axes (or broadcastable to them), tiled over the
     points; ``point_noise`` (n, 1 + m), or with batch axes, is added per
-    point and channel (the shape-bucketing mechanism).  Returns (..., N, N),
-    N = n (1 + m).
+    point and channel (the shape-bucketing mechanism).  ``use_pallas``,
+    the JAX package's per-call switch: "never" takes the plain build,
+    "auto" kernel C where :func:`uses_covariance_kernel` allows it (which
+    also reads ``USE_PALLAS``); any other value raises ``ValueError``.
+    Returns (..., N, N), N = n (1 + m).
     """
     ds = channels(derivatives)
     h = cov.hyperparameters
@@ -274,8 +300,9 @@ def build_covariance_matrix_with_noise(
     n = points.shape[0]
     diag = noise_diagonal(noise_variance, point_noise, batch, n,
                           1 + len(ds), points)
-    if uses_covariance_kernel(points.device.type, points.dtype, ds,
-                              cov.name):
+    if config.switch_on("use_pallas", use_pallas) and \
+            uses_covariance_kernel(points.device.type, points.dtype, ds,
+                                   cov.name):
         k = kernels.covariance_with_noise(
             points.contiguous(), h.reshape(-1, h.shape[-1]).contiguous(),
             diag.reshape(-1, n).contiguous(), cov.name)

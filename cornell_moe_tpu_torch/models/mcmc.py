@@ -54,7 +54,10 @@ PAD_NOISE = 1.0e8
 
 # Kernel B's switch, as the JAX package's: "auto" takes the fused LML
 # kernel where :func:`uses_lml_kernel` allows it, "never" the plain LML.
+# The chain's programs read it when they are captured, so its value is part
+# of every program's key (``programs.keyed_switch``).
 LML_PALLAS = "auto"
+programs.keyed_switch("mcmc.LML_PALLAS", lambda: LML_PALLAS)
 
 # Stretch-move steps per convergence check of the gated chain, and the
 # segments before the gate may stop it (as the JAX package's; the two-lag
@@ -438,7 +441,7 @@ class GaussianProcessLogLikelihoodMCMC:
         self.chain_steps: list = []      # steps of every train()'s chain
         self.members_replaced: list = []  # refit members of every fit
         self.bucket = bucket
-        self.derivatives = cov_mod.channels(derivatives)
+        self._derivatives = cov_mod.channels(derivatives)
         self.dim = historical_data.dim
         self.num_noise = 1 + len(self.derivatives)
         n_dims = 1 + self.dim + self.num_noise
@@ -623,7 +626,8 @@ class GaussianProcessLogLikelihoodMCMC:
         end reads the host outside it, as in the JAX package."""
         from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
         from cornell_moe_tpu_torch.ops.optimizers import (NewtonParameters,
-                                                          newton_optimize)
+                                                          newton_optimize,
+                                                          value_and_grad)
 
         self._refresh_value_affine()
         x, y, point_noise = self._padded_data()
@@ -645,8 +649,10 @@ class GaussianProcessLogLikelihoodMCMC:
             return value_on(t, x, y, point_noise)
 
         def newton(t0, *data):
-            return newton_optimize(lambda t: value_on(t, *data), dom, t0,
-                                   nparams)
+            def f(t):
+                return value_on(t, *data)
+            return newton_optimize(value_and_grad(f), dom, t0, nparams,
+                                   hessian_fn=torch.func.hessian(f))
 
         data = (x, y) + (() if point_noise is None else (point_noise,))
         key = ("map_newton", self.kernel_name, self.noisy, self.derivatives,
@@ -717,6 +723,11 @@ class GaussianProcessLogLikelihoodMCMC:
     @property
     def is_trained(self) -> bool:
         return self._models is not None
+
+    @property
+    def derivatives(self):
+        """The observed derivative channels, a tuple of ints."""
+        return self._derivatives
 
     @property
     def num_mcmc(self) -> int:

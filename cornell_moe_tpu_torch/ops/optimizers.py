@@ -381,19 +381,34 @@ def multistart_optimize_with_dumb_search_fallback(
         all_points=gd.all_points, all_values=gd.all_values)
 
 
-def newton_optimize(value_fn: Callable, domain, x0: torch.Tensor,
-                    params: NewtonParameters) -> torch.Tensor:
-    """Damped Newton ascent of a differentiable scalar ``value_fn`` over
-    points (D,): the gradient is ``torch.func.grad`` of it and the Hessian
-    ``torch.func.hessian``.  Step i solves
-    (-H + I / (time_factor gamma^(i+1))) dx = g, the damping fading as the
-    steps go on; a non-finite step becomes 0, and the domain limits it."""
-    grad_fn = torch.func.grad(value_fn)
-    hessian_fn = torch.func.hessian(value_fn)
+def value_and_grad(value_fn: Callable) -> Callable:
+    """x -> (value_fn(x), its gradient) by ``torch.func.grad_and_value``
+    (the gradient bit for bit ``torch.func.grad``'s), the counterpart of
+    ``jax.value_and_grad``."""
+    grad_and_value = torch.func.grad_and_value(value_fn)
+
+    def vg(x):
+        g, v = grad_and_value(x)
+        return v, g
+    return vg
+
+
+def newton_optimize(value_and_grad_fn: Callable, domain, x0: torch.Tensor,
+                    params: NewtonParameters,
+                    hessian_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Damped Newton ascent over points (D,) of ``value_and_grad_fn(x) ->
+    (value, gradient)``, the JAX package's contract.  The Hessian is
+    ``hessian_fn(x)``, or when None ``torch.func.hessian`` of the value
+    part, which must then be differentiable by ``torch.func`` (as
+    :func:`value_and_grad`'s is).  Step i solves (-H + I / (time_factor
+    gamma^(i+1))) dx = g, the damping fading as the steps go on; a
+    non-finite step becomes 0, and the domain limits it."""
+    if hessian_fn is None:
+        hessian_fn = torch.func.hessian(lambda x: value_and_grad_fn(x)[0])
     eye = torch.eye(x0.shape[-1], dtype=x0.dtype, device=x0.device)
     x = x0
     for i in range(int(params.max_num_steps)):
-        g = grad_fn(x)
+        _, g = value_and_grad_fn(x)
         damp = 1.0 / (params.time_factor * params.gamma ** (i + 1.0))
         dx, _ = torch.linalg.solve_ex(-hessian_fn(x) + damp * eye, g)
         dx = _finite(dx)

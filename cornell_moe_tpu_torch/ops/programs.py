@@ -9,9 +9,16 @@ number of observations crosses a bucket.
 
 A :class:`Program` wraps a function of tensors and is built once per key of
 its :class:`ProgramCache`: (stage, shape bucket, walker or start count, d,
-dtype, kernel name, ...).  On a CUDA device its first call warms the
-function up on a side stream, then captures one ``torch.cuda.CUDAGraph``
-over static input buffers; every call copies its inputs in, replays the
+dtype, kernel name, ...), followed by the value of every switch registered
+with :func:`keyed_switch` (the kernel switches ``mcmc.LML_PALLAS``,
+``covariance.USE_PALLAS`` and ``knowledge_gradient.DESCENT_PALLAS``, and
+``config.KG_FANTASY_LOWP``).  A captured function reads a switch once, when
+it is captured, and its graph keeps that route; keyed on the switches'
+values, a program built under one setting is never replayed under another,
+and flipping a switch builds each program once more per value, as the JAX
+package's switches, read at every trace, retrace.  On a CUDA device a
+program's first call warms the function up on a side stream, then captures
+one ``torch.cuda.CUDAGraph`` over static input buffers; every call copies its inputs in, replays the
 graph and hands back clones of the outputs, because the next replay
 overwrites the graph's own.  The graphs of one cache share one memory pool.
 On the CPU a program calls the function directly.  A function may hold an
@@ -40,6 +47,7 @@ recorder of launches by shape.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from typing import Callable, Dict, Hashable, Optional
 
@@ -56,6 +64,8 @@ WARMUP_CALLS = 1
 
 builds = 0
 _tallies: Dict[str, dict] = {}
+# name -> reader of a switch that a captured function may read
+_switches: Dict[str, Callable[[], Hashable]] = {}
 # the side stream of every warm-up and capture, one per device for the
 # process: cuBLAS keeps a workspace (32 MiB on the card) for each stream it
 # runs on, for the life of the process, so a stream per cache would leave
@@ -66,6 +76,22 @@ _side_streams: dict = {}
 def enabled() -> bool:
     """Whether the stages run through programs (``CAPTURE`` "auto")."""
     return config.switch_on("programs.CAPTURE", CAPTURE)
+
+
+def keyed_switch(name: str, read: Callable[[], Hashable]) -> None:
+    """Register a switch read inside captured functions: ``read()`` gives
+    its current value, and every program's key ends with ``(name,
+    read())`` (:meth:`ProgramCache.get`).  Each module that owns such a
+    switch registers it when it is imported."""
+    _switches[name] = read
+
+
+def switch_key() -> tuple:
+    """``(name, value)`` of every registered switch, as they stand now."""
+    return tuple((name, read()) for name, read in _switches.items())
+
+
+keyed_switch("config.KG_FANTASY_LOWP", lambda: config.KG_FANTASY_LOWP)
 
 
 def reset_builds() -> None:
@@ -216,12 +242,30 @@ class Program:
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         start = _read_counters()
-        with torch.cuda.graph(graph, pool=self._cache.pool(), stream=side):
-            out = self.fn(*self._static_in)
+        with _no_collection():
+            with torch.cuda.graph(graph, pool=self._cache.pool(),
+                                  stream=side):
+                out = self.fn(*self._static_in)
         self.launch_growth = _growth(start, _read_counters())
         _restore_counters(before)
         self._graph, self._static_out = graph, out
         self.capture_seconds = time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """Python's automatic garbage collection held off for the block: a
+    cache dropped without :meth:`ProgramCache.release` lives on in a
+    reference cycle (its programs' functions hold the model that holds it)
+    until the collector finds it, and a graph destroyed while another is
+    being captured invalidates that capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def side_stream(device) -> "torch.cuda.Stream":
@@ -241,15 +285,17 @@ class ProgramCache:
         self._programs: Dict[Hashable, Program] = {}
         self._pool = None
 
-    def get(self, key: Hashable, fn: Callable) -> Program:
-        """The program of ``key``, made from ``fn`` on first use (``fn`` of
-        a later call with the same key is not used)."""
+    def get(self, key: tuple, fn: Callable) -> Program:
+        """The program of ``key`` and the switches' values
+        (:func:`switch_key`), made from ``fn`` on first use (``fn`` of a
+        later call with the same key and values is not used)."""
+        key = key + switch_key()
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = Program(key, fn, self)
         return prog
 
-    def stepper(self, key: Hashable, step: Callable, *inputs) -> Callable:
+    def stepper(self, key: tuple, step: Callable, *inputs) -> Callable:
         """``(*tensors, rate) -> step(*tensors, rate, *inputs)`` through one
         program per ``key`` and the tensors' shapes: the GD steps of a
         multistart or a polish, the step size (a float) passed as a 0-d

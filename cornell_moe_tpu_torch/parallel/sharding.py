@@ -161,13 +161,16 @@ def _sharded_multistart(run_block: Callable, initial_points: torch.Tensor,
 def sharded_multistart_optimize(
         value_and_grad_fn: Callable, domain, initial_points: torch.Tensor,
         params: optimizers.GradientDescentParameters, group,
-        value_fn: Optional[Callable] = None) -> optimizers.MultistartResult:
+        value_fn: Optional[Callable] = None,
+        conv_tol: Optional[float] = None) -> optimizers.MultistartResult:
     """Per-start multistart GD with the restart axis sharded: each rank
     runs :func:`optimizers.multistart_optimize` on its block of starts.
-    Semantically identical to the unsharded call."""
+    Each start's trajectory and ``conv_tol`` gate are its own, so the
+    result is the unsharded call's."""
     return _sharded_multistart(
         lambda b: optimizers.multistart_optimize(value_and_grad_fn, domain,
-                                                 b, params, value_fn),
+                                                 b, params, value_fn,
+                                                 conv_tol=conv_tol),
         initial_points, group)
 
 

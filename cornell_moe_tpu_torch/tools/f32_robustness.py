@@ -110,7 +110,7 @@ def kg_values(x, y, discrete, unions, normals, dtype, device) -> np.ndarray:
     state = fit(x, y, KG_CASE[1], dtype, device).as_ensemble()
     dom = TensorProductDomain(bounds=torch.tensor([[0.0, 1.0], [0.0, 1.0]],
                                                   **kw))
-    kg, _ = kg_mod.knowledge_gradient_batch(
+    kg = kg_mod.knowledge_gradient_batch(
         state, torch.as_tensor(unions, **kw),
         torch.as_tensor(discrete, **kw)[None],
         torch.as_tensor(normals, **kw), dom, KG_INNER,

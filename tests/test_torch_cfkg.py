@@ -74,13 +74,15 @@ def _doms(box=BOX):
 # ---------------------------------------------------------------------------
 
 def test_fidelity_cost_and_pinning():
-    """Port twin of tests/test_knowledge_gradient.py:157, and the port's
-    batched cost over a stack of unions equal to JAX's per union."""
+    """Port twin of tests/test_knowledge_gradient.py:157 (the arguments
+    by the JAX package's names), and the port's batched cost over a stack
+    of unions equal to JAX's per union."""
     union = np.array([[0.5, 0.2, 0.8], [0.1, 0.9, 0.5]])
     for nf, want in ((1, 0.8), (2, max(0.2 * 0.8, 0.9 * 0.5)), (0, 1.0)):
-        got = tkg.fidelity_cost(_t(union), 2, nf)
-        assert float(got) == want == float(
-            jkg.fidelity_cost(jnp.asarray(union), 2, nf))
+        got = tkg.fidelity_cost(union=_t(union), num_to_sample=2,
+                                num_fidelity=nf)
+        assert float(got) == want == float(jkg.fidelity_cost(
+            union=jnp.asarray(union), num_to_sample=2, num_fidelity=nf))
     stack = np.random.default_rng(3).random((4, 3, 3))
     got = tkg.fidelity_cost(_t(stack), 2, 1)
     assert got.shape == (4,)

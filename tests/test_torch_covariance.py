@@ -1,10 +1,11 @@
 """Parity of the port's models/covariance.py and of the covariance kernel's
 plain version (ops/kernels.covariance_with_noise) with the JAX package.
 
-Tolerances: build_block_covariance in float64 at rtol 1e-12
-(tests/test_covariance.py:35); the kernel's plain version in float32
-against the Pallas kernel in interpret mode at rtol 2e-4 / atol 2e-5
-(tests/test_pallas_kernels.py:26).
+Tolerances: build_block_covariance and the scalar methods in float64 at
+rtol 1e-12 (tests/test_covariance.py:35); the finite-difference ping of
+``grad_covariance`` at rtol 1e-6 / atol 1e-9 (tests/test_covariance.py:55);
+the kernel's plain version in float32 against the Pallas kernel in
+interpret mode at rtol 2e-4 / atol 2e-5 (tests/test_pallas_kernels.py:26).
 """
 
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ from cornell_moe_tpu.models import covariance as jcov
 from cornell_moe_tpu.ops import pallas_kernels as pk
 from cornell_moe_tpu_torch.models import covariance as tcov
 from cornell_moe_tpu_torch.ops import kernels
+from reference_impl import central_difference, matern52_kernel, se_kernel
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -33,6 +35,68 @@ def test_block_covariance_matches_jax(kernel, rng):
                                       jnp.asarray(x1), (), jnp.asarray(x2),
                                       ())
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_scalar_methods_match_jax(kernel, rng):
+    """``num_hyperparameters``, ``scaled_square_dist``, ``covariance`` and
+    ``grad_covariance`` (dk/dx) of an ensemble of 3 kernels, one point pair
+    per kernel, against the JAX package's methods per member; coincident
+    points included."""
+    s, d = 3, 4
+    hypers = np.concatenate([1.0 + rng.random((s, 1)),
+                             0.5 + rng.random((s, d))], axis=1)
+    x, y = rng.standard_normal((s, d)), rng.standard_normal((s, d))
+    y[-1] = x[-1]
+    cov = tcov.make_covariance(kernel, torch.as_tensor(hypers))
+    assert cov.num_hyperparameters == d + 1
+    for method in ("scaled_square_dist", "covariance", "grad_covariance"):
+        got = getattr(cov, method)(torch.as_tensor(x), torch.as_tensor(y))
+        for i in range(s):
+            jc = jcov.make_covariance(kernel, hypers[i])
+            assert jc.num_hyperparameters == cov.num_hyperparameters
+            ref = getattr(jc, method)(jnp.asarray(x[i]), jnp.asarray(y[i]))
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(ref),
+                                       rtol=1e-12, atol=1e-300)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_grad_covariance_ping(kernel, rng):
+    """dk/dx against a central difference of the numpy kernel, and against
+    autograd of ``covariance`` (tests/test_covariance.py:44-55)."""
+    ref_kernel = {"square_exponential": se_kernel,
+                  "matern_2.5": matern52_kernel}[kernel]
+    d = 4
+    hypers = np.concatenate([[1.0 + rng.random()], 0.5 + rng.random(d)])
+    cov = tcov.make_covariance(kernel, torch.as_tensor(hypers))
+    for _ in range(5):
+        x, y = rng.standard_normal(d), rng.standard_normal(d)
+        fd = central_difference(
+            lambda xv: ref_kernel(hypers[0], hypers[1:], xv, y), x)
+        got = cov.grad_covariance(torch.as_tensor(x), torch.as_tensor(y))
+        np.testing.assert_allclose(got.numpy(), fd, rtol=1e-6, atol=1e-9)
+        auto = torch.func.grad(lambda xx: cov.covariance(
+            xx, torch.as_tensor(y)))(torch.as_tensor(x))
+        np.testing.assert_allclose(got.numpy(), auto.numpy(), rtol=1e-12)
+
+
+def test_use_pallas_switch(rng):
+    """``use_pallas="never"`` gives the default's bits on the CPU (where
+    "auto" takes the plain build too), and "always", which the port does
+    not carry over, raises ``ValueError``, as any other value."""
+    hypers = np.array([[1.3, 0.6, 1.4], [0.9, 1.1, 0.7]])
+    cov = tcov.make_covariance("matern_2.5", torch.as_tensor(hypers))
+    x, noise = torch.as_tensor(rng.standard_normal((7, 2))), \
+        torch.full((2, 1), 1e-2, dtype=F64)
+    default = tcov.build_covariance_matrix_with_noise(cov, x, (), noise)
+    assert torch.equal(tcov.build_covariance_matrix_with_noise(
+        cov, x, (), noise, use_pallas="never"), default)
+    assert torch.equal(tcov.build_covariance_matrix_with_noise(
+        cov, x, (), noise, use_pallas="auto"), default)
+    for value in ("always", "sometimes"):
+        with pytest.raises(ValueError):
+            tcov.build_covariance_matrix_with_noise(cov, x, (), noise,
+                                                    use_pallas=value)
 
 
 @pytest.mark.parametrize("kernel", KERNELS)

@@ -10,7 +10,8 @@ factorizations, the wrappers' refusals on CUDA tensors, the KG descent's
 gate, which sends the shapes the descent kernels do not take,
 derivative-observed states and fidelity dims to the plain route and reads
 a union's width with its points being sampled (q + p), and
-kernels B and C at the shapes of the cf-KG and PES paths.  They need
+kernels B and C at the shapes of the cf-KG and PES paths, and C's
+per-call switch (``use_pallas``).  They need
 a CUDA card (marker ``cuda``) and skip without one.  On the card, without JAX installed:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
@@ -453,7 +454,7 @@ def test_kg_batch_descent_gate_on_the_card(dev, rng, d, q, ds, nf, launches):
                                               device=where, dtype=dt)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        v, _ = kg.knowledge_gradient_batch(
+        v = kg.knowledge_gradient_batch(
             states, t(unions), t(discrete), t(normals), dom,
             DEFAULT_SGD_PARAMS_PS, t(np.full(s, y[:, 0].min())),
             derivatives_to_sample=ds, num_fidelity=nf)
@@ -548,6 +549,30 @@ def test_covariance_kernel_at_the_new_paths_shapes(dev, rng, kernel, s, n, d):
                                                  kernel),
         rtol=2e-4, atol=2e-5)
     assert torch.equal(got, got.transpose(-1, -2))
+
+
+def test_use_pallas_argument_closes_c_for_one_call(dev, rng):
+    """``build_covariance_matrix_with_noise(use_pallas=)``: "auto" launches
+    C once, "never" takes the plain build with no launch, within C's
+    tolerance of "auto"; "always" raises ``ValueError``."""
+    from cornell_moe_tpu_torch.models import covariance as cov_mod
+    cov = cov_mod.make_covariance("matern_2.5", _c(np.concatenate(
+        [0.5 + rng.random((4, 1)), 0.2 + rng.random((4, 2))], axis=1), dev))
+    points, noise = _c(rng.random((100, 2)), dev), _c(np.full((4, 1), 1e-3),
+                                                      dev)
+    out = {}
+    for value in ("auto", "never"):
+        before = kernels.covariance_with_noise_launches
+        out[value] = cov_mod.build_covariance_matrix_with_noise(
+            cov, points, (), noise, use_pallas=value)
+        torch.cuda.synchronize()
+        assert kernels.covariance_with_noise_launches == before + (
+            value == "auto")
+    torch.testing.assert_close(out["never"], out["auto"], rtol=2e-4,
+                               atol=2e-5)
+    with pytest.raises(ValueError):
+        cov_mod.build_covariance_matrix_with_noise(cov, points, (), noise,
+                                                   use_pallas="always")
 
 
 @pytest.mark.parametrize("w", [8, 16])

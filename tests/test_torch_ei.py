@@ -4,7 +4,10 @@ normals and starts passed to both.
 
 Tolerances: rtol 1e-10 / atol 1e-13 for estimator values and rtol 1e-9 /
 atol 1e-12 for gradients (tests/test_expected_improvement.py:297,317); the
-multistart endpoints at 1e-7 (same arithmetic, 10 GD steps).
+multistart endpoints at 1e-7 (same arithmetic, 10 GD steps); the entry
+point's per-start route against its batched route and against the JAX
+package's per-start route at rtol 1e-9 / atol 1e-12, the JAX test's own
+bound (tests/test_expected_improvement.py:300-317).
 """
 
 import jax
@@ -173,3 +176,52 @@ def test_multistart_entry_point_runs(ensembles):
         num_mc_iterations=16, conv_tol=1e-3)
     assert pts.shape == (3, 2)
     assert bool(dom.check_point_inside(pts).all())
+
+
+def test_per_start_entry_point_matches_batched_and_jax(monkeypatch):
+    """``multistart_expected_improvement_mcmc_optimization(use_batched=
+    False)`` at the JAX test's size (tests/test_expected_improvement.py
+    :300-317: 3 members, 12 points, 8 starts, 6 steps, q = 2, 64 draws),
+    the port's starts and normals those the JAX package draws from its
+    key: against the port's batched route and the JAX package's per-start
+    route."""
+    r = np.random.default_rng(7)
+    x = r.random((12, 2))
+    y = (np.sin(3 * x[:, 0]) + x[:, 1] ** 2)[:, None]
+    hypers = np.abs(r.standard_normal((3, 3))) + 0.7
+    noises = np.full((3, 1), 1e-3)
+    j = jmcmc.fit_gp_ensemble("matern_2.5", jnp.asarray(hypers),
+                              jnp.asarray(noises), jnp.asarray(x),
+                              jnp.asarray(y))
+    t = tmcmc.fit_gp_ensemble("matern_2.5", _t(hypers), _t(noises), x, y)
+    params = dict(num_multistarts=8, max_num_steps=6, max_num_restarts=1,
+                  num_steps_averaged=3, gamma=0.7, pre_mult=0.3,
+                  max_relative_change=0.5)
+    box = [[0.0, 1.0], [0.0, 1.0]]
+    key = jax.random.PRNGKey(5)
+    key_start, key_mc = jax.random.split(key)
+    starts = np.asarray(JRep(domain=JDom.from_bounds(box), num_repeats=2)
+                        .generate_latin_hypercube_points(key_start, 8))
+    normals = np.asarray(jei.draw_normals(key_mc, 64, 2))
+
+    def lhs(self, generator, num_points):
+        assert (num_points, self.num_repeats) == starts.shape[:2]
+        return _t(starts)
+
+    def draws(generator, num_mc, n, device=None, dtype=None):
+        assert (num_mc, n) == normals.shape
+        return _t(normals)
+
+    monkeypatch.setattr(TRep, "generate_latin_hypercube_points", lhs)
+    monkeypatch.setattr(tei, "draw_normals", draws)
+    got = {batched: tei.multistart_expected_improvement_mcmc_optimization(
+        torch.Generator().manual_seed(0), t, TDom.from_bounds(box), 2,
+        topt.GradientDescentParameters(**params), num_mc_iterations=64,
+        use_batched=batched) for batched in (True, False)}
+    ref = jei.multistart_expected_improvement_mcmc_optimization(
+        key, j, JDom.from_bounds(box), 2,
+        jopt.GradientDescentParameters(**params), num_mc_iterations=64,
+        use_batched=False)
+    np.testing.assert_allclose(got[False].numpy(), got[True].numpy(),
+                               **GRAD)
+    np.testing.assert_allclose(got[False].numpy(), np.asarray(ref), **GRAD)

@@ -245,7 +245,7 @@ def test_newton_and_line_search_match_jax(objective):
                   time_factor=1e-2, max_relative_change=1.0)
     ls = dict(num_multistarts=1, max_num_steps=6, max_num_restarts=1,
               gamma=0.5, pre_mult=0.2, max_relative_change=0.5)
-    _close(topt.newton_optimize(f_t, td, _t(x0),
+    _close(topt.newton_optimize(topt.value_and_grad(f_t), td, _t(x0),
                                 topt.NewtonParameters(**newton)),
            _jx(lambda: jopt.newton_optimize(
                jax.value_and_grad(f_j), jd, jnp.asarray(x0),
@@ -328,6 +328,41 @@ def test_map_fit_matches_jax_and_launches_no_lml_kernel(monkeypatch):
     assert kernels.launch_counts()["lml_fused"] == 1
     tm.optimize(num_restarts=1)
     assert kernels.launch_counts()["lml_fused"] == 1
+
+
+@pytest.mark.parametrize("hessian", ["value_part", "explicit"])
+def test_newton_contract_matches_jax_on_the_map_problem(hessian):
+    """``newton_optimize(value_and_grad_fn, domain, x0, params,
+    hessian_fn=None)``, the JAX package's contract, on the MAP fit's
+    problem (its log posterior, domain, Newton parameters and first start):
+    the Hessian of the value part (``torch.func.hessian`` through
+    ``value_and_grad``) or an explicit ``hessian_fn``, against the JAX
+    package's ``newton_optimize`` from the same start."""
+    jm, tm = _map_models()
+    x0 = np.array([0.2, -0.6, -0.4, -2.5])
+    jdata, tdata = jm._padded_data(), tm._padded_data()
+    jlp = jm._log_posterior_with_data()
+
+    def f_t(t):
+        return tm.log_posterior(t[None], *tdata, force_plain=True)[0]
+
+    def vg_j(t):
+        return jax.value_and_grad(lambda tt: jlp(tt[None], *jdata)[0])(t)
+
+    bound = tmcmc.LOG_BOUND - 1e-3
+    box = [[-bound, bound]] * 4
+    params = dict(num_multistarts=1, max_num_steps=40, gamma=1.05,
+                  time_factor=1e-2, max_relative_change=1.0)
+    kw = {} if hessian == "value_part" else dict(
+        hessian_fn=torch.func.hessian(f_t))
+    got = topt.newton_optimize(
+        topt.value_and_grad(f_t), tdom.TensorProductDomain.from_bounds(box),
+        _t(x0), topt.NewtonParameters(**params), **kw)
+    ref = _jx(lambda: jopt.newton_optimize(
+        vg_j, jdom.TensorProductDomain.from_bounds(box), jnp.asarray(x0),
+        jopt.NewtonParameters(**params)))
+    assert bool(torch.isfinite(got).all())
+    _close(got, ref)
 
 
 # 40 Branin values, on which the Newton steps from these starts leave the

@@ -192,6 +192,36 @@ def test_kg_batch_matches_jax(problem, mode):
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), **GRAD)
 
 
+def test_return_x_star_matches_jax(problem):
+    """``return_x_star`` (default False, as in the JAX package): without it
+    both batched functions give the KG alone, bit for bit the first
+    element of the return with it, and equal to the JAX package's (its
+    ``knowledge_gradient_batch`` vmapped over the members: the port's
+    keeps the member axis S)."""
+    jdom, tdom = _doms()
+    params = topt.GradientDescentParameters(**INNER)
+    jparams = jopt.GradientDescentParameters(**INNER)
+    args = (problem["t"], _t(problem["unions"]), _t(problem["discrete"]),
+            _t(problem["normals"]), tdom, params, _t(problem["best"]))
+    unions, normals = (jnp.asarray(problem[k]) for k in ("unions",
+                                                         "normals"))
+    refs = {
+        tkg.knowledge_gradient_batch: jax.jit(jax.vmap(
+            lambda s, d, b: jkg.knowledge_gradient_batch(
+                s, unions, d, normals, jdom, jparams, b)))(
+                    problem["j"], jnp.asarray(problem["discrete"]),
+                    jnp.asarray(problem["best"])),
+        tkg.knowledge_gradient_mcmc_batch: jax.jit(
+            lambda: jkg.knowledge_gradient_mcmc_batch(
+                problem["j"], unions, jnp.asarray(problem["discrete"]),
+                normals, jdom, jparams, jnp.asarray(problem["best"]), Q))()}
+    for fn, ref in refs.items():
+        alone = fn(*args)
+        kg, x_star = fn(*args, return_x_star=True)
+        assert torch.equal(alone, kg) and x_star.shape == (S, B, M, 2)
+        np.testing.assert_allclose(alone.numpy(), np.asarray(ref), **TOL)
+
+
 def test_per_union_kg_matches_jax(problem):
     jdom, tdom = _doms()
     ref = jax.jit(lambda u: jkg.knowledge_gradient_mcmc(
@@ -215,6 +245,25 @@ def test_optimal_posterior_mean_matches_jax(problem, rng):
         topt.GradientDescentParameters(**params))
     opt = jax.jit(lambda s, g: jkg.compute_optimal_posterior_mean(
         s, jdom, g, jopt.GradientDescentParameters(**params)))
+    for i in range(S):
+        pt_j, val_j = opt(jmcmc.ensemble_member(problem["j"], i),
+                          jnp.asarray(guesses[i]))
+        np.testing.assert_allclose(pt_t[i].numpy(), np.asarray(pt_j), **TOL)
+        np.testing.assert_allclose(float(val_t[i]), float(val_j), **TOL)
+
+
+@pytest.mark.parametrize("top_k", [1, 3])
+def test_optimal_posterior_mean_top_k_matches_jax(problem, rng, top_k):
+    """``top_k``: each member's GD from the ``top_k`` best of its guesses,
+    the best end kept, against the JAX package member by member."""
+    jdom, tdom = _doms()
+    guesses = rng.random((S, 30, 2))
+    params = dict(INNER, max_num_steps=20, gamma=0.7)
+    pt_t, val_t = tkg.compute_optimal_posterior_mean(
+        problem["t"], tdom, _t(guesses),
+        topt.GradientDescentParameters(**params), top_k=top_k)
+    opt = jax.jit(lambda s, g: jkg.compute_optimal_posterior_mean(
+        s, jdom, g, jopt.GradientDescentParameters(**params), top_k=top_k))
     for i in range(S):
         pt_j, val_j = opt(jmcmc.ensemble_member(problem["j"], i),
                           jnp.asarray(guesses[i]))
@@ -305,7 +354,7 @@ def test_batched_kg_lowp_within_the_crn_band(monkeypatch, derivs):
     def vg(nm):
         with torch.enable_grad():
             u = torch.as_tensor(unions).requires_grad_(True)
-            kg, _ = tkg.knowledge_gradient_batch(
+            kg = tkg.knowledge_gradient_batch(
                 t, u, discrete, nm, dom, inner, best,
                 derivatives_to_sample=derivs)
             (g,) = torch.autograd.grad(kg.sum(), u)

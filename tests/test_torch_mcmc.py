@@ -193,6 +193,27 @@ def test_log_posterior_matches_jax(rng):
     np.testing.assert_allclose(got[1:], ref[1:], rtol=1e-4)
 
 
+@pytest.mark.parametrize("derivatives", [(), (0, 1)])
+def test_derivatives_property_matches_jax(rng, derivatives):
+    """``derivatives``, read-only, and the noise channels it sets, as the
+    JAX package's model's."""
+    x = rng.random((6, 2))
+    models = []
+    for pkg, hist in ((jmcmc, JHist), (tmcmc, HistoricalData)):
+        data = hist(dim=2, num_derivatives=len(derivatives))
+        data.append_historical_data(
+            x, rng.standard_normal((6, 1 + len(derivatives))))
+        kw = dict(rng_key=jax.random.PRNGKey(0)) if pkg is jmcmc else \
+            dict(device="cpu", dtype=F64)
+        models.append(pkg.GaussianProcessLogLikelihoodMCMC(
+            data, derivatives=list(derivatives), **kw))
+    jm, tm = models
+    assert tm.derivatives == jm.derivatives == derivatives
+    assert tm.num_noise == 1 + len(derivatives)
+    with pytest.raises(AttributeError):
+        tm.derivatives = ()
+
+
 def test_gated_chain_step_counts(rng):
     """Multiples of the 64-step segment; the two-lag drift needs 3
     segments, so at least 192 steps; the cap rounds up."""

@@ -107,13 +107,13 @@ def test_bo_loop_builds_once_per_bucket(monkeypatch):
 
 def test_fantasy_switch_keys_the_kg_programs(monkeypatch):
     """``config.KG_FANTASY_LOWP`` is read when a program that builds a
-    batched fantasy model is captured, so its resolved value is part of
-    the keys of the KG multistart's cold evaluation and warm step
-    (``knowledge_gradient.fantasy_key``).  In float32, from the same
-    generator state: a suggest under "never", then one under "always",
-    which builds those two programs again (the seeding and scoring
-    programs replay), then one under "never" again, which builds nothing
-    and gives the first suggest's points and VOI bit for bit."""
+    batched fantasy model is captured, so its value is part of every
+    program's key (``programs.keyed_switch``, with the kernel switches).
+    In float32, from the same generator state: a suggest under "never",
+    then one under "always", which builds the suggest's five programs
+    again (the two KG programs among them), then one under "never" again,
+    which builds nothing and gives the first suggest's points and VOI bit
+    for bit."""
     monkeypatch.setattr(programs, "CAPTURE", "auto")
     fast = optimizers.GradientDescentParameters(
         num_multistarts=4, max_num_steps=5, max_num_restarts=1,
@@ -135,15 +135,78 @@ def test_fantasy_switch_keys_the_kg_programs(monkeypatch):
         runs.append((pts, voi, programs.build_count() - start,
                      sorted(k[0] for k in bo.program_cache.programs())))
     assert runs[0][2] == 5
-    assert runs[1][2] == 2 and runs[2][2] == 0
-    assert runs[1][3] == sorted(runs[0][3] + ["kg_cold", "kg_warm_step"])
-    settings = sorted((k[0], ("kg_fantasy_lowp", True) in k)
-                      for k in bo.program_cache.programs()
-                      if k[0] in ("kg_cold", "kg_warm_step"))
-    assert settings == [(kind, on) for kind in ("kg_cold", "kg_warm_step")
-                        for on in (False, True)]
+    assert runs[1][2] == 5 and runs[2][2] == 0
+    always = sorted(k[0] for k in bo.program_cache.programs()
+                    if ("config.KG_FANTASY_LOWP", "always") in k)
+    assert {"kg_cold", "kg_warm_step"} <= set(always) and len(always) == 5
+    assert runs[1][3] == sorted(runs[0][3] + always)
     np.testing.assert_array_equal(runs[2][0], runs[0][0])
     assert runs[2][1] == runs[0][1]
+
+
+# each switch read inside captured functions: (module, attribute, its name
+# in the keys, default, the other value)
+KEYED_SWITCHES = {
+    "lml": (tmcmc, "LML_PALLAS", "mcmc.LML_PALLAS", "auto", "never"),
+    "covariance": (tcov, "USE_PALLAS", "covariance.USE_PALLAS", "auto",
+                   "never"),
+    "descent": (tkg, "DESCENT_PALLAS", "knowledge_gradient.DESCENT_PALLAS",
+                "auto", "never"),
+    "fantasy_lowp": (config, "KG_FANTASY_LOWP", "config.KG_FANTASY_LOWP",
+                     "never", "always"),
+}
+
+
+@pytest.mark.parametrize("program", ["fit", "chain"])
+@pytest.mark.parametrize("switch", sorted(KEYED_SWITCHES))
+def test_switches_key_every_program(monkeypatch, switch, program):
+    """Every program's key holds the value of each registered switch
+    (``programs.keyed_switch``): under the default a program builds once
+    in two calls, under the other value once more, and back under the
+    default it builds nothing and replays the first program; the ensemble
+    fit and a chain segment, float64 on the CPU (where no switch changes
+    the arithmetic, so every call gives the same bits)."""
+    module, name, qual, default, other = KEYED_SWITCHES[switch]
+    assert dict(programs.switch_key()) == {
+        q: d for _, _, q, d, _ in KEYED_SWITCHES.values()}
+    monkeypatch.setattr(programs, "CAPTURE", "auto")
+    model = _chain_model(np.random.default_rng(0))
+    x, y, pn = model._padded_data()
+    r = np.random.default_rng(1)
+    if program == "fit":
+        hypers = np.concatenate([0.8 + r.random((8, 1)),
+                                 0.3 + 0.4 * r.random((8, 2))], axis=1)
+        noises = np.full((8, 1), 1e-2)
+
+        def run():
+            return model._fit(hypers, noises).chol_K
+    else:
+        pos = model.prior.sample_from_prior(
+            torch.Generator().manual_seed(1), 8, dtype=F64).clamp(-5, 5)
+        lp = model.log_posterior(pos, x, y, pn)
+        draws = tmcmc.draw_segment(torch.Generator().manual_seed(2), 4, 8,
+                                   dtype=F64)
+        segment = model._segment_program(x, y, pn)
+
+        def run():
+            return segment(pos, lp, *draws)[1]
+
+    builds, outs = [], []
+    for value in (default, default, other, default):
+        monkeypatch.setattr(module, name, value)
+        start = programs.build_count()
+        outs.append(run())
+        builds.append(programs.build_count() - start)
+    assert builds == [1, 0, 1, 0]
+    kind = "fit" if program == "fit" else "chain_4"
+    assert programs.by_kind(model.program_cache) == {
+        kind: {"builds": 2, "replays": 4}}
+    replays = {value: p.replays
+               for k, p in model.program_cache.programs().items()
+               for value in (default, other) if (qual, value) in k}
+    assert replays == {default: 3, other: 1}
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
 
 
 def _driver_runs(capture, monkeypatch, **kw):
@@ -947,6 +1010,27 @@ def test_nccl_world_of_one_captures_chain_and_recommend(dev, monkeypatch):
                 dist.destroy_process_group()
     for a, b in zip(*out):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.cuda
+def test_capture_holds_off_the_garbage_collector(dev):
+    """A cache dropped without ``release()`` lives on in a reference cycle
+    (each program holds its cache) until the garbage collector finds it,
+    and a graph destroyed while another is being captured invalidates that
+    capture: Python's automatic collection is off while a program is
+    captured (not during its warm-up call), and on again after."""
+    import gc
+    seen = []
+
+    def fn(t):
+        seen.append(gc.isenabled())
+        return t * 2
+
+    x = torch.ones(4, device=dev)
+    out = programs.ProgramCache().get(("gc",), fn)(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 2)
+    assert seen == [True, False] and gc.isenabled()
 
 
 @pytest.mark.cuda
