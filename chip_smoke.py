@@ -11,6 +11,10 @@ drives one q-KG iteration of ``BayesianOptimizer`` at the main path's size
 128 MC draws, float32 on ``cuda:0``), checks that each kernel of that path
 launched during the run (the stages run as CUDA graphs built once per shape
 bucket, ``ops/programs.py``, whose replays count their launches), drives
+the same path at 768 observations (``main_path_768``: the largest size at
+which the JAX package runs all three of its kernels; its chain takes
+kernel B's large-Np instance, and a second suggest in the same bucket
+replays without a build), drives
 two iterations with those programs and again with ``programs.CAPTURE =
 "never"`` (the second iteration builds nothing, and both runs agree bit for
 bit), drives the same iteration sharded over
@@ -27,7 +31,8 @@ against its plain PyTorch version at the main path's shapes (the
 covariance also against its own transpose, bit for bit; the fused LML
 also against its large-Np instance,
 the three timed side by side, with its cluster occupancy, and that
-instance alone at Np 672, above the cluster's capacity; the KG inner
+instance alone at W 8 and 16, Np 672, 768, 896 and 1008, above the
+cluster's capacity, timed in turns with the plain version; the KG inner
 descent in both its instances, tensor-core and FMA, timed in turns).
 It drives one d-KG iteration (Branin with both partials observed, the
 same size, 3 observation channels per point) and checks that it launched
@@ -156,9 +161,15 @@ SCALE_OUT_WORLD, SCALE_OUT_RTOL, SCALE_OUT_TIMEOUT_S = 2, 1e-4, 600.0
 CKPT_OBS, CKPT_HYPERS, CKPT_BURNIN, CKPT_CHAIN, CKPT_Q = 64, 8, 200, 128, 2
 # the MAP fit's starts
 MAP_RESTARTS = 4
-# kernel B's large-Np instance is timed where it serves alone: above the
-# cluster instance's capacity (640)
-LML_LARGE_NP = 672
+# kernel B's large-Np instance is held to its plain version and timed
+# where it serves alone, above the cluster instance's capacity (640): up to
+# the gate's upper end (896, the JAX package's) and at 1008 (1000
+# observations), where the gate sends the chain to the plain LML
+LML_LARGE_NPS = (672, 768, 896, 1008)
+# the main path at 768 observations: the largest size at which the JAX
+# package runs all three of its kernels (B to 896, C to 768, A from 256);
+# its chain takes B's large-Np instance (Np 768, then 784)
+MAIN_768_OBS = 768
 
 # Peaks of one H100 SXM at 700 W (data sheet, dense): float32 outside the
 # tensor cores, TF32 on the tensor cores, HBM, and the special-function
@@ -225,6 +236,192 @@ def _iteration(torch, descent, **bo_kwargs):
     check(run[0].sgd_params.num_multistarts == MULTISTARTS and
           run[0].num_mc == NUM_MC, "main-path size changed")
     return run
+
+
+def _log_posterior_check(torch, label, m) -> None:
+    """The model's log-posterior at its chain's walkers, through kernel B,
+    against the float64 plain path: the kernel must be finite wherever
+    float64 is, and its largest relative deviation must be within 5e-3 or
+    no larger than the float32 plain path's own (at walkers whose K is too
+    ill-conditioned for float32 either way)."""
+    mx, my, mpn = m._padded_data()
+    lp_k = m.log_posterior(m.p0, mx, my, mpn).double()
+    lp_p = m.log_posterior(m.p0, mx, my, mpn, force_plain=True).double()
+    lp_64 = m.log_posterior(m.p0.double(), mx.double(), my.double(),
+                            mpn.double(), force_plain=True)
+    scale = lp_64.abs().clamp_min(1.0)
+    inf = torch.full_like(lp_64, float("inf"))
+    dev_k = torch.where(torch.isfinite(lp_k),
+                        (lp_k - lp_64).abs() / scale, inf)
+    dev_p = torch.where(torch.isfinite(lp_p),
+                        (lp_p - lp_64).abs() / scale, inf)
+    fin = torch.isfinite(lp_64)
+    ok = bool(fin.any()) and bool(torch.isfinite(dev_k[fin]).all()) \
+        and dev_k[fin].max().item() <= max(5e-3, dev_p[fin].max().item())
+    both = torch.isfinite(lp_k) & torch.isfinite(lp_p)
+    emit({"phase": "equivalence", "check": "log_posterior",
+          "walkers_from": label, "walkers": int(m.p0.shape[0]),
+          "padded_n": int(mx.shape[0]),
+          "finite": {"kernel": int(torch.isfinite(lp_k).sum()),
+                     "plain_f32": int(torch.isfinite(lp_p).sum()),
+                     "plain_f64": int(fin.sum())},
+          "max_rel_dev_kernel_vs_f64": _finite_or_none(dev_k[fin]),
+          "max_rel_dev_plain_f32_vs_f64": _finite_or_none(dev_p[fin]),
+          "max_rel_dev_kernel_vs_plain_f32":
+              ((lp_k - lp_p).abs() / lp_p.abs().clamp_min(1.0))[
+                  both].max().item() if bool(both.any()) else None,
+          "walker_median_theta": m.p0.median(dim=0).values.tolist(),
+          "tolerance": "vs f64: max rel 5e-3 or the plain f32 "
+                       "path's own max deviation", "ok": ok})
+    check(ok, f"kernel log-posterior check failed ({label})")
+
+
+def _kg_voi_members(torch, states, union, discrete_pts, normals, domain,
+                    inner_params, best_so_far, derivatives_to_sample=(),
+                    num_fidelity=0, program_cache=None) -> dict:
+    """Per ensemble member, at a suggest's VOI scoring (the arguments of
+    ``score_knowledge_gradient_mcmc``), recomputed eagerly: the member's
+    KG (its mean is the VOI), and for the members whose KG is not finite
+    their fantasy noise, whether their per-union fantasy factor (the VOI's,
+    ``_build_fantasy_model``) and their batched one (the multistart's,
+    ``_build_fantasy_model_batch``) are finite, and the union's float32
+    posterior variance's least eigenvalue and diagonal."""
+    from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
+    from cornell_moe_tpu_torch.models import gp as gp_mod
+    del program_cache
+    vals = kg.knowledge_gradient(
+        states, union, discrete_pts, normals, domain, inner_params,
+        torch.as_tensor(best_so_far), derivatives_to_sample, num_fidelity)
+    bad = [i for i in range(vals.shape[0])
+           if not math.isfinite(vals[i].item())]
+    out = {"kg": vals.tolist(), "nonfinite": bad}
+    if bad:
+        _, chol_u, _ = kg._build_fantasy_model(states, union)
+        _, chol_b, _, noise_eff = kg._build_fantasy_model_batch(
+            states, union[None])
+        var = gp_mod.posterior_variance(states, union)
+        out["members"] = {str(i): {
+            "noise_variance": states.noise_variance[i].tolist(),
+            "fantasy_factor_finite": bool(torch.isfinite(chol_u[i]).all()),
+            "batched_factor_finite": bool(torch.isfinite(chol_b[i]).all()),
+            "batched_noise_eff": noise_eff[i, 0].tolist(),
+            "least_eigenvalue": torch.linalg.eigvalsh(
+                var[i].double())[0].item()
+            if bool(torch.isfinite(var[i]).all()) else None,
+            "diagonal": torch.diagonal(var[i]).tolist()} for i in bad}
+    return out
+
+
+def phase_main_768(torch) -> dict:
+    """The main path at MAIN_768_OBS observations through
+    ``BayesianOptimizer``'s entry points (initialize, suggest, a second
+    suggest in the same bucket, observe and recommend) at the main path's
+    settings (Branin on its raw
+    domain, 16 members, q = 4, 200 multistarts, 128 MC draws, float32,
+    standardized, noisy), every launch counter set to 0 just before and
+    read just after: each stage's time and builds, the chains' steps, the
+    VOIs, suggested and recommended points, launches by kernel and by
+    shape, and builds and replays by program kind.  The chain's Np (768,
+    then 784 after the 4 new points) lies above the cluster instance's
+    capacity and within the gate: every B launch takes the large-Np
+    instance, none the cluster one; A and C launch; the replayed suggest
+    builds nothing.  The chain's final walkers' log posteriors pass the
+    main path's rule (:func:`_log_posterior_check`).  Each suggest's VOI,
+    the ensemble mean of the members' KG at its union, is finite, or NaN
+    only through members whose float32 fantasy factor at that union fails
+    (``voi_members``, :func:`_kg_voi_members`): as in the JAX package,
+    whose per-union fantasy model shifts the diagonal by the same repair
+    and no more.  Returns the counts."""
+    from cornell_moe_tpu_torch.acquisition import knowledge_gradient as kg
+    from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
+    from cornell_moe_tpu_torch.ops import kernels, programs
+    from cornell_moe_tpu_torch.tools import scale_out
+    from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
+
+    bo = BayesianOptimizer(**dict(scale_out.MAIN_PATH,
+                                  objective_func=Branin(), device=DEVICE))
+    check(bo.sgd_params.num_multistarts == MULTISTARTS and
+          bo.num_mc == NUM_MC, "main-path size changed")
+    stages, replays = {}, {}
+    scored, score = [], kg.score_knowledge_gradient_mcmc
+
+    def recording_score(*args, **kw):
+        scored.append((args, kw))
+        return score(*args, **kw)
+
+    def timed(name, fn, *args):
+        b0 = programs.build_count()
+        t0 = time.time()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        stages[name] = {"seconds": time.time() - t0,
+                        "builds": programs.build_count() - b0}
+        replays[name] = {k: v["replays"] for k, v in
+                         programs.by_kind(bo.program_cache).items()}
+        return out
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    kg.score_knowledge_gradient_mcmc = recording_score
+    try:
+        with scale_out.recording() as (shapes, lml_shapes):
+            t0 = time.time()
+            timed("initialize", bo.initialize, MAIN_768_OBS)
+            np_first = int(bo.model.models.chol_K.shape[-1])
+            pts, voi = timed("suggest", bo.suggest)
+            pts2, voi2 = timed("suggest_replayed", bo.suggest)
+            timed("observe_retrain", bo.observe, pts)
+            rec = timed("recommend", bo.recommend)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        kg.score_knowledge_gradient_mcmc = score
+    counts = kernels.launch_counts()
+    voi_members = [_kg_voi_members(torch, *a, **k) for a, k in scored]
+    true_value = float(bo.objective_func.evaluate_true(rec)[0])
+    states = bo.model.models
+    replayed = {k: v - replays["suggest"].get(k, 0)
+                for k, v in replays["suggest_replayed"].items()
+                if v != replays["suggest"].get(k, 0)}
+    emit({"phase": "main_path_768", "seconds": wall, "stages": stages,
+          "num_sampled": int(bo.model._data.num_sampled),
+          "ensemble": int(states.chol_K.shape[0]),
+          "padded_n": [np_first, int(states.chol_K.shape[-1])],
+          "chain_steps": bo.model.chain_steps,
+          "members_replaced": bo.model.members_replaced,
+          "voi": voi, "suggested": pts.tolist(),
+          "voi_replayed_suggest": voi2,
+          "suggested_replayed": pts2.tolist(),
+          "recommended": rec.tolist(), "true_value": true_value,
+          "launches": counts, "descent_run_launches_by_shape": shapes,
+          "lml_fused_calls_by_shape": lml_shapes,
+          "lml_instance_by_shape": {
+              k: kernels.lml_fused_instance(int(k.split("_Np")[1]))
+              for k in lml_shapes},
+          "programs": programs.by_kind(bo.program_cache),
+          "replays_in_replayed_suggest": replayed,
+          "voi_members": voi_members})
+    for v, members in zip((voi, voi2), voi_members):
+        check(math.isfinite(v) if not members["nonfinite"] else
+              math.isnan(v) and not any(
+                  m["fantasy_factor_finite"]
+                  for m in members["members"].values()),
+              f"main_path_768 VOI {v} neither finite nor NaN from members "
+              f"whose float32 fantasy factor fails: {members}")
+    bounds = bo.objective_func._search_domain
+    check(_domain_check(rec, bounds),
+          f"main_path_768 recommended point {rec} outside the domain")
+    check(bool(torch.isfinite(states.chol_K).all()),
+          "a main_path_768 ensemble member's chol_K is non-finite")
+    for name in ("descent_run", "covariance_with_noise", "lml_fused_global"):
+        check(counts[name] > 0, f"main_path_768 did not launch {name}")
+    check(counts["lml_fused"] == 0,
+          "main_path_768 launched B's cluster instance")
+    check(stages["suggest_replayed"]["builds"] == 0 and replayed,
+          f"the replayed suggest built programs: {stages}")
+    _log_posterior_check(torch, "main_path_768_walkers", bo.model)
+    release(torch, bo)
+    return counts
 
 
 def phase_main(torch):
@@ -793,10 +990,14 @@ TIMING = ("device_ms: the sum of the call's CUDA events under "
           "included; each the median of {} calls after a warm-up")
 
 
-def phase_equivalence(torch, model, counts):
+def phase_equivalence(torch, model, counts, counts_768):
     """Each kernel of the main path against its plain version on the card,
-    in float32, at the main path's shapes.  Returns the kernels' summary
-    rows and the descent problems, [(label, problem)]."""
+    in float32, at the main path's shapes, and kernel B's large-Np
+    instance at LML_LARGE_NPS.  The summary rows' launches are the main
+    path's (``counts``), the large-Np instance's main_path_768's
+    (``counts_768``).  Returns the kernels' summary rows and the descent
+    problems, [(label, problem)]."""
+    from cornell_moe_tpu_torch.models import mcmc as mcmc_mod
     from cornell_moe_tpu_torch.ops import kernels
     from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
 
@@ -894,87 +1095,103 @@ def phase_equivalence(torch, model, counts):
                 emit({"phase": "lml_fused_timing", "W": nw, "Np": np_,
                       **times[nw], "timing": TIMING.format(20)})
     # B's large-Np instance where it serves alone (above the cluster
-    # capacity): W = 8 at Np = LML_LARGE_NP, points drawn in the domain
-    nw, np_ = w // 2, LML_LARGE_NP
-    check(kernels.lml_fused_instance(np_) == "global",
-          f"Np={np_} does not take the large-Np instance")
-    xs = dom.lower + torch.rand((np_, d), generator=g, **f32) * width
-    us = (xs.T[None] / lengths[:nw, :, None]).contiguous()
-    noise = noises[:nw].expand(nw, np_).contiguous()
-    yb = torch.randn((np_,), generator=g, **f32)[None].expand(
-        nw, np_).contiguous()
-    largs = (us, alphas[:nw].contiguous(), noise, yb, np_,
-             model.kernel_name)
-    quad_g, logdet_g = kernels.lml_fused_global(*largs)
-    quad_p, logdet_p = kernels.lml_fused_plain(*largs)
-    abs_err = max((quad_g - quad_p).abs().max().item(),
-                  (logdet_g - logdet_p).abs().max().item())
-    errs = {"quad": rel(quad_g, quad_p), "logdet": rel(logdet_g, logdet_p)}
-    ok = errs["quad"] < 5e-4 and errs["logdet"] < 5e-4
-    emit({"phase": "equivalence", "kernel": "lml_fused",
-          "instance": "large_np", "W": nw, "Np": np_,
-          "max_abs_err": abs_err, "max_rel_err": errs,
-          "tolerance": "rtol 5e-4 vs plain", "ok": ok})
-    check(ok, f"lml_fused_global disagrees at W={nw}, Np={np_}")
-    large = {"large_np_instance": _timed(
-                 torch, lambda: kernels.lml_fused_global(*largs), 20),
-             "plain": _timed(
-                 torch, lambda: kernels.lml_fused_plain(*largs), 20)}
-    emit({"phase": "lml_fused_timing", "W": nw, "Np": np_, **large,
-          "timing": TIMING.format(20)})
-    row("lml_fused_global", abs_err, large["large_np_instance"],
-        large["plain"], lml_bound(nw, np_, d, model.kernel_name))
+    # capacity): W = 8 and 16 at each of LML_LARGE_NPS, points drawn in the
+    # domain, against the plain version (rtol 5e-4, checked) and float64
+    # (reported), both timed in turns in this call (plain, kernel, kernel,
+    # plain); at 1008, above the gate, the times are reported for a later
+    # opening of the gate on this evidence.  The first case draws its points
+    # from g, as the one case before it did, the others from their own
+    # generator, so the descent problems below see g's same draws.
+    large, g_large = {}, torch.Generator(device=dev).manual_seed(1235)
+    for nw in (w // 2, w):
+        for np_ in LML_LARGE_NPS:
+            check(kernels.lml_fused_instance(np_) == "global",
+                  f"Np={np_} does not take the large-Np instance")
+            gen = g if not large else g_large
+            xs = dom.lower + torch.rand((np_, d), generator=gen, **f32) * \
+                width
+            us = (xs.T[None] / lengths[:nw, :, None]).contiguous()
+            noise = noises[:nw].expand(nw, np_).contiguous()
+            yb = torch.randn((np_,), generator=gen, **f32)[None].expand(
+                nw, np_).contiguous()
+            largs = (us, alphas[:nw].contiguous(), noise, yb, np_,
+                     model.kernel_name)
+            quad_g, logdet_g = kernels.lml_fused_global(*largs)
+            quad_p, logdet_p = kernels.lml_fused_plain(*largs)
+            quad_64, logdet_64 = kernels.lml_fused_plain(
+                *[a.double() for a in largs[:4]], np_, model.kernel_name)
+            abs_err = max((quad_g - quad_p).abs().max().item(),
+                          (logdet_g - logdet_p).abs().max().item())
+            errs = {"quad": rel(quad_g, quad_p),
+                    "logdet": rel(logdet_g, logdet_p),
+                    "kernel_vs_f64": max(rel(quad_g, quad_64),
+                                         rel(logdet_g, logdet_64)),
+                    "plain_vs_f64": max(rel(quad_p, quad_64),
+                                        rel(logdet_p, logdet_64))}
+            ok = errs["quad"] < 5e-4 and errs["logdet"] < 5e-4
+            emit({"phase": "equivalence", "kernel": "lml_fused",
+                  "instance": "large_np", "W": nw, "Np": np_,
+                  "max_abs_err": abs_err, "max_rel_err": errs,
+                  "tolerance": "rtol 5e-4 vs plain (f64: reported)",
+                  "ok": ok})
+            check(ok, f"lml_fused_global disagrees at W={nw}, Np={np_}")
+            t = _in_turns(torch, {
+                "large_np_instance":
+                    lambda: kernels.lml_fused_global(*largs),
+                "plain": lambda: kernels.lml_fused_plain(*largs)},
+                ("plain", "large_np_instance", "large_np_instance",
+                 "plain"), 20)
+            bound = lml_bound(nw, np_, d, model.kernel_name)
+            large[(nw, np_)] = (abs_err, t, bound)
+            emit({"phase": "lml_fused_timing", "W": nw, "Np": np_, **t,
+                  "kernel_over_plain_device":
+                      t["large_np_instance"]["device_ms"] /
+                      t["plain"]["device_ms"],
+                  "bound_ms": bound["ms"],
+                  "gate": "open" if np_ <= mcmc_mod.LML_MAX_OBS else
+                          "closed (plain LML)",
+                  "timing": TIMING.format(20) + ", in turns plain, "
+                            "kernel, kernel, plain; means of the turns"})
+    # the summary row: W 8 at Np 768, the main_path_768 chain's first
+    # shape, with that path's launches
+    abs_err, t, bound = large[(w // 2, MAIN_768_OBS)]
+    rows.append(kernel_row("lml_fused_global",
+                           counts_768["lml_fused_global"], abs_err,
+                           t["large_np_instance"], t["plain"], bound))
     np_main = x.shape[0]
     smem = kernels._lib().cmoe_lml_fused_cluster_smem_bytes(np_main)
     occupancy = {f"W{nw}_C{c}": kernels.lml_cluster_occupancy(nw, np_main, c)
                  for nw in (w // 2, w) for c in (kernels.LML_CLUSTER, 16)}
+    lib = kernels._lib()
+    global_layout = {
+        np_: {"smem_bytes_per_cta": lib.cmoe_lml_fused_global_smem_bytes(
+                  np_),
+              "scratch_bytes_per_walker":
+                  4 * lib.cmoe_lml_fused_global_scratch_floats(np_),
+              "max_active_clusters": {
+                  f"W{nw}": kernels.lml_global_occupancy(nw, np_)
+                  for nw in (w // 2, w)}}
+        for np_ in LML_LARGE_NPS}
     emit({"phase": "lml_fused_cluster", "Np": np_main,
           "cluster": kernels.LML_CLUSTER,
           "smem_bytes_per_cta": smem,
           "smem_bytes_per_cta_C16": kernels.lml_cluster_smem_bytes(np_main,
                                                                     16),
           "capacity_np": kernels.LML_CLUSTER_CAPACITY,
-          "max_active_clusters": occupancy})
+          "max_active_clusters": occupancy,
+          "large_np_instance": global_layout})
     check(smem == kernels.lml_cluster_smem_bytes(np_main),
           "the kernel's shared-memory layout differs from the wrapper's")
+    check(all(v["smem_bytes_per_cta"] == kernels.lml_global_smem_bytes(np_)
+              and v["scratch_bytes_per_walker"] ==
+              4 * kernels.lml_global_scratch_floats(np_)
+              for np_, v in global_layout.items()),
+          "the large-Np instance's layout differs from the wrapper's")
     # the model's log-posterior at the chain's walkers, on the bench's
-    # retrain problem (bench.py:297-315) and at the main path's walkers.
-    # Against the float64 plain path, the kernel must be finite wherever
-    # float64 is, and its largest relative deviation must be within 5e-3 or
-    # no larger than the float32 plain path's own (at walkers whose K is too
-    # ill-conditioned for float32 either way).
+    # retrain problem (bench.py:297-315) and at the main path's walkers
     for label, m in (("bench_retrain_problem", bench_retrain_model(torch)),
                      ("main_path_walkers", model)):
-        mx, my, mpn = m._padded_data()
-        lp_k = m.log_posterior(m.p0, mx, my, mpn).double()
-        lp_p = m.log_posterior(m.p0, mx, my, mpn, force_plain=True).double()
-        lp_64 = m.log_posterior(m.p0.double(), mx.double(), my.double(),
-                                mpn.double(), force_plain=True)
-        scale = lp_64.abs().clamp_min(1.0)
-        inf = torch.full_like(lp_64, float("inf"))
-        dev_k = torch.where(torch.isfinite(lp_k),
-                            (lp_k - lp_64).abs() / scale, inf)
-        dev_p = torch.where(torch.isfinite(lp_p),
-                            (lp_p - lp_64).abs() / scale, inf)
-        fin = torch.isfinite(lp_64)
-        ok = bool(fin.any()) and bool(torch.isfinite(dev_k[fin]).all()) \
-            and dev_k[fin].max().item() <= max(5e-3,
-                                               dev_p[fin].max().item())
-        both = torch.isfinite(lp_k) & torch.isfinite(lp_p)
-        emit({"phase": "equivalence", "check": "log_posterior",
-              "walkers_from": label, "walkers": int(m.p0.shape[0]),
-              "finite": {"kernel": int(torch.isfinite(lp_k).sum()),
-                         "plain_f32": int(torch.isfinite(lp_p).sum()),
-                         "plain_f64": int(fin.sum())},
-              "max_rel_dev_kernel_vs_f64": _finite_or_none(dev_k[fin]),
-              "max_rel_dev_plain_f32_vs_f64": _finite_or_none(dev_p[fin]),
-              "max_rel_dev_kernel_vs_plain_f32":
-                  ((lp_k - lp_p).abs() / lp_p.abs().clamp_min(1.0))[
-                      both].max().item() if bool(both.any()) else None,
-              "walker_median_theta": m.p0.median(dim=0).values.tolist(),
-              "tolerance": "vs f64: max rel 5e-3 or the plain f32 "
-                           "path's own max deviation", "ok": ok})
-        check(ok, f"kernel log-posterior check failed ({label})")
+        _log_posterior_check(torch, label, m)
     row("lml_fused", max(lml_errs), times[w // 2]["cluster"],
         times[w // 2]["plain"], lml_bound(w // 2, x.shape[0], d,
                                           model.kernel_name))
@@ -1558,7 +1775,7 @@ def _programs_vs_never(torch, bo, rec, make_bo) -> dict:
     return {"programs": by_kind, "suggest_replayed_seconds": replayed,
             "never_stages": never["stages"], "bitwise_equal_to_never": {
                 k: bool(np.array_equal(np.asarray(got[k]),
-                                       np.asarray(never[k])))
+                                       np.asarray(never[k]), equal_nan=True))
                 for k in got}}
 
 
@@ -2726,11 +2943,18 @@ def phase_ei(torch):
     launches B and the ensemble fits C, while the EI suggest and the
     recommendation launch neither A nor D.  The EI suggest's GD step and
     scoring run as programs with the other stages, each replayed, and the
-    iteration equals its CAPTURE = "never" twin bit for bit.  Returns the
-    optimizer."""
+    iteration equals its CAPTURE = "never" twin bit for bit (a NaN VOI
+    equal to a NaN).  The VOI, the single-union estimate on member 0 at the
+    suggested union, is finite and >= 0 where that union's float32
+    posterior variance, jittered as the estimator jitters it, factors, and
+    NaN where it does not, as in the JAX package (no repair of an
+    indefinite union); the union's factor is recomputed from the state and
+    points the scorer was given.  Returns the optimizer."""
     import numpy as np
+    from cornell_moe_tpu_torch import config
+    from cornell_moe_tpu_torch.acquisition import expected_improvement as ei
     from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
-    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.ops import kernels, linalg
     from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
 
     def make_bo():
@@ -2742,15 +2966,32 @@ def phase_ei(torch):
     bo = make_bo()
     check(bo.sgd_params.num_multistarts == MULTISTARTS and
           bo.num_mc == EI_NUM_MC, "EI path size changed")
+    scored, score = [], ei.evaluate_expected_improvement_at_point_list
+
+    def recording_score(state, points_list, **kw):
+        scored.append((state, points_list))
+        return score(state, points_list, **kw)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    t0 = time.time()
-    rec = bo.run(num_iterations=1, num_init_pts=NUM_OBS)[-1]
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+    ei.evaluate_expected_improvement_at_point_list = recording_score
+    try:
+        t0 = time.time()
+        rec = bo.run(num_iterations=1, num_init_pts=NUM_OBS)[-1]
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        ei.evaluate_expected_improvement_at_point_list = score
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    _, var = ei._union_posterior(*scored[0])
+    voi_union = {
+        "factor_finite": bool(torch.isfinite(linalg.cholesky_small(
+            linalg.add_jitter(var, config.EI_VARIANCE_JITTER))).all()),
+        "least_eigenvalue": torch.linalg.eigvalsh(var.double())[
+            ..., 0].min().item(),
+        "least_diagonal": torch.diagonal(var, dim1=-2, dim2=-1).min().item()}
     twin = _programs_vs_never(torch, bo, rec, make_bo)
     states = bo.model.models
     bounds = bo.objective_func._search_domain
@@ -2765,10 +3006,13 @@ def phase_ei(torch):
           "voi": rec["voi"], "suggested": sugg.tolist(),
           "distinct_suggested": int(len(np.unique(sugg, axis=0))),
           "recommended": r.tolist(), "true_value": rec["true_value"],
+          "voi_union_float32": voi_union,
           "max_memory_allocated": peak, "launches": counts, **twin})
     _check_programs("EI path", twin, EI_PROGRAM_KINDS)
-    check(math.isfinite(rec["voi"]) and rec["voi"] >= 0.0,
-          f"EI VOI {rec['voi']} not finite and >= 0")
+    check(math.isfinite(rec["voi"]) and rec["voi"] >= 0.0
+          if voi_union["factor_finite"] else math.isnan(rec["voi"]),
+          f"EI VOI {rec['voi']} neither finite and >= 0 where the union "
+          f"factors nor NaN where it does not: {voi_union}")
     check(sugg.shape == (Q, 2) and _domain_check(sugg, bounds),
           f"EI suggestions {sugg} not q points inside the domain")
     check(_domain_check(r, bounds) and math.isfinite(rec["true_value"]),
@@ -2798,7 +3042,8 @@ def _ei_route_picks(torch, states, dom) -> dict:
     picks, seconds and largest difference over the domain's width, and
     each estimator at the starts the routes draw (the batched one, which
     the batched route steps on, and the single-union one, which the
-    per-start route steps on and which lifts an indefinite union)."""
+    per-start route steps on; both NaN where a union's float32 factor
+    fails)."""
     from cornell_moe_tpu_torch.acquisition import expected_improvement as ei
     from cornell_moe_tpu_torch.ops import optimizers
     from cornell_moe_tpu_torch.ops.domains import RepeatedDomain
@@ -2845,10 +3090,10 @@ def _ei_routes(torch, bo) -> None:
     own problem (tests/test_expected_improvement.py:247-256 and :300-317:
     3 members, 12 points, noise 1e-3), where the two picks must be within
     1e-3 of the domain's width of each other, and on the EI path's
-    ensemble (the main path's size: 16 members, Np 512), where they are
-    reported: there q-EI sits below float32's resolution and a union's
-    float32 variance can be indefinite, which the single-union estimator
-    lifts and the batched one leaves to fail, so the picks may differ."""
+    ensemble (the main path's size: 16 members, Np 512), where they must
+    agree too: there q-EI sits below float32's resolution and a union's
+    float32 variance can be indefinite, which both estimators leave to
+    fail (NaN, a start the multistarts drop), as the JAX package's do."""
     import numpy as np
     from cornell_moe_tpu_torch.models import mcmc as mcmc_mod
     from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
@@ -2868,12 +3113,12 @@ def _ei_routes(torch, bo) -> None:
                     [[0.0, 1.0]] * 2, **kw)),
             "ei_path_ensemble": _ei_route_picks(torch, bo.model.models,
                                                 bo.domain),
-            "tolerance": "jax_test_problem: 1e-3 of the domain's width "
-                         "(checked); ei_path_ensemble: reported"}
+            "tolerance": "1e-3 of the domain's width on each problem"}
     emit(line)
-    err = line["jax_test_problem"]["max_abs_diff_over_width"]
-    check(err <= 1e-3, f"the per-start EI-MCMC route's pick is off the "
-                       f"batched route's on the JAX test's problem: {line}")
+    for problem in ("jax_test_problem", "ei_path_ensemble"):
+        err = line[problem]["max_abs_diff_over_width"]
+        check(err <= 1e-3, f"the per-start EI-MCMC route's pick is off the "
+                           f"batched route's on the {problem}: {line}")
 
 
 def phase_covariance_methods(torch) -> None:
@@ -3708,10 +3953,12 @@ def main() -> int:
     provenance(torch)
     phase_build()
     bo, rec, counts = phase_main(torch)
+    counts_768 = phase_main_768(torch)
     phase_programs(torch)
     phase_scale_out(torch, bo, rec)
     phase_dkg(torch)
-    summary, problems = phase_equivalence(torch, bo.model, counts)
+    summary, problems = phase_equivalence(torch, bo.model, counts,
+                                          counts_768)
     summary += phase_descent_grad(torch, bo.model.kernel_name, problems)
     phase_chain_profile(torch, bo.model, nccl_world_of_one=True)
     phase_lcb(torch, bo.model.models)

@@ -75,20 +75,14 @@ def monte_carlo_expected_improvement(state: gp.GaussianProcessState,
                                      best_so_far, normals: torch.Tensor
                                      ) -> torch.Tensor:
     """q,p-EI estimator at one union; normals (num_mc, q + p).  Returns
-    the state's batch shape (a scalar for one GP).
-
-    Where float32 cancellation on a near-noiseless model leaves the union's
-    variance indefinite, its diagonal is lifted by 1.5 times the magnitude
-    of its least eigenvalue, without gradient (the KG fantasy model's
-    repair, on the eigenvalue rather than the diagonal); the lift is
-    exactly 0 for a positive definite variance, so float64 values are
-    untouched.  The batched estimator, which the KG seeding's q-EI runs
-    through, has none: there a union whose float32 factor fails loses the
-    multistart, as in the JAX package."""
+    the state's batch shape (a scalar for one GP).  Where float32
+    cancellation on a near-noiseless model leaves the union's variance
+    indefinite, its Cholesky factor and so the estimate are NaN, as in the
+    JAX package and the batched estimator: the multistarts drop such a
+    start (``optimizers.select_best``)."""
     mu, var = _union_posterior(
         state, _union(points_to_sample, points_being_sampled))
-    return _estimate_from_posterior(mu, var, _least_eigenvalue(var),
-                                    best_so_far, normals)
+    return _estimate_from_posterior(mu, var, best_so_far, normals)
 
 
 def _union_posterior(state: gp.GaussianProcessState, union: torch.Tensor):
@@ -97,22 +91,14 @@ def _union_posterior(state: gp.GaussianProcessState, union: torch.Tensor):
         gp.posterior_variance(state, union)
 
 
-def _least_eigenvalue(var: torch.Tensor) -> torch.Tensor:
-    """The union covariance's least eigenvalue, without gradient
-    (non-finite entries read as 0).  cuSOLVER's eigensolver reports its
-    status to the host, so a CUDA graph cannot hold this call."""
-    return torch.linalg.eigvalsh(
-        torch.where(torch.isfinite(var), var, 0.0).detach())[..., 0]
-
-
 def _estimate_from_posterior(mu: torch.Tensor, var: torch.Tensor,
-                             least: torch.Tensor, best_so_far,
+                             best_so_far,
                              normals: torch.Tensor) -> torch.Tensor:
-    """The q,p-EI estimate from the union's posterior, its diagonal lifted
-    by 1.5 |least| where ``least`` < 0."""
+    """The q,p-EI estimate from the union's posterior: its variance
+    factored with ``EI_VARIANCE_JITTER`` on the diagonal, NaN where that
+    fails."""
     chol = linalg.cholesky_small(linalg.add_jitter(
-        var, config.EI_VARIANCE_JITTER + torch.clamp(-1.5 * least,
-                                                     min=0.0)))
+        var, config.EI_VARIANCE_JITTER))
     samples = mu[..., None, :] + normals @ chol.transpose(-1, -2)
     best = torch.as_tensor(best_so_far, dtype=mu.dtype, device=mu.device)
     improvement = torch.clamp(
@@ -170,9 +156,7 @@ def evaluate_expected_improvement_at_point_list(
     otherwise the MC estimator on ``normals`` (num_mc, q + p), drawn from
     ``generator`` when not given, and from a generator seeded 0 when
     neither is (common random numbers across calls).  With a
-    ``program_cache`` the closed form is one program; the MC estimator two,
-    the union's posterior and the estimate, around its least eigenvalue,
-    which a program cannot hold (:func:`_least_eigenvalue`)."""
+    ``program_cache`` either form is one program."""
     pts = points_list if points_list.dim() == 3 else points_list[:, None, :]
     if best_so_far is None:
         best_so_far = state.best_observed_value
@@ -195,14 +179,11 @@ def evaluate_expected_improvement_at_point_list(
                                device=pts.device, dtype=pts.dtype)
     being = None if p == 0 else points_being_sampled.expand(
         (pts.shape[0],) + points_being_sampled.shape)
-    mu, var = programs.run(
-        program_cache, ("ei_score", "posterior", layout),
-        lambda u, *ts: _union_posterior(gp.state_from_tensors(layout, ts),
-                                        u),
-        _union(pts, being), *tensors)
-    return programs.run(program_cache, ("ei_score", "estimate"),
-                        _estimate_from_posterior, mu, var,
-                        _least_eigenvalue(var), best, normals)
+    return programs.run(
+        program_cache, ("ei_score", "monte_carlo", layout),
+        lambda u, b, nrm, *ts: monte_carlo_expected_improvement(
+            gp.state_from_tensors(layout, ts), u, None, b, nrm),
+        _union(pts, being), best, normals, *tensors)
 
 
 def monte_carlo_expected_improvement_mcmc(states, points_to_sample,
@@ -228,6 +209,12 @@ def monte_carlo_expected_improvement_batch(state, unions: torch.Tensor,
                                            ) -> torch.Tensor:
     """q,p-EI at B unions at once: (B, u, dim) -> (..., B) for a state with
     batch axes (...).  The B unions' kernel columns share wide matmuls."""
+    mu, var = _batch_union_posterior(state, unions)
+    return _estimate_batch(mu, var, best_so_far, normals)
+
+
+def _batch_union_posterior(state, unions: torch.Tensor):
+    """(mean (..., B, u), covariance (..., B, u, u)) of B unions' values."""
     b, u, dim = unions.shape
     k_xu = gp._mix_cov(state, unions.reshape(b * u, dim))   # (..., N, B*u)
     n = k_xu.shape[-2]
@@ -242,7 +229,13 @@ def monte_carlo_expected_improvement_batch(state, unions: torch.Tensor,
     va = va.reshape(batch + (n, b, u))
     prior = cov_mod.build_block_covariance(
         _with_member_axes(state.covariance, 1), unions, (), unions, ())
-    var = prior - torch.einsum("...nbi,...nbj->...bij", va, va)
+    return mu, prior - torch.einsum("...nbi,...nbj->...bij", va, va)
+
+
+def _estimate_batch(mu: torch.Tensor, var: torch.Tensor, best_so_far,
+                    normals: torch.Tensor) -> torch.Tensor:
+    """The batched estimator's q,p-EI estimate from B unions' posteriors
+    (..., B, u) and (..., B, u, u); NaN where a factor fails."""
     chol = linalg.cholesky_small(linalg.add_jitter(
         linalg.symmetrize(var), config.EI_VARIANCE_JITTER))
     samples = mu[..., None, :] + torch.einsum("...bij,mj->...bmi", chol,

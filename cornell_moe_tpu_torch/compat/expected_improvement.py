@@ -67,32 +67,40 @@ class ExpectedImprovement(UnionPoints, ExpectedImprovementInterface):
             self._points_being_sampled is None
 
     # -- evaluation --------------------------------------------------------
-    def program_form(self):
-        """The closed form's inputs (the best value and the GP); None for
-        the MC estimator, whose union lift reads the host."""
-        if not self._use_analytic:
-            return None
+    def program_form(self, force_monte_carlo=False):
+        """The closed form's inputs (the best value and the GP) for q = 1,
+        p = 0 unless ``force_monte_carlo``; else the MC estimator's (the
+        best value, the object's normals, the points being sampled when
+        there are any, and the GP)."""
         tensors, layout = gp_mod.state_tensors(self._gaussian_process.state)
-
-        def objective(points_to_sample, best, *ts):
-            return ei_core.analytic_expected_improvement(
-                gp_mod.state_from_tensors(layout, ts), points_to_sample,
-                best)
-
         best = torch.as_tensor(self._best_so_far, dtype=self.dtype,
                                device=self.device)
-        return ProgramForm(("expected_improvement", layout),
-                           (best, *tensors), objective)
+        if self._use_analytic and not force_monte_carlo:
+            def objective(points_to_sample, b, *ts):
+                return ei_core.analytic_expected_improvement(
+                    gp_mod.state_from_tensors(layout, ts), points_to_sample,
+                    b)
+
+            return ProgramForm(("expected_improvement", layout),
+                               (best, *tensors), objective)
+        being = self._being()
+        extra = () if being is None else (being,)
+
+        def mc_objective(points_to_sample, b, normals, *rest):
+            bs = rest[0] if extra else None
+            return ei_core.monte_carlo_expected_improvement(
+                gp_mod.state_from_tensors(layout, rest[len(extra):]),
+                points_to_sample, bs, b, normals)
+
+        return ProgramForm(("expected_improvement_mc", layout, bool(extra)),
+                           (best, self._normals, *extra, *tensors),
+                           mc_objective)
 
     def objective_torch(self, points_to_sample, force_monte_carlo=False):
         """EI at points (q, d), differentiable: the closed form for q = 1,
         p = 0, else the MC estimator on the object's normals."""
-        form = None if force_monte_carlo else self.program_form()
-        if form is not None:
-            return form.objective(points_to_sample, *form.inputs)
-        return ei_core.monte_carlo_expected_improvement(
-            self._gaussian_process.state, points_to_sample, self._being(),
-            self._best_so_far, self._normals)
+        form = self.program_form(force_monte_carlo)
+        return form.objective(points_to_sample, *form.inputs)
 
     def value_and_grad_torch(self, points_to_sample):
         return value_and_grad_by_autograd(self.objective_torch,

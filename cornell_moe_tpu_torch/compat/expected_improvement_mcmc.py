@@ -14,7 +14,8 @@ import torch
 
 from cornell_moe_tpu_torch.acquisition import expected_improvement as ei_core
 from cornell_moe_tpu_torch.compat._boundary import (
-    UnionPoints, ensemble_cache, rows, to_numpy, value_and_grad_by_autograd)
+    ProgramForm, UnionPoints, ensemble_cache, rows, to_numpy,
+    value_and_grad_by_autograd)
 from cornell_moe_tpu_torch.compat.interfaces import OptimizableInterface
 from cornell_moe_tpu_torch.compat.optimization import (
     core_domain, multistart_parameters)
@@ -27,9 +28,10 @@ from cornell_moe_tpu_torch.utils.rng import as_generator
 class ExpectedImprovementMCMC(UnionPoints, OptimizableInterface):
     """Mean EI over a hyperparameter ensemble; the MC normals are drawn
     from ``generator`` (a ``torch.Generator`` or a seed, 0 when None) when
-    the union's width is first set.  It has no program form: the MC
-    estimator's union lift reads its least eigenvalue on the host
-    (``compat.optimization.runs_programs``)."""
+    the union's width is first set.  Its program form takes the ensemble,
+    the best values, the normals and the points being sampled as inputs,
+    so its optimizer steps and point lists run as programs of the
+    ensemble's cache (``compat.optimization.runs_programs``)."""
 
     def __init__(self, gaussian_process_mcmc, num_to_sample: int = 1,
                  points_to_sample=None, points_being_sampled=None,
@@ -55,11 +57,30 @@ class ExpectedImprovementMCMC(UnionPoints, OptimizableInterface):
     def dim(self):
         return self._gp_mcmc.dim
 
+    def program_form(self) -> ProgramForm:
+        """The best values, the MC normals, the points being sampled (when
+        there are any) and the ensemble as the inputs."""
+        tensors, layout = gp_mod.state_tensors(self._states)
+        being = self._being()
+        extra = () if being is None else (being,)
+
+        def objective(points_to_sample, best, normals, *rest):
+            bs = rest[0] if extra else None
+            return ei_core.monte_carlo_expected_improvement_mcmc(
+                gp_mod.state_from_tensors(layout, rest[len(extra):]),
+                points_to_sample, bs, best, normals)
+
+        best = torch.as_tensor(self._best_so_far, dtype=self.dtype,
+                               device=self.device)
+        return ProgramForm(("expected_improvement_mcmc", layout,
+                            bool(extra)),
+                           (best, self._normals, *extra, *tensors),
+                           objective)
+
     def objective_torch(self, points_to_sample):
         """Ensemble-mean q,p-EI at points (q, d), differentiable."""
-        return ei_core.monte_carlo_expected_improvement_mcmc(
-            self._states, points_to_sample, self._being(),
-            self._best_so_far, self._normals)
+        form = self.program_form()
+        return form.objective(points_to_sample, *form.inputs)
 
     def value_and_grad_torch(self, points_to_sample):
         return value_and_grad_by_autograd(self.objective_torch,
@@ -80,33 +101,17 @@ class ExpectedImprovementMCMC(UnionPoints, OptimizableInterface):
         """Ensemble-averaged EI at each candidate block
         (``evaluate_EI_mcmc_at_point_list`` counterpart): (n, dim)
         single-point candidates or (n, q, dim) blocks; returns (n,).  While
-        ``programs.CAPTURE`` is "auto" each block replays two programs per
-        block shape, the union's posterior and the estimate, around the
-        eager least eigenvalue (the blocks are not batched: a batch could
-        reorder the reductions)."""
+        ``programs.CAPTURE`` is "auto" each block replays one program per
+        block shape, the objective's (the blocks are not batched: a batch
+        could reorder the reductions)."""
         pts = self._tensor(points_to_evaluate)
         if pts.dim() == 2:
             pts = pts[:, None, :]
-        tensors, layout = gp_mod.state_tensors(self._states)
-        being, best = self._being(), self._best_so_far
-
-        def posterior(union, *ts):
-            return ei_core._union_posterior(
-                gp_mod.state_from_tensors(layout, ts), union)
-
-        def estimate(mu, var, least, b, normals):
-            return torch.mean(ei_core._estimate_from_posterior(
-                mu, var, least, b, normals))
-
-        values = []
-        for block in pts:
-            mu, var = programs.run(
-                self.program_cache, ("ei_mcmc_point", "posterior", layout),
-                posterior, ei_core._union(block, being), *tensors)
-            values.append(programs.run(
-                self.program_cache, ("ei_mcmc_point", "estimate"), estimate,
-                mu, var, ei_core._least_eigenvalue(var), best, self._normals))
-        return to_numpy(torch.stack(values))
+        form = self.program_form()
+        return to_numpy(torch.stack([
+            programs.run(self.program_cache, ("ei_mcmc_point",) + form.key,
+                         form.objective, block, *form.inputs)
+            for block in pts]))
 
 
 def multistart_expected_improvement_mcmc_optimization(

@@ -78,9 +78,7 @@ def runs_programs(objective) -> bool:
     ``program_cache`` and a program form (``program_form()`` not None).
     An objective with only numpy methods reads the host at every step and
     runs eagerly, as the JAX package calls back into the host there
-    (``pure_callback``); so do the MC EI estimators, whose union lift
-    reads the least eigenvalue (``torch.linalg.eigvalsh``, which a CUDA
-    graph cannot hold): their ``program_form()`` is None."""
+    (``pure_callback``)."""
     if not programs.enabled() or \
             getattr(objective, "program_cache", None) is None or \
             not hasattr(objective, "program_form"):

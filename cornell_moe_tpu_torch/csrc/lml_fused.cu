@@ -35,24 +35,28 @@
 //   tile.  Writes to a peer (st.shared::cluster) do not stall the writer,
 //   and the cluster barriers' release/acquire order them before the
 //   peer's reads.  Tiles are stored with their 16-byte chunks XOR-swizzled
-//   by row, so the float4 reads of the update hit distinct banks.
-//   Each element sees the large-Np instance's arithmetic in the same
-//   order (the same shuffle factorization, the same subtractions of the
-//   forward substitution in row order, the same row solve, and the
-//   k = 0..31 sum before each trailing subtraction): the two agree to the
-//   last bit.  What bounds it now is the owner's step (a), one warp's
-//   dependent chain of 32 pivots, about half of each panel at Np = 512.
+//   by row, so the float4 reads of the update hit distinct banks.  What
+//   bounds it now is the owner's step (a), one warp's dependent chain of
+//   32 pivots, about half of each panel at Np = 512.
 //
-// Large-Np instance (cmoe_lml_fused_global), above that capacity.
-//   Design: one block per walker, all walkers in one launch.  K lives in a
-//   global scratch (W, Np, Np) the wrapper allocates, which stays resident
-//   in the 50 MB L2.  K is built in place (lower triangle only), then
-//   factored in 32-column panels: warp 0 factors the diagonal block in
-//   registers with warp shuffles; thread 0 forward-substitutes that block
-//   of y and accumulates the masked quad/logdet; every thread solves rows
-//   of the panel below (L21 = A21 L11^-T) and folds the y update into the
-//   same pass; the trailing update A22 -= L21 L21^T runs in 32 x 32 tiles
-//   staged in shared memory.
+// Large-Np instance (cmoe_lml_fused_global), every Np above that capacity.
+//   Bound: the cluster instance's, the owner's step (a) in every panel,
+//   plus each CTA's read-modify-write of its trailing tiles in (e), which
+//   here goes through L2.  A block per walker would leave 124 of 132 SMs
+//   idle at W = 8 and walk the trailing update one tile at a time.
+//   Design: the cluster kernel itself, instantiated with K's tiles in a
+//   global scratch that the wrapper allocates (each CTA's tiles in a region
+//   of its own, laid out as in shared memory: 12.6 MB at W = 8, Np = 768),
+//   which stays resident in the 50 MB L2.  Only the panel buffer (Np - 32
+//   rows), L11, z, the y slices and the carry stay in shared memory, so a
+//   CTA needs about (Np / 32) 4 KB: 99 KB at Np = 768.  Above Np = 1792 the
+//   panel buffer no longer fits either; it then goes to the scratch too,
+//   one copy per walker that each row's owner writes once and every CTA
+//   reads past L1 (ld.global.cg: the cluster barrier orders the writes, and
+//   no stale L1 line can be read).  The decomposition, the DSMEM broadcast
+//   of L11 and z, the barriers and every element's arithmetic are the
+//   cluster instance's, so the two agree to the last bit wherever both
+//   run.
 //
 // Precision: float32 throughout, as the Pallas kernel.  A float64 inside
 //   was tried: the chain then settled on near-noiseless walkers at which
@@ -73,164 +77,8 @@ namespace cg = cooperative_groups;
 #define LML_TILE (LML_PANEL * LML_PANEL)
 
 // ---------------------------------------------------------------------------
-// Large-Np instance: K in a global scratch, one block per walker
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(LML_THREADS) cmoe_lml_fused_global_kernel(
-    const float* __restrict__ us, const float* __restrict__ alpha,
-    const float* __restrict__ noise, const float* __restrict__ y,
-    float* kscr, float* yscr, float* __restrict__ quad_out,
-    float* __restrict__ logdet_out, int d, int np_, int n_real, int kernel) {
-  __shared__ float D[LML_PANEL][LML_PANEL + 1];
-  __shared__ float zb[LML_PANEL];
-  __shared__ float Li[LML_PANEL][LML_PANEL + 1];
-  __shared__ float Lj[LML_PANEL][LML_PANEL + 1];
-
-  const int w = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* u = us + (size_t)w * d * np_;
-  const float* nz = noise + (size_t)w * np_;
-  float* A = kscr + (size_t)w * np_ * np_;
-  float* yv = yscr + (size_t)w * np_;
-  const float a = alpha[w];
-
-  // --- build the lower triangle of K ---------------------------------------
-  const size_t nn = (size_t)np_ * np_;
-  for (size_t idx = tid; idx < nn; idx += blockDim.x) {
-    const int i = (int)(idx / np_);
-    const int j = (int)(idx % np_);
-    if (j > i) continue;
-    float s = 0.0f;
-    for (int dd = 0; dd < d; ++dd) {
-      const float diff = u[(size_t)dd * np_ + i] - u[(size_t)dd * np_ + j];
-      s += diff * diff;
-    }
-    float v = a * cmoe_unit_f0(s, kernel);
-    if (i == j) v += nz[i];
-    A[idx] = v;
-  }
-  for (int i = tid; i < np_; i += blockDim.x) yv[i] = y[(size_t)w * np_ + i];
-  __syncthreads();
-
-  float quad = 0.0f, logdet = 0.0f;   // carried by thread 0
-  bool failed = false;
-
-  for (int c0 = 0; c0 < np_; c0 += LML_PANEL) {
-    const int pw = min(LML_PANEL, np_ - c0);
-
-    // --- factor the diagonal block (warp 0, rows in registers) -------------
-    if (tid < 32) {
-      const int r = tid;
-      float row[LML_PANEL];
-#pragma unroll
-      for (int c = 0; c < LML_PANEL; ++c) {
-        float v = 0.0f;
-        if (r < pw && c <= r) v = A[(size_t)(c0 + r) * np_ + c0 + c];
-        if (r >= pw && c == r) v = 1.0f;          // identity padding
-        row[c] = v;
-      }
-#pragma unroll
-      for (int j = 0; j < LML_PANEL; ++j) {
-        const float piv = sqrtf(__shfl_sync(0xffffffffu, row[j], j));
-        if (r == j) row[j] = piv;
-        else if (r > j) row[j] = row[j] / piv;
-#pragma unroll
-        for (int c = j + 1; c < LML_PANEL; ++c) {
-          const float lcj = __shfl_sync(0xffffffffu, row[j], c);
-          if (r >= c) row[c] -= row[j] * lcj;
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < LML_PANEL; ++c) D[r][c] = (c <= r) ? row[c] : 0.0f;
-    }
-    __syncthreads();
-
-    // --- forward-substitute this block of y, masked quad/logdet ------------
-    if (tid == 0) {
-      for (int j = 0; j < pw; ++j) {
-        float acc = yv[c0 + j];
-        for (int k = 0; k < j; ++k) acc -= D[j][k] * zb[k];
-        const float ljj = D[j][j];
-        if (!(ljj > 0.0f)) failed = true;
-        const float zj = acc / ljj;
-        zb[j] = zj;
-        if (c0 + j < n_real) {
-          quad += zj * zj;
-          logdet += logf(ljj);
-        }
-      }
-    }
-    __syncthreads();
-
-    // --- panel below: L21 = A21 L11^-T, and y -= L21 z ----------------------
-    const int r0 = c0 + pw;
-    for (int i = r0 + tid; i < np_; i += blockDim.x) {
-      float* ai = A + (size_t)i * np_ + c0;
-      float x[LML_PANEL];
-      float ydot = 0.0f;
-#pragma unroll
-      for (int j = 0; j < LML_PANEL; ++j) {
-        x[j] = 0.0f;
-        if (j < pw) {
-          float acc = ai[j];
-#pragma unroll
-          for (int k = 0; k < j; ++k) acc -= D[j][k] * x[k];
-          x[j] = acc / D[j][j];
-          ai[j] = x[j];
-          ydot += x[j] * zb[j];
-        }
-      }
-      yv[i] -= ydot;
-    }
-    __syncthreads();
-
-    // --- trailing update A22 -= L21 L21^T (lower tiles only) ----------------
-    const int nt = (np_ - r0 + LML_PANEL - 1) / LML_PANEL;
-    const int cc = tid & 31;
-    for (int ti = 0; ti < nt; ++ti) {
-      for (int tj = 0; tj <= ti; ++tj) {
-        const int bi = r0 + ti * LML_PANEL;
-        const int bj = r0 + tj * LML_PANEL;
-        for (int e = tid; e < LML_PANEL * LML_PANEL; e += blockDim.x) {
-          const int r = e / LML_PANEL, k = e % LML_PANEL;
-          Li[r][k] = (bi + r < np_ && k < pw) ? A[(size_t)(bi + r) * np_ + c0 + k] : 0.0f;
-          Lj[r][k] = (bj + r < np_ && k < pw) ? A[(size_t)(bj + r) * np_ + c0 + k] : 0.0f;
-        }
-        __syncthreads();
-        for (int rr = tid >> 5; rr < LML_PANEL; rr += blockDim.x >> 5) {
-          const int gi = bi + rr, gj = bj + cc;
-          if (gi < np_ && gj < np_ && gj <= gi) {
-            float acc = 0.0f;
-#pragma unroll
-            for (int k = 0; k < LML_PANEL; ++k) acc += Li[rr][k] * Lj[cc][k];
-            A[(size_t)gi * np_ + gj] -= acc;
-          }
-        }
-        __syncthreads();
-      }
-    }
-  }
-
-  if (tid == 0) {
-    const float nan = __int_as_float(0x7fc00000);
-    quad_out[w] = failed ? nan : quad;
-    logdet_out[w] = failed ? nan : logdet;
-  }
-}
-
-extern "C" int cmoe_lml_fused_global(const float* us, const float* alpha,
-                                     const float* noise, const float* y,
-                                     float* kscr, float* yscr, float* quad,
-                                     float* logdet, int W, int d, int np_,
-                                     int n_real, int kernel, void* stream) {
-  cmoe_lml_fused_global_kernel<<<W, LML_THREADS, 0, (cudaStream_t)stream>>>(
-      us, alpha, noise, y, kscr, yscr, quad, logdet, d, np_, n_real, kernel);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Cluster instance: one 8-CTA cluster per walker, K in distributed shared
-// memory
+// One 8-CTA cluster per walker: K in distributed shared memory (the cluster
+// instance) or in an L2-resident global scratch (the large-Np instance)
 // ---------------------------------------------------------------------------
 
 // Tile rows CTA `rank` owns (rows rank, rank + C, ...) out of nt.
@@ -246,13 +94,17 @@ __host__ __device__ inline int lml_tile_base(int rank, int l, int c) {
 
 // Shared-memory layout of one CTA, in floats; the same in every CTA of the
 // cluster (sized for the fullest), mirrored by ops/kernels.py
-// lml_cluster_smem_bytes.
+// lml_layout_floats.  `tiles` (the fullest CTA's tile count) and `pbuf`
+// (the panel buffer) take no shared memory where they live in the global
+// scratch.
 struct LmlLayout {
   int nt, tiles;
   int pbuf, dl, zb, y, carry, floats;
 };
 
-__host__ __device__ inline LmlLayout lml_layout(int np_, int c) {
+__host__ __device__ inline LmlLayout lml_layout(int np_, int c,
+                                                bool tiles_on_chip = true,
+                                                bool pbuf_on_chip = true) {
   LmlLayout L;
   L.nt = (np_ + LML_PANEL - 1) / LML_PANEL;
   L.tiles = 0;
@@ -260,8 +112,9 @@ __host__ __device__ inline LmlLayout lml_layout(int np_, int c) {
     const int t = lml_tile_base(r, lml_rows_of(r, L.nt, c), c);
     L.tiles = t > L.tiles ? t : L.tiles;
   }
-  int off = L.tiles * LML_TILE;
-  L.pbuf = off;  off += (L.nt > 1 ? L.nt - 1 : 0) * LML_TILE;
+  int off = tiles_on_chip ? L.tiles * LML_TILE : 0;
+  L.pbuf = off;
+  if (pbuf_on_chip) off += (L.nt > 1 ? L.nt - 1 : 0) * LML_TILE;
   L.dl = off;    off += LML_PANEL * (LML_PANEL + 1);
   L.zb = off;    off += LML_PANEL;
   L.y = off;     off += lml_rows_of(0, L.nt, c) * LML_PANEL;
@@ -280,12 +133,35 @@ __device__ __forceinline__ float lml_f4(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+// A panel-buffer read: past L1 where peers write the buffer in global
+// memory.
+template <bool GLOBAL>
+__device__ __forceinline__ float4 lml_ld4(const float4* p) {
+  if constexpr (GLOBAL) return __ldcg(p);
+  else return *p;
+}
+
+// Global scratch of the large-Np instance, in floats: every walker's CTA
+// regions of `tiles` tiles each, then (where the panel buffer is off chip)
+// one panel buffer of nt - 1 tiles per walker.
+__host__ __device__ inline size_t lml_scratch_floats(const LmlLayout& L,
+                                                     int W, int c,
+                                                     bool pbuf_on_chip) {
+  return (size_t)W * c * L.tiles * LML_TILE +
+         (pbuf_on_chip ? 0 : (size_t)W * (L.nt > 1 ? L.nt - 1 : 0) *
+                                 LML_TILE);
+}
+
+// KG: K's tiles in `scratch`; PG: the panel buffer there too (KG only).
+template <bool KG, bool PG>
 __global__ void __launch_bounds__(LML_CLUSTER_THREADS)
 cmoe_lml_fused_cluster_kernel(
     const float* __restrict__ us, const float* __restrict__ alpha,
     const float* __restrict__ noise, const float* __restrict__ y,
-    float* __restrict__ quad_out, float* __restrict__ logdet_out, int d,
-    int np_, int n_real, int kernel) {
+    float* scratch, float* __restrict__ quad_out,
+    float* __restrict__ logdet_out, int d, int np_, int n_real,
+    int kernel) {
+  static_assert(KG || !PG, "the panel buffer leaves the chip only with K");
   extern __shared__ float4 lml_smem[];
   float* sm = reinterpret_cast<float*>(lml_smem);
   cg::cluster_group cluster = cg::this_cluster();
@@ -293,11 +169,16 @@ cmoe_lml_fused_cluster_kernel(
   const int rank = (int)cluster.block_rank();
   const int w = blockIdx.x / C;
   const int tid = threadIdx.x;
-  const LmlLayout L = lml_layout(np_, C);
+  const LmlLayout L = lml_layout(np_, C, !KG, !PG);
   const int nt = L.nt;
   const int rows = lml_rows_of(rank, nt, C);
-  float* tiles = sm;
-  float4* pbuf4 = reinterpret_cast<float4*>(sm + L.pbuf);
+  float* tiles = KG ? scratch + (size_t)(w * C + rank) * L.tiles * LML_TILE
+                    : sm;
+  // PG: walker w's panel buffer follows every walker's tile regions
+  float4* pbuf4 = reinterpret_cast<float4*>(
+      PG ? scratch + (size_t)gridDim.x * L.tiles * LML_TILE +
+               (size_t)w * (nt - 1) * LML_TILE
+         : sm + L.pbuf);
   float (*D)[LML_PANEL + 1] =
       reinterpret_cast<float (*)[LML_PANEL + 1]>(sm + L.dl);
   float* zb = sm + L.zb;
@@ -435,6 +316,13 @@ cmoe_lml_fused_cluster_kernel(
       }
       yl[t] -= ydot;
       float4* dst = pbuf4 + (size_t)(i - k - 1) * (LML_TILE / 4) + r * Q;
+      if constexpr (PG) {          // the walker's one copy, in the scratch
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          dst[q ^ (r & 7)] = make_float4(x[4 * q], x[4 * q + 1],
+                                         x[4 * q + 2], x[4 * q + 3]);
+        continue;
+      }
       for (int o = 0; o < C; ++o) {
         if (o + (lml_rows_of(o, nt, C) - 1) * C < i) continue;  // not needed
         float4* po = cluster.map_shared_rank(dst, o);
@@ -444,6 +332,7 @@ cmoe_lml_fused_cluster_kernel(
                                         x[4 * q + 3]);
       }
     }
+    if constexpr (PG) __threadfence();   // the rows reach L2 before (d)
     cluster.sync();                                          // (d)
 
     // --- (e) own trailing tiles A(i, j) -= L(i, k) L(j, k)^T, k < j <= i,
@@ -468,8 +357,8 @@ cmoe_lml_fused_cluster_kernel(
         float4 li[4], lj[4];
 #pragma unroll
         for (int p = 0; p < 4; ++p) {
-          li[p] = Li[(tr + 8 * p) * Q + (q ^ tr)];
-          lj[p] = Lj[(tc + 8 * p) * Q + (q ^ tc)];
+          li[p] = lml_ld4<PG>(Li + (tr + 8 * p) * Q + (q ^ tr));
+          lj[p] = lml_ld4<PG>(Lj + (tc + 8 * p) * Q + (q ^ tc));
         }
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -498,12 +387,35 @@ cmoe_lml_fused_cluster_kernel(
   }
 }
 
+#define LML_SMEM_LIMIT 232448   // shared memory one H100 block may opt into
+
 static int lml_cluster_bytes(int np_, int c) {
   return lml_layout(np_, c).floats * (int)sizeof(float);
 }
 
+// The large-Np instance keeps its panel buffer on chip while it fits.
+static bool lml_global_pbuf_on_chip(int np_) {
+  return lml_layout(np_, LML_CLUSTER, false, true).floats *
+             (int)sizeof(float) <= LML_SMEM_LIMIT;
+}
+
+static int lml_global_bytes(int np_) {
+  return lml_layout(np_, LML_CLUSTER, false, lml_global_pbuf_on_chip(np_))
+             .floats * (int)sizeof(float);
+}
+
 extern "C" int cmoe_lml_fused_cluster_smem_bytes(int np_) {
   return lml_cluster_bytes(np_, LML_CLUSTER);
+}
+
+extern "C" int cmoe_lml_fused_global_smem_bytes(int np_) {
+  return lml_global_bytes(np_);
+}
+
+// Floats of the large-Np instance's global scratch per walker.
+extern "C" int cmoe_lml_fused_global_scratch_floats(int np_) {
+  return (int)lml_scratch_floats(lml_layout(np_, LML_CLUSTER), 1,
+                                 LML_CLUSTER, lml_global_pbuf_on_chip(np_));
 }
 
 static cudaLaunchConfig_t lml_cluster_config(int W, int c, int bytes,
@@ -523,23 +435,64 @@ static cudaLaunchConfig_t lml_cluster_config(int W, int c, int bytes,
   return cfg;
 }
 
-extern "C" int cmoe_lml_fused_cluster(const float* us, const float* alpha,
-                                      const float* noise, const float* y,
-                                      float* quad, float* logdet, int W,
-                                      int d, int np_, int n_real, int kernel,
-                                      void* stream) {
-  const int bytes = lml_cluster_bytes(np_, LML_CLUSTER);
+template <bool KG, bool PG>
+static int lml_launch(const float* us, const float* alpha, const float* noise,
+                      const float* y, float* scratch, float* quad,
+                      float* logdet, int W, int d, int np_, int n_real,
+                      int kernel, int bytes, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      cmoe_lml_fused_cluster_kernel,
+      cmoe_lml_fused_cluster_kernel<KG, PG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       lml_cluster_config(W, LML_CLUSTER, bytes, &attr, stream);
-  e = cudaLaunchKernelEx(&cfg, cmoe_lml_fused_cluster_kernel, us, alpha,
-                         noise, y, quad, logdet, d, np_, n_real, kernel);
+  e = cudaLaunchKernelEx(&cfg, cmoe_lml_fused_cluster_kernel<KG, PG>, us,
+                         alpha, noise, y, scratch, quad, logdet, d, np_,
+                         n_real, kernel);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+extern "C" int cmoe_lml_fused_cluster(const float* us, const float* alpha,
+                                      const float* noise, const float* y,
+                                      float* quad, float* logdet, int W,
+                                      int d, int np_, int n_real, int kernel,
+                                      void* stream) {
+  return lml_launch<false, false>(us, alpha, noise, y, nullptr, quad, logdet,
+                                  W, d, np_, n_real, kernel,
+                                  lml_cluster_bytes(np_, LML_CLUSTER),
+                                  stream);
+}
+
+// scratch: W cmoe_lml_fused_global_scratch_floats(np_) floats.
+extern "C" int cmoe_lml_fused_global(const float* us, const float* alpha,
+                                     const float* noise, const float* y,
+                                     float* scratch, float* quad,
+                                     float* logdet, int W, int d, int np_,
+                                     int n_real, int kernel, void* stream) {
+  const int bytes = lml_global_bytes(np_);
+  if (lml_global_pbuf_on_chip(np_))
+    return lml_launch<true, false>(us, alpha, noise, y, scratch, quad,
+                                   logdet, W, d, np_, n_real, kernel, bytes,
+                                   stream);
+  return lml_launch<true, true>(us, alpha, noise, y, scratch, quad, logdet,
+                                W, d, np_, n_real, kernel, bytes, stream);
+}
+
+template <bool KG, bool PG>
+static int lml_occupancy(int W, int c, int bytes, int* clusters) {
+  const void* fn = (const void*)cmoe_lml_fused_cluster_kernel<KG, PG>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && c > 8)
+    e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = lml_cluster_config(W, c, bytes, &attr,
+                                                    nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, fn, &cfg);
 }
 
 // cudaOccupancyMaxActiveClusters for the cluster kernel at W walkers,
@@ -547,17 +500,14 @@ extern "C" int cmoe_lml_fused_cluster(const float* us, const float* alpha,
 // shared memory each.
 extern "C" int cmoe_lml_fused_cluster_occupancy(int W, int c, int bytes,
                                                 int* clusters) {
-  cudaError_t e = cudaFuncSetAttribute(
-      cmoe_lml_fused_cluster_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess && c > 8)
-    e = cudaFuncSetAttribute(cmoe_lml_fused_cluster_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = lml_cluster_config(W, c, bytes, &attr,
-                                                    nullptr);
-  return (int)cudaOccupancyMaxActiveClusters(
-      clusters, (void*)cmoe_lml_fused_cluster_kernel, &cfg);
+  return lml_occupancy<false, false>(W, c, bytes, clusters);
+}
+
+// The same for the large-Np instance at W walkers and Np.
+extern "C" int cmoe_lml_fused_global_occupancy(int W, int np_,
+                                               int* clusters) {
+  const int bytes = lml_global_bytes(np_);
+  return lml_global_pbuf_on_chip(np_)
+             ? lml_occupancy<true, false>(W, LML_CLUSTER, bytes, clusters)
+             : lml_occupancy<true, true>(W, LML_CLUSTER, bytes, clusters);
 }

@@ -19,9 +19,10 @@ The ensemble fit is one program per (S, Np, d, kernel), the counterpart of
 shape.
 
 Dispatch rule of the log-posterior (:func:`uses_lml_kernel`): CUDA,
-float32 and value channels only go through the fused LML kernel
-(``ops.kernels.lml_fused``); float64, CPU tensors and derivative channels
-take the plain LML (``models.likelihood``), as in the JAX package.
+float32, value channels only and at most :data:`LML_MAX_OBS` (padded)
+observations go through the fused LML kernel (``ops.kernels.lml_fused``);
+float64, CPU tensors, derivative channels and more observations take the
+plain LML (``models.likelihood``), as in the JAX package.
 ``LML_PALLAS`` "never" sends every walker to the plain LML.
 """
 
@@ -59,6 +60,11 @@ PAD_NOISE = 1.0e8
 LML_PALLAS = "auto"
 programs.keyed_switch("mcmc.LML_PALLAS", lambda: LML_PALLAS)
 
+# Kernel B's upper end: the most (bucket-padded) observations the chain's
+# log posterior sends to it, the JAX package's cutoff (its models/mcmc.py
+# takes the plain LML for n_obs > 896).  The kernel itself takes any Np.
+LML_MAX_OBS = 896
+
 # Stretch-move steps per convergence check of the gated chain, and the
 # segments before the gate may stop it (as the JAX package's; the two-lag
 # drift first exists at the third segment, so the chain runs at least 3)
@@ -67,12 +73,13 @@ CHAIN_GATE_MIN_SEGMENTS = 2
 
 
 def uses_lml_kernel(device_type: str, dtype: torch.dtype,
-                    derivatives: Sequence[int]) -> bool:
-    """Kernel B's gate: CUDA, float32 and value channels only, while
+                    derivatives: Sequence[int], n_obs: int) -> bool:
+    """Kernel B's gate: CUDA, float32, value channels only and ``n_obs``
+    (the padded observations) at most :data:`LML_MAX_OBS`, while
     ``LML_PALLAS`` is "auto"."""
     return config.switch_on("mcmc.LML_PALLAS", LML_PALLAS) and \
         device_type == "cuda" and dtype == torch.float32 and \
-        not cov_mod.channels(derivatives)
+        not cov_mod.channels(derivatives) and n_obs <= LML_MAX_OBS
 
 
 def chain_runs_programs(process_group, device) -> bool:
@@ -518,7 +525,7 @@ class GaussianProcessLogLikelihoodMCMC:
             (hyps.shape[0], self.num_noise), NOISELESS_VALUE,
             dtype=hyps.dtype, device=hyps.device)
         n = x.shape[0]
-        if uses_lml_kernel(x.device.type, x.dtype, self.derivatives) and \
+        if uses_lml_kernel(x.device.type, x.dtype, self.derivatives, n) and \
                 not force_plain:
             nv = noise.expand(-1, n)
             if point_noise is not None:

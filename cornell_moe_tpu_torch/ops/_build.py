@@ -40,8 +40,11 @@ SIGNATURES = {
                                _P],
     "cmoe_lml_fused_cluster_smem_bytes": [_I],
     "cmoe_lml_fused_cluster_occupancy": [_I, _I, _I, _IP],
-    "cmoe_lml_fused_global": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _P],
+    "cmoe_lml_fused_global": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _P],
+    "cmoe_lml_fused_global_smem_bytes": [_I],
+    "cmoe_lml_fused_global_scratch_floats": [_I],
+    "cmoe_lml_fused_global_occupancy": [_I, _I, _IP],
     "cmoe_descent_run_mma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
     "cmoe_descent_run_mma_smem_bytes": [_I, _I, _I],

@@ -21,7 +21,8 @@ Four kernels, each the Hopper counterpart of one Pallas kernel of
 * :func:`lml_fused` (``csrc/lml_fused.cu``) — K build + Cholesky + forward
   substitution + (quad, logdet) per MCMC walker: one thread-block cluster
   per walker with K in distributed shared memory, and above the clusters'
-  capacity the one-block-per-walker instance :func:`lml_fused_global`.
+  capacity the same cluster kernel with K in an L2-resident global
+  scratch, :func:`lml_fused_global`.
 * :func:`covariance_with_noise` (``csrc/covariance_with_noise.cu``) —
   K + diag(noise) for every member of the GP ensemble, each pair of 64 x 64
   tiles computed once and written twice (K is symmetric bit for bit).
@@ -203,21 +204,53 @@ LML_CLUSTER = 8            # CTAs per walker, csrc/lml_fused.cu LML_CLUSTER
 SMEM_PER_BLOCK = 232_448   # shared memory one H100 block may opt into
 
 
-def lml_cluster_smem_bytes(np_: int, cluster: int = LML_CLUSTER) -> int:
-    """Shared memory of each CTA of the cluster instance at Np: the fullest
-    CTA's tiles of K, the panel column, L11, z, its y slices and the carry
-    (``lml_layout`` in ``csrc/lml_fused.cu``)."""
+def lml_cta_tiles(np_: int, cluster: int = LML_CLUSTER) -> int:
+    """32 x 32 tiles of K's lower triangle in the fullest CTA at Np: CTA r
+    holds tile rows r, r + cluster, ..., tile row i holding i + 1 tiles."""
     nt = -(-np_ // LML_PANEL)
+    return max(sum(i + 1 for i in range(r, nt, cluster))
+               for r in range(cluster))
 
-    def rows_of(rank):
-        return (nt - 1 - rank) // cluster + 1 if rank < nt else 0
 
-    tiles = max(l * (r + 1) + cluster * l * (l - 1) // 2
-                for r in range(cluster) for l in [rows_of(r)])
-    floats = (tiles + max(nt - 1, 0)) * LML_PANEL ** 2 + \
-        LML_PANEL * (LML_PANEL + 1) + LML_PANEL + \
-        rows_of(0) * LML_PANEL + 4
-    return 4 * floats
+def lml_layout_floats(np_: int, cluster: int = LML_CLUSTER,
+                      tiles_on_chip: bool = True,
+                      pbuf_on_chip: bool = True) -> int:
+    """Shared memory of each CTA in floats (``lml_layout`` in
+    ``csrc/lml_fused.cu``): the fullest CTA's tiles of K and the panel
+    column (Np - 32 rows), each where it is on chip, then L11, z, its y
+    slices and a 4-float carry."""
+    nt = -(-np_ // LML_PANEL)
+    tiles = lml_cta_tiles(np_, cluster) if tiles_on_chip else 0
+    pbuf = max(nt - 1, 0) if pbuf_on_chip else 0
+    return (tiles + pbuf) * LML_PANEL ** 2 + LML_PANEL * (LML_PANEL + 1) + \
+        LML_PANEL + len(range(0, nt, cluster)) * LML_PANEL + 4
+
+
+def lml_cluster_smem_bytes(np_: int, cluster: int = LML_CLUSTER) -> int:
+    """Shared memory of each CTA of the cluster instance at Np: K's tiles
+    and the panel column both on chip."""
+    return 4 * lml_layout_floats(np_, cluster)
+
+
+def lml_global_pbuf_on_chip(np_: int) -> bool:
+    """Whether the large-Np instance keeps its panel column in shared
+    memory at Np (up to Np = 1792); above, it joins K in the scratch."""
+    return 4 * lml_layout_floats(np_, tiles_on_chip=False) <= SMEM_PER_BLOCK
+
+
+def lml_global_smem_bytes(np_: int) -> int:
+    """Shared memory of each CTA of the large-Np instance at Np."""
+    return 4 * lml_layout_floats(np_, tiles_on_chip=False,
+                                 pbuf_on_chip=lml_global_pbuf_on_chip(np_))
+
+
+def lml_global_scratch_floats(np_: int) -> int:
+    """The large-Np instance's global scratch per walker, in floats: a
+    region of the fullest CTA's tile count for each of its 8 CTAs, and
+    the panel column's Np - 32 rows where they are off chip."""
+    nt = -(-np_ // LML_PANEL)
+    pbuf = 0 if lml_global_pbuf_on_chip(np_) else max(nt - 1, 0)
+    return (LML_CLUSTER * lml_cta_tiles(np_) + pbuf) * LML_PANEL ** 2
 
 
 def lml_cluster_capacity(cluster: int = LML_CLUSTER) -> int:
@@ -233,8 +266,10 @@ LML_CLUSTER_CAPACITY = lml_cluster_capacity()
 
 
 def lml_fused_instance(np_: int) -> str:
-    """Which kernel B's wrapper launches at Np: ``"cluster"`` up to
-    :data:`LML_CLUSTER_CAPACITY`, ``"global"`` above it."""
+    """Which instance of kernel B the wrapper launches at Np:
+    ``"cluster"`` (K in distributed shared memory) up to
+    :data:`LML_CLUSTER_CAPACITY`, ``"global"`` (K in global scratch)
+    above it."""
     return "cluster" if np_ <= LML_CLUSTER_CAPACITY else "global"
 
 
@@ -263,10 +298,10 @@ def lml_fused(us: torch.Tensor, alpha: torch.Tensor, noise: torch.Tensor,
     Returns (quad (W,), logdet (W,)); NaN where the factorization fails.
 
     Two instances of kernel B, chosen by Np alone
-    (:func:`lml_fused_instance`): up to :data:`LML_CLUSTER_CAPACITY` (640)
-    the cluster instance, one 8-CTA cluster per walker with K in
-    distributed shared memory and no scratch; above it
-    :func:`lml_fused_global`, K in a (W, Np, Np) global scratch.
+    (:func:`lml_fused_instance`), both one 8-CTA cluster per walker with
+    the same arithmetic: up to :data:`LML_CLUSTER_CAPACITY` (640) the
+    cluster instance, K in distributed shared memory and no scratch;
+    above it :func:`lml_fused_global`, K in an L2-resident global scratch.
     """
     global lml_fused_launches
     name = "lml_fused"
@@ -290,9 +325,13 @@ def lml_fused(us: torch.Tensor, alpha: torch.Tensor, noise: torch.Tensor,
 def lml_fused_global(us: torch.Tensor, alpha: torch.Tensor,
                      noise: torch.Tensor, y: torch.Tensor, n_real: int,
                      kernel_name: str = "matern_2.5"):
-    """Kernel B's large-Np instance at any Np: one block per walker, K in a
-    (W, Np, Np) global scratch.  :func:`lml_fused` takes it above the
-    cluster capacity; arguments and results as there."""
+    """Kernel B's large-Np instance at any Np: the cluster instance's
+    kernel with K's tiles in a global scratch of
+    :func:`lml_global_scratch_floats` per walker (12.6 MB at W = 8, Np =
+    768), which the 50 MB L2 holds, and the panel column on chip up to
+    Np = 1792.  Equal to the cluster instance bit for bit where both run.
+    :func:`lml_fused` takes it above the cluster capacity; arguments and
+    results as there."""
     global lml_fused_global_launches
     name = "lml_fused_global"
     shapes = _lml_shapes(name, us, alpha, noise, y, n_real, kernel_name)
@@ -300,15 +339,14 @@ def lml_fused_global(us: torch.Tensor, alpha: torch.Tensor,
         return lml_fused_plain(us, alpha, noise, y, n_real, kernel_name)
     w, d, np_ = shapes
     dev = us.device
-    k_scratch = torch.empty((w, np_, np_), device=dev, dtype=torch.float32)
-    y_scratch = torch.empty((w, np_), device=dev, dtype=torch.float32)
+    scratch = torch.empty((w, lml_global_scratch_floats(np_)), device=dev,
+                          dtype=torch.float32)
     quad = torch.empty((w,), device=dev, dtype=torch.float32)
     logdet = torch.empty((w,), device=dev, dtype=torch.float32)
     _launch(name, _lib().cmoe_lml_fused_global, us.data_ptr(),
             alpha.data_ptr(), noise.data_ptr(), y.data_ptr(),
-            k_scratch.data_ptr(), y_scratch.data_ptr(), quad.data_ptr(),
-            logdet.data_ptr(), w, d, np_, int(n_real),
-            KERNEL_CODES[kernel_name], device=dev)
+            scratch.data_ptr(), quad.data_ptr(), logdet.data_ptr(), w, d,
+            np_, int(n_real), KERNEL_CODES[kernel_name], device=dev)
     lml_fused_global_launches += 1
     return quad, logdet
 
@@ -324,6 +362,17 @@ def lml_cluster_occupancy(w: int, np_: int,
         w, cluster, lml_cluster_smem_bytes(np_, cluster), ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"lml_cluster_occupancy: CUDA error {rc}")
+    return out.value
+
+
+def lml_global_occupancy(w: int, np_: int) -> int:
+    """cudaOccupancyMaxActiveClusters of the large-Np instance for W
+    walkers at Np on the current card."""
+    import ctypes
+    out = ctypes.c_int(0)
+    rc = _lib().cmoe_lml_fused_global_occupancy(w, np_, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"lml_global_occupancy: CUDA error {rc}")
     return out.value
 
 

@@ -22,6 +22,7 @@ drives the same iteration on one card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -44,21 +45,15 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def iteration(device, descent=None, num_obs: int = NUM_OBS, **bo_kwargs):
-    """One BO iteration through the driver at the main path's settings
-    (``bo_kwargs`` override them) on ``device``, with kernel A's launches
-    sent to ``descent`` (a wrapper of ``ops.kernels``; ``descent_run`` when
-    None) and every launch counter set to 0 just before and read just
-    after.  Returns the optimizer, the iteration's record, its wall time,
-    the counts, A's launches by shape and schedule (S, B, M, steps x
-    restarts) and B's calls by shape (W walkers, Np); the two recorders
-    count the launches of replayed programs too (``programs.tally``)."""
-    from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
+@contextlib.contextmanager
+def recording(descent=None):
+    """Kernel A's launches by shape and schedule (S, B, M, steps x
+    restarts) and B's calls by shape (W walkers, Np) while the block runs,
+    with A's launches sent to ``descent`` (a wrapper of ``ops.kernels``;
+    ``descent_run`` when None).  Yields the two dicts, which count the
+    launches of replayed programs too (``programs.tally``)."""
     from cornell_moe_tpu_torch.ops import kernels, programs
-    from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
 
-    bo = BayesianOptimizer(**dict(MAIN_PATH, objective_func=Branin(),
-                                  device=device, **bo_kwargs))
     shapes, lml_shapes = {}, {}
     descent_run, lml_fused = kernels.descent_run, kernels.lml_fused
     descent = descent or descent_run
@@ -74,20 +69,37 @@ def iteration(device, descent=None, num_obs: int = NUM_OBS, **bo_kwargs):
         lml_shapes[key] = lml_shapes.get(key, 0) + 1
         return lml_fused(us, *args, **kw)
 
-    _sync(device)
-    kernels.reset_launch_counts()
     kernels.descent_run = recording_descent
     kernels.lml_fused = recording_lml
     try:
         with programs.tally("descent_run_launches_by_shape", shapes), \
                 programs.tally("lml_fused_calls_by_shape", lml_shapes):
-            t0 = time.time()
-            history = bo.run(num_iterations=1, num_init_pts=num_obs)
-            _sync(device)
-            wall = time.time() - t0
+            yield shapes, lml_shapes
     finally:
         kernels.descent_run = descent_run
         kernels.lml_fused = lml_fused
+
+
+def iteration(device, descent=None, num_obs: int = NUM_OBS, **bo_kwargs):
+    """One iteration of ``BayesianOptimizer`` at the main path's settings
+    (``bo_kwargs`` override them) on ``device``, with kernel A's launches
+    sent to ``descent`` (:func:`recording`) and every launch counter set to
+    0 just before and read just after.  Returns the optimizer, the
+    iteration's record, its wall time, the counts, A's launches by shape
+    and schedule and B's calls by shape."""
+    from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
+    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
+
+    bo = BayesianOptimizer(**dict(MAIN_PATH, objective_func=Branin(),
+                                  device=device, **bo_kwargs))
+    _sync(device)
+    kernels.reset_launch_counts()
+    with recording(descent) as (shapes, lml_shapes):
+        t0 = time.time()
+        history = bo.run(num_iterations=1, num_init_pts=num_obs)
+        _sync(device)
+        wall = time.time() - t0
     return (bo, history[-1], wall, kernels.launch_counts(), shapes,
             lml_shapes)
 

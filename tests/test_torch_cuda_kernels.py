@@ -20,8 +20,9 @@ Tolerances: covariance at rtol 2e-4 / atol 2e-5 against the float32 plain
 version (tests/test_pallas_kernels.py:26); the fused LML at rtol 5e-4
 against the plain version on the same inputs in float32 and in float64
 (tests/test_pallas_descent.py:168-171), and the cluster instance against
-the large-Np instance at rtol 1e-6 (the same arithmetic per element, in the
-same order); descent endpoints against the
+the large-Np instance at rtol 1e-6 and bit for bit (one kernel, the same
+arithmetic per element in the same order; only where K's tiles live
+differs); descent endpoints against the
 float64 plain version, at most 1% of them more than 5e-5 of the domain
 width apart (tests/test_pallas_descent.py:64-65; the rest part where
 float32 rounding flips a clamped step); one descent direction against the
@@ -133,14 +134,16 @@ def test_lml_kernel_matches_plain(dev, rng, kernel, np_, w):
 
 
 @pytest.mark.parametrize("np_,bad_row", [(512, 0), (512, 101), (520, 515),
-                                         (672, 650)],
+                                         (672, 650), (1824, 1800)],
                          ids=["first_tile", "cta3_tile_row",
-                              "ragged_last_panel", "large_np"])
+                              "ragged_last_panel", "large_np",
+                              "large_np_panel_off_chip"])
 def test_lml_kernel_failure_is_nan(dev, rng, np_, bad_row):
     """Walkers whose K is not positive definite get NaN, as the plain
     version's failed factorization does; the others are unaffected.  The
     bad pivot sits in the first tile, in tile row 3 (owned by CTA 3), in
-    the ragged last panel, and in the large-Np instance."""
+    the ragged last panel, and in the large-Np instance, with its panel
+    column on chip (672) and in the scratch (1824)."""
     w, d, n_real = 4, 2, np_ - 4
     lengths = 0.3 + 0.4 * rng.random((w, d))
     us, alpha, noise, y = _lml_inputs(rng, w, d, np_, n_real, lengths, 1e-2)
@@ -156,12 +159,74 @@ def test_lml_kernel_failure_is_nan(dev, rng, np_, bad_row):
 
 def test_lml_cluster_layout_and_occupancy(dev):
     """The kernel's shared-memory layout is the one the wrapper sizes its
-    choice by, and every walker's cluster of the main path fits at once."""
+    choice by, for both instances, and so is the large-Np instance's
+    scratch; every walker's cluster of the main path fits at once, at Np
+    512 and at main_path_768's Np 768."""
     lib = kernels._lib()
     for np_ in (100, 384, 512, 520, kernels.LML_CLUSTER_CAPACITY):
         assert lib.cmoe_lml_fused_cluster_smem_bytes(np_) == \
             kernels.lml_cluster_smem_bytes(np_)
+    for np_ in (384, 656, 672, 768, 896, 1008, 1792, 1793, 1824):
+        assert lib.cmoe_lml_fused_global_smem_bytes(np_) == \
+            kernels.lml_global_smem_bytes(np_)
+        assert lib.cmoe_lml_fused_global_scratch_floats(np_) == \
+            kernels.lml_global_scratch_floats(np_)
     assert kernels.lml_cluster_occupancy(8, 512) >= 8
+    assert kernels.lml_global_occupancy(8, 768) >= 8
+
+
+LARGE_NPS = [656, 672, 700, 768, 896, 1008, 1824]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("np_", LARGE_NPS)
+@pytest.mark.parametrize("w", [1, 8, 16])
+def test_lml_large_np_instance_matches_plain(dev, rng, kernel, np_, w):
+    """Kernel B's large-Np instance, which the wrapper takes above the
+    cluster capacity: K's tiles in the global scratch, the panel column on
+    chip up to Np 1792 and in the scratch at 1824; ragged last panels at
+    656, 700 and 1824.  Against the plain version in float32 and float64
+    at rtol 5e-4, one launch of its counter each time."""
+    d, n_real = 3, np_ - 7
+    lengths = 0.3 + 0.4 * rng.random((w, d))
+    args = [_c(a, dev) for a in _lml_inputs(rng, w, d, np_, n_real,
+                                            lengths, 1e-2)]
+    assert kernels.lml_fused_instance(np_) == "global"
+    assert kernels.lml_global_pbuf_on_chip(np_) == (np_ <= 1792)
+    before = kernels.launch_counts()
+    got = kernels.lml_fused(*args, n_real, kernel)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == \
+        {n: int(n == "lml_fused_global") for n in after}
+    ref = kernels.lml_fused_plain(*args, n_real, kernel)
+    ref_64 = kernels.lml_fused_plain(*[a.double() for a in args], n_real,
+                                     kernel)
+    for g, r, r64 in zip(got, ref, ref_64):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, r, rtol=5e-4, atol=0.0)
+        torch.testing.assert_close(g.double(), r64, rtol=5e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("np_", [384, 512, 640])
+@pytest.mark.parametrize("w", [1, 8, 16])
+def test_lml_instances_equal_bit_for_bit(dev, rng, kernel, np_, w):
+    """Where both instances run (up to the cluster capacity, 640) the
+    large-Np instance equals the cluster instance bit for bit: one kernel,
+    each element's arithmetic in the same order, only the tiles' memory
+    differing."""
+    d, n_real = 2, np_ - 5
+    lengths = 0.3 + 0.4 * rng.random((w, d))
+    args = [_c(a, dev) for a in _lml_inputs(rng, w, d, np_, n_real,
+                                            lengths, 1e-2)]
+    assert kernels.lml_fused_instance(np_) == "cluster"
+    cluster = kernels.lml_fused(*args, n_real, kernel)
+    large = kernels.lml_fused_global(*args, n_real, kernel)
+    torch.cuda.synchronize()
+    for a, b in zip(cluster, large):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
 
 
 def _descent_inputs(rng, s, b, d, q, m, np_):

@@ -788,4 +788,4 @@ def test_covariance_and_lml_gates(device_type, dtype, ds, expected):
     pallas_available_for and LML gate do."""
     assert tcov.uses_covariance_kernel(device_type, dtype, ds,
                                        "matern_2.5") == expected
-    assert tmcmc.uses_lml_kernel(device_type, dtype, ds) == expected
+    assert tmcmc.uses_lml_kernel(device_type, dtype, ds, 512) == expected

@@ -1,6 +1,8 @@
 """Parity of the port's MC q-EI (single, batched, ensemble, value+grad and
 the batched multistart) with the JAX package, in float64, with the same
-normals and starts passed to both.
+normals and starts passed to both; in float32, an indefinite union's
+estimate NaN in both packages, and the single-union and batched estimates
+equal on the same union posteriors.
 
 Tolerances: rtol 1e-10 / atol 1e-13 for estimator values and rtol 1e-9 /
 atol 1e-12 for gradients (tests/test_expected_improvement.py:297,317); the
@@ -225,3 +227,74 @@ def test_per_start_entry_point_matches_batched_and_jax(monkeypatch):
     np.testing.assert_allclose(got[False].numpy(), got[True].numpy(),
                                **GRAD)
     np.testing.assert_allclose(got[False].numpy(), np.asarray(ref), **GRAD)
+
+
+def _float32_union_covariances(rng, b, u, indefinite):
+    """b symmetric (u, u) float32 covariances: positive definite, except
+    at the indices ``indefinite``, whose least eigenvalue is -0.05 (far
+    below -EI_VARIANCE_JITTER)."""
+    out = np.empty((b, u, u))
+    for i in range(b):
+        q, _ = np.linalg.qr(rng.standard_normal((u, u)))
+        lam = 0.05 + rng.random(u)
+        if i in indefinite:
+            lam[0] = -0.05
+        v = (q * lam) @ q.T
+        out[i] = 0.5 * (v + v.T)
+    return out.astype(np.float32)
+
+
+def test_indefinite_float32_union_is_nan_as_in_jax(rng):
+    """An indefinite float32 union covariance and the same normals through
+    the JAX package's estimator arithmetic (``add_jitter`` of
+    ``EI_VARIANCE_JITTER``, ``cholesky_small``, ``hdot``) and the port's
+    single-union estimate: both NaN, as is the port's batched one (no
+    lift of the diagonal by the least eigenvalue, which would make it
+    finite: the JAX package has none)."""
+    from cornell_moe_tpu import config as jconfig
+    from cornell_moe_tpu.ops import linalg as jlinalg
+
+    var = _float32_union_covariances(rng, 1, 4, {0})[0]
+    assert np.linalg.eigvalsh(var.astype(float))[0] < -1e3 * \
+        jconfig.EI_VARIANCE_JITTER
+    mu = rng.standard_normal(4).astype(np.float32)
+    normals = rng.standard_normal((64, 4)).astype(np.float32)
+    best = np.float32(mu.min())
+    chol = jlinalg.cholesky_small(jlinalg.add_jitter(
+        jnp.asarray(var), jconfig.EI_VARIANCE_JITTER))
+    samples = jnp.asarray(mu)[None, :] + jlinalg.hdot(jnp.asarray(normals),
+                                                      chol.T)
+    ref = jnp.mean(jnp.maximum(best - jnp.min(samples, axis=1), 0.0))
+    assert ref.dtype == jnp.float32 and np.isnan(float(ref))
+    f32 = dict(dtype=torch.float32)
+    got = tei._estimate_from_posterior(
+        torch.as_tensor(mu, **f32), torch.as_tensor(var, **f32),
+        torch.as_tensor(best, **f32), torch.as_tensor(normals, **f32))
+    assert got.dtype == torch.float32 and bool(torch.isnan(got))
+    batched = tei._estimate_batch(
+        torch.as_tensor(mu[None], **f32), torch.as_tensor(var[None], **f32),
+        torch.as_tensor(best, **f32), torch.as_tensor(normals, **f32))
+    assert bool(torch.isnan(batched).all())
+
+
+def test_single_union_and_batched_estimates_agree_in_float32(rng):
+    """The single-union estimate (the VOI's and the per-start route's) and
+    the batched one (the batched route's) on the same float32 (mu, var)
+    of 40 unions of 4 points, 128 normals: NaN at the same unions (the
+    indefinite ones) and equal elsewhere within float32 rounding (rtol
+    1e-5, atol 1e-6 on values of order 1: the two form the samples by a
+    matmul and an einsum)."""
+    b, u = 40, 4
+    bad = {3, 17, 29}
+    f32 = dict(dtype=torch.float32)
+    var = torch.as_tensor(_float32_union_covariances(rng, b, u, bad), **f32)
+    mu = torch.as_tensor(rng.standard_normal((b, u)), **f32)
+    normals = torch.as_tensor(rng.standard_normal((128, u)), **f32)
+    best = torch.as_tensor(0.5, **f32)
+    single = tei._estimate_from_posterior(mu, var, best, normals)
+    batched = tei._estimate_batch(mu, var, best, normals)
+    nan = [i for i in range(b) if bool(torch.isnan(single[i]))]
+    assert nan == sorted(bad)
+    assert torch.equal(torch.isnan(batched), torch.isnan(single))
+    np.testing.assert_allclose(single.numpy(), batched.numpy(), rtol=1e-5,
+                               atol=1e-6, equal_nan=True)

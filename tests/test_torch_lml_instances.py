@@ -1,22 +1,32 @@
-"""Kernel B's two instances: which one the wrapper takes at each Np, and
-the shared-memory count that decides it.
+"""Kernel B's two instances: which one the wrapper takes at each Np, the
+shared-memory and scratch counts that decide and size them, and the
+model's gate, held to the JAX package's window.
 
 The cluster instance keeps K's lower triangle in the 8 CTAs of a cluster,
 32 x 32 tiles, tile row i in CTA i mod 8; beside its tiles each CTA holds
 the panel column (Np - 32 rows), L11, z, its y slices and a 4-float
 carry (``csrc/lml_fused.cu`` ``lml_layout``).  The wrapper takes it
-while its fullest CTA fits in one block's 227 KB of shared memory, and the
-one-block-per-walker instance above that.  These run on the CPU: the
-choice depends on Np alone, and a CPU tensor takes the plain version.
+while its fullest CTA fits in one block's 227 KB of shared memory.  Above
+that the large-Np instance runs the same kernel with the tiles in a
+global scratch (one region of the fullest CTA's size per CTA and walker)
+and only the panel column and the small buffers on chip, up to Np = 1792;
+above that the panel column joins the scratch (one copy per walker).
+These run on the CPU: the choice depends on Np alone, and a CPU tensor
+takes the plain version.
 """
 
 import re
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from cornell_moe_tpu.models import mcmc as jmcmc
+from cornell_moe_tpu.ops import pallas_kernels as pk
+from cornell_moe_tpu.utils.data_containers import HistoricalData as JHist
+from cornell_moe_tpu_torch.models import mcmc as tmcmc
 from cornell_moe_tpu_torch.ops import kernels
 
 torch.set_num_threads(1)
@@ -29,6 +39,8 @@ def test_instance_chosen_by_np_alone():
     assert all(kernels.lml_fused_instance(n) == "cluster"
                for n in range(1, cap + 1))
     assert all(kernels.lml_fused_instance(n) == "global"
+               for n in range(cap + 1, 2048))
+    assert all(kernels.lml_global_pbuf_on_chip(n) == (n <= 1792)
                for n in range(cap + 1, 2048))
     assert kernels.lml_cluster_smem_bytes(cap) <= kernels.SMEM_PER_BLOCK \
         < kernels.lml_cluster_smem_bytes(cap + 1)
@@ -60,7 +72,7 @@ def test_python_constants_match_the_kernel_source():
 def test_cpu_tensors_take_the_plain_version_at_either_instance():
     rng = np.random.default_rng(0)
     kernels.reset_launch_counts()
-    for np_ in (40, kernels.LML_CLUSTER_CAPACITY + 8):
+    for np_ in (40, kernels.LML_CLUSTER_CAPACITY + 8, 1800):
         x = rng.random((2, np_))
         us = torch.as_tensor(x[None] / 0.4, dtype=torch.float32)
         args = (us, torch.ones(1), torch.full((1, np_), 1e-2),
@@ -72,3 +84,77 @@ def test_cpu_tensors_take_the_plain_version_at_either_instance():
                 torch.testing.assert_close(g, r, rtol=0.0, atol=0.0)
     assert kernels.launch_counts()["lml_fused"] == 0
     assert kernels.launch_counts()["lml_fused_global"] == 0
+
+
+@pytest.mark.parametrize("np_,tiles,pbuf_on_chip", [
+    (672, 39, True),      # 21 tile rows; CTA 4 holds 4, 12, 20: 5 + 13 + 21
+    (768, 48, True),      # 24 tile rows; CTA 7 holds 7, 15, 23: 8 + 16 + 24
+    (896, 64, True),      # 28 tile rows; CTA 3 holds 3, 11, 19, 27
+    (1008, 80, True),     # 32 tile rows; CTA 7 holds 7, 15, 23, 31
+    (1792, 224, True),    # 56 tile rows: the last panel column on chip
+    (1793, 232, False),   # 57 tile rows; CTA 0 holds 0, 8, ..., 56
+    (1824, 232, False)])
+def test_global_instance_smem_and_scratch_counts(np_, tiles, pbuf_on_chip):
+    """The large-Np instance's shared memory per CTA (the panel column
+    while it fits, L11, z, CTA 0's y slices, the carry) and its scratch per
+    walker (8 regions of the fullest CTA's tiles, and the panel column
+    where it is off chip)."""
+    nt = -(-np_ // 32)
+    assert kernels.lml_cta_tiles(np_) == tiles
+    assert kernels.lml_global_pbuf_on_chip(np_) == pbuf_on_chip
+    pbuf = nt - 1 if pbuf_on_chip else 0
+    rows0 = len(range(0, nt, 8))
+    smem = 4 * (pbuf * 1024 + 32 * 33 + 32 + rows0 * 32 + 4)
+    assert kernels.lml_global_smem_bytes(np_) == smem <= \
+        kernels.SMEM_PER_BLOCK
+    assert kernels.lml_global_scratch_floats(np_) == \
+        (8 * tiles + (0 if pbuf_on_chip else nt - 1)) * 1024
+    # the cluster instance's count holds the same tiles on chip
+    assert kernels.lml_cluster_smem_bytes(np_) == \
+        4 * (tiles + nt - 1) * 1024 + 4 * (32 * 33 + 32 + rows0 * 32 + 4)
+
+
+def test_global_instance_scratch_stays_in_l2_at_the_gate():
+    """Up to the gate's upper end (Np 896) the scratch of the main path's
+    half-ensemble (W = 8) fits the H100's 50 MB L2: 12.6 MB at Np 768."""
+    assert 8 * 4 * kernels.lml_global_scratch_floats(768) == 12_582_912
+    assert 8 * 4 * kernels.lml_global_scratch_floats(
+        tmcmc.LML_MAX_OBS) < 50 * 10**6
+
+
+def _jax_takes_lml_kernel(monkeypatch, n_obs: int) -> bool:
+    """Whether the JAX package's chain log posterior sends a float32
+    walker batch at ``n_obs`` observations to its fused LML kernel (its
+    ``LML_PALLAS`` "always" makes the CPU take the TPU's route; the kernel
+    is replaced by a recorder)."""
+    calls = []
+
+    def recorder(us, alphas, nv, yb, kernel_name, n_real, wb):
+        calls.append(us.shape)
+        w = us.shape[0]
+        return jnp.zeros((w,), jnp.float32), jnp.zeros((w,), jnp.float32)
+
+    monkeypatch.setattr(jmcmc, "LML_PALLAS", "always")
+    monkeypatch.setattr(pk, "pallas_lml_fused", recorder)
+    rng = np.random.default_rng(n_obs)
+    x = rng.random((n_obs, 2))
+    data = JHist(2)
+    data.append_historical_data(x[:4], np.sin(3 * x[:4, 0]))
+    model = jmcmc.GaussianProcessLogLikelihoodMCMC(data, n_hypers=2)
+    thetas = jnp.asarray(0.1 * rng.standard_normal((2, 4)), jnp.float32)
+    model._log_posterior_with_data()(
+        thetas, jnp.asarray(x, jnp.float32),
+        jnp.asarray(np.sin(3 * x[:, :1]), jnp.float32), None)
+    return bool(calls)
+
+
+@pytest.mark.parametrize("n_obs", [880, 896, 897, 912])
+def test_lml_gate_window_matches_jax(monkeypatch, n_obs):
+    """Kernel B's gate closes above 896 observations, as the JAX package's
+    (``models/mcmc.py``: the plain LML for n_obs > 896); the kernel itself
+    takes any Np."""
+    expected = _jax_takes_lml_kernel(monkeypatch, n_obs)
+    assert expected == (n_obs <= 896)
+    assert tmcmc.uses_lml_kernel("cuda", torch.float32, (), n_obs) == \
+        expected
+    assert not tmcmc.uses_lml_kernel("cpu", torch.float32, (), n_obs)

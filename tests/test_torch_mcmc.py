@@ -4,8 +4,8 @@ sampler with the JAX package.
 Tolerances: priors and the plain LML in float64 at rtol 1e-10
 (tests/test_likelihood_mcmc.py:32); the fused-LML kernel's plain version in
 float32 at rtol 5e-4 against the Pallas kernel in interpret mode at
-Np = 128 (tests/test_pallas_descent.py:168-171) and against JAX's vmapped
-LML at Np = 384, where the Pallas kernel cannot trace; the model
+Np = 128 and 768 (tests/test_pallas_descent.py:168-171) and against JAX's
+vmapped LML at Np = 384, where the Pallas kernel cannot trace; the model
 log-posterior at 1e-4 (tests/test_pallas_descent.py:203-204); a stretch
 move fed JAX's random numbers bit for bit.  The sampler's statistics
 (``run_ensemble_mcmc(keep_chain=True)`` from a seeded ``torch.Generator``)
@@ -129,6 +129,25 @@ def test_lml_kernel_plain_matches_jax(rng, np_):
     ref = jax.vmap(one)(jnp.asarray(hyp), jnp.asarray(noises[:, None],
                                                       float))
     np.testing.assert_allclose(lml.numpy(), np.asarray(ref), rtol=5e-4)
+
+
+def test_lml_kernel_plain_matches_interpret_at_768(rng):
+    """Np = 768, the largest size at which the JAX package runs all three
+    of its kernels (a multiple of 256, where its kernel B traces): the
+    port's plain version, which kernel B's large-Np instance is held to on
+    the card, against the Pallas kernel in interpret mode at W 2, d 2,
+    rtol 5e-4 as at Np = 128."""
+    w, n, np_ = 2, 760, 768
+    _, _, alphas, _, _, us, noise_vec, y_pad = _lml_inputs(rng, w, n, np_)
+    f32 = torch.float32
+    assert kernels.lml_fused_instance(np_) == "global"
+    quad, logdet = kernels.lml_fused(_t(us, f32), _t(alphas, f32),
+                                     _t(noise_vec, f32), _t(y_pad, f32), n)
+    ref_q, ref_l = pk.pallas_lml_fused(
+        jnp.asarray(us), jnp.asarray(alphas), jnp.asarray(noise_vec),
+        jnp.asarray(y_pad), "matern_2.5", n_real=n, wb=2, interpret=True)
+    np.testing.assert_allclose(quad.numpy(), np.asarray(ref_q), rtol=5e-4)
+    np.testing.assert_allclose(logdet.numpy(), np.asarray(ref_l), rtol=5e-4)
 
 
 def _jax_stretch_draws(key, half):

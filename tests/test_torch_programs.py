@@ -388,10 +388,9 @@ def test_cfkg_outer_steps_stay_eager(monkeypatch):
 def test_ei_suggest_programs_equal_never(monkeypatch):
     """Method "EI" (q = 2, the MC estimator) over two iterations inside one
     bucket: the single-GP multistart's GD step and the scoring (the
-    union's posterior and the estimate, around the eager least
-    eigenvalue) are built in the first iteration and replayed in the
-    second, which builds nothing; both equal CAPTURE = "never" bit for
-    bit."""
+    union's posterior and the estimate in one program) are built in the
+    first iteration and replayed in the second, which builds nothing; both
+    equal CAPTURE = "never" bit for bit."""
     kw = dict(objective_func=tsf.Branin(), method="EI")
     got, builds, replays = _driver_runs("auto", monkeypatch, **kw)
     assert builds[0] > 0 and builds[1] == 0, builds
@@ -479,7 +478,7 @@ def test_launch_counters_set_and_add():
 
 SWITCHES = {
     "lml": (tmcmc, "LML_PALLAS",
-            lambda: tmcmc.uses_lml_kernel("cuda", torch.float32, ())),
+            lambda: tmcmc.uses_lml_kernel("cuda", torch.float32, (), 512)),
     "descent": (tkg, "DESCENT_PALLAS",
                 lambda: tkg.descent_kernel_for(
                     "cuda", torch.float32, "matern_2.5", (), (), 2, 4)
@@ -679,8 +678,8 @@ COMPAT_KINDS = {"fit", "kg_score", "ei_mcmc_point", "compat_step",
 def test_compat_flow_programs_equal_never(monkeypatch):
     """``GaussianProcessMCMC`` owns the cache its objectives share: its
     fit, the KG point list's scoring (``kg_score``, one program per block
-    shape), EI's point list (two programs around the eager least
-    eigenvalue), the posterior-mean polish's GD step and the Newton run
+    shape), EI's point list (``ei_mcmc_point``, one program per block
+    shape), the posterior-mean polish's GD step and the Newton run
     are built in the first pass and only replayed in the second, and every
     result equals CAPTURE = "never" bit for bit.  The KG multistart and
     the single VOI stay eager by their rule (no ``kg_cold`` or
@@ -691,7 +690,7 @@ def test_compat_flow_programs_equal_never(monkeypatch):
     assert replays["kg_score"] == 2 * 3
     assert builds[0] > 0 and builds[1] == 0, builds
     assert replays["compat_step"] == 2 * 5 and replays["compat_newton"] == 2
-    assert replays["ei_mcmc_point"] == 2 * 2 * 3
+    assert replays["ei_mcmc_point"] == 2 * 3
     ref, never_builds, never_replays = _compat_flow("never", monkeypatch)
     assert never_builds == [0, 0] and never_replays == {}
     for a, b in zip(got, ref):
@@ -700,11 +699,10 @@ def test_compat_flow_programs_equal_never(monkeypatch):
 
 def test_compat_eager_rules(monkeypatch):
     """``compat.optimization.runs_programs``: an objective with only numpy
-    methods reads the host at every step and polishes eagerly, as does the
-    MC EI estimator (its union lift's least eigenvalue), whose program
-    form is None; the closed-form EI and every torch objective with a
-    cache take their steps as programs; under CAPTURE = "never" none
-    does.  Each polish equals its eager twin bit for bit."""
+    methods reads the host at every step and polishes eagerly; the MC and
+    closed-form EI and every torch objective with a cache take their
+    steps as programs; under CAPTURE = "never" none does.  Each polish
+    equals its eager twin bit for bit."""
     from cornell_moe_tpu_torch.compat import covariance as cov_c
     from cornell_moe_tpu_torch.compat import domain as dom_c
     from cornell_moe_tpu_torch.compat import expected_improvement as ei_c
@@ -753,7 +751,7 @@ def test_compat_eager_rules(monkeypatch):
             cov_c.MaternNu2p5([1.0, 0.3, 0.4], **kw), data,
             noise_variance=[1e-2]),
     }
-    expected = {"numpy": False, "mc_ei": False, "analytic_ei": True,
+    expected = {"numpy": False, "mc_ei": True, "analytic_ei": True,
                 "posterior_mean": True, "lml": True}
     params = optimizers.GradientDescentParameters(
         num_multistarts=1, max_num_steps=4, max_num_restarts=1,
