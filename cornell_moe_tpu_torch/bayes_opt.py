@@ -32,11 +32,17 @@ multistarts' restart axis, the chain's walkers and the recommend grid are
 sharded over the ranks (``parallel.sharding``).  Rank 0 alone evaluates the
 objective, and the values are broadcast, so the observations never diverge;
 rank 0 alone prints and writes checkpoints, and every rank reads them.
+
+Spans (``utils.logging_utils.span``): ``driver.initialize``,
+``driver.suggest``, ``driver.observe``, ``driver.recommend``,
+``driver.save`` and ``driver.resume`` around the methods of those names,
+``driver.evaluate`` around the objective's evaluations; each verbose log
+line of a phase reads its time from the phase's span.  :meth:`run` times
+its phases in ``timer`` (spans ``run.<phase>``).
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -55,7 +61,7 @@ from cornell_moe_tpu_torch.parallel import sharding
 from cornell_moe_tpu_torch.utils import checkpoint as ckpt
 from cornell_moe_tpu_torch.utils.data_containers import (HistoricalData,
                                                          SamplePoint)
-from cornell_moe_tpu_torch.utils.logging_utils import PhaseTimer
+from cornell_moe_tpu_torch.utils.logging_utils import PhaseTimer, span
 
 METHODS = ("KG", "EI")
 
@@ -260,14 +266,16 @@ def _recommend_programs(states, domain, guesses, params, num_fidelity,
             TensorProductDomain(bounds=bounds), params.max_relative_change,
             x, g, rate)
 
-    x0, best = program_cache.get(
-        ("recommend_grid",) + key + (sharding.group_key(group),), grid)(
-        guesses, *tensors)
+    with span("optimizers.grid"):
+        x0, best = program_cache.get(
+            ("recommend_grid",) + key + (sharding.group_key(group),), grid)(
+            guesses, *tensors)
     step_fn = program_cache.stepper(
         ("recommend_step", params.max_relative_change) + key, step,
         domain.bounds, *tensors)
-    x = optimizers.gradient_ascent(None, domain, x0, params,
-                                   step_fn=step_fn)
+    with span("optimizers.polish"):
+        x = optimizers.gradient_ascent(None, domain, x0, params,
+                                       step_fn=step_fn)
     return x, x0, best
 
 
@@ -283,13 +291,16 @@ def recommend_from_guesses(states, domain, guesses: torch.Tensor,
     replayed for each of the schedule's steps (its step size an input),
     the counterpart of the JAX package's ``_recommend_program``, unless
     :func:`recommend_runs_program` says otherwise; the final choice reads
-    the host outside them."""
+    the host outside them.  On either route the grid is the span
+    ``optimizers.grid`` and the polish ``optimizers.polish``."""
     if program_cache is None or \
             not recommend_runs_program(group, guesses.device):
-        x0, best = _best_guess(states, guesses, num_fidelity, group)
-        x = optimizers.gradient_ascent(
-            _neg_mean_value_and_grad(states, num_fidelity), domain, x0,
-            params)
+        with span("optimizers.grid"):
+            x0, best = _best_guess(states, guesses, num_fidelity, group)
+        with span("optimizers.polish"):
+            x = optimizers.gradient_ascent(
+                _neg_mean_value_and_grad(states, num_fidelity), domain, x0,
+                params)
     else:
         x, x0, best = _recommend_programs(states, domain, guesses, params,
                                           num_fidelity, program_cache, group)
@@ -395,30 +406,32 @@ class BayesianOptimizer:
     def _evaluate(self, points) -> list:
         """The observed entries of ``evaluate`` at each point (rank 0's)."""
         f = self.objective_func
-        return self._on_rank0(
-            lambda: [f.evaluate(pt)[self._obs_idx] for pt in points])
+        with span("driver.evaluate"):
+            return self._on_rank0(
+                lambda: [f.evaluate(pt)[self._obs_idx] for pt in points])
 
     def initialize(self, num_init_pts: Optional[int] = None):
         f = self.objective_func
         n = num_init_pts or f._num_init_pts
-        pts = self.domain.generate_latin_hypercube_points(
-            self.generator, n).cpu().numpy()
-        data = HistoricalData(self.dim, len(self.derivatives))
-        for pt, val in zip(pts, self._evaluate(pts)):
-            data.append_sample_points([SamplePoint(pt, val, f._sample_var)])
-        self.model = mcmc_mod.GaussianProcessLogLikelihoodMCMC(
-            data, chain_length=self.chain_length,
-            burnin_steps=self.burnin_steps, n_hypers=self.n_hypers,
-            noisy=self.noisy, kernel_name=self.kernel_name,
-            generator=self.generator, bucket=self.shape_bucket,
-            standardize=self.standardize,
-            chain_gate_tol=self.chain_gate_tol, device=self.device,
-            dtype=self.dtype, derivatives=self.derivatives,
-            process_group=self.process_group,
-            program_cache=self.program_cache)
-        t0 = time.time()
-        self.model.train()
-        self._log(f"initial training took {time.time() - t0:.2f}s on "
+        with span("driver.initialize") as timed:
+            pts = self.domain.generate_latin_hypercube_points(
+                self.generator, n).cpu().numpy()
+            data = HistoricalData(self.dim, len(self.derivatives))
+            for pt, val in zip(pts, self._evaluate(pts)):
+                data.append_sample_points(
+                    [SamplePoint(pt, val, f._sample_var)])
+            self.model = mcmc_mod.GaussianProcessLogLikelihoodMCMC(
+                data, chain_length=self.chain_length,
+                burnin_steps=self.burnin_steps, n_hypers=self.n_hypers,
+                noisy=self.noisy, kernel_name=self.kernel_name,
+                generator=self.generator, bucket=self.shape_bucket,
+                standardize=self.standardize,
+                chain_gate_tol=self.chain_gate_tol, device=self.device,
+                dtype=self.dtype, derivatives=self.derivatives,
+                process_group=self.process_group,
+                program_cache=self.program_cache)
+            self.model.train()
+        self._log(f"initial training took {timed.seconds:.2f}s on "
                   f"{n} points")
         return data
 
@@ -429,73 +442,76 @@ class BayesianOptimizer:
         return [0] + [1 + i for i in self.derivatives]
 
     def suggest(self):
-        t0 = time.time()
-        states = self.model.models
-        if self.method == "KG":
-            discrete = seed_kg_discretization(
-                self.generator, states, self.domain,
-                qei_params=self.sgd_params, ps_params=self.inner_sgd_params,
-                conv_tol=self.seed_conv_tol,
-                chunk_size=self.suggest_chunk_size,
-                num_fidelity=self.num_fidelity, group=self.process_group,
-                program_cache=self.program_cache)
-            pts, voi = _qkg_suggest_arrays(
-                self.generator, states, self.domain, discrete,
-                self.sgd_params, self.inner_sgd_params, self.num_to_sample,
-                self.num_mc, conv_tol=self.suggest_conv_tol,
-                chunk_size=self.suggest_chunk_size,
-                derivatives_to_sample=self.derivatives
-                if self.kg_sample_derivatives else (),
-                num_fidelity=self.num_fidelity, group=self.process_group,
-                program_cache=self.program_cache)
-        else:
-            # q,p-EI on a single GP, member 0 of the ensemble
-            pts, voi = _qei_suggest_arrays(
-                self.generator, mcmc_mod.ensemble_member(states, 0),
-                self.domain, self.sgd_params, self.num_to_sample,
-                self.num_mc, conv_tol=self.suggest_conv_tol,
-                chunk_size=self.suggest_chunk_size, group=self.process_group,
-                program_cache=self.program_cache)
-        # VOI back to raw units (KG and EI are linear in the value scale)
-        pts = pts.cpu().numpy()
-        voi = float(voi) * self.model.value_scale
-        self._log(f"{self.method} suggest took {time.time() - t0:.2f}s, "
+        with span("driver.suggest") as timed:
+            states = self.model.models
+            if self.method == "KG":
+                discrete = seed_kg_discretization(
+                    self.generator, states, self.domain,
+                    qei_params=self.sgd_params,
+                    ps_params=self.inner_sgd_params,
+                    conv_tol=self.seed_conv_tol,
+                    chunk_size=self.suggest_chunk_size,
+                    num_fidelity=self.num_fidelity, group=self.process_group,
+                    program_cache=self.program_cache)
+                pts, voi = _qkg_suggest_arrays(
+                    self.generator, states, self.domain, discrete,
+                    self.sgd_params, self.inner_sgd_params, self.num_to_sample,
+                    self.num_mc, conv_tol=self.suggest_conv_tol,
+                    chunk_size=self.suggest_chunk_size,
+                    derivatives_to_sample=self.derivatives
+                    if self.kg_sample_derivatives else (),
+                    num_fidelity=self.num_fidelity, group=self.process_group,
+                    program_cache=self.program_cache)
+            else:
+                # q,p-EI on a single GP, member 0 of the ensemble
+                pts, voi = _qei_suggest_arrays(
+                    self.generator, mcmc_mod.ensemble_member(states, 0),
+                    self.domain, self.sgd_params, self.num_to_sample,
+                    self.num_mc, conv_tol=self.suggest_conv_tol,
+                    chunk_size=self.suggest_chunk_size,
+                    group=self.process_group,
+                    program_cache=self.program_cache)
+            # VOI back to raw units (KG and EI are linear in the value scale)
+            pts = pts.cpu().numpy()
+            voi = float(voi) * self.model.value_scale
+        self._log(f"{self.method} suggest took {timed.seconds:.2f}s, "
                   f"VOI {voi:.6f}")
         return pts, voi
 
     def observe(self, points):
         f = self.objective_func
         points = np.atleast_2d(points)
-        sampled = [SamplePoint(pt, val, f._sample_var)
-                   for pt, val in zip(points, self._evaluate(points))]
-        if self.num_fidelity:
-            capitals = np.prod(np.atleast_2d(points)[
-                :, self.dim - self.num_fidelity:], axis=1)
-            self.capital_so_far += float(np.max(capitals))
-        t0 = time.time()
-        self.model.add_sampled_points(sampled)
-        self.model.train()
-        self._log(f"retraining took {time.time() - t0:.2f}s")
+        with span("driver.observe") as timed:
+            sampled = [SamplePoint(pt, val, f._sample_var)
+                       for pt, val in zip(points, self._evaluate(points))]
+            if self.num_fidelity:
+                capitals = np.prod(points[:, self.dim - self.num_fidelity:],
+                                   axis=1)
+                self.capital_so_far += float(np.max(capitals))
+            self.model.add_sampled_points(sampled)
+            self.model.train()
+        self._log(f"retraining took {timed.seconds:.2f}s")
         return sampled
 
     def recommend(self, num_eval_pts: int = 10000) -> np.ndarray:
         """Argmin of the ensemble posterior mean over a uniform grid plus
         the (bucket-padded) sampled points, GD-polished, on the inner
         domain; the fidelity coordinates of the result are 1."""
-        t0 = time.time()
-        states = self.model.models
-        inner = kg_mod.inner_domain(self.domain, self.num_fidelity)
-        eval_pts = inner.generate_uniform_random_points_in_domain(
-            self.generator, num_eval_pts)
-        guesses = torch.cat([eval_pts,
-                             states.points_sampled[0][:, :inner.dim]], dim=0)
-        best = recommend_from_guesses(states, inner, guesses,
-                                      num_fidelity=self.num_fidelity,
-                                      group=self.process_group,
-                                      program_cache=self.program_cache)
-        self._log(f"recommendation took {time.time() - t0:.2f}s")
-        return np.concatenate([best.cpu().numpy(),
-                               np.ones(self.num_fidelity)])
+        with span("driver.recommend") as timed:
+            states = self.model.models
+            inner = kg_mod.inner_domain(self.domain, self.num_fidelity)
+            eval_pts = inner.generate_uniform_random_points_in_domain(
+                self.generator, num_eval_pts)
+            guesses = torch.cat(
+                [eval_pts, states.points_sampled[0][:, :inner.dim]], dim=0)
+            best = recommend_from_guesses(states, inner, guesses,
+                                          num_fidelity=self.num_fidelity,
+                                          group=self.process_group,
+                                          program_cache=self.program_cache)
+            best = np.concatenate([best.cpu().numpy(),
+                                   np.ones(self.num_fidelity)])
+        self._log(f"recommendation took {timed.seconds:.2f}s")
+        return best
 
     def save_checkpoint(self, iteration: int) -> None:
         """Write the data, the model's walker state and the generator's
@@ -503,14 +519,15 @@ class BayesianOptimizer:
         rank 0 writes, and every rank waits until it has."""
         if self.checkpoint_path is None:
             return
-        if self.is_rank0:
-            ckpt.save_checkpoint(
-                self.checkpoint_path, self.model._data,
-                mcmc_model=self.model, generator=self.generator,
-                metadata={"iteration": iteration, "method": self.method,
-                          "capital": self.capital_so_far})
-        if self.process_group is not None:
-            dist.barrier(group=self.process_group)
+        with span("driver.save"):
+            if self.is_rank0:
+                ckpt.save_checkpoint(
+                    self.checkpoint_path, self.model._data,
+                    mcmc_model=self.model, generator=self.generator,
+                    metadata={"iteration": iteration, "method": self.method,
+                              "capital": self.capital_so_far})
+            if self.process_group is not None:
+                dist.barrier(group=self.process_group)
 
     def resume(self, path: Optional[str] = None) -> dict:
         """Restore the model (data, walker state, ensemble) and the
@@ -519,9 +536,10 @@ class BayesianOptimizer:
         no generator state: the generator is then seeded from ``seed``.
         Every rank reads the checkpoint; the driver's process group is
         attached to the restored model."""
-        self.model, manifest = ckpt.restore_mcmc_model(
-            path or self.checkpoint_path, generator=self.generator,
-            seed=self.seed, device=self.device, dtype=self.dtype)
+        with span("driver.resume"):
+            self.model, manifest = ckpt.restore_mcmc_model(
+                path or self.checkpoint_path, generator=self.generator,
+                seed=self.seed, device=self.device, dtype=self.dtype)
         self.model.process_group = self.process_group
         self.model.program_cache = self.program_cache
         self.capital_so_far = manifest["metadata"].get("capital", 0.0)

@@ -16,7 +16,10 @@ program (an NCCL group's ``all_gather`` is captured with it); a gloo group
 on a card runs the chain eagerly, step by step (:func:`chain_runs_programs`).
 The ensemble fit is one program per (S, Np, d, kernel), the counterpart of
 ``_ensemble_fit_program``, and the MAP fit's Newton run one per start
-shape.
+shape.  Spans (``utils.logging_utils.span``): ``model.train`` around a
+training, inside it ``model.burn_in`` and ``model.chain`` around its two
+chains, ``model.fit`` around every ensemble fit and ``model.map`` around
+the MAP fit.
 
 Dispatch rule of the log-posterior (:func:`uses_lml_kernel`): CUDA,
 float32, value channels only and at most :data:`LML_MAX_OBS` (padded)
@@ -42,6 +45,7 @@ from cornell_moe_tpu_torch.models import likelihood as lik_mod
 from cornell_moe_tpu_torch.models.priors import DefaultPrior
 from cornell_moe_tpu_torch.ops import kernels, programs
 from cornell_moe_tpu_torch.parallel import sharding
+from cornell_moe_tpu_torch.utils.logging_utils import span
 
 # Hard bounds on log-hyperparameters.
 LOG_BOUND = 20.0
@@ -348,46 +352,47 @@ def fit_gp_ensemble(kernel_name: str, hypers: torch.Tensor,
     ``_ensemble_fit_program``; the padding and the copy to the device stay
     outside it.
     """
-    dev, dt = hypers.device, hypers.dtype
-    x = np.asarray(torch.as_tensor(points).cpu())
-    y = np.asarray(torch.as_tensor(values).cpu())
-    if y.ndim == 1:
-        y = y[:, None]
-    point_noise = mean = None
-    if bucket > 1:
-        x, y, point_noise, mean = pad_training_data(
-            x, y, bucket_size(x.shape[0], bucket))
-        point_noise = torch.as_tensor(point_noise, dtype=dt, device=dev)
-    cov = cov_mod.COVARIANCE_TYPES[kernel_name](hyperparameters=hypers)
-    fit = gp_mod.fit_inputs(
-        cov, noises, torch.as_tensor(x, dtype=dt, device=dev),
-        torch.as_tensor(y, dtype=dt, device=dev), derivatives,
-        point_noise=point_noise)
-    noise, xt, yt, pn, ds = fit
-    inputs = [hypers.contiguous(), noise.contiguous(), xt, yt] + [
-        t for t in (pn, None if mean is None else
-                    torch.as_tensor(mean, dtype=dt, device=dev))
-        if t is not None]
+    with span("model.fit"):
+        dev, dt = hypers.device, hypers.dtype
+        x = np.asarray(torch.as_tensor(points).cpu())
+        y = np.asarray(torch.as_tensor(values).cpu())
+        if y.ndim == 1:
+            y = y[:, None]
+        point_noise = mean = None
+        if bucket > 1:
+            x, y, point_noise, mean = pad_training_data(
+                x, y, bucket_size(x.shape[0], bucket))
+            point_noise = torch.as_tensor(point_noise, dtype=dt, device=dev)
+        cov = cov_mod.COVARIANCE_TYPES[kernel_name](hyperparameters=hypers)
+        fit = gp_mod.fit_inputs(
+            cov, noises, torch.as_tensor(x, dtype=dt, device=dev),
+            torch.as_tensor(y, dtype=dt, device=dev), derivatives,
+            point_noise=point_noise)
+        noise, xt, yt, pn, ds = fit
+        inputs = [hypers.contiguous(), noise.contiguous(), xt, yt] + [
+            t for t in (pn, None if mean is None else
+                        torch.as_tensor(mean, dtype=dt, device=dev))
+            if t is not None]
 
-    def factors_of(h, nv, xx, yy, *rest):
-        rest = list(rest)
-        p = rest.pop(0) if pn is not None else None
-        m = rest.pop(0) if mean is not None else None
-        jit = jitter
-        if dt == torch.float32:
-            jit = jitter + config.F32_CHOLESKY_JITTER * h[:, 0]
-        return gp_mod.fit_factors(
-            cov_mod.COVARIANCE_TYPES[kernel_name](hyperparameters=h), nv, xx,
-            yy, p, ds, jitter=jit, mean=m)
+        def factors_of(h, nv, xx, yy, *rest):
+            rest = list(rest)
+            p = rest.pop(0) if pn is not None else None
+            m = rest.pop(0) if mean is not None else None
+            jit = jitter
+            if dt == torch.float32:
+                jit = jitter + config.F32_CHOLESKY_JITTER * h[:, 0]
+            return gp_mod.fit_factors(
+                cov_mod.COVARIANCE_TYPES[kernel_name](hyperparameters=h), nv,
+                xx, yy, p, ds, jitter=jit, mean=m)
 
-    if program_cache is None or not programs.enabled():
-        factors = factors_of(*inputs)
-    else:
-        key = ("fit", kernel_name, tuple(hypers.shape), tuple(xt.shape),
-               tuple(yt.shape), dt, str(dev), ds, float(jitter),
-               pn is not None, mean is not None)
-        factors = program_cache.get(key, factors_of)(*inputs)
-    return gp_mod.assemble_state(cov, *fit, *factors)
+        if program_cache is None or not programs.enabled():
+            factors = factors_of(*inputs)
+        else:
+            key = ("fit", kernel_name, tuple(hypers.shape), tuple(xt.shape),
+                   tuple(yt.shape), dt, str(dev), ds, float(jitter),
+                   pn is not None, mean is not None)
+            factors = program_cache.get(key, factors_of)(*inputs)
+        return gp_mod.assemble_state(cov, *fit, *factors)
 
 
 def ensemble_size(states: gp_mod.GaussianProcessState) -> int:
@@ -579,43 +584,48 @@ class GaussianProcessLogLikelihoodMCMC:
 
     # -- training -----------------------------------------------------------
     def train(self, do_optimize: bool = True) -> None:
-        self._refresh_value_affine()
-        if do_optimize:
-            x, y, point_noise = self._padded_data()
+        with span("model.train"):
+            self._refresh_value_affine()
+            if do_optimize:
+                x, y, point_noise = self._padded_data()
 
-            def log_prob(t):
-                return sharding.sharded_point_evaluation(
-                    lambda tt: self.log_posterior(tt, x, y, point_noise), t,
-                    self.process_group)
+                def log_prob(t):
+                    return sharding.sharded_point_evaluation(
+                        lambda tt: self.log_posterior(tt, x, y, point_noise),
+                        t, self.process_group)
 
-            segment_fn = self._segment_program(x, y, point_noise) \
-                if chain_runs_programs(self.process_group, self.device) \
-                else None
-            gen = self.generator
-            if not self.burned:
-                p0 = self.prior.sample_from_prior(
-                    gen, self.n_hypers, device=self.device, dtype=self.dtype)
-                p0 = torch.clamp(p0, -LOG_BOUND + 1e-3, LOG_BOUND - 1e-3)
-                self.p0, _ = run_ensemble_mcmc(gen, log_prob, p0,
-                                               self.burnin_steps,
-                                               segment_fn=segment_fn)
-                self.burned = True
-            if self.chain_gate_tol is None:
-                pos, _ = run_ensemble_mcmc(gen, log_prob, self.p0,
-                                           self.chain_length,
-                                           segment_fn=segment_fn)
-                steps = self.chain_length
-            else:
-                pos, _, steps = run_ensemble_mcmc_gated(
-                    gen, log_prob, self.p0, self.chain_length,
-                    rel_tol=self.chain_gate_tol, segment_fn=segment_fn)
-            self.last_chain_steps = int(steps)
-            self.chain_steps.append(self.last_chain_steps)
-            self.p0 = pos
-            pick = torch.randint(0, self.n_hypers, (self.n_hypers,),
-                                 generator=gen, device=self.device)
-            self.hypers = pos[pick].cpu().numpy()
-        self._finalize_models()
+                segment_fn = self._segment_program(x, y, point_noise) \
+                    if chain_runs_programs(self.process_group, self.device) \
+                    else None
+                gen = self.generator
+                if not self.burned:
+                    p0 = self.prior.sample_from_prior(
+                        gen, self.n_hypers, device=self.device,
+                        dtype=self.dtype)
+                    p0 = torch.clamp(p0, -LOG_BOUND + 1e-3, LOG_BOUND - 1e-3)
+                    with span("model.burn_in"):
+                        self.p0, _ = run_ensemble_mcmc(
+                            gen, log_prob, p0, self.burnin_steps,
+                            segment_fn=segment_fn)
+                    self.burned = True
+                with span("model.chain"):
+                    if self.chain_gate_tol is None:
+                        pos, _ = run_ensemble_mcmc(gen, log_prob, self.p0,
+                                                   self.chain_length,
+                                                   segment_fn=segment_fn)
+                        steps = self.chain_length
+                    else:
+                        pos, _, steps = run_ensemble_mcmc_gated(
+                            gen, log_prob, self.p0, self.chain_length,
+                            rel_tol=self.chain_gate_tol,
+                            segment_fn=segment_fn)
+                self.last_chain_steps = int(steps)
+                self.chain_steps.append(self.last_chain_steps)
+                self.p0 = pos
+                pick = torch.randint(0, self.n_hypers, (self.n_hypers,),
+                                     generator=gen, device=self.device)
+                self.hypers = pos[pick].cpu().numpy()
+            self._finalize_models()
 
     def optimize(self, num_restarts: int = 1) -> None:
         """MAP fit: a multistart damped Newton over the log posterior
@@ -636,44 +646,45 @@ class GaussianProcessLogLikelihoodMCMC:
                                                           newton_optimize,
                                                           value_and_grad)
 
-        self._refresh_value_affine()
-        x, y, point_noise = self._padded_data()
-        kw = dict(device=self.device, dtype=self.dtype)
-        bound = LOG_BOUND - 1e-3
-        dom = TensorProductDomain.from_bounds(
-            [[-bound, bound]] * self.prior.n_dims, **kw)
-        nparams = NewtonParameters(
-            num_multistarts=max(num_restarts, 1), max_num_steps=40,
-            gamma=1.05, time_factor=1e-2, max_relative_change=1.0)
-        starts = torch.clamp(self.prior.sample_from_prior(
-            self.generator, max(num_restarts, 1), **kw), -bound, bound)
+        with span("model.map"):
+            self._refresh_value_affine()
+            x, y, point_noise = self._padded_data()
+            kw = dict(device=self.device, dtype=self.dtype)
+            bound = LOG_BOUND - 1e-3
+            dom = TensorProductDomain.from_bounds(
+                [[-bound, bound]] * self.prior.n_dims, **kw)
+            nparams = NewtonParameters(
+                num_multistarts=max(num_restarts, 1), max_num_steps=40,
+                gamma=1.05, time_factor=1e-2, max_relative_change=1.0)
+            starts = torch.clamp(self.prior.sample_from_prior(
+                self.generator, max(num_restarts, 1), **kw), -bound, bound)
 
-        def value_on(t, xx, yy, *pn):
-            return self.log_posterior(t[None], xx, yy, *pn,
-                                      force_plain=True)[0]
+            def value_on(t, xx, yy, *pn):
+                return self.log_posterior(t[None], xx, yy, *pn,
+                                          force_plain=True)[0]
 
-        def value(t):
-            return value_on(t, x, y, point_noise)
+            def value(t):
+                return value_on(t, x, y, point_noise)
 
-        def newton(t0, *data):
-            def f(t):
-                return value_on(t, *data)
-            return newton_optimize(value_and_grad(f), dom, t0, nparams,
-                                   hessian_fn=torch.func.hessian(f))
+            def newton(t0, *data):
+                def f(t):
+                    return value_on(t, *data)
+                return newton_optimize(value_and_grad(f), dom, t0, nparams,
+                                       hessian_fn=torch.func.hessian(f))
 
-        data = (x, y) + (() if point_noise is None else (point_noise,))
-        key = ("map_newton", self.kernel_name, self.noisy, self.derivatives,
-               nparams)
-        finals = torch.stack([programs.run(self.program_cache, key, newton,
-                                           t0, *data) for t0 in starts])
-        vals = torch.stack([value(t) for t in finals])
-        self.map_starts, self.map_values = starts, vals
-        pick = int(torch.argmax(torch.where(torch.isfinite(vals), vals,
-                                            float("-inf"))))
-        if not bool(torch.isfinite(vals[pick])):
-            finals, pick = starts, 0
-        self.hypers = finals[pick][None].cpu().numpy()
-        self._finalize_models()
+            data = (x, y) + (() if point_noise is None else (point_noise,))
+            key = ("map_newton", self.kernel_name, self.noisy,
+                   self.derivatives, nparams)
+            finals = torch.stack([programs.run(self.program_cache, key, newton,
+                                               t0, *data) for t0 in starts])
+            vals = torch.stack([value(t) for t in finals])
+            self.map_starts, self.map_values = starts, vals
+            pick = int(torch.argmax(torch.where(torch.isfinite(vals), vals,
+                                                float("-inf"))))
+            if not bool(torch.isfinite(vals[pick])):
+                finals, pick = starts, 0
+            self.hypers = finals[pick][None].cpu().numpy()
+            self._finalize_models()
 
     def _fit(self, cov_hypers: np.ndarray, noises: np.ndarray):
         kw = dict(dtype=self.dtype, device=self.device)

@@ -36,15 +36,17 @@ the kernel or raises (wrong dtype, layout or shape, an input that requires
 grad, a failed launch).  There is no fallback.  None of the four sits under
 a gradient, so none has a backward kernel.
 
-Each wrapper adds one to its module-level launch counter where it launches
-its kernel and nowhere else: ``lml_fused`` counts B's cluster instance,
-``lml_fused_global`` its large-Np instance, ``descent_run`` A's tensor-core
-instance and ``descent_run_fma`` its FMA instance, ``descent_grad`` D's
-tensor-core instance and ``descent_grad_fma`` its FMA instance.
-``chip_smoke.py`` reads the counters to prove each path went through its
-kernels.  A replayed CUDA graph (``ops.programs``) runs no wrapper: the
-program adds the launches it recorded at capture to the counters at each
-replay (:func:`add_launch_counts`).
+Each wrapper adds one to its launch counter where it launches its kernel
+and nowhere else, the counter ``kernels.<name>`` of the port's registry
+(``utils.logging_utils.count``): ``lml_fused`` counts B's cluster
+instance, ``lml_fused_global`` its large-Np instance, ``descent_run`` A's
+tensor-core instance and ``descent_run_fma`` its FMA instance,
+``descent_grad`` D's tensor-core instance and ``descent_grad_fma`` its FMA
+instance.  :func:`launch_counts` and its set, add and reset functions are
+views of those counters; ``chip_smoke.py`` reads them to prove each path
+went through its kernels.  A replayed CUDA graph (``ops.programs``) runs
+no wrapper: the program adds the growth of the registry it recorded at
+capture at each replay.
 """
 
 from __future__ import annotations
@@ -52,56 +54,40 @@ from __future__ import annotations
 import torch
 
 from cornell_moe_tpu_torch.ops.domains import box_limit_update
+from cornell_moe_tpu_torch.utils import logging_utils
 
 KERNEL_CODES = {"matern_2.5": 0, "square_exponential": 1}
 
-covariance_with_noise_launches = 0
-lml_fused_launches = 0
-lml_fused_global_launches = 0
-descent_run_launches = 0
-descent_run_fma_launches = 0
-descent_grad_launches = 0
-descent_grad_fma_launches = 0
+KERNELS = ("covariance_with_noise", "lml_fused", "lml_fused_global",
+           "descent_run", "descent_run_fma", "descent_grad",
+           "descent_grad_fma")
 
 
 def reset_launch_counts() -> None:
-    global covariance_with_noise_launches, lml_fused_launches, \
-        lml_fused_global_launches, descent_run_launches, \
-        descent_run_fma_launches, descent_grad_launches, \
-        descent_grad_fma_launches
-    covariance_with_noise_launches = 0
-    lml_fused_launches = 0
-    lml_fused_global_launches = 0
-    descent_run_launches = 0
-    descent_run_fma_launches = 0
-    descent_grad_launches = 0
-    descent_grad_fma_launches = 0
+    set_launch_counts(dict.fromkeys(KERNELS, 0))
 
 
 def launch_counts() -> dict:
-    return {"covariance_with_noise": covariance_with_noise_launches,
-            "lml_fused": lml_fused_launches,
-            "lml_fused_global": lml_fused_global_launches,
-            "descent_run": descent_run_launches,
-            "descent_run_fma": descent_run_fma_launches,
-            "descent_grad": descent_grad_launches,
-            "descent_grad_fma": descent_grad_fma_launches}
+    counts = logging_utils.counters()
+    return {name: counts.get("kernels." + name, 0) for name in KERNELS}
+
+
+def _counter(name: str) -> str:
+    if name not in KERNELS:
+        raise KeyError(f"no launch counter {name!r}")
+    return "kernels." + name
 
 
 def set_launch_counts(counts: dict) -> None:
     """Set the counters named in ``counts`` (``launch_counts()``'s keys)."""
-    for name, value in counts.items():
-        if name not in launch_counts():
-            raise KeyError(f"no launch counter {name!r}")
-        globals()[name + "_launches"] = int(value)
+    logging_utils.set_counters({_counter(name): int(value)
+                                for name, value in counts.items()})
 
 
 def add_launch_counts(counts: dict) -> None:
-    """Add ``counts`` to the counters it names: the launches of a replayed
-    CUDA graph (``ops.programs``), whose wrappers ran only at capture."""
-    now = launch_counts()
-    set_launch_counts({name: now[name] + int(v)
-                       for name, v in counts.items()})
+    """Add ``counts`` to the counters it names."""
+    for name, value in counts.items():
+        logging_utils.count(_counter(name), int(value))
 
 
 def _unit_fields(kernel_name: str):
@@ -167,7 +153,6 @@ def covariance_with_noise(points: torch.Tensor, hypers: torch.Tensor,
     points (n, d), hypers (S, 1 + d) = [alpha, lengths], noise (S, n) total
     per-point diagonal noise.  Returns (S, n, n).
     """
-    global covariance_with_noise_launches
     name = "covariance_with_noise"
     if not _on_card(name, kernel_name, points=points, hypers=hypers,
                     noise=noise):
@@ -181,7 +166,7 @@ def covariance_with_noise(points: torch.Tensor, hypers: torch.Tensor,
     _launch(name, _lib().cmoe_covariance_with_noise, points.data_ptr(),
             hypers.data_ptr(), noise.data_ptr(), out.data_ptr(), s, n, d,
             KERNEL_CODES[kernel_name], device=points.device)
-    covariance_with_noise_launches += 1
+    logging_utils.count("kernels.covariance_with_noise")
     return out
 
 
@@ -303,7 +288,6 @@ def lml_fused(us: torch.Tensor, alpha: torch.Tensor, noise: torch.Tensor,
     cluster instance, K in distributed shared memory and no scratch;
     above it :func:`lml_fused_global`, K in an L2-resident global scratch.
     """
-    global lml_fused_launches
     name = "lml_fused"
     shapes = _lml_shapes(name, us, alpha, noise, y, n_real, kernel_name)
     if shapes is None:
@@ -318,7 +302,7 @@ def lml_fused(us: torch.Tensor, alpha: torch.Tensor, noise: torch.Tensor,
             alpha.data_ptr(), noise.data_ptr(), y.data_ptr(),
             quad.data_ptr(), logdet.data_ptr(), w, d, np_, int(n_real),
             KERNEL_CODES[kernel_name], device=dev)
-    lml_fused_launches += 1
+    logging_utils.count("kernels.lml_fused")
     return quad, logdet
 
 
@@ -332,7 +316,6 @@ def lml_fused_global(us: torch.Tensor, alpha: torch.Tensor,
     Np = 1792.  Equal to the cluster instance bit for bit where both run.
     :func:`lml_fused` takes it above the cluster capacity; arguments and
     results as there."""
-    global lml_fused_global_launches
     name = "lml_fused_global"
     shapes = _lml_shapes(name, us, alpha, noise, y, n_real, kernel_name)
     if shapes is None:
@@ -347,7 +330,7 @@ def lml_fused_global(us: torch.Tensor, alpha: torch.Tensor,
             alpha.data_ptr(), noise.data_ptr(), y.data_ptr(),
             scratch.data_ptr(), quad.data_ptr(), logdet.data_ptr(), w, d,
             np_, int(n_real), KERNEL_CODES[kernel_name], device=dev)
-    lml_fused_global_launches += 1
+    logging_utils.count("kernels.lml_fused_global")
     return quad, logdet
 
 
@@ -515,7 +498,6 @@ def descent_run(xs0: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
     says ``"mma"`` (the main path's d = 2, q = 4 among them), else
     :func:`descent_run_fma`.
     """
-    global descent_run_launches
     name = "descent_run"
     shapes = _descent_run_args(name, xs0, ws, wt, beta, z, us, geom,
                                kernel_name, steps, restarts, avg_n)
@@ -530,7 +512,7 @@ def descent_run(xs0: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
                                *tail)
     out = _launch_descent_run(name, _lib().cmoe_descent_run_mma, xs0, ws, wt,
                               beta, z, us, geom, kernel_name, shapes, *tail)
-    descent_run_launches += 1
+    logging_utils.count("kernels.descent_run")
     return out
 
 
@@ -543,7 +525,6 @@ def descent_run_fma(xs0: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
     one thread per draw, the contraction in float32 FMA.
     :func:`descent_run` takes it above one tensor-core tile; arguments and
     result as there."""
-    global descent_run_fma_launches
     name = "descent_run_fma"
     shapes = _descent_run_args(name, xs0, ws, wt, beta, z, us, geom,
                                kernel_name, steps, restarts, avg_n)
@@ -554,7 +535,7 @@ def descent_run_fma(xs0: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
     out = _launch_descent_run(name, _lib().cmoe_descent_run_fma, xs0, ws, wt,
                               beta, z, us, geom, kernel_name, shapes, steps,
                               restarts, avg_n, gamma, pre_mult, mrc)
-    descent_run_fma_launches += 1
+    logging_utils.count("kernels.descent_run_fma")
     return out
 
 
@@ -618,7 +599,6 @@ def descent_grad(xs: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
     :func:`descent_grad_instance` says ``"mma"`` (the main path's d = 2,
     q = 4 among them), else :func:`descent_grad_fma`.
     """
-    global descent_grad_launches
     name = "descent_grad"
     if not _on_card(name, kernel_name, xs=xs, ws=ws, wt=wt, beta=beta, z=z,
                     us=us):
@@ -628,7 +608,7 @@ def descent_grad(xs: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
         return descent_grad_fma(xs, ws, wt, beta, z, us, kernel_name)
     out = _launch_descent_grad(name, _lib().cmoe_descent_grad_mma, shapes,
                                xs, ws, wt, beta, z, us, kernel_name)
-    descent_grad_launches += 1
+    logging_utils.count("kernels.descent_grad")
     return out
 
 
@@ -639,7 +619,6 @@ def descent_grad_fma(xs: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
     one thread per draw, the contraction in float32 FMA.
     :func:`descent_grad` takes it above one tensor-core tile; arguments and
     result as there."""
-    global descent_grad_fma_launches
     name = "descent_grad_fma"
     if not _on_card(name, kernel_name, xs=xs, ws=ws, wt=wt, beta=beta, z=z,
                     us=us):
@@ -648,7 +627,7 @@ def descent_grad_fma(xs: torch.Tensor, ws: torch.Tensor, wt: torch.Tensor,
         name, _lib().cmoe_descent_grad_fma,
         _descent_shapes(name, xs, ws, wt, beta, z, us), xs, ws, wt, beta, z,
         us, kernel_name)
-    descent_grad_fma_launches += 1
+    logging_utils.count("kernels.descent_grad_fma")
     return out
 
 

@@ -7,6 +7,8 @@ Counterpart of ``cornell_moe_tpu/ops/optimizers.py``: decaying step size
 ``num_steps_averaged`` steps, and an optional step-norm convergence gate.
 ``lax.scan`` becomes a Python loop; the gated loops read their condition
 on the host once per step (``.item()``).  The objective is MAXIMIZED.
+Every GD step taken counts one ``optimizers.gd_steps``
+(``utils.logging_utils.count``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from cornell_moe_tpu_torch.utils import logging_utils
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +102,7 @@ class _Schedule:
         """(x_new, dx) at step index i: :meth:`step` along ``grad_fn(x)``,
         or ``step_fn(x, rate)`` (one step's program) when given."""
         self.steps_taken += 1
+        logging_utils.count("optimizers.gd_steps")
         if step_fn is None:
             return self.step(x, grad_fn(x), i)
         return step_fn(x, self.rate(i))

@@ -26,35 +26,39 @@ NCCL collective (``parallel.sharding.group_captures``): the warm-up runs
 it once outside the graph, where NCCL creates its communicator on first
 use, and :meth:`ProgramCache.release` frees the graphs before their
 process group is destroyed.  On both devices the
-first call of a key is one build (:func:`build_count`: CPU builds on the
-CPU, graph captures on the card), and each program counts its calls in
-``replays``.
+first call of a key is one build (the counter ``programs.builds``,
+:func:`build_count`: CPU builds on the CPU, graph captures on the card),
+and each call one replay (``programs.replays``, and the program's own
+``replays``).  A capture is the span ``programs.capture`` (its attribute
+``kind``, :func:`kind`), and no span opens inside it
+(``utils.logging_utils``).
 
 :data:`CAPTURE` is the switch, in the style of the JAX package's
 ``LML_PALLAS``: ``"auto"`` runs the stages through programs, ``"never"``
 runs every stage eagerly, step by step.  A failed capture raises: nothing
 catches it and runs the stage eagerly instead.
 
-Launch accounting: the kernel wrappers (``ops.kernels``) count their
-launches in Python, which a replay does not run.  A capture records how far
-each counter grew while the function was captured, puts every counter back
-where it stood before the warm-up, and adds that growth at each replay.
-The counters are ``kernels.launch_counts()`` and every dict (str -> int)
-registered with :func:`tally` while the program is captured, such as a
-recorder of launches by shape.
+Counter accounting: the kernel wrappers (``ops.kernels``) count their
+launches in Python, which a replay does not run, and so do the optimizers'
+steps.  A capture records how far each counter grew while the function was
+captured, puts every counter back where it stood before the warm-up, and
+adds that growth at each replay.  The counters are the port's registry
+(``utils.logging_utils.counters``) and every dict (str -> int) registered
+with :func:`tally` while the program is captured, such as a recorder of
+launches by shape.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
-import time
 from typing import Callable, Dict, Hashable, Optional
 
 import torch
 
 from cornell_moe_tpu_torch import config
-from cornell_moe_tpu_torch.ops import kernels
+from cornell_moe_tpu_torch.utils import logging_utils
+from cornell_moe_tpu_torch.utils.logging_utils import span
 
 CAPTURE = "auto"
 
@@ -62,7 +66,6 @@ CAPTURE = "auto"
 # kernel attributes happens there, outside the graph)
 WARMUP_CALLS = 1
 
-builds = 0
 _tallies: Dict[str, dict] = {}
 # name -> reader of a switch that a captured function may read
 _switches: Dict[str, Callable[[], Hashable]] = {}
@@ -95,12 +98,11 @@ keyed_switch("config.KG_FANTASY_LOWP", lambda: config.KG_FANTASY_LOWP)
 
 
 def reset_builds() -> None:
-    global builds
-    builds = 0
+    logging_utils.set_counters({"programs.builds": 0})
 
 
 def build_count() -> int:
-    return builds
+    return logging_utils.counters().get("programs.builds", 0)
 
 
 @contextlib.contextmanager
@@ -132,13 +134,17 @@ def signature(tensors) -> tuple:
     return tuple((tuple(t.shape), t.dtype, str(t.device)) for t in tensors)
 
 
+# the key of the port's registry among a snapshot's dicts
+REGISTRY = "counters"
+
+
 def _read_counters() -> dict:
-    return {"kernels": kernels.launch_counts(),
+    return {REGISTRY: logging_utils.counters(),
             **{name: dict(c) for name, c in _tallies.items()}}
 
 
 def _restore_counters(snapshot: dict) -> None:
-    kernels.set_launch_counts(snapshot["kernels"])
+    logging_utils.restore_counters(snapshot[REGISTRY])
     for name, counts in _tallies.items():
         counts.clear()
         counts.update(snapshot.get(name, {}))
@@ -156,9 +162,12 @@ def _growth(before: dict, after: dict) -> dict:
 
 
 def _add_counters(growth: dict) -> None:
-    kernels.add_launch_counts(growth.get("kernels", {}))
     for name, grew in growth.items():
-        counts = _tallies.get(name) if name != "kernels" else None
+        if name == REGISTRY:
+            for k, v in grew.items():
+                logging_utils.count(k, v)
+            continue
+        counts = _tallies.get(name)
         if counts is not None:
             for k, v in grew.items():
                 counts[k] = counts.get(k, 0) + v
@@ -204,18 +213,18 @@ class Program:
         self._static_out = None
 
     def __call__(self, *inputs: torch.Tensor):
-        global builds
         device = inputs[0].device
         if device.type != "cuda":
             if not self._built:
                 self._built = True
-                builds += 1
+                logging_utils.count("programs.builds")
             self.replays += 1
+            logging_utils.count("programs.replays")
             return self.fn(*inputs)
         with torch.cuda.device(device):
             if self._graph is None:
                 self._capture(inputs)
-                builds += 1
+                logging_utils.count("programs.builds")
             for static, x in zip(self._static_in, inputs):
                 if static.shape != x.shape or static.dtype != x.dtype or \
                         static.device != x.device:
@@ -227,10 +236,16 @@ class Program:
             self._graph.replay()
             _add_counters(self.launch_growth)
             self.replays += 1
+            logging_utils.count("programs.replays")
             return _clone(self._static_out)
 
     def _capture(self, inputs) -> None:
-        t0 = time.perf_counter()
+        with span("programs.capture", kind=kind(self.key)) as timed, \
+                logging_utils.capturing():
+            self._capture_graph(inputs)
+        self.capture_seconds = timed.seconds
+
+    def _capture_graph(self, inputs) -> None:
         device = inputs[0].device
         self._static_in = [x.clone() for x in inputs]
         before = _read_counters()
@@ -249,7 +264,6 @@ class Program:
         self.launch_growth = _growth(start, _read_counters())
         _restore_counters(before)
         self._graph, self._static_out = graph, out
-        self.capture_seconds = time.perf_counter() - t0
 
 
 @contextlib.contextmanager

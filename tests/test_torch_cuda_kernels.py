@@ -76,11 +76,11 @@ def test_covariance_kernel_matches_plain(dev, rng, kernel, n, d):
     noise = np.full((s, n), 1e-2)
     noise[:, n - n // 10:] = PAD_NOISE
     noise = _c(noise, dev)
-    before = kernels.covariance_with_noise_launches
+    before = kernels.launch_counts()["covariance_with_noise"]
     got = kernels.covariance_with_noise(points, hypers, noise, kernel)
     ref = kernels.covariance_with_noise_plain(points, hypers, noise, kernel)
     torch.cuda.synchronize()
-    assert kernels.covariance_with_noise_launches == before + 1
+    assert kernels.launch_counts()["covariance_with_noise"] == before + 1
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
     assert torch.equal(got, got.transpose(-1, -2))
     assert torch.equal(torch.diagonal(got, dim1=-2, dim2=-1),
@@ -605,10 +605,10 @@ def test_covariance_kernel_at_the_new_paths_shapes(dev, rng, kernel, s, n, d):
     if n == 512:
         noise[:, 500:] = PAD_NOISE
     noise = _c(noise, dev)
-    before = kernels.covariance_with_noise_launches
+    before = kernels.launch_counts()["covariance_with_noise"]
     got = kernels.covariance_with_noise(points, hypers, noise, kernel)
     torch.cuda.synchronize()
-    assert kernels.covariance_with_noise_launches == before + 1
+    assert kernels.launch_counts()["covariance_with_noise"] == before + 1
     torch.testing.assert_close(
         got, kernels.covariance_with_noise_plain(points, hypers, noise,
                                                  kernel),
@@ -627,11 +627,11 @@ def test_use_pallas_argument_closes_c_for_one_call(dev, rng):
                                                       dev)
     out = {}
     for value in ("auto", "never"):
-        before = kernels.covariance_with_noise_launches
+        before = kernels.launch_counts()["covariance_with_noise"]
         out[value] = cov_mod.build_covariance_matrix_with_noise(
             cov, points, (), noise, use_pallas=value)
         torch.cuda.synchronize()
-        assert kernels.covariance_with_noise_launches == before + (
+        assert kernels.launch_counts()["covariance_with_noise"] == before + (
             value == "auto")
     torch.testing.assert_close(out["never"], out["auto"], rtol=2e-4,
                                atol=2e-5)
@@ -685,10 +685,10 @@ def test_covariance_kernel_at_the_heuristic_refit_shapes(dev, rng, kernel,
     noise[:, 500:] = PAD_NOISE
     noise[:, 512] = 1e-3
     noise = _c(noise, dev)
-    before = kernels.covariance_with_noise_launches
+    before = kernels.launch_counts()["covariance_with_noise"]
     got = kernels.covariance_with_noise(points, hypers, noise, kernel)
     torch.cuda.synchronize()
-    assert kernels.covariance_with_noise_launches == before + 1
+    assert kernels.launch_counts()["covariance_with_noise"] == before + 1
     torch.testing.assert_close(
         got, kernels.covariance_with_noise_plain(points, hypers, noise,
                                                  kernel),
