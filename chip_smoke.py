@@ -32,8 +32,11 @@ covariance also against its own transpose, bit for bit; the fused LML
 also against its large-Np instance,
 the three timed side by side, with its cluster occupancy, and that
 instance alone at W 8 and 16, Np 672, 768, 896 and 1008, above the
-cluster's capacity, timed in turns with the plain version; the KG inner
-descent in both its instances, tensor-core and FMA, timed in turns).
+cluster's capacity, timed in turns with the plain version, and its
+float64 instance, which a float64 model's chain takes, at W 8 and 16, Np
+512, against and in turns with the plain version in float64; the KG
+inner descent in both its instances, tensor-core and FMA, timed in
+turns).
 It drives one d-KG iteration (Branin with both partials observed, the
 same size, 3 observation channels per point) and checks that it launched
 none of the kernels, as the JAX package takes none on a derivative state.
@@ -121,6 +124,8 @@ KERNELS = {
     "lml_fused": ("cornell_moe_tpu_torch/csrc/lml_fused.cu", f"{PALLAS}:271"),
     "lml_fused_global": ("cornell_moe_tpu_torch/csrc/lml_fused.cu",
                          f"{PALLAS}:271"),
+    "lml_fused_global_f64": ("cornell_moe_tpu_torch/csrc/lml_fused.cu",
+                             f"{PALLAS}:271"),
     "covariance_with_noise": (
         "cornell_moe_tpu_torch/csrc/covariance_with_noise.cu",
         f"{PALLAS}:88"),
@@ -1152,6 +1157,52 @@ def phase_equivalence(torch, model, counts, counts_768):
                           "closed (plain LML)",
                   "timing": TIMING.format(20) + ", in turns plain, "
                             "kernel, kernel, plain; means of the turns"})
+    # B's float64 instance, which a float64 model's chain launches (the
+    # benchmark's cell): at the main path's Np 512, where float64 takes the
+    # large-Np instance, W = 8 and 16 on the main path's points, against
+    # the plain version in float64 (rtol 1e-10, checked), both timed in
+    # turns; its summary row at W 8 with the float64 bound
+    # (cmoe_bench.roofline) and no launches (no float64 path runs here).
+    from cmoe_bench import roofline
+    np_ = x.shape[0]
+    check(kernels.lml_fused_instance(np_, 8) == "global",
+          f"float64 at Np={np_} does not take the large-Np instance")
+    for nw in (w // 2, w):
+        us = (x.T[None].double() /
+              lengths[:nw, :, None].double()).contiguous()
+        noise = (noises[:nw].double() + pn[None, :, 0].double()).contiguous()
+        yb = y[None, :, 0].double().expand(nw, np_).contiguous()
+        largs = (us, alphas[:nw].double().contiguous(), noise, yb, np_,
+                 model.kernel_name)
+        got = kernels.lml_fused(*largs)
+        ref = kernels.lml_fused_plain(*largs)
+        errs = {"quad": rel(got[0], ref[0]), "logdet": rel(got[1], ref[1])}
+        abs_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        ok = max(errs.values()) < 1e-10 and all(
+            g.dtype == torch.float64 for g in got)
+        emit({"phase": "equivalence", "kernel": "lml_fused",
+              "instance": "large_np_f64", "W": nw, "Np": np_,
+              "max_abs_err": abs_err, "max_rel_err": errs,
+              "tolerance": "rtol 1e-10 vs plain float64", "ok": ok})
+        check(ok, f"lml_fused float64 disagrees at W={nw}, Np={np_}")
+        t = _in_turns(torch, {
+            "large_np_instance_f64": lambda: kernels.lml_fused(*largs),
+            "plain_f64": lambda: kernels.lml_fused_plain(*largs)},
+            ("plain_f64", "large_np_instance_f64", "large_np_instance_f64",
+             "plain_f64"), 20)
+        bound = roofline.lml_bound(nw, np_, d, model.kernel_name, "float64")
+        emit({"phase": "lml_fused_timing", "W": nw, "Np": np_,
+              "dtype": "float64", **t,
+              "kernel_over_plain_device":
+                  t["large_np_instance_f64"]["device_ms"] /
+                  t["plain_f64"]["device_ms"],
+              "bound_ms": bound["ms"], "bound_pipe": bound["pipe"],
+              "timing": TIMING.format(20) + ", in turns plain, "
+                        "kernel, kernel, plain; means of the turns"})
+        if nw == w // 2:
+            rows.append(kernel_row("lml_fused_global_f64", None, abs_err,
+                                   t["large_np_instance_f64"],
+                                   t["plain_f64"], bound))
     # the summary row: W 8 at Np 768, the main_path_768 chain's first
     # shape, with that path's launches
     abs_err, t, bound = large[(w // 2, MAIN_768_OBS)]

@@ -22,11 +22,17 @@ chains, ``model.fit`` around every ensemble fit and ``model.map`` around
 the MAP fit.
 
 Dispatch rule of the log-posterior (:func:`uses_lml_kernel`): CUDA,
-float32, value channels only and at most :data:`LML_MAX_OBS` (padded)
-observations go through the fused LML kernel (``ops.kernels.lml_fused``);
-float64, CPU tensors, derivative channels and more observations take the
-plain LML (``models.likelihood``), as in the JAX package.
-``LML_PALLAS`` "never" sends every walker to the plain LML.
+float32 or float64, value channels only and at most :data:`LML_MAX_OBS`
+(padded) observations go through the fused LML kernel
+(``ops.kernels.lml_fused``) in the model's own dtype; CPU tensors,
+derivative channels and more observations take the plain LML
+(``models.likelihood``), as in the JAX package.  A float32 model keeps
+float32 B (a walker its float32 factorization cannot factor gets -inf, so
+the chain stays where the float32 fit works); a float64 model gets
+float64 B, where that concern does not arise since its fit is float64
+too.  The JAX package's TPU kernel has no float64 counterpart: its float64
+chain takes the plain LML.  ``LML_PALLAS`` "never" sends every walker to
+the plain LML.
 """
 
 from __future__ import annotations
@@ -78,11 +84,14 @@ CHAIN_GATE_MIN_SEGMENTS = 2
 
 def uses_lml_kernel(device_type: str, dtype: torch.dtype,
                     derivatives: Sequence[int], n_obs: int) -> bool:
-    """Kernel B's gate: CUDA, float32, value channels only and ``n_obs``
-    (the padded observations) at most :data:`LML_MAX_OBS`, while
-    ``LML_PALLAS`` is "auto"."""
+    """Kernel B's gate: CUDA, float32 or float64 (B's instance in the
+    model's dtype: float32 models keep float32 B, float64 models get
+    float64 B), value channels only and ``n_obs`` (the padded
+    observations) at most :data:`LML_MAX_OBS`, while ``LML_PALLAS`` is
+    "auto"."""
     return config.switch_on("mcmc.LML_PALLAS", LML_PALLAS) and \
-        device_type == "cuda" and dtype == torch.float32 and \
+        device_type == "cuda" and \
+        dtype in (torch.float32, torch.float64) and \
         not cov_mod.channels(derivatives) and n_obs <= LML_MAX_OBS
 
 

@@ -22,7 +22,8 @@ Four kernels, each the Hopper counterpart of one Pallas kernel of
   substitution + (quad, logdet) per MCMC walker: one thread-block cluster
   per walker with K in distributed shared memory, and above the clusters'
   capacity the same cluster kernel with K in an L2-resident global
-  scratch, :func:`lml_fused_global`.
+  scratch, :func:`lml_fused_global`; in float32 or float64, the inputs'
+  dtype (the only kernel with a float64 instance).
 * :func:`covariance_with_noise` (``csrc/covariance_with_noise.cu``) —
   K + diag(noise) for every member of the GP ensemble, each pair of 64 x 64
   tiles computed once and written twice (K is symmetric bit for bit).
@@ -33,13 +34,15 @@ route only.
 
 Wrapper rule: a CPU tensor goes to the plain version, a CUDA tensor launches
 the kernel or raises (wrong dtype, layout or shape, an input that requires
-grad, a failed launch).  There is no fallback.  None of the four sits under
-a gradient, so none has a backward kernel.
+grad, a failed launch).  A, C and D take float32; B float32 or float64.
+There is no fallback.  None of the four sits under a gradient, so none has
+a backward kernel.
 
 Each wrapper adds one to its launch counter where it launches its kernel
 and nowhere else, the counter ``kernels.<name>`` of the port's registry
 (``utils.logging_utils.count``): ``lml_fused`` counts B's cluster
-instance, ``lml_fused_global`` its large-Np instance, ``descent_run`` A's
+instance, ``lml_fused_global`` its large-Np instance, ``lml_fused_f64``
+and ``lml_fused_global_f64`` the same two in float64, ``descent_run`` A's
 tensor-core instance and ``descent_run_fma`` its FMA instance,
 ``descent_grad`` D's tensor-core instance and ``descent_grad_fma`` its FMA
 instance.  :func:`launch_counts` and its set, add and reset functions are
@@ -51,6 +54,8 @@ capture at each replay.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from cornell_moe_tpu_torch.ops.domains import box_limit_update
@@ -59,8 +64,8 @@ from cornell_moe_tpu_torch.utils import logging_utils
 KERNEL_CODES = {"matern_2.5": 0, "square_exponential": 1}
 
 KERNELS = ("covariance_with_noise", "lml_fused", "lml_fused_global",
-           "descent_run", "descent_run_fma", "descent_grad",
-           "descent_grad_fma")
+           "lml_fused_f64", "lml_fused_global_f64", "descent_run",
+           "descent_run_fma", "descent_grad", "descent_grad_fma")
 
 
 def reset_launch_counts() -> None:
@@ -95,9 +100,11 @@ def _unit_fields(kernel_name: str):
     return COVARIANCE_TYPES[kernel_name]
 
 
-def _on_card(name: str, kernel_name: str, **tensors) -> bool:
+def _on_card(name: str, kernel_name: str, dtypes=(torch.float32,),
+             **tensors) -> bool:
     """Validate a wrapper's inputs; True to launch, False for the plain
-    version (CPU tensors)."""
+    version (CPU tensors).  On the card the inputs share one dtype of
+    ``dtypes``."""
     if kernel_name not in KERNEL_CODES:
         raise ValueError(f"{name}: unknown kernel {kernel_name!r}")
     devices = {t.device for t in tensors.values()}
@@ -113,9 +120,12 @@ def _on_card(name: str, kernel_name: str, **tensors) -> bool:
         return False
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
+    first = next(iter(tensors.values())).dtype
     for arg, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg!r} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != first:
+            raise TypeError(f"{name}: {arg!r} must be one of {dtypes} and "
+                            f"match the other inputs' {first}, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg!r} must be contiguous")
     return True
@@ -197,52 +207,61 @@ def lml_cta_tiles(np_: int, cluster: int = LML_CLUSTER) -> int:
                for r in range(cluster))
 
 
-def lml_layout_floats(np_: int, cluster: int = LML_CLUSTER,
-                      tiles_on_chip: bool = True,
-                      pbuf_on_chip: bool = True) -> int:
-    """Shared memory of each CTA in floats (``lml_layout`` in
-    ``csrc/lml_fused.cu``): the fullest CTA's tiles of K and the panel
-    column (Np - 32 rows), each where it is on chip, then L11, z, its y
-    slices and a 4-float carry."""
+def lml_layout_bytes(np_: int, itemsize: int = 4, cluster: int = LML_CLUSTER,
+                     tiles_on_chip: bool = True,
+                     pbuf_on_chip: bool = True) -> int:
+    """Shared memory of each CTA in bytes, at ``itemsize`` bytes an element
+    (``lml_layout`` in ``csrc/lml_fused.cu``): the fullest CTA's tiles of
+    K and the panel column (Np - 32 rows), each where it is on chip, then
+    L11, z, its y slices and a 4-element carry."""
     nt = -(-np_ // LML_PANEL)
     tiles = lml_cta_tiles(np_, cluster) if tiles_on_chip else 0
     pbuf = max(nt - 1, 0) if pbuf_on_chip else 0
-    return (tiles + pbuf) * LML_PANEL ** 2 + LML_PANEL * (LML_PANEL + 1) + \
-        LML_PANEL + len(range(0, nt, cluster)) * LML_PANEL + 4
+    return itemsize * ((tiles + pbuf) * LML_PANEL ** 2 +
+                       LML_PANEL * (LML_PANEL + 1) + LML_PANEL +
+                       len(range(0, nt, cluster)) * LML_PANEL + 4)
 
 
-def lml_cluster_smem_bytes(np_: int, cluster: int = LML_CLUSTER) -> int:
+def lml_cluster_smem_bytes(np_: int, cluster: int = LML_CLUSTER,
+                           itemsize: int = 4) -> int:
     """Shared memory of each CTA of the cluster instance at Np: K's tiles
     and the panel column both on chip."""
-    return 4 * lml_layout_floats(np_, cluster)
+    return lml_layout_bytes(np_, itemsize, cluster)
 
 
-def lml_global_pbuf_on_chip(np_: int) -> bool:
+def lml_global_pbuf_on_chip(np_: int, itemsize: int = 4) -> bool:
     """Whether the large-Np instance keeps its panel column in shared
-    memory at Np (up to Np = 1792); above, it joins K in the scratch."""
-    return 4 * lml_layout_floats(np_, tiles_on_chip=False) <= SMEM_PER_BLOCK
+    memory at Np (up to Np = 1792 in float32, 896 in float64); above, it
+    joins K in the scratch."""
+    return lml_layout_bytes(np_, itemsize, tiles_on_chip=False) <= \
+        SMEM_PER_BLOCK
 
 
-def lml_global_smem_bytes(np_: int) -> int:
+def lml_global_smem_bytes(np_: int, itemsize: int = 4) -> int:
     """Shared memory of each CTA of the large-Np instance at Np."""
-    return 4 * lml_layout_floats(np_, tiles_on_chip=False,
-                                 pbuf_on_chip=lml_global_pbuf_on_chip(np_))
+    return lml_layout_bytes(np_, itemsize, tiles_on_chip=False,
+                            pbuf_on_chip=lml_global_pbuf_on_chip(np_,
+                                                                 itemsize))
 
 
-def lml_global_scratch_floats(np_: int) -> int:
-    """The large-Np instance's global scratch per walker, in floats: a
-    region of the fullest CTA's tile count for each of its 8 CTAs, and
-    the panel column's Np - 32 rows where they are off chip."""
+def lml_global_scratch_floats(np_: int, itemsize: int = 4) -> int:
+    """The large-Np instance's global scratch per walker, in elements of
+    ``itemsize`` bytes: a region of the fullest CTA's tile count for each
+    of its 8 CTAs, and the panel column's Np - 32 rows where they are off
+    chip."""
     nt = -(-np_ // LML_PANEL)
-    pbuf = 0 if lml_global_pbuf_on_chip(np_) else max(nt - 1, 0)
+    pbuf = 0 if lml_global_pbuf_on_chip(np_, itemsize) else max(nt - 1, 0)
     return (LML_CLUSTER * lml_cta_tiles(np_) + pbuf) * LML_PANEL ** 2
 
 
-def lml_cluster_capacity(cluster: int = LML_CLUSTER) -> int:
+@functools.lru_cache(maxsize=None)
+def lml_cluster_capacity(cluster: int = LML_CLUSTER,
+                         itemsize: int = 4) -> int:
     """Largest Np the cluster instance takes: its fullest CTA must fit in
-    one block's shared memory."""
+    one block's shared memory (640 in float32, 384 in float64)."""
     np_ = LML_PANEL
-    while lml_cluster_smem_bytes(np_ + LML_PANEL, cluster) <= SMEM_PER_BLOCK:
+    while lml_cluster_smem_bytes(np_ + LML_PANEL, cluster,
+                                 itemsize) <= SMEM_PER_BLOCK:
         np_ += LML_PANEL
     return np_
 
@@ -250,18 +269,19 @@ def lml_cluster_capacity(cluster: int = LML_CLUSTER) -> int:
 LML_CLUSTER_CAPACITY = lml_cluster_capacity()
 
 
-def lml_fused_instance(np_: int) -> str:
-    """Which instance of kernel B the wrapper launches at Np:
-    ``"cluster"`` (K in distributed shared memory) up to
-    :data:`LML_CLUSTER_CAPACITY`, ``"global"`` (K in global scratch)
-    above it."""
-    return "cluster" if np_ <= LML_CLUSTER_CAPACITY else "global"
+def lml_fused_instance(np_: int, itemsize: int = 4) -> str:
+    """Which instance of kernel B the wrapper launches at Np and
+    ``itemsize`` (4: float32, 8: float64): ``"cluster"`` (K in distributed
+    shared memory) up to :func:`lml_cluster_capacity`, ``"global"`` (K in
+    global scratch) above it."""
+    return "cluster" if np_ <= lml_cluster_capacity(itemsize=itemsize) \
+        else "global"
 
 
 def _lml_shapes(name, us, alpha, noise, y, n_real, kernel_name):
     """None for CPU tensors (the plain version), else (W, d, Np)."""
-    if not _on_card(name, kernel_name, us=us, alpha=alpha, noise=noise,
-                    y=y):
+    if not _on_card(name, kernel_name, (torch.float32, torch.float64),
+                    us=us, alpha=alpha, noise=noise, y=y):
         return None
     w, d, np_ = us.shape
     _expect(name, "alpha", alpha, (w,))
@@ -272,6 +292,11 @@ def _lml_shapes(name, us, alpha, noise, y, n_real, kernel_name):
     return w, d, np_
 
 
+def _f64(t: torch.Tensor) -> str:
+    """The suffix of B's float64 entry points and counters."""
+    return "_f64" if t.dtype == torch.float64 else ""
+
+
 def lml_fused(us: torch.Tensor, alpha: torch.Tensor, noise: torch.Tensor,
               y: torch.Tensor, n_real: int,
               kernel_name: str = "matern_2.5"):
@@ -279,30 +304,33 @@ def lml_fused(us: torch.Tensor, alpha: torch.Tensor, noise: torch.Tensor,
     ``n_real`` rows only.
 
     us (W, d, Np) scaled points, alpha (W,), noise (W, Np) total diagonal
-    noise, y (W, Np).  K_w = alpha_w k(us_w) + diag(noise_w).  Any Np.
-    Returns (quad (W,), logdet (W,)); NaN where the factorization fails.
+    noise, y (W, Np), all float32 or all float64.  K_w = alpha_w k(us_w) +
+    diag(noise_w).  Any Np.  Returns (quad (W,), logdet (W,)) in the
+    inputs' dtype; NaN where the factorization fails.
 
-    Two instances of kernel B, chosen by Np alone
+    Two instances of kernel B, chosen by Np and the dtype alone
     (:func:`lml_fused_instance`), both one 8-CTA cluster per walker with
-    the same arithmetic: up to :data:`LML_CLUSTER_CAPACITY` (640) the
-    cluster instance, K in distributed shared memory and no scratch;
-    above it :func:`lml_fused_global`, K in an L2-resident global scratch.
+    the same arithmetic: up to :func:`lml_cluster_capacity` (640 in
+    float32, 384 in float64) the cluster instance, K in distributed shared
+    memory and no scratch; above it :func:`lml_fused_global`, K in an
+    L2-resident global scratch.  Float64 inputs launch the float64
+    instances, float64 throughout.
     """
     name = "lml_fused"
     shapes = _lml_shapes(name, us, alpha, noise, y, n_real, kernel_name)
     if shapes is None:
         return lml_fused_plain(us, alpha, noise, y, n_real, kernel_name)
     w, d, np_ = shapes
-    if lml_fused_instance(np_) == "global":
+    if lml_fused_instance(np_, us.element_size()) == "global":
         return lml_fused_global(us, alpha, noise, y, n_real, kernel_name)
-    dev = us.device
-    quad = torch.empty((w,), device=dev, dtype=torch.float32)
-    logdet = torch.empty((w,), device=dev, dtype=torch.float32)
-    _launch(name, _lib().cmoe_lml_fused_cluster, us.data_ptr(),
-            alpha.data_ptr(), noise.data_ptr(), y.data_ptr(),
+    dev, suffix = us.device, _f64(us)
+    quad = torch.empty((w,), device=dev, dtype=us.dtype)
+    logdet = torch.empty((w,), device=dev, dtype=us.dtype)
+    _launch(name, getattr(_lib(), "cmoe_lml_fused_cluster" + suffix),
+            us.data_ptr(), alpha.data_ptr(), noise.data_ptr(), y.data_ptr(),
             quad.data_ptr(), logdet.data_ptr(), w, d, np_, int(n_real),
             KERNEL_CODES[kernel_name], device=dev)
-    logging_utils.count("kernels.lml_fused")
+    logging_utils.count("kernels.lml_fused" + suffix)
     return quad, logdet
 
 
@@ -311,9 +339,10 @@ def lml_fused_global(us: torch.Tensor, alpha: torch.Tensor,
                      kernel_name: str = "matern_2.5"):
     """Kernel B's large-Np instance at any Np: the cluster instance's
     kernel with K's tiles in a global scratch of
-    :func:`lml_global_scratch_floats` per walker (12.6 MB at W = 8, Np =
-    768), which the 50 MB L2 holds, and the panel column on chip up to
-    Np = 1792.  Equal to the cluster instance bit for bit where both run.
+    :func:`lml_global_scratch_floats` elements per walker (12.6 MB at W =
+    8, Np = 768 in float32, and at Np = 512 in float64), which the 50 MB L2
+    holds, and the panel column on chip up to Np = 1792 (896 in float64).
+    Equal to the cluster instance bit for bit where both run.
     :func:`lml_fused` takes it above the cluster capacity; arguments and
     results as there."""
     name = "lml_fused_global"
@@ -321,24 +350,25 @@ def lml_fused_global(us: torch.Tensor, alpha: torch.Tensor,
     if shapes is None:
         return lml_fused_plain(us, alpha, noise, y, n_real, kernel_name)
     w, d, np_ = shapes
-    dev = us.device
-    scratch = torch.empty((w, lml_global_scratch_floats(np_)), device=dev,
-                          dtype=torch.float32)
-    quad = torch.empty((w,), device=dev, dtype=torch.float32)
-    logdet = torch.empty((w,), device=dev, dtype=torch.float32)
-    _launch(name, _lib().cmoe_lml_fused_global, us.data_ptr(),
-            alpha.data_ptr(), noise.data_ptr(), y.data_ptr(),
+    dev, suffix = us.device, _f64(us)
+    scratch = torch.empty(
+        (w, lml_global_scratch_floats(np_, us.element_size())), device=dev,
+        dtype=us.dtype)
+    quad = torch.empty((w,), device=dev, dtype=us.dtype)
+    logdet = torch.empty((w,), device=dev, dtype=us.dtype)
+    _launch(name, getattr(_lib(), "cmoe_lml_fused_global" + suffix),
+            us.data_ptr(), alpha.data_ptr(), noise.data_ptr(), y.data_ptr(),
             scratch.data_ptr(), quad.data_ptr(), logdet.data_ptr(), w, d,
             np_, int(n_real), KERNEL_CODES[kernel_name], device=dev)
-    logging_utils.count("kernels.lml_fused_global")
+    logging_utils.count("kernels.lml_fused_global" + suffix)
     return quad, logdet
 
 
 def lml_cluster_occupancy(w: int, np_: int,
                           cluster: int = LML_CLUSTER) -> int:
-    """cudaOccupancyMaxActiveClusters of the cluster kernel for W walkers
-    at Np with clusters of ``cluster`` CTAs (above 8: the non-portable
-    size) on the current card."""
+    """cudaOccupancyMaxActiveClusters of the float32 cluster kernel for W
+    walkers at Np with clusters of ``cluster`` CTAs (above 8: the
+    non-portable size) on the current card."""
     import ctypes
     out = ctypes.c_int(0)
     rc = _lib().cmoe_lml_fused_cluster_occupancy(
@@ -348,12 +378,14 @@ def lml_cluster_occupancy(w: int, np_: int,
     return out.value
 
 
-def lml_global_occupancy(w: int, np_: int) -> int:
+def lml_global_occupancy(w: int, np_: int, itemsize: int = 4) -> int:
     """cudaOccupancyMaxActiveClusters of the large-Np instance for W
-    walkers at Np on the current card."""
+    walkers at Np and ``itemsize`` on the current card."""
     import ctypes
     out = ctypes.c_int(0)
-    rc = _lib().cmoe_lml_fused_global_occupancy(w, np_, ctypes.byref(out))
+    entry = "cmoe_lml_fused_global_occupancy" + (
+        "_f64" if itemsize == 8 else "")
+    rc = getattr(_lib(), entry)(w, np_, ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"lml_global_occupancy: CUDA error {rc}")
     return out.value

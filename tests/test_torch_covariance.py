@@ -167,6 +167,8 @@ def test_cpu_wrappers_take_the_plain_path(rng):
         grad(*desc, "matern_2.5")
     assert kernels.launch_counts() == {"covariance_with_noise": 0,
                                        "lml_fused": 0, "lml_fused_global": 0,
+                                       "lml_fused_f64": 0,
+                                       "lml_fused_global_f64": 0,
                                        "descent_run": 0, "descent_run_fma": 0,
                                        "descent_grad": 0,
                                        "descent_grad_fma": 0}

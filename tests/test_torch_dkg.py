@@ -779,13 +779,16 @@ def test_descent_gate(case, expected):
          args["q"] <= 16)
 
 
-@pytest.mark.parametrize("device_type, dtype, ds, expected", [
-    ("cuda", F32, (), True), ("cuda", F32, (0,), False),
-    ("cuda", F32, DS, False), ("cpu", F32, (), False),
-    ("cuda", F64, (), False)])
-def test_covariance_and_lml_gates(device_type, dtype, ds, expected):
+@pytest.mark.parametrize("device_type, dtype, ds, expected_c, expected_b", [
+    ("cuda", F32, (), True, True), ("cuda", F32, (0,), False, False),
+    ("cuda", F32, DS, False, False), ("cpu", F32, (), False, False),
+    ("cuda", F64, (), False, True), ("cuda", F64, (0,), False, False),
+    ("cpu", F64, (), False, False)])
+def test_covariance_and_lml_gates(device_type, dtype, ds, expected_c,
+                                  expected_b):
     """Kernels C and B take value channels only, as the JAX package's
-    pallas_available_for and LML gate do."""
+    pallas_available_for and LML gate do; C takes float32 alone, B float32
+    and float64 (its float64 instance)."""
     assert tcov.uses_covariance_kernel(device_type, dtype, ds,
-                                       "matern_2.5") == expected
-    assert tmcmc.uses_lml_kernel(device_type, dtype, ds, 512) == expected
+                                       "matern_2.5") == expected_c
+    assert tmcmc.uses_lml_kernel(device_type, dtype, ds, 512) == expected_b

@@ -11,8 +11,11 @@ that the large-Np instance runs the same kernel with the tiles in a
 global scratch (one region of the fullest CTA's size per CTA and walker)
 and only the panel column and the small buffers on chip, up to Np = 1792;
 above that the panel column joins the scratch (one copy per walker).
-These run on the CPU: the choice depends on Np alone, and a CPU tensor
-takes the plain version.
+Float64 inputs launch the same kernel's float64 instance, whose elements
+take 8 bytes: its cluster instance fits up to Np = 384, its large-Np
+instance keeps the panel column on chip up to Np = 896.  These run on the
+CPU: the choice depends on Np and the dtype alone, and a CPU tensor takes
+the plain version.
 """
 
 import re
@@ -30,6 +33,7 @@ from cornell_moe_tpu_torch.models import mcmc as tmcmc
 from cornell_moe_tpu_torch.ops import kernels
 
 torch.set_num_threads(1)
+F64 = torch.float64
 CSRC = Path(kernels.__file__).resolve().parent.parent / "csrc"
 
 
@@ -158,3 +162,94 @@ def test_lml_gate_window_matches_jax(monkeypatch, n_obs):
     assert tmcmc.uses_lml_kernel("cuda", torch.float32, (), n_obs) == \
         expected
     assert not tmcmc.uses_lml_kernel("cpu", torch.float32, (), n_obs)
+
+
+def test_float64_instance_chosen_by_np_and_dtype():
+    """At 8 bytes an element the cluster instance fits up to Np 384 (at
+    Np 512 its fullest CTA would need 328,736 B), and the large-Np
+    instance keeps its panel column on chip up to Np 896, the gate's upper
+    end; float32 keeps its own instances at the same Np."""
+    cap = kernels.lml_cluster_capacity(itemsize=8)
+    assert cap == 384 and kernels.lml_cluster_capacity(itemsize=4) == 640
+    assert all(kernels.lml_fused_instance(n, 8) == "cluster"
+               for n in range(1, cap + 1))
+    assert all(kernels.lml_fused_instance(n, 8) == "global"
+               for n in range(cap + 1, 2048))
+    assert all(kernels.lml_global_pbuf_on_chip(n, 8) == (n <= 896)
+               for n in range(cap + 1, 2048))
+    assert kernels.lml_cluster_smem_bytes(cap, itemsize=8) <= \
+        kernels.SMEM_PER_BLOCK < kernels.lml_cluster_smem_bytes(
+            cap + 1, itemsize=8)
+    assert kernels.lml_cluster_smem_bytes(512, itemsize=8) == 328_736
+    assert kernels.lml_fused_instance(512, 8) == "global"
+    assert kernels.lml_fused_instance(512, 4) == "cluster"
+    assert tmcmc.LML_MAX_OBS == 896
+
+
+@pytest.mark.parametrize("np_,tiles,pbuf_on_chip", [
+    (416, 18, True),      # 13 tile rows; CTA 4 holds 4, 12: 5 + 13
+    (512, 24, True),      # the benchmark's Np: 132,128 B a CTA
+    (520, 27, True),
+    (768, 48, True),
+    (896, 64, True),      # the gate's upper end: the panel column on chip
+    (912, 68, False),     # 29 tile rows; CTA 4 holds 4, 12, 20, 28
+    (1008, 80, False)])
+def test_float64_global_instance_smem_and_scratch_counts(np_, tiles,
+                                                         pbuf_on_chip):
+    """The float64 large-Np instance's layout is float32's in elements, at
+    8 bytes each: the panel column while it fits, L11, z, CTA 0's y slices
+    and the carry in shared memory, 8 regions of the fullest CTA's tiles
+    (and the panel column where it is off chip) in the scratch."""
+    nt = -(-np_ // 32)
+    pbuf = nt - 1 if pbuf_on_chip else 0
+    rows0 = len(range(0, nt, 8))
+    assert kernels.lml_cta_tiles(np_) == tiles
+    assert kernels.lml_global_pbuf_on_chip(np_, 8) == pbuf_on_chip
+    smem = 8 * (pbuf * 1024 + 32 * 33 + 32 + rows0 * 32 + 4)
+    assert kernels.lml_global_smem_bytes(np_, 8) == smem <= \
+        kernels.SMEM_PER_BLOCK
+    assert kernels.lml_global_scratch_floats(np_, 8) == \
+        (8 * tiles + (0 if pbuf_on_chip else nt - 1)) * 1024
+
+
+def test_float64_instance_at_the_benchmark_shape():
+    """At Np 512 in float64 (the chain's half-ensemble W 8, the start's W
+    16) B takes the large-Np instance: 132,128 B of shared memory a CTA,
+    a scratch of 12.6 MB at W 8 and 25.2 MB at W 16, inside the 50 MB L2
+    up to the gate's Np 896 at W 8."""
+    assert kernels.lml_global_smem_bytes(512, 8) == 132_128
+    assert 8 * 8 * kernels.lml_global_scratch_floats(512, 8) == 12_582_912
+    assert 16 * 8 * kernels.lml_global_scratch_floats(512, 8) == 25_165_824
+    assert 8 * 8 * kernels.lml_global_scratch_floats(
+        tmcmc.LML_MAX_OBS, 8) < 50 * 10**6
+
+
+@pytest.mark.parametrize("n_obs", [880, 896, 897, 912])
+def test_float64_lml_gate_window(monkeypatch, n_obs):
+    """The float64 gate has float32's window (to 896 padded
+    observations), on CUDA, for value channels alone; LML_PALLAS "never"
+    closes it."""
+    assert tmcmc.uses_lml_kernel("cuda", torch.float64, (), n_obs) == \
+        (n_obs <= 896)
+    assert not tmcmc.uses_lml_kernel("cpu", torch.float64, (), n_obs)
+    assert not tmcmc.uses_lml_kernel("cuda", torch.float64, (0,), n_obs)
+    monkeypatch.setattr(tmcmc, "LML_PALLAS", "never")
+    assert not tmcmc.uses_lml_kernel("cuda", torch.float64, (), n_obs)
+
+
+def test_cpu_float64_tensors_take_the_plain_version():
+    """Float64 CPU tensors take the plain version at either instance's Np
+    and launch nothing: every CPU parity test stays on the plain LML."""
+    rng = np.random.default_rng(1)
+    kernels.reset_launch_counts()
+    for np_ in (40, 400, 1000):
+        x = rng.random((2, np_))
+        args = (torch.as_tensor(x[None] / 0.4), torch.ones(1, dtype=F64),
+                torch.full((1, np_), 1e-2, dtype=F64),
+                torch.as_tensor(np.sin(3 * x[:1])), np_ - 3)
+        ref = kernels.lml_fused_plain(*args)
+        for fn in (kernels.lml_fused, kernels.lml_fused_global):
+            for g, r in zip(fn(*args), ref):
+                assert g.dtype == F64
+                torch.testing.assert_close(g, r, rtol=0.0, atol=0.0)
+    assert set(kernels.launch_counts().values()) == {0}
