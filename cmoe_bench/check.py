@@ -16,7 +16,10 @@ Readings (the worst over the sample's iterations):
 
 - ``data_mismatch``: rows of the points the ensemble holds (padding
   included) that differ from the harness's data, bit for bit in the
-  configuration's dtype.  Exact: its limit is 0.
+  configuration's dtype; with derivative channels also the rows of the
+  observed values the model holds (value and partials, before any
+  scaling) that differ from the harness's, bit for bit.  Exact: its limit
+  is 0.
 - ``walkers_unmoved``: walkers of the chain whose position the retrain
   left as it was; every walker where the retrain ran no chain.  Exact:
   its limit is 0.
@@ -30,9 +33,14 @@ Readings (the worst over the sample's iterations):
 - ``rec_gap``: the reference's ensemble-mean posterior mean at the
   recommendation above its least value over the domain (standardized
   units; 0 where the recommendation is lower).
-The cell's limits file names which readings are compared and their
-limits.  The control (``cmoe_bench.control``) is judged by the same
-readings and limits.
+The configuration names the model the reference builds: ``objective``
+and ``num_fidelity`` (``objectives.OBJECTIVES``), ``observations`` (the
+observed partials, default none: then the value-only functions of
+``reference.gp``, else its channel functions), ``kernel_name`` (the
+reference has Matern 5/2 alone: :func:`supported` raises for another, and
+for ``noisy`` or ``standardize`` false), ``shape_bucket`` and ``dtype``.  The cell's limits file names which
+readings are compared and their limits.  The control
+(``cmoe_bench.control``) is judged by the same readings and limits.
 """
 
 from __future__ import annotations
@@ -52,6 +60,21 @@ POST_POINTS = 1024
 
 READINGS = ("data_mismatch", "walkers_unmoved", "chain_lml_err",
             "post_err", "rec_gap")
+# the covariance kernels the reference has
+KERNELS = ("matern_2.5",)
+
+
+def supported(cfg: dict) -> None:
+    """Raises ``ValueError`` for a configuration the reference cannot
+    judge: a kernel it lacks, or a model without sampled noise or
+    standardized values (the only model it builds)."""
+    if cfg["kernel_name"] not in KERNELS:
+        raise ValueError(f"kernel {cfg['kernel_name']!r}: the reference "
+                         f"has {', '.join(KERNELS)}")
+    for key in ("noisy", "standardize"):
+        if cfg[key] is not True:
+            raise ValueError(f"{key} {cfg[key]!r}: the reference samples "
+                             "the noise and standardizes the values")
 
 
 def sample_cycle(records: list, seed: int) -> list:
@@ -75,6 +98,15 @@ def _data_mismatch(held, data) -> float:
     if held.shape != mine.shape:
         return float(max(held.shape[0], mine.shape[0]))
     return float(np.sum(np.any(held != mine, axis=1)))
+
+
+def _values_mismatch(held, values) -> float:
+    """Rows of ``held`` (the observed values the model holds) that differ
+    from the harness's, bit for bit; every row where the shapes differ."""
+    held, values = np.asarray(held), np.asarray(values)
+    if held.shape != values.shape:
+        return float(max(held.shape[0], values.shape[0]))
+    return float(np.sum(np.any(held != values, axis=1)))
 
 
 def _walkers_unmoved(before, after) -> float:
@@ -103,7 +135,10 @@ class Judge:
     and the device the reference runs on."""
 
     def __init__(self, cfg: dict, domain, device):
+        supported(cfg)
         self.cfg = cfg
+        self.derivatives = tuple(cfg.get("observations", []))
+        self.num_fidelity = int(cfg["num_fidelity"])
         self.device = torch.device(device)
         self.domain = np.asarray(domain, dtype=float)
         self.jitter = ref.F32_JITTER if cfg["dtype"] == "float32" else 0.0
@@ -116,7 +151,7 @@ class Judge:
         """The ensemble mean at ``rec`` above its least value over the
         domain."""
         floor = float(ref.recommend(ens, self.domain, GRID_POINTS,
-                                    ROUNDS)[1])
+                                    ROUNDS, self.num_fidelity)[1])
         at = float(torch.mean(ref.posterior_mean(ens, self.t(rec[None]))))
         return max(at - floor, 0.0)
 
@@ -131,8 +166,44 @@ class Judge:
         return torch.where(torch.isneginf(lp), lp,
                            lp + ref.chain_lml(data, t)).cpu().numpy()
 
+    def chain_lp_channels(self, data, thetas) -> np.ndarray:
+        t = self.t(thetas)
+        lp = ref.log_prior_channels(t, self.domain.shape[0])
+        return torch.where(torch.isneginf(lp), lp,
+                           lp + ref.chain_lml_channels(data, t)).cpu().numpy()
+
+    def readings_channels(self, rec: dict) -> dict:
+        """:meth:`readings` of an iteration with derivative channels; NaN
+        but ``data_mismatch`` where the harness's values lack a channel."""
+        if np.shape(rec["values"])[1:] != (1 + len(self.derivatives),):
+            return dict(dict.fromkeys(READINGS, math.nan),
+                        data_mismatch=_values_mismatch(rec["held_values"],
+                                                       rec["values"]))
+        data = ref.prepare_channels(rec["points"], rec["values"],
+                                    self.cfg["shape_bucket"],
+                                    self.derivatives)
+        ens = ref.fit_channels(data, rec["hypers"], rec["noises"],
+                               self.jitter, self.device)
+        x = torch.cat([self.lattice, self.t(rec["picks"]),
+                       self.t(rec["recommended"][None])])
+        ran = rec["chain_pos"] is not None
+        walkers = rec["chain_pos"] if ran else rec["walkers_before"]
+        alpha = np.asarray(rec["alpha"])
+        return {
+            "data_mismatch": _data_mismatch(rec["held_points"], data) +
+            _values_mismatch(rec["held_values"], rec["values"]),
+            "walkers_unmoved": _walkers_unmoved(rec["walkers_before"],
+                                                walkers),
+            "chain_lml_err": _lp_gap(rec["chain_lp"], self.chain_lp_channels(
+                data, walkers)) if ran else math.nan,
+            "post_err": self.post_err(ens, alpha, x)
+            if alpha.shape == tuple(ens.alpha.shape) else math.inf,
+            "rec_gap": self.rec_gap(ens, rec["recommended"])}
+
     def readings(self, rec: dict) -> dict:
         """{name: value} of one recorded iteration."""
+        if self.derivatives:
+            return self.readings_channels(rec)
         data = ref.prepare(rec["points"], rec["values"],
                            self.cfg["shape_bucket"])
         ens = ref.fit(data, rec["hypers"], rec["noises"], self.jitter,

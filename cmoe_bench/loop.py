@@ -10,6 +10,12 @@ A traffic mix (``traffic/<mix>.json``) sets:
   that set-up saved (every cycle replays the same shapes and draws);
 - ``recommend_points``: the uniform guesses of each ``recommend``.
 
+The objective is the configuration's (``objective``, ``observations``,
+``num_fidelity``; ``objectives.Objective``).  The data the harness keeps
+for the check are the points it handed over and the values: (n,) where
+only the value is observed, else (n, 1 + m), the value and the observed
+partials in their order.
+
 Every iteration ends with ``recommend``.  Set-up (:meth:`Loop.setup`)
 initializes the driver on the configuration's design, saves its state
 through the port's ``save_checkpoint`` to a file under ``TMPDIR``, runs
@@ -74,7 +80,9 @@ class Loop:
             raise ValueError(f"points {traffic['points']!r}")
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
         self.device = torch.device(device)
-        self.objective = Objective(cfg["objective"])
+        self.objective = Objective(cfg["objective"],
+                                   cfg.get("observations", []),
+                                   cfg["num_fidelity"])
         self.spans = Spans(device)
         self.per_cycle = int(traffic["iterations_per_cycle"])
         sgd = dataclasses.replace(bayes_opt.DEFAULT_SGD_PARAMS_KG,
@@ -126,11 +134,17 @@ class Loop:
 
     def data(self):
         """The harness's record of the data the driver holds now: the
-        design and this cycle's observations."""
+        design and this cycle's observations, as points (n, d) and values:
+        (n,) where only the value is observed, else (n, 1 + m), the value
+        and the observed partials in their order."""
         log = self.objective.log
         rows = log[:self._design] + log[self._mark:]
+        channels = self.objective.channels
+        if len(channels) == 1:
+            return (np.array([p for p, _ in rows]),
+                    np.array([v[0] for _, v in rows]))
         return (np.array([p for p, _ in rows]),
-                np.array([v for _, v in rows]))
+                np.array([v[channels] for _, v in rows]))
 
     def setup(self) -> dict:
         """Returns the seconds of its parts."""
@@ -182,7 +196,7 @@ class Loop:
         model = bo.model
         it["chain_steps"] = int(model.last_chain_steps)
         it["walkers"] = int(model.n_hypers)
-        it["padded_n"] = int(model.models.chol_K.shape[-1])
+        it["padded_n"] = int(model.models.points_sampled.shape[-2])
         it["ensemble"] = int(model.models.chol_K.shape[0])
         it["fits"] = 2 + int(model.members_replaced[-1] > 0)
         it["finite"] = bool(np.all(np.isfinite(rec)))
@@ -198,6 +212,7 @@ class Loop:
                 "alpha": states.K_inv_y.detach().cpu().numpy(),
                 "held_points": states.points_sampled[0].detach().cpu()
                 .numpy(),
+                "held_values": np.array(model._data.points_sampled_value),
                 "walkers_before": walkers_before, "chain_pos": chain_pos,
                 "chain_lp": chain_lp,
                 "picks": np.asarray(picks, dtype=float),

@@ -57,27 +57,43 @@ def mufu_per_field(kernel_name: str) -> int:
     return 2 if kernel_name == "matern_2.5" else 1
 
 
-def covariance_bound(s, n, d, kernel_name, dtype="float32") -> dict:
-    """An ensemble's K + noise, (S, n, n): per element 3d FP32 FLOP of
-    distance, 8 of the field, 1 for the amplitude, and the field's MUFU
-    operations; the output dominates the bytes."""
-    elements = s * n * n + n * d + s * (1 + d) + s * n
-    ops, mufu = s * n * n * (3 * d + 9), s * n * n * mufu_per_field(
-        kernel_name)
+def block_ops(channels: int) -> int:
+    """Operations per point pair beyond the value entry's, with
+    ``channels`` (1 + m) channels a point: each further entry of the
+    pair's (1 + m)^2 block at 2 (a field times a scaled difference, or a
+    product of two and a subtraction), fewer than it takes, so the least
+    time stays a floor; 0 for values alone."""
+    return 2 * (channels * channels - 1)
+
+
+def covariance_bound(s, n, d, kernel_name, dtype="float32",
+                     channels=1) -> dict:
+    """An ensemble's K + noise, (S, N, N), N = n channels: per point pair
+    3d FP32 FLOP of distance, 8 of the field, 1 for the amplitude,
+    :func:`block_ops` for the further channels' entries, and the field's
+    MUFU operations (shared by a pair's block); the output dominates the
+    bytes."""
+    side = n * channels
+    elements = s * side * side + n * d + s * (1 + d) + s * side
+    ops, mufu = s * n * n * (3 * d + 9 + block_ops(channels)), \
+        s * n * n * mufu_per_field(kernel_name)
     if dtype == "float64":
         return bound64(8 * elements, ops=ops + mufu)
     return bound(4 * elements, fp32=ops, mufu=mufu)
 
 
-def lml_bound(w, np_, d, kernel_name, dtype="float32") -> dict:
+def lml_bound(w, np_, d, kernel_name, dtype="float32", channels=1) -> dict:
     """The log marginal likelihood of w walkers at Np (padded)
-    observations: the K build (Np^2 (3d + 9) FP32 FLOP and the field's MUFU
-    operations), the Cholesky factorization (Np^3 / 3 FLOP, its trailing
-    updates matrix products; Np square roots), forward substitution (Np^2
-    FLOP); the scaled points, amplitude, noise, y in and two values out."""
-    elements = w * d * np_ + w + 2 * w * np_ + 2 * w
-    ops, mufu = w * np_ * np_ * (3 * d + 10), w * (
-        np_ * np_ * mufu_per_field(kernel_name) + np_)
+    observations of ``channels`` (1 + m) channels each, K's side N =
+    Np channels: the K build (Np^2 (3d + 9 + :func:`block_ops`) FP32 FLOP
+    and the field's MUFU operations), the Cholesky factorization (N^3 / 3
+    FLOP, its trailing updates matrix products; N square roots), forward
+    substitution (N^2 FLOP, Np^2 of them counted); the scaled points,
+    amplitude, noise, y in and two values out."""
+    side = np_ * channels
+    elements = w * d * np_ + w + 2 * w * side + 2 * w
+    ops, mufu = w * np_ * np_ * (3 * d + 10 + block_ops(channels)), w * (
+        np_ * np_ * mufu_per_field(kernel_name) + side)
     if dtype == "float64":
-        return bound64(8 * elements, ops=ops + mufu, matmul=w * np_ ** 3 / 3)
-    return bound(4 * elements, fp32=ops, matmul=w * np_ ** 3 / 3, mufu=mufu)
+        return bound64(8 * elements, ops=ops + mufu, matmul=w * side ** 3 / 3)
+    return bound(4 * elements, fp32=ops, matmul=w * side ** 3 / 3, mufu=mufu)

@@ -44,6 +44,7 @@ import torch  # noqa: E402
 
 from cmoe_bench import check, trace as trace_mod  # noqa: E402
 from cmoe_bench.loop import Loop  # noqa: E402
+from cmoe_bench.objectives import Objective  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "cornell_moe_tpu")
 GIB = 2 ** 30
@@ -99,6 +100,19 @@ def cell(bench: dict, workload: str) -> Cell:
     return Cell(entry, cfg, traffic, limits,
                 [m for m in bench["end_to_end"] if here(m)],
                 [m for m in bench["per_layer"] if here(m)])
+
+
+def judgeable(cfg: dict) -> None:
+    """Raises :class:`Fail` for a configuration the harness cannot judge:
+    an objective it lacks, a ``num_fidelity`` or ``observations`` that do
+    not fit the objective, a model the reference lacks
+    (:func:`check.supported`)."""
+    try:
+        Objective(cfg["objective"], cfg.get("observations", []),
+                  cfg["num_fidelity"])
+        check.supported(cfg)
+    except ValueError as e:
+        raise Fail(f"configuration {cfg.get('name')!r}: {e}") from e
 
 
 def metric_reader(name: str):
@@ -164,6 +178,7 @@ def run_cell(spec: Cell, seed: int, seconds: float, traced: bool, device,
     run's details (``extra``)."""
     start = T0 if start is None else start
     cfg, limits = spec.cfg, spec.limits
+    judgeable(cfg)
     if torch.device(device).type == "cuda":
         from cornell_moe_tpu_torch.ops import _build
         _build.library()

@@ -27,13 +27,17 @@ def bench() -> dict:
     return json.loads((ROOT / "BENCHMARK.json").read_text())
 
 
-def toy_cell(workload="qkg-branin-f64.refit", traffic="refit") -> run.Cell:
-    """The toy configuration in place of a cell's, under a traffic mix of
-    the benchmark, held to that cell's limits."""
+def toy_cell(workload="qkg-branin-f64.refit", traffic="refit", toy=TOY,
+             recommend_points=1000) -> run.Cell:
+    """The toy configuration ``toy`` in place of a cell's, under a traffic
+    mix of the benchmark with ``recommend_points`` guesses (None: the
+    mix's own), held to that cell's limits."""
     spec = run.cell(bench(), workload)
     t = json.loads((run.ROOT / "traffic" / f"{traffic}.json").read_text())
-    t.update(recommend_points=1000, iterations_per_cycle=1)
-    return spec._replace(cfg=json.loads(TOY.read_text()), traffic=t)
+    t.update(iterations_per_cycle=1)
+    if recommend_points is not None:
+        t.update(recommend_points=recommend_points)
+    return spec._replace(cfg=json.loads(Path(toy).read_text()), traffic=t)
 
 
 @pytest.mark.parametrize("workload", [w["name"] for w in bench()
