@@ -22,6 +22,7 @@ import torch
 from cornell_moe_tpu_torch.models import covariance as cov_mod
 from cornell_moe_tpu_torch.models.covariance import StationaryCovariance
 from cornell_moe_tpu_torch.ops import linalg
+from cornell_moe_tpu_torch.utils import logging_utils
 
 
 def _system(covariance: StationaryCovariance, noise_variance, points,
@@ -46,7 +47,11 @@ def log_marginal_likelihood(covariance: StationaryCovariance,
     """Zero-mean LML.  ``values`` (n, 1 + m); ``noise_variance`` (..., 1 + m)
     per channel; ``point_noise`` (n, 1 + m) adds per-point noise
     (shape-bucket padding shifts the LML by a theta-independent constant).
+    Counts ``model.lml_plain`` by the evaluations of the batch, one per
+    hyperparameter set; a program replays that growth.
     """
+    logging_utils.count("model.lml_plain",
+                        covariance.hyperparameters.shape[:-1].numel())
     y, chol, alpha = _system(covariance, noise_variance, points, values,
                              derivatives, point_noise)
     return (-0.5 * torch.sum(y * alpha, dim=-1)

@@ -27,9 +27,10 @@ Spans and counters are the port's one tracer.
 - :func:`count` adds to one registry of named integer counters
   (:func:`counters`): each kernel wrapper's launches
   (``kernels.lml_fused``, ...), ``programs.builds`` and
-  ``programs.replays``, ``optimizers.gd_steps``.  A program replays the
-  growth its capture recorded, so the counters read the same with
-  programs as without.
+  ``programs.replays``, ``optimizers.gd_steps``, ``model.lml_plain``
+  (the plain log marginal likelihood's evaluations, one per hyperparameter
+  set of a batch).  A program replays the growth its capture recorded, so
+  the counters read the same with programs as without.
 """
 
 from __future__ import annotations
