@@ -39,9 +39,15 @@ inner descent in both its instances, tensor-core and FMA, timed in
 turns).
 It drives one d-KG iteration (Branin with both partials observed, the
 same size, 3 observation channels per point) and checks that it launched
-none of the kernels, as the JAX package takes none on a derivative state.
-Then it holds both instances of one descent direction (``descent_grad``,
-tensor-core, and ``descent_grad_fma``) against the float64 plain version
+none of the kernels, as the JAX package takes none on a derivative state;
+on its data it runs a 64-step float64 d-KG chain (the benchmark's
+dkg-branin-f64 cell) and checks that every log posterior went through the
+tiled float64 Cholesky (``lml_chol_f64``, K's side 1536).  It holds that
+kernel against its plain version at W 8 and 16, N 1536, and at N 1008,
+timed in turns with the plain version and the library's factor and forward
+solve, beside its fp64_mma bound.  Then it holds both instances of one
+descent direction (``descent_grad``, tensor-core, and
+``descent_grad_fma``) against the float64 plain version
 and times them in turns, and drives the per-step route of the KG inner
 descent (one ``descent_grad`` launch per GD step, the steps taken by
 ``gradient_ascent_batch``), which the main path does not take, at the main
@@ -129,6 +135,7 @@ KERNELS = {
     "covariance_with_noise": (
         "cornell_moe_tpu_torch/csrc/covariance_with_noise.cu",
         f"{PALLAS}:88"),
+    "lml_chol_f64": ("cornell_moe_tpu_torch/csrc/lml_chol_f64.cu", None),
 }
 # the kernels the main path launches (descent_grad and descent_grad_fma
 # serve the per-step route, driven by its own phase; every lml_fused launch
@@ -812,12 +819,207 @@ def phase_dkg(torch) -> None:
     check(bool(((r >= bounds[:, 0]) & (r <= bounds[:, 1])).all()) and
           math.isfinite(rec["true_value"]),
           f"d-KG recommendation {r} outside the domain or not finite")
-    for name in MAIN_PATH_KERNELS:
-        check(counts[name] == 0, f"the d-KG path launched {name}")
+    for name in MAIN_PATH_KERNELS + ("lml_chol_f64",):
+        check(counts[name] == 0, f"the float32 d-KG path launched {name}")
     del states
     phase_chain_profile(torch, bo.model, "dkg_path")
+    _dkg_chain_f64(torch, bo.model)
     release(torch, bo)
     del bo
+
+
+DKG_F64_STEPS = 64        # one captured segment of the float64 d-KG chain
+
+
+def _dkg_chain_f64(torch, model32) -> None:
+    """The float64 d-KG chain (the benchmark's dkg-branin-f64 cell) on the
+    float32 path's data: DKG_F64_STEPS stretch moves through the chain's
+    segment program, each log posterior one launch of the tiled Cholesky
+    (kernels.lml_chol_f64) at K's side 1536, 16 walkers at the start and 8
+    a half-step, and model.lml_plain growing by the walkers it takes; then
+    its chain profile."""
+    from cornell_moe_tpu_torch.models import mcmc
+    from cornell_moe_tpu_torch.utils import logging_utils
+
+    m = mcmc.GaussianProcessLogLikelihoodMCMC(
+        model32._data, derivatives=model32.derivatives, noisy=True,
+        bucket=model32.bucket, standardize=True, n_hypers=N_HYPERS,
+        device=DEVICE, dtype=torch.float64,
+        generator=torch.Generator(device=DEVICE).manual_seed(25))
+    x, y, pn = m._padded_data()
+    check(x.shape[0] * (1 + len(m.derivatives)) == 1536,
+          f"the float64 d-KG system's side is {x.shape[0]} x 3, not 1536")
+    check(mcmc.lml_route("cuda", torch.float64, m.derivatives, x.shape[0])
+          == "chol", "the float64 d-KG chain does not route to lml_chol_f64")
+    p0 = torch.clamp(m.prior.sample_from_prior(
+        m.generator, N_HYPERS, device=DEVICE, dtype=torch.float64),
+        -mcmc.LOG_BOUND + 1e-3, mcmc.LOG_BOUND - 1e-3)
+    before = logging_utils.counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    m.p0, lp = mcmc.run_ensemble_mcmc(
+        m.generator, lambda t: m.log_posterior(t, x, y, pn), p0,
+        DKG_F64_STEPS, segment_fn=m._segment_program(x, y, pn))
+    torch.cuda.synchronize()
+    after = logging_utils.counters()
+    grew = {name: after.get(name, 0) - before.get(name, 0)
+            for name in ("kernels.lml_chol_f64", "model.lml_plain",
+                         "kernels.lml_fused_global_f64")}
+    emit({"phase": "dkg_chain_f64", "steps": DKG_F64_STEPS,
+          "seconds": time.time() - t0, "walkers": N_HYPERS, "k_side": 1536,
+          "counters": grew, "finite_walkers": int(torch.isfinite(lp).sum())})
+    check(grew["kernels.lml_chol_f64"] == 1 + 2 * DKG_F64_STEPS and
+          grew["model.lml_plain"] == N_HYPERS * (1 + DKG_F64_STEPS) and
+          grew["kernels.lml_fused_global_f64"] == 0,
+          f"the float64 d-KG chain did not go through lml_chol_f64: {grew}")
+    check(int(torch.isfinite(lp).sum()) == N_HYPERS,
+          "a float64 d-KG walker's log posterior is not finite")
+    phase_chain_profile(torch, m, "dkg_path_f64")
+    m.program_cache.release()
+
+
+def _chol_system(torch, w, np_, derivatives, seed):
+    """K (W, N, N) and y (N,) of the float64 log posterior: np_ Branin
+    points with the values of BraninWithDerivatives' channels, Matern 5/2
+    over 1 + len(derivatives) channels, walkers' noise 1e-3 to 1e-2 of the
+    amplitude."""
+    import numpy as np
+
+    from cornell_moe_tpu_torch.models import covariance as cov_mod
+    from cornell_moe_tpu_torch.models import likelihood as lik_mod
+    from cornell_moe_tpu_torch.utils.synthetic_functions import \
+        BraninWithDerivatives
+
+    fn = BraninWithDerivatives()
+    dom = fn._search_domain
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(dom[:, 0], dom[:, 1], (np_, 2))
+    vals = np.stack([fn.evaluate_true(p) for p in pts])[:, :1 + len(
+        derivatives)]
+    vals = vals / vals[:, 0].std()
+    f64 = dict(dtype=torch.float64, device=DEVICE)
+    width = dom[:, 1] - dom[:, 0]
+    hyps = np.concatenate([rng.uniform(0.5, 1.5, (w, 1)),
+                           width * rng.uniform(0.2, 0.4, (w, 2))], axis=1)
+    noise = rng.uniform(1e-3, 1e-2, (w, 1 + len(derivatives)))
+    cov = cov_mod.COVARIANCE_TYPES["matern_2.5"](
+        hyperparameters=torch.tensor(hyps, **f64))
+    return lik_mod.training_system(
+        cov, torch.tensor(noise, **f64), torch.tensor(pts, **f64),
+        torch.tensor(vals, **f64), derivatives)
+
+
+def _chol_kernel_ms(torch, k0, y, reps: int) -> dict:
+    """The tiled Cholesky's time on a fresh copy of K each call (it factors
+    in place): device_ms, its kernel's CUDA events alone under
+    torch.profiler, the median over the calls whose event the profiler
+    recorded (at least half of them, else a miscount fails the script);
+    call_ms, CUDA events around the wrapper's call, the copy before it left
+    out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cornell_moe_tpu_torch.ops import kernels
+
+    k = k0.clone()
+    for _ in range(2):
+        k.copy_(k0)
+        kernels.lml_chol_f64(k, y)
+    torch.cuda.synchronize()
+    calls = []
+    for _ in range(reps):
+        k.copy_(k0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        kernels.lml_chol_f64(k, y)
+        end.record()
+        torch.cuda.synchronize()
+        calls.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            k.copy_(k0)
+            kernels.lml_chol_f64(k, y)
+            torch.cuda.synchronize()
+    device = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA and
+              "lml_chol_f64" in ev.name]
+    check(2 * len(device) >= reps, f"the profiler recorded {len(device)} "
+                                   f"of {reps} lml_chol_f64 launches")
+    return {"device_ms": statistics.median(device),
+            "call_ms": statistics.median(calls), "device_calls_seen":
+            len(device)}
+
+
+def phase_lml_chol(torch) -> list:
+    """The tiled float64 Cholesky (kernels.lml_chol_f64) at the d-KG
+    chain's shapes, K's side 1536 (512 points x 3 channels) with W = 8 (a
+    half-step) and 16 (the chain's start), and at the value-only N 1008
+    above kernel B's gate: against its plain version (rtol 1e-9, checked),
+    its time beside its fp64_mma bound (cmoe_bench.roofline), the plain
+    version's and the library's (cholesky_ex and one forward solve, the
+    route the chain took before it: library_ms), each timed in turns.
+    Returns its summary row (W 8, N 1536)."""
+    from cmoe_bench import roofline
+
+    from cornell_moe_tpu_torch.ops import kernels
+
+    rows = []
+    for w, np_, derivatives in ((8, 512, DKG_DERIVATIVES),
+                                (16, 512, DKG_DERIVATIVES), (8, 1008, ())):
+        y, k0 = _chol_system(torch, w, np_, derivatives, 2500 + w)
+        n = k0.shape[-1]
+        ref = kernels.lml_chol_plain(k0, y)
+        got = kernels.lml_chol_f64(k0.clone(), y)
+        errs = [((g - r).abs() / r.abs()).max().item()
+                for g, r in zip(got, ref)]
+        abs_err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        ok = max(errs) < 1e-9 and all(g.dtype == torch.float64 for g in got)
+        emit({"phase": "equivalence", "kernel": "lml_chol_f64", "W": w,
+              "N": n, "max_abs_err": abs_err,
+              "max_rel_err": {"quad": errs[0], "half_logdet": errs[1]},
+              "tolerance": "rtol 1e-9 vs plain float64", "ok": ok})
+        check(ok, f"lml_chol_f64 disagrees with its plain version at W={w}, "
+                  f"N={n}")
+
+        def library():
+            chol = torch.linalg.cholesky_ex(k0)[0]
+            return torch.linalg.solve_triangular(
+                chol, y.expand(w, n)[..., None], upper=False)
+
+        turns = {"kernel": [], "plain": [], "library": []}
+        for name in ("plain", "library", "kernel", "kernel", "library",
+                     "plain"):
+            turns[name].append(
+                _chol_kernel_ms(torch, k0, y, 20) if name == "kernel" else
+                _timed(torch, library if name == "library" else
+                       lambda: kernels.lml_chol_plain(k0, y), 20))
+        t = {name: {key: statistics.mean(v[key] for v in runs)
+                    for key in ("device_ms", "call_ms")}
+             for name, runs in turns.items()}
+        flop = w * n ** 3 / 3
+        nbytes = 8 * (2 * w * n * (n + 1) // 2 + n + 2 * w)
+        bound = roofline.bound64(nbytes, matmul=flop)
+        emit({"phase": "lml_chol_timing", "W": w, "N": n, **t,
+              "library_ms": t["library"]["device_ms"],
+              "bound_ms": bound["ms"], "bound_pipe": bound["pipe"],
+              "share_of_bound": bound["ms"] / t["kernel"]["device_ms"],
+              "tflops": flop / t["kernel"]["device_ms"] / 1e9,
+              "kernel_over_library_device": t["kernel"]["device_ms"] /
+              t["library"]["device_ms"],
+              "timing": "kernel: device_ms its CUDA events under "
+                        "torch.profiler, call_ms CUDA events around the "
+                        "wrapper, a fresh K each call; plain and library: "
+                        + TIMING.format(20) + "; in turns plain, library, "
+                        "kernel, kernel, library, plain; means of the "
+                        "turns"})
+        if (w, n) == (8, 1536):
+            row = kernel_row("lml_chol_f64", None, abs_err, t["kernel"],
+                             t["plain"], bound)
+            row["library_ms"] = t["library"]["device_ms"]
+            rows.append(row)
+    return rows
 
 
 def kernel_row(name, launches, err, times, plain, bound) -> dict:
@@ -825,7 +1027,8 @@ def kernel_row(name, launches, err, times, plain, bound) -> dict:
     its plain version's {"device_ms", "call_ms"} (:func:`_timed`); ms is the
     kernel's device time, and its share of the bound is bound / device_ms.
     bound: from :func:`_bound`.  No single PyTorch call computes any of
-    these kernels' functions, so library_ms is null."""
+    these kernels' functions, so library_ms is null, but lml_chol_f64's
+    (cuSOLVER's factor and a forward solve, filled by phase_lml_chol)."""
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4011,6 +4214,7 @@ def main() -> int:
     summary, problems = phase_equivalence(torch, bo.model, counts,
                                           counts_768)
     summary += phase_descent_grad(torch, bo.model.kernel_name, problems)
+    summary += phase_lml_chol(torch)
     phase_chain_profile(torch, bo.model, nccl_world_of_one=True)
     phase_lcb(torch, bo.model.models)
     del problems

@@ -8,9 +8,11 @@ raw observation vector (value + derivative channels, point-major):
 
 This is the plain path (always the plain covariance matrix, Cholesky and
 solves), differentiable, and the oracle of the fused LML kernel
-(``ops.kernels.lml_fused``).  The covariance's hyperparameters may carry
-batch axes; the LML then has those axes.  Gradients with respect to the
-hyperparameters are ``torch.func`` autograd.
+(``ops.kernels.lml_fused``); :func:`log_marginal_likelihood_tiled` is the
+float64 chain's route through the tiled Cholesky on the same K.  The
+covariance's hyperparameters may carry batch axes; the LML then has those
+axes.  Gradients with respect to the hyperparameters are ``torch.func``
+autograd.
 """
 
 from __future__ import annotations
@@ -21,14 +23,15 @@ import torch
 
 from cornell_moe_tpu_torch.models import covariance as cov_mod
 from cornell_moe_tpu_torch.models.covariance import StationaryCovariance
-from cornell_moe_tpu_torch.ops import linalg
+from cornell_moe_tpu_torch.ops import kernels, linalg
 from cornell_moe_tpu_torch.utils import logging_utils
 
 
-def _system(covariance: StationaryCovariance, noise_variance, points,
-            values, derivatives, point_noise=None):
-    """(y (N,), chol (..., N, N), K^-1 y (..., N)) of the training system
-    K + diag(noise) over channels."""
+def training_system(covariance: StationaryCovariance, noise_variance,
+                    points, values, derivatives, point_noise=None):
+    """(y (N,), K (..., N, N)) of the training system over channels: the
+    observations point-major and K + diag(noise), a new tensor (the
+    float64 chain's tiled Cholesky factors it in place)."""
     x = torch.as_tensor(points)
     y = torch.as_tensor(values, dtype=x.dtype, device=x.device).reshape(-1)
     c = 1 + len(cov_mod.channels(derivatives))
@@ -36,6 +39,15 @@ def _system(covariance: StationaryCovariance, noise_variance, points,
         torch.diag_embed(cov_mod.noise_diagonal(
             noise_variance, point_noise, covariance.hyperparameters.shape[:-1],
             x.shape[0], c, x))
+    return y, k
+
+
+def _system(covariance: StationaryCovariance, noise_variance, points,
+            values, derivatives, point_noise=None):
+    """(y (N,), chol (..., N, N), K^-1 y (..., N)) of the training system
+    K + diag(noise) over channels."""
+    y, k = training_system(covariance, noise_variance, points, values,
+                           derivatives, point_noise)
     chol = linalg.cholesky(k)
     return y, chol, linalg.cho_solve(chol, y.expand(k.shape[:-1]))
 
@@ -56,6 +68,25 @@ def log_marginal_likelihood(covariance: StationaryCovariance,
                              derivatives, point_noise)
     return (-0.5 * torch.sum(y * alpha, dim=-1)
             - 0.5 * linalg.log_det_from_chol(chol)
+            - 0.5 * y.shape[0] * math.log(2.0 * math.pi))
+
+
+def log_marginal_likelihood_tiled(covariance: StationaryCovariance,
+                                  noise_variance, points, values,
+                                  derivatives=(), point_noise=None
+                                  ) -> torch.Tensor:
+    """:func:`log_marginal_likelihood` of a batch of W hyperparameter sets
+    (W, 1 + dim) through the tiled float64 Cholesky
+    (``ops.kernels.lml_chol_f64``), which factors K in place and carries
+    the forward solve in its border row: no factor is kept and no
+    transposed solve runs.  Not differentiable.  The same K, so it counts
+    ``model.lml_plain`` as the plain LML does."""
+    logging_utils.count("model.lml_plain",
+                        covariance.hyperparameters.shape[:-1].numel())
+    y, k = training_system(covariance, noise_variance, points, values,
+                           derivatives, point_noise)
+    quad, half_logdet = kernels.lml_chol_f64(k, y)
+    return (-0.5 * quad - half_logdet
             - 0.5 * y.shape[0] * math.log(2.0 * math.pi))
 
 

@@ -21,12 +21,17 @@ training, inside it ``model.burn_in`` and ``model.chain`` around its two
 chains, ``model.fit`` around every ensemble fit and ``model.map`` around
 the MAP fit.
 
-Dispatch rule of the log-posterior (:func:`uses_lml_kernel`): CUDA,
-float32 or float64, value channels only and at most :data:`LML_MAX_OBS`
-(padded) observations go through the fused LML kernel
-(``ops.kernels.lml_fused``) in the model's own dtype; CPU tensors,
-derivative channels and more observations take the plain LML
-(``models.likelihood``), as in the JAX package.  A float32 model keeps
+Dispatch rule of the log-posterior (:func:`lml_route`): CUDA, float32 or
+float64, value channels only and at most :data:`LML_MAX_OBS` (padded)
+observations go through the fused LML kernel (``ops.kernels.lml_fused``)
+in the model's own dtype (:func:`uses_lml_kernel`); the rest of the CUDA
+float64 walkers (derivative channels, more observations) through the
+tiled float64 Cholesky (``ops.kernels.lml_chol_f64``, via
+``likelihood.log_marginal_likelihood_tiled``) on the plain LML's K, with
+no transposed solve (:func:`uses_chol_kernel`); CPU tensors, float32
+beyond B's gate and ``force_plain`` (the MAP fit, which autograd
+differentiates) take the plain LML (``models.likelihood``), as in the
+JAX package.  A float32 model keeps
 float32 B (a walker its float32 factorization cannot factor gets -inf, so
 the chain stays where the float32 fit works); a float64 model gets
 float64 B, where that concern does not arise since its fit is float64
@@ -93,6 +98,29 @@ def uses_lml_kernel(device_type: str, dtype: torch.dtype,
         device_type == "cuda" and \
         dtype in (torch.float32, torch.float64) and \
         not cov_mod.channels(derivatives) and n_obs <= LML_MAX_OBS
+
+
+def uses_chol_kernel(device_type: str, dtype: torch.dtype) -> bool:
+    """The tiled float64 Cholesky's gate: CUDA, float64, while
+    ``LML_PALLAS`` is "auto"; any channels and any N."""
+    return config.switch_on("mcmc.LML_PALLAS", LML_PALLAS) and \
+        device_type == "cuda" and dtype == torch.float64
+
+
+def lml_route(device_type: str, dtype: torch.dtype,
+              derivatives: Sequence[int], n_obs: int,
+              force_plain: bool = False) -> str:
+    """Where the log posterior sends its walkers' LML: ``"fused"`` (kernel
+    B, :func:`uses_lml_kernel`), else ``"chol"`` (the tiled float64
+    Cholesky, :func:`uses_chol_kernel`), else ``"plain"``; always
+    ``"plain"`` under ``force_plain``."""
+    if force_plain:
+        return "plain"
+    if uses_lml_kernel(device_type, dtype, derivatives, n_obs):
+        return "fused"
+    if uses_chol_kernel(device_type, dtype):
+        return "chol"
+    return "plain"
 
 
 def chain_runs_programs(process_group, device) -> bool:
@@ -539,8 +567,9 @@ class GaussianProcessLogLikelihoodMCMC:
             (hyps.shape[0], self.num_noise), NOISELESS_VALUE,
             dtype=hyps.dtype, device=hyps.device)
         n = x.shape[0]
-        if uses_lml_kernel(x.device.type, x.dtype, self.derivatives, n) and \
-                not force_plain:
+        route = lml_route(x.device.type, x.dtype, self.derivatives, n,
+                          force_plain)
+        if route == "fused":
             nv = noise.expand(-1, n)
             if point_noise is not None:
                 nv = nv + point_noise[None, :, 0]
@@ -553,9 +582,10 @@ class GaussianProcessLogLikelihoodMCMC:
         else:
             cov = cov_mod.COVARIANCE_TYPES[self.kernel_name](
                 hyperparameters=cov_hyps)
-            lml = lik_mod.log_marginal_likelihood(cov, noise, x, y,
-                                                  self.derivatives,
-                                                  point_noise=point_noise)
+            lml = (lik_mod.log_marginal_likelihood_tiled if route == "chol"
+                   else lik_mod.log_marginal_likelihood)(
+                       cov, noise, x, y, self.derivatives,
+                       point_noise=point_noise)
         val = lp + lml
         return torch.where(in_bounds & torch.isfinite(val), val,
                            float("-inf"))

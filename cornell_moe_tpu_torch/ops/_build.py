@@ -53,6 +53,8 @@ SIGNATURES = {
     "cmoe_lml_fused_global_smem_bytes_f64": [_I],
     "cmoe_lml_fused_global_scratch_f64": [_I],
     "cmoe_lml_fused_global_occupancy_f64": [_I, _I, _IP],
+    "cmoe_lml_chol_f64": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _P],
     "cmoe_descent_run_mma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
     "cmoe_descent_run_mma_smem_bytes": [_I, _I, _I],

@@ -2,7 +2,8 @@
 and their launch counters.
 
 Four kernels, each the Hopper counterpart of one Pallas kernel of
-``cornell_moe_tpu/ops/pallas_kernels.py`` (sources in ``csrc/``):
+``cornell_moe_tpu/ops/pallas_kernels.py``, and one that replaces none
+(sources in ``csrc/``):
 
 * :func:`descent_run` — the KG inner posterior-mean descent, every
   (ensemble member, union, MC draw) at once, in two instances chosen by
@@ -27,6 +28,11 @@ Four kernels, each the Hopper counterpart of one Pallas kernel of
 * :func:`covariance_with_noise` (``csrc/covariance_with_noise.cu``) —
   K + diag(noise) for every member of the GP ensemble, each pair of 64 x 64
   tiles computed once and written twice (K is symmetric bit for bit).
+* :func:`lml_chol_f64` (``csrc/lml_chol_f64.cu``) — the LML's (quad,
+  half logdet) of a few large float64 systems K already assembled, by a
+  tiled Cholesky factorization in place on the FP64 tensor cores with the
+  forward solve riding in it: the float64 chain's route where kernel B's
+  gate is closed (derivative channels, more than 896 observations).
 
 The main path (``BayesianOptimizer(method="KG")``) launches descent_run,
 lml_fused and covariance_with_noise; descent_grad serves the per-step
@@ -34,9 +40,9 @@ route only.
 
 Wrapper rule: a CPU tensor goes to the plain version, a CUDA tensor launches
 the kernel or raises (wrong dtype, layout or shape, an input that requires
-grad, a failed launch).  A, C and D take float32; B float32 or float64.
-There is no fallback.  None of the four sits under a gradient, so none has
-a backward kernel.
+grad, a failed launch).  A, C and D take float32; B float32 or float64;
+lml_chol_f64 float64.  There is no fallback.  None of the five sits under
+a gradient, so none has a backward kernel.
 
 Each wrapper adds one to its launch counter where it launches its kernel
 and nowhere else, the counter ``kernels.<name>`` of the port's registry
@@ -45,8 +51,8 @@ instance, ``lml_fused_global`` its large-Np instance, ``lml_fused_f64``
 and ``lml_fused_global_f64`` the same two in float64, ``descent_run`` A's
 tensor-core instance and ``descent_run_fma`` its FMA instance,
 ``descent_grad`` D's tensor-core instance and ``descent_grad_fma`` its FMA
-instance.  :func:`launch_counts` and its set, add and reset functions are
-views of those counters; ``chip_smoke.py`` reads them to prove each path
+instance, ``lml_chol_f64`` the tiled Cholesky.  :func:`launch_counts` and
+its set, add and reset functions are views of those counters; ``chip_smoke.py`` reads them to prove each path
 went through its kernels.  A replayed CUDA graph (``ops.programs``) runs
 no wrapper: the program adds the growth of the registry it recorded at
 capture at each replay.
@@ -64,8 +70,9 @@ from cornell_moe_tpu_torch.utils import logging_utils
 KERNEL_CODES = {"matern_2.5": 0, "square_exponential": 1}
 
 KERNELS = ("covariance_with_noise", "lml_fused", "lml_fused_global",
-           "lml_fused_f64", "lml_fused_global_f64", "descent_run",
-           "descent_run_fma", "descent_grad", "descent_grad_fma")
+           "lml_fused_f64", "lml_fused_global_f64", "lml_chol_f64",
+           "descent_run", "descent_run_fma", "descent_grad",
+           "descent_grad_fma")
 
 
 def reset_launch_counts() -> None:
@@ -100,12 +107,13 @@ def _unit_fields(kernel_name: str):
     return COVARIANCE_TYPES[kernel_name]
 
 
-def _on_card(name: str, kernel_name: str, dtypes=(torch.float32,),
+def _on_card(name: str, kernel_name, dtypes=(torch.float32,),
              **tensors) -> bool:
     """Validate a wrapper's inputs; True to launch, False for the plain
     version (CPU tensors).  On the card the inputs share one dtype of
-    ``dtypes``."""
-    if kernel_name not in KERNEL_CODES:
+    ``dtypes``.  ``kernel_name`` None: the kernel evaluates no covariance
+    field."""
+    if kernel_name is not None and kernel_name not in KERNEL_CODES:
         raise ValueError(f"{name}: unknown kernel {kernel_name!r}")
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
@@ -408,6 +416,80 @@ def lml_fused_plain(us, alpha, noise, y, n_real, kernel_name="matern_2.5"):
     bad = info != 0
     nan = torch.full_like(quad, float("nan"))
     return torch.where(bad, nan, quad), torch.where(bad, nan, logdet)
+
+
+# ---------------------------------------------------------------------------
+# The tiled float64 Cholesky of the chain's plain-route LML
+# ---------------------------------------------------------------------------
+
+CHOL_TILE = 64             # csrc/lml_chol_f64.cu CHOL_T
+
+
+def lml_chol_scratch(w: int, n: int) -> tuple:
+    """The kernel's scratch at W walkers of side n (``csrc/lml_chol_f64.cu``):
+    (doubles, ints).  Per walker and tile column, L_jj^-1 (64 x 64), z_j and
+    the border b_j (64 each) and the column's two sums; the tiles' counters
+    and the task queue, which start at zero."""
+    nt = -(-n // CHOL_TILE)
+    return (w * nt * (CHOL_TILE * CHOL_TILE + 2 * CHOL_TILE + 2),
+            w * nt * nt + 1)
+
+
+def lml_chol_f64(k: torch.Tensor, y: torch.Tensor):
+    """(quad, half_logdet) of the systems K_w = L_w L_w^T: quad_w =
+    |L_w^-1 y_w|^2 and half_logdet_w = sum_i log (L_w)_ii, each (W,).
+
+    k (W, N, N) holds K + diag(noise), of which only the lower triangle is
+    read; y is (N,) or (W, N).  NaN for a walker whose factorization meets
+    a pivot that is not positive and finite.  On the card, k and y are
+    float64 and contiguous, and k is factored in place (its lower triangle
+    holds L_w on return): one launch of the tiled Cholesky
+    (``csrc/lml_chol_f64.cu``), whose border row carries the forward solve,
+    so no transposed solve runs.  CPU tensors take :func:`lml_chol_plain`,
+    which leaves k as it is.
+    """
+    name = "lml_chol_f64"
+    if k.dim() != 3 or k.shape[1] != k.shape[2]:
+        raise ValueError(f"{name}: k must be (W, N, N), got "
+                         f"{tuple(k.shape)}")
+    w, n = k.shape[0], k.shape[-1]
+    if tuple(y.shape) not in ((n,), (w, n)):
+        raise ValueError(f"{name}: y has shape {tuple(y.shape)}, expected "
+                         f"({n},) or ({w}, {n})")
+    if not _on_card(name, None, (torch.float64,), k=k, y=y):
+        return lml_chol_plain(k, y)
+    dev = k.device
+    doubles, ints = lml_chol_scratch(w, n)
+    scratch = torch.empty((doubles,), device=dev, dtype=torch.float64)
+    counters = torch.zeros((ints,), device=dev, dtype=torch.int32)
+    nt = -(-n // CHOL_TILE)
+    linv, zbuf, bbuf, quadp, ldp = scratch.split(
+        [w * nt * CHOL_TILE * CHOL_TILE, w * nt * CHOL_TILE,
+         w * nt * CHOL_TILE, w * nt, w * nt])
+    quad = torch.empty((w,), device=dev, dtype=torch.float64)
+    half_logdet = torch.empty((w,), device=dev, dtype=torch.float64)
+    _launch(name, _lib().cmoe_lml_chol_f64, k.data_ptr(), y.data_ptr(),
+            n if y.dim() == 2 else 0, linv.data_ptr(), zbuf.data_ptr(),
+            bbuf.data_ptr(), quadp.data_ptr(), ldp.data_ptr(),
+            counters.data_ptr(), quad.data_ptr(), half_logdet.data_ptr(), w,
+            n, device=dev)
+    logging_utils.count("kernels.lml_chol_f64")
+    return quad, half_logdet
+
+
+def lml_chol_plain(k: torch.Tensor, y: torch.Tensor):
+    """Plain version of :func:`lml_chol_f64`: ``cholesky_ex``, one forward
+    solve and the sum of the log diagonal, NaN where ``info`` reports a
+    failed factorization; k is not changed."""
+    chol, info = torch.linalg.cholesky_ex(k)
+    yb = y.expand(k.shape[:-1])
+    z = torch.linalg.solve_triangular(chol, yb[..., None], upper=False)
+    quad = torch.sum(z[..., 0] ** 2, dim=-1)
+    half_logdet = torch.sum(
+        torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+    bad = info != 0
+    nan = torch.full_like(quad, float("nan"))
+    return torch.where(bad, nan, quad), torch.where(bad, nan, half_logdet)
 
 
 # ---------------------------------------------------------------------------

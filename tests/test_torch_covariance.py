@@ -165,10 +165,13 @@ def test_cpu_wrappers_take_the_plain_path(rng):
             pre_mult=1.0, mrc=0.1)
     for grad in (kernels.descent_grad, kernels.descent_grad_fma):
         grad(*desc, "matern_2.5")
+    kernels.lml_chol_f64(torch.eye(10, dtype=torch.float64)[None],
+                         torch.ones(10, dtype=torch.float64))
     assert kernels.launch_counts() == {"covariance_with_noise": 0,
                                        "lml_fused": 0, "lml_fused_global": 0,
                                        "lml_fused_f64": 0,
                                        "lml_fused_global_f64": 0,
+                                       "lml_chol_f64": 0,
                                        "descent_run": 0, "descent_run_fma": 0,
                                        "descent_grad": 0,
                                        "descent_grad_fma": 0}

@@ -2,7 +2,8 @@
 data with both partials observed, n 20 padded to 32, in float64.  It grows
 by the evaluations of a batch of the plain LML wherever it runs, by W per
 log posterior of W walkers, not on kernel B's path, and with a program's
-replays on the card.
+replays on the card, where the chain's float64 walkers launch the tiled
+Cholesky (``kernels.lml_chol_f64``) once per log posterior.
 """
 
 import numpy as np
@@ -120,14 +121,9 @@ def test_counter_growth_is_added_back_at_each_replay():
     assert grew(before[programs.REGISTRY]) == 3 * WALKERS
 
 
-@pytest.mark.parametrize("device", ["cpu", pytest.param(
-    "cuda", marks=pytest.mark.cuda)])
-def test_chain_counts_walkers_times_steps_plus_one(device):
-    """A d-KG chain through its segment programs (captured and replayed
-    on the card) counts W at its start and W per step; 64 + 64 + 8 steps
-    build two programs and replay the first."""
-    if device == "cuda" and not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def run_dkg_chain(device):
+    """A d-KG chain of 12 walkers and 136 steps through its segment
+    programs (captured and replayed on the card); returns its model."""
     x, values = branin_data()
     data = HistoricalData(dim=2, num_derivatives=2)
     data.append_sample_points(list(zip(x, values)))
@@ -138,10 +134,38 @@ def test_chain_counts_walkers_times_steps_plus_one(device):
     xx, yy, pn = model._padded_data()
     segment_fn = model._segment_program(xx, yy, pn)
     p0 = walkers(11).repeat(3, 1).to(device)
-    before = lu.counters()
     mcmc.run_ensemble_mcmc(
         model.generator, lambda t: model.log_posterior(t, xx, yy, pn), p0,
         136, segment_fn=segment_fn)
+    return model
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_chain_counts_walkers_times_steps_plus_one(device):
+    """The chain counts W at its start and W per step; 64 + 64 + 8 steps
+    build two programs and replay the first."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    before = lu.counters()
+    model = run_dkg_chain(device)
     assert grew(before) == 12 * (136 + 1)
     assert len(model.program_cache) == 2
+    model.program_cache.release()
+
+
+@pytest.mark.cuda
+def test_chain_launches_the_tiled_cholesky_with_each_count():
+    """On the card the chain's float64 d-KG walkers go through the tiled
+    Cholesky (``kernels.lml_chol_f64``): one launch per log posterior, 12
+    walkers at the start and 6 a half-step, so it and ``model.lml_plain``
+    grow together, through captures and replays alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    before = lu.counters()
+    model = run_dkg_chain("cuda")
+    launches = lu.counters().get("kernels.lml_chol_f64", 0) - \
+        before.get("kernels.lml_chol_f64", 0)
+    assert launches == 1 + 2 * 136
+    assert grew(before) == 12 + 6 * (launches - 1)
     model.program_cache.release()

@@ -255,7 +255,7 @@ def test_launch_counts_are_views_of_the_registry():
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
         "covariance_with_noise": 0, "lml_fused": 0, "lml_fused_global": 0,
-        "lml_fused_f64": 0, "lml_fused_global_f64": 0,
+        "lml_fused_f64": 0, "lml_fused_global_f64": 0, "lml_chol_f64": 0,
         "descent_run": 0, "descent_run_fma": 0, "descent_grad": 0,
         "descent_grad_fma": 0}
     lu.count("kernels.descent_run", 2)
