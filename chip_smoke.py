@@ -52,18 +52,15 @@ and times them in turns, and drives the per-step route of the KG inner
 descent (one ``descent_grad`` launch per GD step, the steps taken by
 ``gradient_ascent_batch``), which the main path does not take, at the main
 path's shapes, checks that it went through its kernel, and holds it
-against the float64 descent.  It profiles a window of the main path's MCMC
-chain (host wall clock per stretch-move step against the device's busy
-time, step by step and as the chain's captured 64-step segment).  It
-runs the bfloat16 fantasy solve (``config.KG_FANTASY_LOWP`` "always") on
-the main path's ensemble: its error against float32 and float64, held to
-the JAX package's bounds on that package's own test problems, and one
-suggest and retrain through the driver under it, whose programs are
-keyed by the switch (back under "never", the next suggest replays the
-"never" programs); then it flips each kernel switch between two calls of
-one stage on the main path's driver (``switch_keys``: each switch is part
-of every program's key, so "never" builds its own program and launches
-nothing, and "auto" replays the first one bit for bit).  It
+against the float64 descent.  It runs the bfloat16 fantasy solve
+(``config.KG_FANTASY_LOWP`` "always") on the main path's ensemble: its error
+against float32 and float64, held to the JAX package's bounds on that package's
+own test problems, and one suggest and retrain through the driver under it,
+whose programs are keyed by the switch (back under "never", the next suggest
+replays the "never" programs); then it flips each kernel switch between two
+calls of one stage on the main path's driver (``switch_keys``: each switch
+is part of every program's key, so "never" builds its own program and
+launches nothing, and "auto" replays the first one bit for bit).  It
 drives one continuous-fidelity KG iteration (``BraninFidelity``, the main
 path's size, d = 3 with one fidelity dim: kernels B and C, no
 kernel A) and holds B and C against their plain versions at that path's
@@ -118,7 +115,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # TPU kernels replaced, by their pl.pallas_call line
 PALLAS = "cornell_moe_tpu/ops/pallas_kernels.py"
-KERNELS = {
+SOURCES = {
     "descent_run": ("cornell_moe_tpu_torch/csrc/descent_run_mma.cu",
                     f"{PALLAS}:495"),
     "descent_run_fma": ("cornell_moe_tpu_torch/csrc/descent_run.cu",
@@ -142,7 +139,7 @@ KERNELS = {
 # takes the cluster instance, and the large-Np instance, lml_fused_global,
 # none; every descent_run launch the tensor-core instance, and the FMA
 # instance, descent_run_fma, none)
-MAIN_PATH_KERNELS = ("descent_run", "lml_fused", "covariance_with_noise")
+ON_MAIN_PATH = ("descent_run", "lml_fused", "covariance_with_noise")
 NOT_ON_MAIN_PATH = ("lml_fused_global", "descent_run_fma", "descent_grad",
                     "descent_grad_fma")
 
@@ -183,12 +180,6 @@ LML_LARGE_NPS = (672, 768, 896, 1008)
 # its chain takes B's large-Np instance (Np 768, then 784)
 MAIN_768_OBS = 768
 
-# Peaks of one H100 SXM at 700 W (data sheet, dense): float32 outside the
-# tensor cores, TF32 on the tensor cores, HBM, and the special-function
-# (MUFU) units: 16 per SM per clock, 132 SMs at 1.98 GHz
-FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
-MUFU_OPS = 16 * 132 * 1.98e9
-
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -197,6 +188,22 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def snapshot() -> dict:
+    """The port's counters now, to read :func:`kernel_launches` from."""
+    from cornell_moe_tpu_torch.utils import logging_utils
+    return logging_utils.counters()
+
+
+def kernel_launches(before) -> dict:
+    """Each kernel's launches since ``before`` (a :func:`snapshot`): the
+    growth of its counter ``kernels.<name>``; a kernel that did not launch
+    is left out."""
+    from cornell_moe_tpu_torch.utils import logging_utils
+    return {name[len("kernels."):]: n for name, n in
+            logging_utils.growth(before).items()
+            if name.startswith("kernels.")}
 
 
 def release(torch, bo) -> None:
@@ -236,9 +243,9 @@ def phase_build() -> None:
 def _iteration(torch, descent, **bo_kwargs):
     """One BO iteration through the driver at the main path's size
     (``tools.scale_out.iteration``: ``bo_kwargs`` added, kernel A's
-    launches sent to ``descent``, every launch counter set to 0 just
-    before and read just after).  Returns the optimizer, the record, the
-    wall time, the counts, A's launches and B's calls by shape."""
+    launches sent to ``descent``).  Returns the optimizer, the record, the
+    wall time, the launches by kernel, A's launches and B's calls by
+    shape."""
     from cornell_moe_tpu_torch.tools import scale_out
     check(scale_out.NUM_OBS == NUM_OBS and
           scale_out.MAIN_PATH["num_to_sample"] == Q and
@@ -330,14 +337,13 @@ def phase_main_768(torch) -> dict:
     suggest in the same bucket, observe and recommend) at the main path's
     settings (Branin on its raw
     domain, 16 members, q = 4, 200 multistarts, 128 MC draws, float32,
-    standardized, noisy), every launch counter set to 0 just before and
-    read just after: each stage's time and builds, the chains' steps, the
-    VOIs, suggested and recommended points, launches by kernel and by
-    shape, and builds and replays by program kind.  The chain's Np (768,
-    then 784 after the 4 new points) lies above the cluster instance's
-    capacity and within the gate: every B launch takes the large-Np
-    instance, none the cluster one; A and C launch; the replayed suggest
-    builds nothing.  The chain's final walkers' log posteriors pass the
+    standardized, noisy), its launches read from just before: each stage's time
+    and builds, the chains' steps, the VOIs, suggested and recommended points,
+    launches by kernel and by shape, and builds and replays by program
+    kind.  The chain's Np (768, then 784 after the 4 new points) lies above the
+    cluster instance's capacity and within the gate: every B launch takes the
+    large-Np instance, none the cluster one; A and C launch; the replayed
+    suggest builds nothing.  The chain's final walkers' log posteriors pass the
     main path's rule (:func:`_log_posterior_check`).  Each suggest's VOI,
     the ensemble mean of the members' KG at its union, is finite, or NaN
     only through members whose float32 fantasy factor at that union fails
@@ -373,7 +379,7 @@ def phase_main_768(torch) -> dict:
         return out
 
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    before = snapshot()
     kg.score_knowledge_gradient_mcmc = recording_score
     try:
         with scale_out.recording() as (shapes, lml_shapes):
@@ -388,7 +394,7 @@ def phase_main_768(torch) -> dict:
             wall = time.time() - t0
     finally:
         kg.score_knowledge_gradient_mcmc = score
-    counts = kernels.launch_counts()
+    counts = kernel_launches(before)
     voi_members = [_kg_voi_members(torch, *a, **k) for a, k in scored]
     true_value = float(bo.objective_func.evaluate_true(rec)[0])
     states = bo.model.models
@@ -426,8 +432,8 @@ def phase_main_768(torch) -> dict:
     check(bool(torch.isfinite(states.chol_K).all()),
           "a main_path_768 ensemble member's chol_K is non-finite")
     for name in ("descent_run", "covariance_with_noise", "lml_fused_global"):
-        check(counts[name] > 0, f"main_path_768 did not launch {name}")
-    check(counts["lml_fused"] == 0,
+        check(counts.get(name, 0) > 0, f"main_path_768 did not launch {name}")
+    check(counts.get("lml_fused", 0) == 0,
           "main_path_768 launched B's cluster instance")
     check(stages["suggest_replayed"]["builds"] == 0 and replayed,
           f"the replayed suggest built programs: {stages}")
@@ -467,12 +473,12 @@ def phase_main(torch):
           f"recommended point {r} outside the domain")
     check(bool(torch.isfinite(states.chol_K).all()),
           "an ensemble member's chol_K is non-finite")
-    for name in MAIN_PATH_KERNELS:
-        check(counts[name] > 0,
+    for name in ON_MAIN_PATH:
+        check(counts.get(name, 0) > 0,
               f"kernel {name} was not launched on the main path")
     for name in NOT_ON_MAIN_PATH:
-        check(counts[name] == 0, f"the main path launched {name}")
-    check(sum(descent_shapes.values()) == counts["descent_run"],
+        check(counts.get(name, 0) == 0, f"the main path launched {name}")
+    check(sum(descent_shapes.values()) == counts.get("descent_run", 0),
           "descent_run launches and recorded shapes disagree")
 
     wbo, wrec, wwall, wcounts, wshapes, _ = _iteration(
@@ -485,8 +491,8 @@ def phase_main(torch):
               wbo.model.chain_steps[0] == bo.model.chain_steps[0]})
     check(math.isfinite(wrec["voi"]),
           f"witness VOI not finite: {wrec['voi']}")
-    check(wcounts["descent_run"] == 0 and
-          wcounts["descent_run_fma"] == sum(wshapes.values()) > 0,
+    check(wcounts.get("descent_run", 0) == 0 and
+          wcounts.get("descent_run_fma", 0) == sum(wshapes.values()) > 0,
           "the witness run did not send every A launch to the FMA instance")
     check(wbo.model.chain_steps[0] == bo.model.chain_steps[0],
           "the chain before any A launch moved in the witness")
@@ -513,7 +519,7 @@ def _program_run(torch, capture: str) -> dict:
     allocated before and at the peak, and the results."""
     import numpy as np
     from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
-    from cornell_moe_tpu_torch.ops import kernels, programs
+    from cornell_moe_tpu_torch.ops import programs
     from cornell_moe_tpu_torch.tools import scale_out
     from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
 
@@ -527,8 +533,7 @@ def _program_run(torch, capture: str) -> dict:
         bo = BayesianOptimizer(**dict(scale_out.MAIN_PATH,
                                       objective_func=Branin(),
                                       device=DEVICE))
-        kernels.reset_launch_counts()
-        programs.reset_builds()
+        before = snapshot()
         stages, replays, results = [], [], []
 
         def timed(name, fn, *args):
@@ -559,7 +564,7 @@ def _program_run(torch, capture: str) -> dict:
                 "capture_seconds": {
                     programs.kind(key): prog.capture_seconds
                     for key, prog in bo.program_cache.programs().items()},
-                "launches": kernels.launch_counts(),
+                "launches": kernel_launches(before),
                 "chain_steps": bo.model.chain_steps,
                 "members_replaced": bo.model.members_replaced,
                 "memory_allocated_before": allocated,
@@ -635,7 +640,7 @@ def _scale_out_rank() -> dict:
     """One rank of the scale-out phase's gloo group: the main path's
     iteration on cuda:0 with ``n_devices`` = SCALE_OUT_WORLD (the restart
     axis, the walkers and the recommend grid sharded over the ranks), its
-    launch counters set to 0 just before and read just after."""
+    launches read from just before."""
     import torch
     from cornell_moe_tpu_torch.ops import kernels
     from cornell_moe_tpu_torch.tools import scale_out
@@ -739,8 +744,8 @@ def phase_scale_out(torch, main_bo, main_rec) -> None:
     check(one["all_gather_replayed_ms"] is not None,
           "the NCCL gather was not replayed inside a graph")
     for r in [one] + ranks:
-        for name in MAIN_PATH_KERNELS:
-            check(r["launches"][name] > 0,
+        for name in ON_MAIN_PATH:
+            check(r["launches"].get(name, 0) > 0,
                   f"{name} not launched in a scale-out run: {r['launches']}")
     for r in ranks:
         check(r["backend"] == "gloo" and
@@ -766,11 +771,10 @@ def phase_dkg(torch) -> None:
     """One d-KG iteration through the driver at the main path's size:
     Branin with both partials observed (500 points x 3 channels, K's side
     1536 after the 16-point bucket), 16 members, q = 4, 200 multistarts,
-    128 MC draws, float32.  Every launch counter is set to 0 just before
-    and read just after: the three kernels' gates send derivative states to
-    the plain path, so none may launch."""
+    128 MC draws, float32.  Its launches are read from just before: the
+    three kernels' gates send derivative states to the plain path, so none
+    may launch."""
     from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
-    from cornell_moe_tpu_torch.ops import kernels
     from cornell_moe_tpu_torch.utils.synthetic_functions import \
         BraninWithDerivatives
 
@@ -783,12 +787,12 @@ def phase_dkg(torch) -> None:
           bo.num_mc == NUM_MC, "d-KG size changed")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    before = snapshot()
     t0 = time.time()
     rec = bo.run(num_iterations=1, num_init_pts=NUM_OBS)[-1]
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = kernels.launch_counts()
+    counts = kernel_launches(before)
     states = bo.model.models
     emit({"phase": "dkg_path", "seconds": wall,
           "stages": {r["phase"]: r["seconds"] for r in bo.timer.records},
@@ -819,10 +823,10 @@ def phase_dkg(torch) -> None:
     check(bool(((r >= bounds[:, 0]) & (r <= bounds[:, 1])).all()) and
           math.isfinite(rec["true_value"]),
           f"d-KG recommendation {r} outside the domain or not finite")
-    for name in MAIN_PATH_KERNELS + ("lml_chol_f64",):
-        check(counts[name] == 0, f"the float32 d-KG path launched {name}")
+    for name in ON_MAIN_PATH + ("lml_chol_f64",):
+        check(counts.get(name, 0) == 0,
+              f"the float32 d-KG path launched {name}")
     del states
-    phase_chain_profile(torch, bo.model, "dkg_path")
     _dkg_chain_f64(torch, bo.model)
     release(torch, bo)
     del bo
@@ -836,8 +840,7 @@ def _dkg_chain_f64(torch, model32) -> None:
     float32 path's data: DKG_F64_STEPS stretch moves through the chain's
     segment program, each log posterior one launch of the tiled Cholesky
     (kernels.lml_chol_f64) at K's side 1536, 16 walkers at the start and 8
-    a half-step, and model.lml_plain growing by the walkers it takes; then
-    its chain profile."""
+    a half-step, and model.lml_plain growing by the walkers it takes."""
     from cornell_moe_tpu_torch.models import mcmc
     from cornell_moe_tpu_torch.utils import logging_utils
 
@@ -861,8 +864,8 @@ def _dkg_chain_f64(torch, model32) -> None:
         m.generator, lambda t: m.log_posterior(t, x, y, pn), p0,
         DKG_F64_STEPS, segment_fn=m._segment_program(x, y, pn))
     torch.cuda.synchronize()
-    after = logging_utils.counters()
-    grew = {name: after.get(name, 0) - before.get(name, 0)
+    growth = logging_utils.growth(before)
+    grew = {name: growth.get(name, 0)
             for name in ("kernels.lml_chol_f64", "model.lml_plain",
                          "kernels.lml_fused_global_f64")}
     emit({"phase": "dkg_chain_f64", "steps": DKG_F64_STEPS,
@@ -874,7 +877,6 @@ def _dkg_chain_f64(torch, model32) -> None:
           f"the float64 d-KG chain did not go through lml_chol_f64: {grew}")
     check(int(torch.isfinite(lp).sum()) == N_HYPERS,
           "a float64 d-KG walker's log posterior is not finite")
-    phase_chain_profile(torch, m, "dkg_path_f64")
     m.program_cache.release()
 
 
@@ -1026,10 +1028,11 @@ def kernel_row(name, launches, err, times, plain, bound) -> dict:
     """One row of the kernels' summary line.  times, plain: the kernel's and
     its plain version's {"device_ms", "call_ms"} (:func:`_timed`); ms is the
     kernel's device time, and its share of the bound is bound / device_ms.
-    bound: from :func:`_bound`.  No single PyTorch call computes any of
-    these kernels' functions, so library_ms is null, but lml_chol_f64's
-    (cuSOLVER's factor and a forward solve, filled by phase_lml_chol)."""
-    source, replaces = KERNELS[name]
+    bound: from ``cmoe_bench.roofline``.  No single PyTorch call computes
+    any of these kernels' functions, so library_ms is null, but
+    lml_chol_f64's (cuSOLVER's factor and a forward solve, filled by
+    phase_lml_chol)."""
+    source, replaces = SOURCES[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": times["device_ms"],
@@ -1042,63 +1045,23 @@ def kernel_row(name, launches, err, times, plain, bound) -> dict:
             "library_ms": None}
 
 
-def _bound(nbytes, fp32=0.0, matmul=0.0, mufu=0.0) -> dict:
-    """The least time the card could take for a piece of work: the largest
-    of the times its pipes need, since they run at once.  fp32: float32
-    operations outside the tensor cores, at the FP32 peak; matmul: FLOP of
-    matrix products, which reach float32 accuracy on the tensor cores as
-    3xTF32 (three TF32 products each), at the TF32 peak; mufu: special-
-    function operations (sqrt, exp); nbytes: each input read once, each
-    output written once, at the HBM rate.  Returns {"ms", "by" ("bytes" or
-    "operations"), "pipe", "pipes_ms"}."""
-    pipes = {"fp32": fp32 / FP32_FLOPS * 1e3,
-             "tf32x3": 3 * matmul / TF32_FLOPS * 1e3,
-             "mufu": mufu / MUFU_OPS * 1e3,
-             "hbm": nbytes / HBM_BYTES * 1e3}
-    pipe = max(pipes, key=pipes.get)
-    return {"ms": pipes[pipe], "by": "bytes" if pipe == "hbm" else
-            "operations", "pipe": pipe, "pipes_ms": pipes}
-
-
-def _mufu_per_field(kernel_name):
-    """Special-function operations per field value: the Matern field's
-    sqrt and exp, the squared exponential's exp."""
-    return 2 if kernel_name == "matern_2.5" else 1
-
-
 def descent_bound(s, b, m, np_, d, q, kernel_name, evaluations,
                   direction_out=False):
     """A (or D, evaluations = 1), over s b m np_ evaluations (draw, training
     point) pairs: per pair 3d FP32 FLOP of distance and 6 of the field, the
     field's MUFU operations, and 2 Wr FLOP of the moment contraction (a
     matrix product); bytes of xs0, ws, wt, beta, z, us, geom in and the
-    points (or directions) out."""
+    points (or directions) out.  On the bench's pipes and peaks
+    (``cmoe_bench.roofline``), which bound no descent of their own."""
+    from cmoe_bench import roofline
     wr = (1 + q) * (1 + d)
     pairs = s * b * m * np_ * evaluations
     floats = 2 * s * b * d * m + s * d * np_ + s * b * wr * np_ + \
         s * b * q * m + q * m + s * b * q * d + \
         (0 if direction_out else 3 * s * d)
-    return _bound(4 * floats, fp32=pairs * (3 * d + 6), matmul=pairs * 2 * wr,
-                  mufu=pairs * _mufu_per_field(kernel_name))
-
-
-def covariance_bound(s, n, d, kernel_name):
-    """C: per element 3d FP32 FLOP of distance, 8 of the field, 1 for the
-    amplitude, and the field's MUFU operations; the (S, n, n) output
-    dominates the bytes."""
-    return _bound(4 * (s * n * n + n * d + s * (1 + d) + s * n),
-                  fp32=s * n * n * (3 * d + 9),
-                  mufu=s * n * n * _mufu_per_field(kernel_name))
-
-
-def lml_bound(w, np_, d, kernel_name):
-    """B, per walker: the K build (Np^2 (3d + 9) FP32 FLOP and the field's
-    MUFU operations), the Cholesky factorization (Np^3 / 3 FLOP, its
-    trailing updates matrix products; Np square roots), forward
-    substitution (Np^2 FLOP); us, alpha, noise, y in and two values out."""
-    return _bound(4 * (w * d * np_ + w + 2 * w * np_ + 2 * w),
-                  fp32=w * np_ * np_ * (3 * d + 10), matmul=w * np_ ** 3 / 3,
-                  mufu=w * (np_ * np_ * _mufu_per_field(kernel_name) + np_))
+    return roofline.bound(4 * floats, fp32=pairs * (3 * d + 6),
+                          matmul=pairs * 2 * wr,
+                          mufu=pairs * roofline.mufu_per_field(kernel_name))
 
 
 def _time_ms(torch, fn, reps: int) -> float:
@@ -1125,9 +1088,8 @@ DEVICE_MS_ATTEMPTS = 3    # profiled runs before a miscount fails the script
 def _device_ms(torch, fn, reps: int) -> float:
     """Median over reps calls of fn of the card's time in the work each call
     launched: the sum of its CUDA events (kernels, copies, fills) under
-    torch.profiler, read as phase_chain_profile reads them.  The wrapper's
-    host work is left out, and a plain version's many small launches are
-    summed.
+    torch.profiler.  The wrapper's host work is left out, and a plain
+    version's many small launches are summed.
 
     Calls are told apart on the device's own timeline: after each call a
     synchronize and DEVICE_MS_GAP_S of sleep leave the card idle, and the
@@ -1205,6 +1167,7 @@ def phase_equivalence(torch, model, counts, counts_768):
     path's (``counts``), the large-Np instance's main_path_768's
     (``counts_768``).  Returns the kernels' summary rows and the descent
     problems, [(label, problem)]."""
+    from cmoe_bench import roofline
     from cornell_moe_tpu_torch.models import mcmc as mcmc_mod
     from cornell_moe_tpu_torch.ops import kernels
     from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
@@ -1216,7 +1179,8 @@ def phase_equivalence(torch, model, counts, counts_768):
     rows = []
 
     def row(name, err, times, plain, bound):
-        rows.append(kernel_row(name, counts[name], err, times, plain, bound))
+        rows.append(kernel_row(name, counts.get(name, 0), err, times, plain,
+                               bound))
 
     # --- C: covariance + noise, S = 16, n = 512 ------------------------------
     # Against the plain version, and K symmetric bit for bit: the kernel
@@ -1231,8 +1195,8 @@ def phase_equivalence(torch, model, counts, counts_768):
               "is not symmetric")
     row("covariance_with_noise", fields["max_abs_err"], times,
         _timed(torch, plain, 20),
-        covariance_bound(h.shape[0], x.shape[0], x.shape[1],
-                         model.kernel_name))
+        roofline.covariance_bound(h.shape[0], x.shape[0], x.shape[1],
+                                  model.kernel_name))
 
     # --- B: fused LML, W = 8 and 16 walkers, Np = 512 and 384 ---------------
     # The chain's stretch move evaluates one half-ensemble (W = 8) per
@@ -1349,7 +1313,7 @@ def phase_equivalence(torch, model, counts, counts_768):
                 "plain": lambda: kernels.lml_fused_plain(*largs)},
                 ("plain", "large_np_instance", "large_np_instance",
                  "plain"), 20)
-            bound = lml_bound(nw, np_, d, model.kernel_name)
+            bound = roofline.lml_bound(nw, np_, d, model.kernel_name)
             large[(nw, np_)] = (abs_err, t, bound)
             emit({"phase": "lml_fused_timing", "W": nw, "Np": np_, **t,
                   "kernel_over_plain_device":
@@ -1366,7 +1330,6 @@ def phase_equivalence(torch, model, counts, counts_768):
     # the plain version in float64 (rtol 1e-10, checked), both timed in
     # turns; its summary row at W 8 with the float64 bound
     # (cmoe_bench.roofline) and no launches (no float64 path runs here).
-    from cmoe_bench import roofline
     np_ = x.shape[0]
     check(kernels.lml_fused_instance(np_, 8) == "global",
           f"float64 at Np={np_} does not take the large-Np instance")
@@ -1410,7 +1373,7 @@ def phase_equivalence(torch, model, counts, counts_768):
     # shape, with that path's launches
     abs_err, t, bound = large[(w // 2, MAIN_768_OBS)]
     rows.append(kernel_row("lml_fused_global",
-                           counts_768["lml_fused_global"], abs_err,
+                           counts_768.get("lml_fused_global", 0), abs_err,
                            t["large_np_instance"], t["plain"], bound))
     np_main = x.shape[0]
     smem = kernels._lib().cmoe_lml_fused_cluster_smem_bytes(np_main)
@@ -1447,8 +1410,8 @@ def phase_equivalence(torch, model, counts, counts_768):
                      ("main_path_walkers", model)):
         _log_posterior_check(torch, label, m)
     row("lml_fused", max(lml_errs), times[w // 2]["cluster"],
-        times[w // 2]["plain"], lml_bound(w // 2, x.shape[0], d,
-                                          model.kernel_name))
+        times[w // 2]["plain"], roofline.lml_bound(w // 2, x.shape[0], d,
+                                                   model.kernel_name))
 
     # --- A: KG inner descent, S=16, B=200, q=4, d=2, M=128, Np=512 -----------
     # Both instances: the tensor-core one (descent_run, the main path's)
@@ -1740,18 +1703,18 @@ def phase_descent_grad(torch, kernel_name, problems) -> list:
                                        pb["betas"], pb["normals"],
                                        kernel_name)
             torch.cuda.synchronize()
-            kernels.reset_launch_counts()
+            before = snapshot()
             x = optimizers.gradient_ascent_batch(bvg, pb["dom"], pb["x0"],
                                                  params)
             torch.cuda.synchronize()
-            counts = kernels.launch_counts()
+            counts = kernel_launches(before)
             expected = params.max_num_steps * max(params.max_num_restarts, 1)
             route = x.double() / pb["width"]
             k_a, p32e, p64e = pb["endpoints"][params_label]
             r64 = _quantiles(torch, (route - p64e).abs())
             pp64 = _quantiles(torch, (p32e - p64e).abs())
-            launched_ok = counts["descent_grad"] == expected > 0 and \
-                all(c == 0 for n, c in counts.items() if n != "descent_grad")
+            launched_ok = counts == {"descent_grad": expected} and \
+                expected > 0
             ok = launched_ok and all(r64[k] <= max(5e-5, 1.5 * pp64[k])
                                      for k in r64)
             emit({"phase": "equivalence", "kernel": "descent_grad",
@@ -1769,7 +1732,7 @@ def phase_descent_grad(torch, kernel_name, problems) -> list:
             check(ok, f"the descent_grad route ({label}, {params_label}) is "
                       "less accurate than the plain float32 descent")
             for n in names:
-                launches[n] += counts[n]
+                launches[n] += counts.get(n, 0)
             if label == problems[0][0] and params_label == "cold":
                 emit({"phase": "descent_grad_route_timing", "state": label,
                       "params": params_label,
@@ -1786,153 +1749,6 @@ def phase_descent_grad(torch, kernel_name, problems) -> list:
                           - 1, kernel_name, 1, direction_out=True)
     return [kernel_row(n, launches[n], max(errs[n]), times[n],
                        times["plain"], bound) for n in names]
-
-
-SEGMENTS_TIMED = 2
-
-
-def _segment_times(torch, segment_fn, state, gen, model):
-    """(host wall ms, replay device ms) per step of the chain's captured
-    segment ``segment_fn``, over SEGMENTS_TIMED segments after one, its
-    draws taken eagerly before each replay; ``state`` [positions,
-    log-posteriors] moves along."""
-    from cornell_moe_tpu_torch.models import mcmc
-
-    seg, w = mcmc.CHAIN_GATE_SEGMENT, int(state[0].shape[0])
-    replay_ms = []
-
-    def run_segments(n):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for _ in range(n):
-            draws = mcmc.draw_segment(gen, seg, w, model.device, model.dtype)
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            pos, lp, _ = segment_fn(*state, *draws)
-            end.record()
-            replay_ms.append((start, end))
-            state[:] = [pos, lp]
-        torch.cuda.synchronize()
-        return (time.time() - t0) * 1e3 / (n * seg)
-
-    run_segments(1)
-    replay_ms.clear()
-    wall = run_segments(SEGMENTS_TIMED)
-    return wall, sum(a.elapsed_time(b) for a, b in replay_ms) / (
-        SEGMENTS_TIMED * seg)
-
-
-def _nccl_segment_times(torch, model, state, gen) -> dict:
-    """The captured segment of ``model``'s chain under an NCCL world of one
-    (its walkers' log-posteriors gathered inside the graph at every
-    half-step), timed as :func:`_segment_times` does, in a program cache of
-    its own that is freed before the group is destroyed."""
-    import torch.distributed as dist
-    from cornell_moe_tpu_torch.ops import programs
-    from cornell_moe_tpu_torch.parallel import sharding
-
-    group = sharding.default_process_group(1)
-    saved = model.process_group, model.program_cache
-    model.process_group, model.program_cache = group, programs.ProgramCache()
-    cache = model.program_cache
-    try:
-        x, y, pn = model._padded_data()
-        wall, device = _segment_times(
-            torch, model._segment_program(x, y, pn), state, gen, model)
-        replays = sum(p.replays for p in cache.programs().values())
-    finally:
-        model.process_group, model.program_cache = saved
-        cache.release()
-        dist.destroy_process_group()
-    check(replays == 1 + SEGMENTS_TIMED,
-          f"the NCCL segment replayed {replays} times")
-    return {"backend": "nccl", "world": 1, "wall_ms_per_step": wall,
-            "replay_device_ms_per_step": device,
-            "device_idle_share": 1.0 - device / wall}
-
-
-def phase_chain_profile(torch, model, path="main_path",
-                        nccl_world_of_one=False) -> None:
-    """Where a stretch-move step of a path's chain spends its time, run
-    step by step (eager) and as the chain's captured segment program (one
-    CUDA graph of CHAIN_GATE_SEGMENT steps, its draws taken eagerly before
-    each replay).  Eager: host wall clock per step (32 steps after 8
-    warm-up steps) against the device's busy time per step (the sum of its
-    kernel and copy events in 32 more steps under torch.profiler, whose
-    own host cost shows in the profiled wall clock and not on the device).
-    Captured: host wall clock per step over SEGMENTS_TIMED segments after
-    one, against the device time of the replays (CUDA events around each
-    replay: the graph's kernels and the gaps between them, not the
-    draws); with ``nccl_world_of_one`` also the captured segment under an
-    NCCL world of one, its gathers inside the graph.  Graph replays are
-    not profiled: in the one run of this
-    script that profiled them (about 120,000 graph-node events on the d-KG
-    path), every later profile saw the device events of only 8 of its 21
-    calls on the H100."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from cornell_moe_tpu_torch.models import mcmc
-
-    x, y, pn = model._padded_data()
-
-    def log_prob(t):
-        return model.log_posterior(t, x, y, pn)
-
-    gen = torch.Generator(device=model.device).manual_seed(7)
-    state = [model.p0, log_prob(model.p0)]
-    steps = 32
-
-    def run(n):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for _ in range(n):
-            state[:] = mcmc.stretch_move_step(gen, *state, log_prob)
-        torch.cuda.synchronize()
-        return (time.time() - t0) * 1e3 / n
-
-    run(8)
-    wall = run(steps)
-    for attempt in range(1, DEVICE_MS_ATTEMPTS + 1):
-        # the profiler may record no device event in a whole run
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            profiled_wall = run(steps)
-        by_name, launches = {}, 0
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
-                launches += 1
-                by_name[ev.name] = by_name.get(ev.name, 0.0) + \
-                    ev.time_range.elapsed_us() / 1e3 / steps
-        if by_name:
-            break
-        emit({"phase": "device_ms_miscount", "attempt": attempt,
-              "path": path, "device_events": 0})
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-
-    seg_wall, seg_device = _segment_times(
-        torch, model._segment_program(x, y, pn), state, gen, model)
-    line = {"phase": "chain_profile", "path": path,
-            "walkers": int(state[0].shape[0]),
-            "steps": steps, "wall_ms_per_step": wall,
-            "profiled_wall_ms_per_step": profiled_wall,
-            "device_busy_ms_per_step": busy,
-            "device_idle_share": 1.0 - busy / wall,
-            "device_ops_per_step": launches / steps,
-            "top_device_ms_per_step": {k[:48]: v for k, v in top},
-            "captured_segment": {
-                "steps_per_segment": mcmc.CHAIN_GATE_SEGMENT,
-                "steps": SEGMENTS_TIMED * mcmc.CHAIN_GATE_SEGMENT,
-                "wall_ms_per_step": seg_wall,
-                "replay_device_ms_per_step": seg_device,
-                "device_idle_share": 1.0 - seg_device / seg_wall}}
-    if nccl_world_of_one:
-        line["captured_segment_nccl_world_of_one"] = _nccl_segment_times(
-            torch, model, state, gen)
-    emit(line)
-    check(busy > 0.0, "the profiler saw no device time in the chain")
 
 
 def bench_problem_data():
@@ -2059,7 +1875,6 @@ def phase_cfkg(torch):
     twin bit for bit.  Returns the optimizer."""
     import numpy as np
     from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
-    from cornell_moe_tpu_torch.ops import kernels
     from cornell_moe_tpu_torch.utils.synthetic_functions import \
         BraninFidelity
 
@@ -2075,12 +1890,12 @@ def phase_cfkg(torch):
           bo.num_mc == NUM_MC, "cf-KG size changed")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    before = snapshot()
     t0 = time.time()
     rec = bo.run(num_iterations=1, num_init_pts=NUM_OBS)[-1]
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = kernels.launch_counts()
+    counts = kernel_launches(before)
     peak = torch.cuda.max_memory_allocated()
     twin = _programs_vs_never(torch, bo, rec, make_bo)
     states = bo.model.models
@@ -2099,9 +1914,11 @@ def phase_cfkg(torch):
           "capital": rec["capital"], "max_memory_allocated": peak,
           "launches": counts, **twin})
     _check_programs("cf-KG path", twin, PROGRAM_KINDS)
-    check(counts["descent_run"] == 0 and counts["descent_run_fma"] == 0,
+    check(counts.get("descent_run", 0) == 0 and
+          counts.get("descent_run_fma", 0) == 0,
           "the cf-KG path launched kernel A")
-    check(counts["lml_fused"] > 0 and counts["covariance_with_noise"] > 0,
+    check(counts.get("lml_fused", 0) > 0 and
+          counts.get("covariance_with_noise", 0) > 0,
           "the cf-KG path did not launch kernels B and C")
     check(bool(((sugg[:, 2] >= 0.05) & (sugg[:, 2] <= 1.0)).all()),
           f"suggested fidelities {sugg[:, 2]} outside [0.05, 1]")
@@ -2142,12 +1959,13 @@ def _covariance_line(torch, path, x, h, nv, kernel_name) -> None:
     of a path's own inputs, timed as the kernels' summary times the main
     path's (device and call time, 20 calls); prints one equivalence line
     and fails the script if they disagree."""
+    from cmoe_bench import roofline
     fields, ok, call, plain = _covariance_case(torch, x, h, nv, kernel_name)
     emit({"phase": "equivalence", "path": path, "kernel_name": kernel_name,
           **fields, "times": _timed(torch, call, 20),
           "plain": _timed(torch, plain, 20), "timing": TIMING.format(20),
-          "bound_ms": covariance_bound(h.shape[0], x.shape[0], x.shape[1],
-                                       kernel_name)["ms"]})
+          "bound_ms": roofline.covariance_bound(
+              h.shape[0], x.shape[0], x.shape[1], kernel_name)["ms"]})
     check(ok, f"covariance_with_noise disagrees at the {path} shape "
               f"{fields['shape']}")
 
@@ -2159,6 +1977,7 @@ def phase_cfkg_equivalence(torch, bo) -> None:
     walker lengths drawn as there, against the plain version at rtol 5e-4
     and the large-Np instance at rtol 1e-6.  Each is timed as the kernels'
     summary times the main path's (device and call time, 20 calls)."""
+    from cmoe_bench import roofline
     from cornell_moe_tpu_torch.ops import kernels
 
     model = bo.model
@@ -2206,7 +2025,8 @@ def phase_cfkg_equivalence(torch, bo) -> None:
               "times": _timed(torch, lambda: kernels.lml_fused(*largs), 20),
               "plain": _timed(torch, lambda: kernels.lml_fused_plain(*largs),
                               20), "timing": TIMING.format(20),
-              "bound_ms": lml_bound(nw, np_, d, model.kernel_name)["ms"],
+              "bound_ms": roofline.lml_bound(nw, np_, d,
+                                             model.kernel_name)["ms"],
               "tolerance": "rtol 5e-4 vs plain, rtol 1e-6 vs the large-Np "
                            "instance", "ok": ok})
         check(ok, f"lml_fused disagrees at the cf-KG path's W={nw}, d={d}")
@@ -2371,7 +2191,7 @@ def phase_fantasy_lowp(torch, bo) -> None:
     from cornell_moe_tpu_torch.bayes_opt import (
         best_so_far_from_discretization, seed_kg_discretization)
     from cornell_moe_tpu_torch.models import mcmc as mcmc_mod
-    from cornell_moe_tpu_torch.ops import kernels, linalg, programs
+    from cornell_moe_tpu_torch.ops import linalg, programs
     from cornell_moe_tpu_torch.ops.domains import RepeatedDomain
 
     check(config.KG_FANTASY_LOWP == "never", "the switch is not 'never'")
@@ -2425,14 +2245,14 @@ def phase_fantasy_lowp(torch, bo) -> None:
         gen.set_state(state0)
         with _fantasy_switch("never" if label == "never" else "always"):
             torch.cuda.synchronize()
-            kernels.reset_launch_counts()
+            before = snapshot()
             b0, t0 = programs.build_count(), time.time()
             pts, voi = bo.suggest()
             torch.cuda.synchronize()
         runs[label] = {"seconds": time.time() - t0,
                        "builds": programs.build_count() - b0,
                        "suggested": pts.tolist(), "voi": voi,
-                       "launches": kernels.launch_counts()}
+                       "launches": kernel_launches(before)}
     gen.set_state(state0)
     discrete = seed_kg_discretization(
         gen, states, bo.domain, qei_params=bo.sgd_params,
@@ -2454,12 +2274,12 @@ def phase_fantasy_lowp(torch, bo) -> None:
     gen.set_state(state0)
     with _fantasy_switch("always"):
         torch.cuda.synchronize()
-        kernels.reset_launch_counts()
+        before = snapshot()
         t0 = time.time()
         bo.observe(np.asarray(runs["always"]["suggested"]))
         torch.cuda.synchronize()
     observe = {"seconds": time.time() - t0,
-               "launches": kernels.launch_counts(),
+               "launches": kernel_launches(before),
                "chain_steps": model.last_chain_steps}
 
     # (c) back under "never": the "never" programs replay
@@ -2508,10 +2328,10 @@ def phase_fantasy_lowp(torch, bo) -> None:
     a = runs["always"]
     check(math.isfinite(a["voi"]) and np.isfinite(a["suggested"]).all(),
           "the 'always' suggest is not finite")
-    check(a["launches"]["descent_run"] > 0, "the 'always' suggest did not "
-          "launch kernel A")
-    check(observe["launches"]["lml_fused"] > 0 and
-          observe["launches"]["covariance_with_noise"] > 0,
+    check(a["launches"].get("descent_run", 0) > 0, "the 'always' suggest "
+          "did not launch kernel A")
+    check(observe["launches"].get("lml_fused", 0) > 0 and
+          observe["launches"].get("covariance_with_noise", 0) > 0,
           "the retrain under 'always' did not launch kernels B and C")
     check(a["builds"] > 0 and runs["always_replayed"]["builds"] == 0 and
           runs["always_replayed"]["suggested"] == a["suggested"],
@@ -2531,11 +2351,11 @@ SWITCH_KEY_BLOCKS = 8     # start blocks of A's cold step in switch_keys
 def _switch_runs(torch, cache, module, name, kind, kernel, run) -> tuple:
     """``run()`` (a stage whose program is of ``kind``) under ``name`` of
     ``module`` "auto", then "never", then "auto" again, on the same
-    inputs; every launch counter set to 0 just before each run and read
-    just after.  The switch is "auto" afterwards.  Returns (per run: wall
+    inputs; the launches of each run read from just before it.  The switch
+    is "auto" afterwards.  Returns (per run: wall
     seconds, builds, ``kernel``'s launches, the programs of ``kind`` and
     their replays per switch value; per run: the result)."""
-    from cornell_moe_tpu_torch.ops import kernels, programs
+    from cornell_moe_tpu_torch.ops import programs
     qual = f"{module.__name__.rsplit('.', 1)[-1]}.{name}"
     line, results = {}, {}
     for label, value in (("auto", "auto"), ("never", "never"),
@@ -2543,7 +2363,7 @@ def _switch_runs(torch, cache, module, name, kind, kernel, run) -> tuple:
         setattr(module, name, value)
         try:
             torch.cuda.synchronize()
-            kernels.reset_launch_counts()
+            before = snapshot()
             b0, t0 = programs.build_count(), time.time()
             results[label] = run()
             torch.cuda.synchronize()
@@ -2554,7 +2374,7 @@ def _switch_runs(torch, cache, module, name, kind, kernel, run) -> tuple:
                  for v in ("auto", "never")}
         line[label] = {"seconds": time.time() - t0,
                        "builds": programs.build_count() - b0,
-                       "launches": kernels.launch_counts()[kernel],
+                       "launches": kernel_launches(before).get(kernel, 0),
                        "programs": {v: len(r) for v, r in progs.items()},
                        "replays": {v: sum(r) for v, r in progs.items()}}
     return line, results
@@ -2755,7 +2575,6 @@ def phase_lcb(torch, states) -> None:
     its plain version on the first fantasy append's input (n = 1)."""
     from cornell_moe_tpu_torch.acquisition import lower_confidence_bound as lcb
     from cornell_moe_tpu_torch.models import gp as gp_mod
-    from cornell_moe_tpu_torch.ops import kernels
 
     member = states.member(0)
     dom = kg_domain(member.points_sampled.device, torch.float32)
@@ -2763,12 +2582,12 @@ def phase_lcb(torch, states) -> None:
         torch.Generator(device=dom.bounds.device).manual_seed(99),
         LCB_CANDIDATES)
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    before = snapshot()
     t0 = time.time()
     picks, _ = lcb.lower_confidence_bound_optimization(member, cand, Q)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = kernels.launch_counts()
+    counts = kernel_launches(before)
 
     def plain(v):
         return None if v is None else v.double()
@@ -2819,7 +2638,7 @@ def phase_lcb(torch, states) -> None:
                        f"sd64^2| <= {LCB_VARIANCE_RTOL} alpha",
           "launches": counts})
     check(tuple(picks.shape) == (Q, 2), "LCB did not return q picks")
-    check(counts["covariance_with_noise"] == Q - 1,
+    check(counts.get("covariance_with_noise", 0) == Q - 1,
           "LCB's fantasy appends did not each launch kernel C")
     check(all(in_set64),
           "an LCB pick lies outside the float64 posterior's plausible set")
@@ -2849,7 +2668,7 @@ def _pes_run(torch, capture: str) -> dict:
 
     import numpy as np
     from cornell_moe_tpu_torch.acquisition import pes_driver
-    from cornell_moe_tpu_torch.ops import kernels, programs
+    from cornell_moe_tpu_torch.ops import programs
     from cornell_moe_tpu_torch.utils.logging_utils import PhaseTimer
     from cornell_moe_tpu_torch.utils.synthetic_functions import Hartmann6
 
@@ -2860,8 +2679,8 @@ def _pes_run(torch, capture: str) -> dict:
 
     def mark():
         torch.cuda.synchronize()
-        marks.append({"launches_c": kernels.launch_counts()[
-                          "covariance_with_noise"],
+        marks.append({"launches_c": kernel_launches(before).get(
+                          "covariance_with_noise", 0),
                       "allocated": torch.cuda.memory_allocated(),
                       "peak": torch.cuda.max_memory_allocated()})
         torch.cuda.reset_peak_memory_stats()
@@ -2874,7 +2693,7 @@ def _pes_run(torch, capture: str) -> dict:
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    kernels.reset_launch_counts()
+    before = snapshot()
     pes_driver.sample_hypers = marked
     try:
         with tempfile.TemporaryDirectory() as out_dir:
@@ -3208,7 +3027,7 @@ def phase_ei(torch):
     from cornell_moe_tpu_torch import config
     from cornell_moe_tpu_torch.acquisition import expected_improvement as ei
     from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
-    from cornell_moe_tpu_torch.ops import kernels, linalg
+    from cornell_moe_tpu_torch.ops import linalg
     from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
 
     def make_bo():
@@ -3228,7 +3047,7 @@ def phase_ei(torch):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    before = snapshot()
     ei.evaluate_expected_improvement_at_point_list = recording_score
     try:
         t0 = time.time()
@@ -3237,7 +3056,7 @@ def phase_ei(torch):
         wall = time.time() - t0
     finally:
         ei.evaluate_expected_improvement_at_point_list = score
-    counts = kernels.launch_counts()
+    counts = kernel_launches(before)
     peak = torch.cuda.max_memory_allocated()
     _, var = ei._union_posterior(*scored[0])
     voi_union = {
@@ -3273,8 +3092,9 @@ def phase_ei(torch):
           f"EI recommendation {r} not finite inside the domain")
     for name in ("descent_run", "descent_run_fma", "descent_grad",
                  "descent_grad_fma"):
-        check(counts[name] == 0, f"the EI path launched {name}")
-    check(counts["lml_fused"] > 0 and counts["covariance_with_noise"] > 0,
+        check(counts.get(name, 0) == 0, f"the EI path launched {name}")
+    check(counts.get("lml_fused", 0) > 0 and
+          counts.get("covariance_with_noise", 0) > 0,
           "the EI path did not launch kernels B and C")
     check(bool(torch.isfinite(states.chol_K).all()),
           "an EI ensemble member's chol_K is non-finite")
@@ -3424,15 +3244,18 @@ def phase_heuristic_ei(torch, bo) -> None:
     import numpy as np
     from cornell_moe_tpu_torch.acquisition import expected_improvement as ei
     from cornell_moe_tpu_torch.ops import kernels, programs
+    from cornell_moe_tpu_torch.utils import logging_utils
 
     member = bo.model.models.member(0)
     bounds = bo.objective_func._search_domain
-    shapes, last = {}, {}
+    last = {}
     covariance = kernels.covariance_with_noise
+    # C's calls by shape, counted in the registry so that replays add them
+    by_shape = "chip_smoke.covariance_with_noise."
 
     def recording_covariance(points, hypers, noise, kernel_name):
-        key = f"S{hypers.shape[0]}_n{points.shape[0]}_d{points.shape[1]}"
-        shapes[key] = shapes.get(key, 0) + 1
+        logging_utils.count(f"{by_shape}S{hypers.shape[0]}_n"
+                            f"{points.shape[0]}_d{points.shape[1]}")
         last["args"] = (points, hypers, noise, kernel_name)
         return covariance(points, hypers, noise, kernel_name)
 
@@ -3458,15 +3281,17 @@ def phase_heuristic_ei(torch, bo) -> None:
     cache = programs.ProgramCache()
     gen_state = bo.generator.get_state()
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    before = snapshot()
     kernels.covariance_with_noise = recording_covariance
     try:
-        with programs.tally("covariance_launches_by_shape", shapes):
-            picks, seconds = run_policies(cache)
-        counts = kernels.launch_counts()
+        picks, seconds = run_policies(cache)
+        counts = kernel_launches(before)
+        shapes_with_programs = {
+            name[len(by_shape):]: n
+            for name, n in logging_utils.growth(before).items()
+            if name.startswith(by_shape)}
         by_kind = programs.by_kind(cache)
         cache.release()
-        shapes_with_programs = dict(shapes)
         bo.generator.set_state(gen_state)
         programs.CAPTURE = "never"
         try:
@@ -3491,7 +3316,7 @@ def phase_heuristic_ei(torch, bo) -> None:
           shapes_with_programs == {f"S1_n{n_refit}_d2": 2 * (1 + Q)},
           f"heuristic q-EI refits {shapes_with_programs}, expected 10 at "
           "S1_n516_d2")
-    check(counts["covariance_with_noise"] == 2 * (1 + Q),
+    check(counts.get("covariance_with_noise", 0) == 2 * (1 + Q),
           "the heuristic refits did not launch kernel C")
     check(by_kind.get("heuristic_refit") == {"builds": 1,
                                              "replays": 2 * (1 + Q)} and
@@ -3508,7 +3333,7 @@ def phase_map(torch, bo) -> None:
     """The MAP fit, ``optimize(num_restarts=4)``, on the EI path's model:
     a damped Newton from each of 4 prior draws over the plain log
     posterior.  Kernel B has no backward, so the fit may not launch it;
-    its counter is set to 0 just before and read just after.  The chosen
+    its launches are read from just before.  The chosen
     point must be the best finite end (its log posterior that end's, bit
     for bit), or, when no end is finite, start 0 bit for bit, as the JAX
     package keeps it.  Each start's 40 Newton steps are one program of the
@@ -3516,17 +3341,17 @@ def phase_map(torch, bo) -> None:
     the same generator state with ``programs.CAPTURE = "never"`` must give
     the same ends and the same pick bit for bit."""
     import numpy as np
-    from cornell_moe_tpu_torch.ops import kernels, programs
+    from cornell_moe_tpu_torch.ops import programs
 
     model = bo.model
     gen_state = model.generator.get_state()
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    before = snapshot()
     t0 = time.time()
     model.optimize(num_restarts=MAP_RESTARTS)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = kernels.launch_counts()
+    counts = kernel_launches(before)
     newton = programs.by_kind(model.program_cache).get(
         "map_newton")
     got = (np.asarray(model.hypers), model.map_values.cpu().numpy())
@@ -3563,7 +3388,8 @@ def phase_map(torch, bo) -> None:
           "hypers": model.hypers.tolist(), "launches": counts,
           "never_seconds": never_wall, "map_newton_program": newton,
           "bitwise_equal_to_never": equal})
-    check(counts["lml_fused"] == 0 and counts["lml_fused_global"] == 0,
+    check(counts.get("lml_fused", 0) == 0 and
+          counts.get("lml_fused_global", 0) == 0,
           "the MAP fit launched kernel B")
     check(newton == {"builds": 1, "replays": MAP_RESTARTS},
           f"the Newton program did not replay once per start: {newton}")
@@ -3741,17 +3567,16 @@ def phase_compat(torch) -> None:
              "C": "covariance_with_noise"}
 
     def abc(counts):
-        return {k: counts[v] + counts.get(v + "_fma", 0) +
+        return {k: counts.get(v, 0) + counts.get(v + "_fma", 0) +
                 counts.get(v + "_global", 0) for k, v in names.items()}
 
     def stage(name, fn):
-        before = abc(kernels.launch_counts())
+        before = snapshot()
         t0 = time.time()
         out = fn()
         torch.cuda.synchronize()
         stages[name] = time.time() - t0
-        after = abc(kernels.launch_counts())
-        stage_launches[name] = {k: after[k] - before[k] for k in after}
+        stage_launches[name] = abc(kernel_launches(before))
         return out
 
     descent_run = kernels.descent_run
@@ -3761,7 +3586,7 @@ def phase_compat(torch) -> None:
         return descent_run(xs0, ws, wt, beta, z, us, *args, **kw)
 
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    before = snapshot()
     kernels.descent_run = recording
     try:
         data = HistoricalData(2)
@@ -3897,7 +3722,7 @@ def phase_compat(torch) -> None:
             singular = "raised SingularMatrixError"
     finally:
         kernels.descent_run = descent_run
-    launches = abc(kernels.launch_counts())
+    launches = abc(kernel_launches(before))
     comparisons = {k: sum(v[k] for s_, v in stage_launches.items()
                           if s_.startswith("core_")) for k in names}
     bitwise = {"q4": bool(np.array_equal(picks, core)),
@@ -4215,7 +4040,6 @@ def main() -> int:
                                           counts_768)
     summary += phase_descent_grad(torch, bo.model.kernel_name, problems)
     summary += phase_lml_chol(torch)
-    phase_chain_profile(torch, bo.model, nccl_world_of_one=True)
     phase_lcb(torch, bo.model.models)
     del problems
     phase_fantasy_lowp(torch, bo)

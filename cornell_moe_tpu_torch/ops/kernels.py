@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels of the port, their plain PyTorch versions,
-and their launch counters.
+and their launch counts.
 
 Four kernels, each the Hopper counterpart of one Pallas kernel of
 ``cornell_moe_tpu/ops/pallas_kernels.py``, and one that replaces none
@@ -51,11 +51,10 @@ instance, ``lml_fused_global`` its large-Np instance, ``lml_fused_f64``
 and ``lml_fused_global_f64`` the same two in float64, ``descent_run`` A's
 tensor-core instance and ``descent_run_fma`` its FMA instance,
 ``descent_grad`` D's tensor-core instance and ``descent_grad_fma`` its FMA
-instance, ``lml_chol_f64`` the tiled Cholesky.  :func:`launch_counts` and
-its set, add and reset functions are views of those counters; ``chip_smoke.py`` reads them to prove each path
-went through its kernels.  A replayed CUDA graph (``ops.programs``) runs
-no wrapper: the program adds the growth of the registry it recorded at
-capture at each replay.
+instance, ``lml_chol_f64`` the tiled Cholesky.  A reader takes their
+growth from a snapshot (``logging_utils.growth``).  A replayed CUDA graph
+(``ops.programs``) runs no wrapper: the program adds the growth of the
+registry it recorded at capture at each replay.
 """
 
 from __future__ import annotations
@@ -68,38 +67,6 @@ from cornell_moe_tpu_torch.ops.domains import box_limit_update
 from cornell_moe_tpu_torch.utils import logging_utils
 
 KERNEL_CODES = {"matern_2.5": 0, "square_exponential": 1}
-
-KERNELS = ("covariance_with_noise", "lml_fused", "lml_fused_global",
-           "lml_fused_f64", "lml_fused_global_f64", "lml_chol_f64",
-           "descent_run", "descent_run_fma", "descent_grad",
-           "descent_grad_fma")
-
-
-def reset_launch_counts() -> None:
-    set_launch_counts(dict.fromkeys(KERNELS, 0))
-
-
-def launch_counts() -> dict:
-    counts = logging_utils.counters()
-    return {name: counts.get("kernels." + name, 0) for name in KERNELS}
-
-
-def _counter(name: str) -> str:
-    if name not in KERNELS:
-        raise KeyError(f"no launch counter {name!r}")
-    return "kernels." + name
-
-
-def set_launch_counts(counts: dict) -> None:
-    """Set the counters named in ``counts`` (``launch_counts()``'s keys)."""
-    logging_utils.set_counters({_counter(name): int(value)
-                                for name, value in counts.items()})
-
-
-def add_launch_counts(counts: dict) -> None:
-    """Add ``counts`` to the counters it names."""
-    for name, value in counts.items():
-        logging_utils.count(_counter(name), int(value))
 
 
 def _unit_fields(kernel_name: str):

@@ -40,12 +40,11 @@ catches it and runs the stage eagerly instead.
 
 Counter accounting: the kernel wrappers (``ops.kernels``) count their
 launches in Python, which a replay does not run, and so do the optimizers'
-steps.  A capture records how far each counter grew while the function was
-captured, puts every counter back where it stood before the warm-up, and
-adds that growth at each replay.  The counters are the port's registry
-(``utils.logging_utils.counters``) and every dict (str -> int) registered
-with :func:`tally` while the program is captured, such as a recorder of
-launches by shape.
+steps and any recorder that counts in the port's registry
+(``utils.logging_utils``).  A capture records how far each counter of the
+registry grew while the function was captured (``launch_growth``), puts
+every counter back where it stood before the warm-up, and adds that
+growth at each replay.
 """
 
 from __future__ import annotations
@@ -66,7 +65,6 @@ CAPTURE = "auto"
 # kernel attributes happens there, outside the graph)
 WARMUP_CALLS = 1
 
-_tallies: Dict[str, dict] = {}
 # name -> reader of a switch that a captured function may read
 _switches: Dict[str, Callable[[], Hashable]] = {}
 # the side stream of every warm-up and capture, one per device for the
@@ -97,25 +95,9 @@ def switch_key() -> tuple:
 keyed_switch("config.KG_FANTASY_LOWP", lambda: config.KG_FANTASY_LOWP)
 
 
-def reset_builds() -> None:
-    logging_utils.set_counters({"programs.builds": 0})
-
-
 def build_count() -> int:
+    """The counter ``programs.builds``: programs built in the process."""
     return logging_utils.counters().get("programs.builds", 0)
-
-
-@contextlib.contextmanager
-def tally(name: str, counts: dict):
-    """Register ``counts`` (str -> int, counted by Python code that a replay
-    does not run) under ``name`` for the block: programs captured inside it
-    add their growth of ``counts`` at each replay while it is registered."""
-    _tallies[name] = counts
-    try:
-        yield counts
-    finally:
-        if _tallies.get(name) is counts:
-            del _tallies[name]
 
 
 def run(cache: Optional["ProgramCache"], key: tuple, fn: Callable,
@@ -132,45 +114,6 @@ def signature(tensors) -> tuple:
     """The shapes, dtypes and devices of ``tensors``, for a program's
     key."""
     return tuple((tuple(t.shape), t.dtype, str(t.device)) for t in tensors)
-
-
-# the key of the port's registry among a snapshot's dicts
-REGISTRY = "counters"
-
-
-def _read_counters() -> dict:
-    return {REGISTRY: logging_utils.counters(),
-            **{name: dict(c) for name, c in _tallies.items()}}
-
-
-def _restore_counters(snapshot: dict) -> None:
-    logging_utils.restore_counters(snapshot[REGISTRY])
-    for name, counts in _tallies.items():
-        counts.clear()
-        counts.update(snapshot.get(name, {}))
-
-
-def _growth(before: dict, after: dict) -> dict:
-    out = {}
-    for name, counts in after.items():
-        old = before.get(name, {})
-        grew = {k: v - old.get(k, 0) for k, v in counts.items()
-                if v != old.get(k, 0)}
-        if grew:
-            out[name] = grew
-    return out
-
-
-def _add_counters(growth: dict) -> None:
-    for name, grew in growth.items():
-        if name == REGISTRY:
-            for k, v in grew.items():
-                logging_utils.count(k, v)
-            continue
-        counts = _tallies.get(name)
-        if counts is not None:
-            for k, v in grew.items():
-                counts[k] = counts.get(k, 0) + v
 
 
 def _clone(out):
@@ -234,7 +177,8 @@ class Program:
                         f"at {tuple(static.shape)} {static.dtype}")
                 static.copy_(x)
             self._graph.replay()
-            _add_counters(self.launch_growth)
+            for name, n in self.launch_growth.items():
+                logging_utils.count(name, n)
             self.replays += 1
             logging_utils.count("programs.replays")
             return _clone(self._static_out)
@@ -248,7 +192,7 @@ class Program:
     def _capture_graph(self, inputs) -> None:
         device = inputs[0].device
         self._static_in = [x.clone() for x in inputs]
-        before = _read_counters()
+        before = logging_utils.counters()
         side = side_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
@@ -256,13 +200,13 @@ class Program:
                 self.fn(*self._static_in)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        start = _read_counters()
+        start = logging_utils.counters()
         with _no_collection():
             with torch.cuda.graph(graph, pool=self._cache.pool(),
                                   stream=side):
                 out = self.fn(*self._static_in)
-        self.launch_growth = _growth(start, _read_counters())
-        _restore_counters(before)
+        self.launch_growth = logging_utils.growth(start)
+        logging_utils.restore_counters(before)
         self._graph, self._static_out = graph, out
 
 

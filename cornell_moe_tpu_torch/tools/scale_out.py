@@ -6,7 +6,7 @@ the unsharded iteration.
 Every rank (NCCL, rank r on ``cuda:r``) runs one iteration of
 ``BayesianOptimizer(n_devices=N)`` at the main path's size (Branin, 500
 observations, 16 members, q = 4, 200 multistarts, 128 MC draws, float32),
-its launch counters set to 0 just before and read just after, then times
+its launches read as the counters' growth from just before, then times
 the collective of the chain's half-step, eagerly and replayed inside a
 CUDA graph.  Rank 0 then runs the unsharded iteration with the same
 chunking (``suggest_chunk_size`` 200 / N) and prints one JSON line: each
@@ -45,63 +45,78 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+# the registry's counters of the recorders' calls by shape
+_DESCENT_SHAPES = "scale_out.descent_run."
+_LML_SHAPES = "scale_out.lml_fused."
+
+
 @contextlib.contextmanager
 def recording(descent=None):
     """Kernel A's launches by shape and schedule (S, B, M, steps x
     restarts) and B's calls by shape (W walkers, Np) while the block runs,
     with A's launches sent to ``descent`` (a wrapper of ``ops.kernels``;
-    ``descent_run`` when None).  Yields the two dicts, which count the
-    launches of replayed programs too (``programs.tally``)."""
-    from cornell_moe_tpu_torch.ops import kernels, programs
+    ``descent_run`` when None).  Each call counts in the port's registry,
+    ``scale_out.descent_run.<shape>`` or ``scale_out.lml_fused.<shape>``,
+    so replayed programs add their launches as they add any counter's.
+    Yields two dicts, {shape: calls}, filled from the counters' growth
+    when the block ends."""
+    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.utils import logging_utils
 
     shapes, lml_shapes = {}, {}
     descent_run, lml_fused = kernels.descent_run, kernels.lml_fused
     descent = descent or descent_run
 
     def recording_descent(xs0, *args, steps, restarts, **kw):
-        key = "S{}_B{}_M{}_steps{}".format(xs0.shape[0], xs0.shape[1],
-                                           xs0.shape[3], steps * restarts)
-        shapes[key] = shapes.get(key, 0) + 1
+        logging_utils.count(_DESCENT_SHAPES + "S{}_B{}_M{}_steps{}".format(
+            xs0.shape[0], xs0.shape[1], xs0.shape[3], steps * restarts))
         return descent(xs0, *args, steps=steps, restarts=restarts, **kw)
 
     def recording_lml(us, *args, **kw):
-        key = "W{}_Np{}".format(us.shape[0], us.shape[2])
-        lml_shapes[key] = lml_shapes.get(key, 0) + 1
+        logging_utils.count(_LML_SHAPES + "W{}_Np{}".format(us.shape[0],
+                                                          us.shape[2]))
         return lml_fused(us, *args, **kw)
 
+    before = logging_utils.counters()
     kernels.descent_run = recording_descent
     kernels.lml_fused = recording_lml
     try:
-        with programs.tally("descent_run_launches_by_shape", shapes), \
-                programs.tally("lml_fused_calls_by_shape", lml_shapes):
-            yield shapes, lml_shapes
+        yield shapes, lml_shapes
     finally:
         kernels.descent_run = descent_run
         kernels.lml_fused = lml_fused
+        for name, n in logging_utils.growth(before).items():
+            for prefix, out in ((_DESCENT_SHAPES, shapes),
+                                (_LML_SHAPES, lml_shapes)):
+                if name.startswith(prefix):
+                    out[name[len(prefix):]] = n
 
 
 def iteration(device, descent=None, num_obs: int = NUM_OBS, **bo_kwargs):
     """One iteration of ``BayesianOptimizer`` at the main path's settings
     (``bo_kwargs`` override them) on ``device``, with kernel A's launches
-    sent to ``descent`` (:func:`recording`) and every launch counter set to
-    0 just before and read just after.  Returns the optimizer, the
-    iteration's record, its wall time, the counts, A's launches by shape
-    and schedule and B's calls by shape."""
+    sent to ``descent`` (:func:`recording`).  Returns the optimizer, the
+    iteration's record, its wall time, its launches ({kernel name:
+    launches}, the growth of the counters ``kernels.<name>`` from a
+    snapshot taken just before), A's launches by shape and schedule and
+    B's calls by shape."""
     from cornell_moe_tpu_torch.bayes_opt import BayesianOptimizer
-    from cornell_moe_tpu_torch.ops import kernels
+    from cornell_moe_tpu_torch.utils import logging_utils
     from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
 
     bo = BayesianOptimizer(**dict(MAIN_PATH, objective_func=Branin(),
                                   device=device, **bo_kwargs))
     _sync(device)
-    kernels.reset_launch_counts()
+    before = logging_utils.counters()
     with recording(descent) as (shapes, lml_shapes):
         t0 = time.time()
         history = bo.run(num_iterations=1, num_init_pts=num_obs)
         _sync(device)
         wall = time.time() - t0
-    return (bo, history[-1], wall, kernels.launch_counts(), shapes,
-            lml_shapes)
+    launches = {name[len("kernels."):]: n for name, n in
+                logging_utils.growth(before).items()
+                if name.startswith("kernels.")}
+    return bo, history[-1], wall, launches, shapes, lml_shapes
 
 
 def summary(bo, rec, wall, counts, shapes, lml_shapes) -> dict:

@@ -30,7 +30,9 @@ Spans and counters are the port's one tracer.
   ``programs.replays``, ``optimizers.gd_steps``, ``model.lml_plain``
   (the plain log marginal likelihood's evaluations, one per hyperparameter
   set of a batch).  A program replays the growth its capture recorded, so
-  the counters read the same with programs as without.
+  the counters read the same with programs as without.  Nothing zeroes a
+  counter: a reader takes a snapshot (:func:`counters`) and reads
+  :func:`growth` from it, as every span record does.
 """
 
 from __future__ import annotations
@@ -107,11 +109,6 @@ def counters() -> Dict[str, int]:
     return dict(_counters)
 
 
-def set_counters(values: Dict[str, int]) -> None:
-    """Set the counters that ``values`` names."""
-    _counters.update(values)
-
-
 def restore_counters(snapshot: Dict[str, int]) -> None:
     """Every counter back to ``snapshot`` (a :func:`counters` copy);
     counters it lacks are dropped."""
@@ -119,7 +116,9 @@ def restore_counters(snapshot: Dict[str, int]) -> None:
     _counters.update(snapshot)
 
 
-def _growth(before: Dict[str, int]) -> Dict[str, int]:
+def growth(before: Dict[str, int]) -> Dict[str, int]:
+    """How far each counter grew since ``before`` (a :func:`counters`
+    copy): {name: n} of the counters that moved."""
     return {k: v - before.get(k, 0) for k, v in _counters.items()
             if v != before.get(k, 0)}
 
@@ -186,7 +185,7 @@ class span:
 
     def _close_record(self, kind, value, tb) -> None:
         rec = self._record
-        rec["counters"] = _growth(self._before)
+        rec["counters"] = growth(self._before)
         rec["end_ns"] = time.time_ns()
         self._fn.__exit__(kind, value, tb)
         _open.pop()

@@ -17,14 +17,15 @@ from cornell_moe_tpu.models import covariance as jcov
 from cornell_moe_tpu.ops import pallas_kernels as pk
 from cornell_moe_tpu_torch.models import covariance as tcov
 from cornell_moe_tpu_torch.ops import kernels
+from cornell_moe_tpu_torch.utils import logging_utils as lu
 from reference_impl import central_difference, matern52_kernel, se_kernel
 
 torch.set_num_threads(1)
 F64 = torch.float64
-KERNELS = ["square_exponential", "matern_2.5"]
+COVARIANCES = ["square_exponential", "matern_2.5"]
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 def test_block_covariance_matches_jax(kernel, rng):
     hypers = np.array([1.3, 0.6, 1.4])
     x1, x2 = rng.standard_normal((9, 2)), rng.standard_normal((5, 2))
@@ -37,7 +38,7 @@ def test_block_covariance_matches_jax(kernel, rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12)
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 def test_scalar_methods_match_jax(kernel, rng):
     """``num_hyperparameters``, ``scaled_square_dist``, ``covariance`` and
     ``grad_covariance`` (dk/dx) of an ensemble of 3 kernels, one point pair
@@ -60,7 +61,7 @@ def test_scalar_methods_match_jax(kernel, rng):
                                        rtol=1e-12, atol=1e-300)
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 def test_grad_covariance_ping(kernel, rng):
     """dk/dx against a central difference of the numpy kernel, and against
     autograd of ``covariance`` (tests/test_covariance.py:44-55)."""
@@ -99,7 +100,7 @@ def test_use_pallas_switch(rng):
                                                     use_pallas=value)
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 def test_ensemble_covariance_with_noise_matches_jax(kernel, rng):
     """Batched hyperparameters (S, 1+d) and channel noise (S, 1) against the
     JAX package per member, with per-point noise (PAD_NOISE rows
@@ -123,7 +124,7 @@ def test_ensemble_covariance_with_noise_matches_jax(kernel, rng):
                                    rtol=1e-12)
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 def test_covariance_kernel_plain_matches_pallas(kernel, rng):
     """The kernel's plain version (float32, CPU) vs the Pallas kernel in
     interpret mode, per-point PAD_NOISE rows included."""
@@ -148,7 +149,7 @@ def test_covariance_kernel_plain_matches_pallas(kernel, rng):
 
 def test_cpu_wrappers_take_the_plain_path(rng):
     """CPU tensors go to the plain versions and launch nothing."""
-    kernels.reset_launch_counts()
+    before = lu.counters()
     x = torch.as_tensor(rng.random((10, 2)), dtype=torch.float32)
     h = torch.tensor([[1.0, 0.5, 0.5]])
     nz = torch.full((1, 10), 1e-2)
@@ -167,14 +168,7 @@ def test_cpu_wrappers_take_the_plain_path(rng):
         grad(*desc, "matern_2.5")
     kernels.lml_chol_f64(torch.eye(10, dtype=torch.float64)[None],
                          torch.ones(10, dtype=torch.float64))
-    assert kernels.launch_counts() == {"covariance_with_noise": 0,
-                                       "lml_fused": 0, "lml_fused_global": 0,
-                                       "lml_fused_f64": 0,
-                                       "lml_fused_global_f64": 0,
-                                       "lml_chol_f64": 0,
-                                       "descent_run": 0, "descent_run_fma": 0,
-                                       "descent_grad": 0,
-                                       "descent_grad_fma": 0}
+    assert lu.growth(before) == {}
 
 
 def test_wrapper_refuses_grad_inputs():

@@ -31,10 +31,11 @@ from cornell_moe_tpu_torch.acquisition import knowledge_gradient as tkg
 from cornell_moe_tpu_torch.ops import kernels
 from cornell_moe_tpu_torch.ops import optimizers as topt
 from cornell_moe_tpu_torch.ops.domains import TensorProductDomain as TDom
+from cornell_moe_tpu_torch.utils import logging_utils as lu
 from test_torch_descent_mma import _emulated_descent_grad
 
 torch.set_num_threads(1)
-KERNELS = ["matern_2.5", "square_exponential"]
+COVARIANCES = ["matern_2.5", "square_exponential"]
 N, D, B, Q, M = 37, 2, 3, 4, 16
 ROUTE = dict(num_multistarts=1, max_num_steps=6, max_num_restarts=2,
              num_steps_averaged=3, gamma=0.3, pre_mult=1.0,
@@ -88,7 +89,7 @@ def _port_bvg(p, state, s, kernel):
         _f(p["betas"]).expand(s, B, M, Q), _f(p["normals"]), kernel)
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 @pytest.mark.parametrize("contraction", ["plain", "mma_emulated"])
 def test_descent_grad_bvg_matches_pallas(monkeypatch, rng, kernel,
                                          contraction):
@@ -139,7 +140,7 @@ def test_descent_grad_ensemble_matches_pallas_loop(rng):
                                    rtol=0.0, atol=bound)
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 def test_descent_grad_route_matches_fused_descent(rng, kernel):
     """gradient_ascent_batch over the port's bvg ends where the port's
     whole-descent kernel route and the JAX fused descent end."""
@@ -170,11 +171,11 @@ def _operands(rng, s=2, b=3, d=2, q=4, m=16, np_=37):
 
 def test_cpu_wrapper_takes_the_plain_version(rng):
     args = _operands(rng)
-    before = kernels.launch_counts()
+    before = lu.counters()
     got = kernels.descent_grad(*args, "square_exponential")
     assert torch.equal(got, kernels.descent_grad_plain(
         *args, "square_exponential"))
-    assert kernels.launch_counts() == before
+    assert lu.growth(before) == {}
 
 
 def test_wrapper_refuses_grad_and_unknown_fields(rng):

@@ -51,7 +51,7 @@ from cornell_moe_tpu_torch.utils.data_containers import HistoricalData
 torch.set_num_threads(1)
 F64 = torch.float64
 F32 = torch.float32
-KERNELS = ["square_exponential", "matern_2.5"]
+COVARIANCES = ["square_exponential", "matern_2.5"]
 BLOCK_TOL = dict(rtol=1e-12, atol=1e-13)
 MEAN_TOL = dict(rtol=1e-9, atol=1e-10)
 COV_TOL = dict(rtol=1e-8, atol=1e-10)
@@ -93,7 +93,7 @@ def _hypers(rng, s):
 # covariance
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 @pytest.mark.parametrize("ds1, ds2", [((0, 2), (1,)), ((0, 1, 2), (0, 1, 2)),
                                       ((), (2, 0))])
 def test_derivative_blocks_match_jax(kernel, ds1, ds2, rng):
@@ -116,7 +116,7 @@ def test_derivative_blocks_match_jax(kernel, ds1, ds2, rng):
         np.testing.assert_allclose(one.numpy(), np.asarray(ref), **BLOCK_TOL)
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 def test_covariance_with_channel_noise_matches_jax(kernel, rng):
     """Per-channel noise (S, 1 + m) tiled over the points, plus per-point
     noise (n, 1 + m) with PAD_NOISE rows, ds (0, 2) at d = 3."""
@@ -149,7 +149,7 @@ def test_covariance_with_channel_noise_matches_jax(kernel, rng):
 
 @pytest.mark.skipif(not native.available(),
                     reason="native toolchain unavailable")
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 def test_derivative_path_matches_native_oracle(kernel, rng):
     """The port's derivative blocks, posterior and LML against the C++
     oracle, at tests/test_native.py's tolerances (its :23, :70 and the
@@ -185,7 +185,7 @@ def test_derivative_path_matches_native_oracle(kernel, rng):
 # GP
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 def test_fit_and_posterior_with_derivatives_match_jax(kernel, rng):
     x, y = _branin_data(rng, 9)
     xt = rng.random((4, 2))
@@ -217,7 +217,7 @@ def test_fit_and_posterior_with_derivatives_match_jax(kernel, rng):
                                             jnp.asarray(xt), DS)), **COV_TOL)
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 def test_derivative_observations_interpolate(kernel, rng):
     """Port twin of tests/test_gp.py:97: with gradient observations and
     tiny noise the posterior reproduces the observed values and partials,

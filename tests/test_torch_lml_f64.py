@@ -22,11 +22,12 @@ import torch
 from cornell_moe_tpu_torch.models import mcmc as tmcmc
 from cornell_moe_tpu_torch.models.mcmc import PAD_NOISE
 from cornell_moe_tpu_torch.ops import kernels, programs
+from cornell_moe_tpu_torch.utils import logging_utils as lu
 from cornell_moe_tpu_torch.utils.data_containers import HistoricalData
 
 pytestmark = pytest.mark.cuda
 F64 = torch.float64
-KERNELS = ["matern_2.5", "square_exponential"]
+COVARIANCES = ["matern_2.5", "square_exponential"]
 RTOL = 1e-10
 
 
@@ -63,12 +64,14 @@ def _lml_inputs(rng, w, d, np_, n_real, noise_level=1e-2):
     return us, alpha, noise, y
 
 
-def _growth(before):
-    after = kernels.launch_counts()
-    return {n: after[n] - before[n] for n in after}
+def _launches(before):
+    """Each kernel's launches since ``before`` (an ``lu.counters()``
+    snapshot): the growth of its counter ``kernels.<name>``."""
+    return {n[len("kernels."):]: v for n, v in lu.growth(before).items()
+            if n.startswith("kernels.")}
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", COVARIANCES)
 @pytest.mark.parametrize("np_", [96, 384, 416, 512, 520, 768, 896])
 @pytest.mark.parametrize("w", [1, 8, 16])
 def test_float64_instance_matches_plain(dev, rng, kernel, np_, w):
@@ -81,12 +84,12 @@ def test_float64_instance_matches_plain(dev, rng, kernel, np_, w):
     args = [_c(a, dev) for a in _lml_inputs(rng, w, d, np_, n_real)]
     instance = kernels.lml_fused_instance(np_, 8)
     assert instance == ("cluster" if np_ <= 384 else "global")
-    before = kernels.launch_counts()
+    before = lu.counters()
     got = kernels.lml_fused(*args, n_real, kernel)
     torch.cuda.synchronize()
     counter = "lml_fused_f64" if instance == "cluster" else \
         "lml_fused_global_f64"
-    assert _growth(before) == {n: int(n == counter) for n in kernels.KERNELS}
+    assert _launches(before) == {counter: 1}
     ref = kernels.lml_fused_plain(*args, n_real, kernel)
     for g, r in zip(got, ref):
         assert g.dtype == F64 and bool(torch.isfinite(g).all())
@@ -142,11 +145,10 @@ def test_float64_layout_and_instance_choice(dev, rng):
                                 (512, torch.float32, "lml_fused")):
         args = [_c(a, dev, dtype) for a in _lml_inputs(rng, 2, 2, np_,
                                                        np_)]
-        before = kernels.launch_counts()
+        before = lu.counters()
         kernels.lml_fused(*args, np_)
         torch.cuda.synchronize()
-        assert _growth(before) == {n: int(n == counter)
-                                   for n in kernels.KERNELS}
+        assert _launches(before) == {counter: 1}
     us, alpha, noise, y = [_c(a, dev) for a in _lml_inputs(rng, 2, 2, 64,
                                                            64)]
     with pytest.raises(TypeError):
@@ -212,11 +214,10 @@ def test_captured_float64_chain_segment_counts_its_launches(dev,
         model.train()
         torch.cuda.synchronize()
         replays = _chain_replays(model.program_cache)
-        before = kernels.launch_counts()
+        before = lu.counters()
         model.train()
         torch.cuda.synchronize()
-        assert _growth(before) == {n: 129 if n == "lml_fused_global_f64"
-                                   else 0 for n in kernels.KERNELS}
+        assert _launches(before) == {"lml_fused_global_f64": 129}
         assert _chain_replays(model.program_cache) - replays == \
             (1 if capture == "auto" else 0)
         out.append(model.p0.cpu().numpy())
@@ -234,17 +235,16 @@ def test_float64_log_posterior_through_the_kernel_and_never(dev,
     thetas = model.prior.sample_from_prior(
         torch.Generator(device=dev).manual_seed(1), 16, device=dev,
         dtype=F64).clamp(-5.0, 5.0)
-    before = kernels.launch_counts()
+    before = lu.counters()
     via_kernel = model.log_posterior(thetas, x, y, pn)
     torch.cuda.synchronize()
-    assert _growth(before) == {n: int(n == "lml_fused_global_f64")
-                               for n in kernels.KERNELS}
-    before = kernels.launch_counts()
+    assert _launches(before) == {"lml_fused_global_f64": 1}
+    before = lu.counters()
     forced = model.log_posterior(thetas, x, y, pn, force_plain=True)
     monkeypatch.setattr(tmcmc, "LML_PALLAS", "never")
     plain = model.log_posterior(thetas, x, y, pn)
     torch.cuda.synchronize()
-    assert set(_growth(before).values()) == {0}
+    assert _launches(before) == {}
     assert torch.equal(forced, plain)
     fin = torch.isfinite(plain)
     assert bool(fin.any())

@@ -31,6 +31,7 @@ from cornell_moe_tpu.ops import pallas_kernels as pk
 from cornell_moe_tpu.utils.data_containers import HistoricalData as JHist
 from cornell_moe_tpu_torch.models import mcmc as tmcmc
 from cornell_moe_tpu_torch.ops import kernels
+from cornell_moe_tpu_torch.utils import logging_utils as lu
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -75,7 +76,7 @@ def test_python_constants_match_the_kernel_source():
 
 def test_cpu_tensors_take_the_plain_version_at_either_instance():
     rng = np.random.default_rng(0)
-    kernels.reset_launch_counts()
+    before = lu.counters()
     for np_ in (40, kernels.LML_CLUSTER_CAPACITY + 8, 1800):
         x = rng.random((2, np_))
         us = torch.as_tensor(x[None] / 0.4, dtype=torch.float32)
@@ -86,8 +87,8 @@ def test_cpu_tensors_take_the_plain_version_at_either_instance():
         for fn in (kernels.lml_fused, kernels.lml_fused_global):
             for g, r in zip(fn(*args), ref):
                 torch.testing.assert_close(g, r, rtol=0.0, atol=0.0)
-    assert kernels.launch_counts()["lml_fused"] == 0
-    assert kernels.launch_counts()["lml_fused_global"] == 0
+    assert lu.growth(before).get("kernels.lml_fused", 0) == 0
+    assert lu.growth(before).get("kernels.lml_fused_global", 0) == 0
 
 
 @pytest.mark.parametrize("np_,tiles,pbuf_on_chip", [
@@ -241,7 +242,7 @@ def test_cpu_float64_tensors_take_the_plain_version():
     """Float64 CPU tensors take the plain version at either instance's Np
     and launch nothing: every CPU parity test stays on the plain LML."""
     rng = np.random.default_rng(1)
-    kernels.reset_launch_counts()
+    before = lu.counters()
     for np_ in (40, 400, 1000):
         x = rng.random((2, np_))
         args = (torch.as_tensor(x[None] / 0.4), torch.ones(1, dtype=F64),
@@ -252,4 +253,4 @@ def test_cpu_float64_tensors_take_the_plain_version():
             for g, r in zip(fn(*args), ref):
                 assert g.dtype == F64
                 torch.testing.assert_close(g, r, rtol=0.0, atol=0.0)
-    assert set(kernels.launch_counts().values()) == {0}
+    assert lu.growth(before) == {}

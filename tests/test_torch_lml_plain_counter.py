@@ -13,7 +13,6 @@ import torch
 from cornell_moe_tpu_torch.models import covariance as cov_mod
 from cornell_moe_tpu_torch.models import likelihood as lik_mod
 from cornell_moe_tpu_torch.models import mcmc
-from cornell_moe_tpu_torch.ops import programs
 from cornell_moe_tpu_torch.utils import logging_utils as lu
 from cornell_moe_tpu_torch.utils.data_containers import HistoricalData
 from cornell_moe_tpu_torch.utils.synthetic_functions import \
@@ -55,7 +54,7 @@ def port_model(x, values, derivatives=DS):
 
 
 def grew(before):
-    return lu.counters().get(COUNTER, 0) - before.get(COUNTER, 0)
+    return lu.growth(before).get(COUNTER, 0)
 
 
 @pytest.mark.parametrize("batch", [(), (1,), (3,), (2, 3)])
@@ -108,17 +107,18 @@ def test_counter_stays_on_kernel_b_path(monkeypatch):
 
 def test_counter_growth_is_added_back_at_each_replay():
     """What a capture records of the counter is what each replay adds
-    (``programs._add_counters``, as ``Program.__call__`` on the card)."""
+    (``Program._capture_graph`` and ``Program.__call__`` on the card)."""
     model = port_model(*branin_data())
     args = model._padded_data()
-    before = programs._read_counters()
+    before = lu.counters()
     model.log_posterior(walkers(), *args)
-    growth = programs._growth(before, programs._read_counters())
-    programs._restore_counters(before)
-    assert growth == {programs.REGISTRY: {COUNTER: WALKERS}}
+    growth = lu.growth(before)
+    lu.restore_counters(before)
+    assert growth == {COUNTER: WALKERS}
     for _ in range(3):
-        programs._add_counters(growth)
-    assert grew(before[programs.REGISTRY]) == 3 * WALKERS
+        for name, n in growth.items():
+            lu.count(name, n)
+    assert grew(before) == 3 * WALKERS
 
 
 def run_dkg_chain(device):
@@ -164,8 +164,7 @@ def test_chain_launches_the_tiled_cholesky_with_each_count():
         pytest.skip("needs a CUDA card")
     before = lu.counters()
     model = run_dkg_chain("cuda")
-    launches = lu.counters().get("kernels.lml_chol_f64", 0) - \
-        before.get("kernels.lml_chol_f64", 0)
+    launches = lu.growth(before).get("kernels.lml_chol_f64", 0)
     assert launches == 1 + 2 * 136
     assert grew(before) == 12 + 6 * (launches - 1)
     model.program_cache.release()

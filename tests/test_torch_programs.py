@@ -30,11 +30,19 @@ from cornell_moe_tpu_torch.models import covariance as tcov
 from cornell_moe_tpu_torch.models import mcmc as tmcmc
 from cornell_moe_tpu_torch.ops import kernels, optimizers, programs
 from cornell_moe_tpu_torch.parallel import sharding
+from cornell_moe_tpu_torch.utils import logging_utils as lu
 from cornell_moe_tpu_torch.utils import synthetic_functions as tsf
 from cornell_moe_tpu_torch.utils.data_containers import (HistoricalData,
                                                          SamplePoint)
 
 F64 = torch.float64
+
+
+def _launches(before):
+    """Each kernel's launches since ``before`` (an ``lu.counters()``
+    snapshot): the growth of its counter ``kernels.<name>``."""
+    return {n[len("kernels."):]: v for n, v in lu.growth(before).items()
+            if n.startswith("kernels.")}
 
 
 def _loop(capture, monkeypatch, iterations=4, device="cpu"):
@@ -52,9 +60,9 @@ def _loop(capture, monkeypatch, iterations=4, device="cpu"):
         num_mc=16, n_hypers=4, chain_length=20, burnin_steps=20,
         noisy=False, sgd_params=fast, verbose=False, shape_bucket=4,
         device=device)
-    programs.reset_builds()
+    start = programs.build_count()
     bo.initialize(num_init_pts=3)
-    builds = [programs.build_count()]
+    builds = [programs.build_count() - start]
     results, replays = [], []
     for _ in range(iterations):
         start = programs.build_count()
@@ -452,28 +460,31 @@ def test_heuristic_refit_and_map_fit_programs_equal_never(monkeypatch):
 
 def test_program_cache_counts_builds_and_replays():
     cache = programs.ProgramCache()
-    programs.reset_builds()
+    start = programs.build_count()
     prog = cache.get(("a",), lambda t: (t + 1, None))
     assert cache.get(("a",), lambda t: t) is prog
     out, none = prog(torch.zeros(2))
     assert torch.equal(out, torch.ones(2)) and none is None
     prog(torch.ones(2))
     cache.get(("b",), lambda t: t)(torch.zeros(1))
-    assert programs.build_count() == 2 and prog.replays == 2
+    assert programs.build_count() - start == 2 and prog.replays == 2
     assert len(cache) == 2
 
 
 def test_launch_counters_set_and_add():
-    kernels.reset_launch_counts()
-    kernels.add_launch_counts({"lml_fused": 3, "descent_run": 2})
-    kernels.add_launch_counts({"lml_fused": 1})
-    counts = kernels.launch_counts()
+    """Launches add to the registry's ``kernels.<name>`` counters, and a
+    reader takes their growth from a snapshot: counters that did not move
+    are not in it."""
+    before = lu.counters()
+    lu.count("kernels.lml_fused", 3)
+    lu.count("kernels.descent_run", 2)
+    lu.count("kernels.lml_fused")
+    counts = _launches(before)
     assert counts["lml_fused"] == 4 and counts["descent_run"] == 2
-    kernels.set_launch_counts({"lml_fused": 0})
-    assert kernels.launch_counts()["lml_fused"] == 0
-    with pytest.raises(KeyError):
-        kernels.set_launch_counts({"no_such_kernel": 1})
-    kernels.reset_launch_counts()
+    assert lu.growth(before) == {"kernels.lml_fused": 4,
+                                 "kernels.descent_run": 2}
+    now = lu.counters()
+    assert lu.growth(now) == {}
 
 
 SWITCHES = {
@@ -812,18 +823,18 @@ def test_captured_chain_and_fit_equal_eager(dev, monkeypatch):
     for capture in ("auto", "never"):
         monkeypatch.setattr(programs, "CAPTURE", capture)
         model = _card_model(dev)
-        kernels.reset_launch_counts()
+        before = lu.counters()
         model.train()
         torch.cuda.synchronize()
-        out.append((kernels.launch_counts(), model.chain_steps,
+        out.append((_launches(before), model.chain_steps,
                     model.p0.cpu().numpy(), model.models.chol_K.cpu().numpy(),
                     model.models.K_inv_y.cpu().numpy()))
         if capture == "auto":
             assert {k[0] for k in model.program_cache.programs()} == \
                 {"chain", "fit"}
     (counts, *got), (ref_counts, *ref) = out
-    assert counts == ref_counts and counts["lml_fused"] > 0 and \
-        counts["covariance_with_noise"] > 0
+    assert counts == ref_counts and counts.get("lml_fused", 0) > 0 and \
+        counts.get("covariance_with_noise", 0) > 0
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
@@ -874,7 +885,7 @@ def test_captured_suggest_equals_eager(dev, monkeypatch):
         monkeypatch.setattr(programs, "CAPTURE", capture)
         cache = programs.ProgramCache()
         gen = torch.Generator(device=dev).manual_seed(4)
-        kernels.reset_launch_counts()
+        before = lu.counters()
         discrete = tbo.seed_kg_discretization(
             gen, model.models, dom, qei_params=params, num_qei_pts=3,
             num_mc=64, conv_tol=3e-3, program_cache=cache)
@@ -884,7 +895,7 @@ def test_captured_suggest_equals_eager(dev, monkeypatch):
             program_cache=cache)
         torch.cuda.synchronize()
         out.append((discrete.cpu().numpy(), pts.cpu().numpy(),
-                    voi.cpu().numpy(), kernels.launch_counts()))
+                    voi.cpu().numpy(), _launches(before)))
         kinds = {k[0]: p.replays for k, p in cache.programs().items()}
         if capture == "auto":
             assert set(kinds) == SUGGEST_KG
@@ -892,7 +903,7 @@ def test_captured_suggest_equals_eager(dev, monkeypatch):
         else:
             assert not kinds
     (*got, counts), (*ref, ref_counts) = out
-    assert counts == ref_counts and counts["descent_run"] > 2
+    assert counts == ref_counts and counts.get("descent_run", 0) > 2
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
 
@@ -919,7 +930,7 @@ def test_captured_driver_iteration_equals_eager(dev, monkeypatch, method,
             num_to_sample=2, num_mc=32, n_hypers=8, chain_length=128,
             burnin_steps=128, noisy=True, standardize=True, sgd_params=fast,
             device=dev, dtype=torch.float32, verbose=False)
-        kernels.reset_launch_counts()
+        before = lu.counters()
         builds = []
         for it in range(2):
             start = programs.build_count()
@@ -927,7 +938,7 @@ def test_captured_driver_iteration_equals_eager(dev, monkeypatch, method,
             builds.append(programs.build_count() - start)
         torch.cuda.synchronize()
         out.append(([(h["suggested"], h["voi"], h["recommended"])
-                     for h in bo.history], kernels.launch_counts()))
+                     for h in bo.history], _launches(before)))
         if capture == "auto":
             assert builds[0] > 0 and builds[1] == 0, builds
             assert all(p.replays > 1
@@ -1048,17 +1059,16 @@ def test_replay_keeps_earlier_outputs(dev):
                                      torch.full((4, 1), 1e-2, **kw), x, y,
                                      bucket=16, program_cache=cache)
 
-    kernels.reset_launch_counts()
+    before = lu.counters()
     first = fit(1.0)
     kept = first.chol_K.clone()
     second = fit(2.0)
     torch.cuda.synchronize()
     assert torch.equal(first.chol_K, kept)
     assert not torch.equal(first.chol_K, second.chol_K)
-    assert kernels.launch_counts()["covariance_with_noise"] == 2
+    assert _launches(before).get("covariance_with_noise", 0) == 2
     prog, = cache.programs().values()
-    assert prog.launch_growth == {
-        programs.REGISTRY: {"kernels.covariance_with_noise": 1}}
+    assert prog.launch_growth == {"kernels.covariance_with_noise": 1}
 
     from cornell_moe_tpu_torch.models import gp as tgp
     matern = tcov.COVARIANCE_TYPES["matern_2.5"]

@@ -21,6 +21,7 @@ from cornell_moe_tpu_torch.models import mcmc as tmcmc
 from cornell_moe_tpu_torch.ops import kernels, programs
 from cornell_moe_tpu_torch.ops import optimizers as topt
 from cornell_moe_tpu_torch.ops.domains import TensorProductDomain
+from cornell_moe_tpu_torch.tools import scale_out
 from cornell_moe_tpu_torch.utils import logging_utils as lu
 from cornell_moe_tpu_torch.utils.synthetic_functions import Branin
 
@@ -174,17 +175,19 @@ def test_program_replay_counts_and_records_no_span():
     assert now["programs.builds"] - start.get("programs.builds", 0) == 1
     assert prog.replays == 3
 
-    before = programs._read_counters()
+    # a capture's accounting (``Program._capture_graph``), then two
+    # replays adding its growth (``Program.__call__``)
+    before = lu.counters()
     lu.count("optimizers.gd_steps", 2)
     lu.count("kernels.lml_fused")
-    growth = programs._growth(before, programs._read_counters())
-    programs._restore_counters(before)
-    assert lu.counters() == before[programs.REGISTRY]
-    programs._add_counters(growth)
-    programs._add_counters(growth)
-    grew = programs._growth(before, programs._read_counters())
-    assert grew == {programs.REGISTRY: {"optimizers.gd_steps": 4,
-                                        "kernels.lml_fused": 2}}
+    growth = lu.growth(before)
+    lu.restore_counters(before)
+    assert lu.counters() == before
+    for _ in range(2):
+        for name, n in growth.items():
+            lu.count(name, n)
+    assert lu.growth(before) == {"optimizers.gd_steps": 4,
+                                 "kernels.lml_fused": 2}
 
 
 def test_span_during_capture_is_a_no_op():
@@ -252,22 +255,53 @@ def test_gd_steps_count_the_schedule(monkeypatch, with_programs):
 
 
 def test_launch_counts_are_views_of_the_registry():
-    kernels.reset_launch_counts()
-    assert kernels.launch_counts() == {
-        "covariance_with_noise": 0, "lml_fused": 0, "lml_fused_global": 0,
-        "lml_fused_f64": 0, "lml_fused_global_f64": 0, "lml_chol_f64": 0,
-        "descent_run": 0, "descent_run_fma": 0, "descent_grad": 0,
-        "descent_grad_fma": 0}
-    lu.count("kernels.descent_run", 2)
-    kernels.add_launch_counts({"lml_fused": 3})
-    assert kernels.launch_counts()["descent_run"] == 2
-    assert lu.counters()["kernels.lml_fused"] == 3
-    kernels.set_launch_counts({"descent_run": 5})
-    assert lu.counters()["kernels.descent_run"] == 5
-    with pytest.raises(KeyError):
-        kernels.add_launch_counts({"no_such_kernel": 1})
-    kernels.reset_launch_counts()
-    assert set(kernels.launch_counts().values()) == {0}
+    """A kernel's launches are the registry's counter ``kernels.<name>``:
+    a span's record holds the same growth of them as a reader of a
+    snapshot, and a snapshot taken after reads no growth."""
+    before = lu.counters()
+    with profile(activities=CPU):
+        with lu.span("test.launches"):
+            lu.count("kernels.descent_run", 2)
+            lu.count("kernels.lml_fused", 3)
+    (rec,) = [r for r in lu.records() if r["name"] == "test.launches"]
+    assert rec["counters"] == lu.growth(before) == {
+        "kernels.descent_run": 2, "kernels.lml_fused": 3}
+    assert lu.counters()["kernels.descent_run"] == \
+        before.get("kernels.descent_run", 0) + 2
+    assert lu.growth(lu.counters()) == {}
+
+
+def test_scale_out_recording_counts_calls_by_shape_in_the_registry():
+    """``tools.scale_out.recording`` counts the recorded wrappers' calls by
+    shape in the registry, under its prefix for each wrapper, and yields
+    them by shape when the block ends; CPU tensors take the plain
+    versions, which launch nothing."""
+    g = torch.Generator().manual_seed(0)
+    s, b, d, m, q, np_ = 1, 2, 2, 4, 1, 10
+    us = (torch.rand(np_, d, generator=g).T / 0.5)[None].contiguous()
+    noise, y = torch.full((1, np_), 1e-2), torch.ones(1, np_)
+    desc = (torch.rand(s, b, d, m, generator=g), us,
+            torch.rand(s, b, (1 + q) * (1 + d), np_, generator=g),
+            torch.rand(s, b, q, m, generator=g), torch.rand(q, m, generator=g),
+            torch.rand(s, b, q, d, generator=g),
+            torch.tensor([[[0.0, 0.0], [1.0, 1.0], [1.0, 1.0]]]), "matern_2.5")
+    wrappers = kernels.descent_run, kernels.lml_fused
+    before = lu.counters()
+    with scale_out.recording() as (shapes, lml_shapes):
+        for _ in range(2):
+            kernels.lml_fused(us, torch.ones(1), noise, y, np_)
+        kernels.lml_fused(us.expand(3, -1, -1).contiguous(), torch.ones(3),
+                          noise.expand(3, -1), y.expand(3, -1), np_)
+        for steps, restarts in ((2, 3), (2, 3), (1, 1)):
+            kernels.descent_run(*desc, steps=steps, restarts=restarts,
+                                avg_n=1, gamma=0.0, pre_mult=1.0, mrc=0.1)
+    assert (kernels.descent_run, kernels.lml_fused) == wrappers
+    assert lml_shapes == {"W1_Np10": 2, "W3_Np10": 1}
+    assert shapes == {"S1_B2_M4_steps6": 2, "S1_B2_M4_steps1": 1}
+    assert lu.growth(before) == {
+        "scale_out.lml_fused.W1_Np10": 2, "scale_out.lml_fused.W3_Np10": 1,
+        "scale_out.descent_run.S1_B2_M4_steps6": 2,
+        "scale_out.descent_run.S1_B2_M4_steps1": 1}
 
 
 # --- the benchmark's readers ------------------------------------------------
